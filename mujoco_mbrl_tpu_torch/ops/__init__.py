@@ -1,0 +1,12 @@
+"""Hand-written Hopper kernels with their plain PyTorch versions.
+
+``launch_counts`` holds one integer per kernel; each wrapper adds one
+where it launches its kernel and nowhere else.
+"""
+
+launch_counts = {'apgd_solve': 0, 'cem_sample_rollout': 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0

@@ -1,0 +1,191 @@
+"""Batched APGD constraint-solve iterate: CUDA kernel and plain version.
+
+``apgd_iterate_batched`` replaces the TPU kernel
+mujoco_mbrl_tpu/ops/apgd_solve.py:_apgd_kernel. For CUDA tensors it
+launches ``csrc/apgd_solve.cu`` (one thread block per env, Ad resident in
+shared memory, a real per-env early exit) and raises on inputs the kernel
+does not take; for CPU tensors it runs ``apgd_iterate_plain``, the batched
+PyTorch form of physics/solver.py's ``_apgd_dispatch.impl``. There is no
+fallback from the kernel to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from . import _build, launch_counts
+
+# shared memory a block may use on Hopper (bytes)
+MAX_SHARED_BYTES = 232448
+_NONNEG, _BOX, _CONE = 1, 2, 4
+_SIGNATURES = {
+    'apgd_smem_bytes': (ctypes.c_size_t, [ctypes.c_int]),
+    'apgd_iterate_batched': (ctypes.c_int, [ctypes.c_void_p] * 9
+                             + [ctypes.c_int] * 6 + [ctypes.c_float]
+                             + [ctypes.c_void_p] * 3),
+}
+
+
+def _masks(nr: int, nonneg, box_rows, con0, device):
+    r = np.arange(nr)
+    m = lambda rows: torch.as_tensor(np.isin(r, np.asarray(rows, np.int64)),
+                                     device=device)
+    return m(nonneg), m(box_rows), m(con0), m(np.asarray(con0) + 1), m(
+        np.asarray(con0) + 2)
+
+
+def apgd_iterate_plain(Ad, rhs, f0, v0, active, mu_full, bounds_full, *,
+                       nonneg, box_rows, con0, iterations: int, cold: bool,
+                       tol2: float = 1e-12, eq_rows: tuple = (),
+                       return_iterations: bool = False):
+    """Plain PyTorch iterate over the env batch (leading dim B).
+
+    Same contract as the JAX ``apgd_iterate_batched``: Ad (B, nr, nr),
+    rhs / f0 (scaled warm start) / v0 (power vector) / active (B, nr),
+    mu_full / bounds_full (nr,). Returns (f, v), each (B, nr), and with
+    ``return_iterations`` also the APGD iterations each env ran (B,).
+    """
+    B, nr = rhs.shape
+    dt = rhs.dtype
+
+    def matvec(x):
+        return (Ad @ x[..., None])[..., 0]
+
+    def power(v):
+        w = matvec(v)
+        nrm = torch.linalg.vector_norm(w, dim=1, keepdim=True)
+        return w / torch.clamp(nrm, min=1e-12)
+
+    v_flat = torch.full((B, nr), 1.0 / nr ** 0.5, dtype=dt, device=rhs.device)
+    if cold:
+        v = v_flat
+        for _ in range(24):
+            v = power(v)
+        L = 1.5 * torch.clamp((v * matvec(v)).sum(1), min=1.0)
+    else:
+        nrm = torch.linalg.vector_norm(v0, dim=1, keepdim=True)
+        v = torch.where(nrm > 1e-12, v0 / torch.clamp(nrm, min=1e-12), v_flat)
+        for _ in range(6):
+            v = power(v)
+        r6 = (v * matvec(v)).sum(1)
+        for _ in range(2):
+            v = power(v)
+        r8 = (v * matvec(v)).sum(1)
+        safe_L = torch.clamp(Ad.abs().sum(2).max(1).values, min=1.0)
+        stale = (r8 - r6) > 0.02 * torch.clamp(r8, min=1e-12)
+        L = torch.where(stale, safe_L, 1.5 * torch.clamp(r8, min=1.0))
+    L = L[:, None]
+
+    m_nonneg, m_box, m_n, m_t1, m_t2 = _masks(nr, nonneg, box_rows, con0,
+                                              rhs.device)
+
+    def proj(f):
+        f = torch.where(m_nonneg, torch.clamp(f, min=0.0), f)
+        f = torch.where(m_box, torch.minimum(torch.maximum(
+            f, -bounds_full), bounds_full), f)
+        if len(con0):
+            ft1 = torch.roll(f, -1, dims=1)
+            ft2 = torch.roll(f, -2, dims=1)
+            t = torch.sqrt(ft1 * ft1 + ft2 * ft2)
+            inside = t <= mu_full * f
+            apex = mu_full * t + f <= 0.0
+            fn_s = torch.where(inside, f, torch.where(
+                apex, 0.0, (f + mu_full * t) / (1.0 + mu_full * mu_full)))
+            tscale = torch.where(inside, 1.0, torch.where(
+                apex, 0.0, mu_full * fn_s / torch.clamp(t, min=1e-12)))
+            tscale = torch.where(m_n, tscale, 1.0)
+            f = torch.where(m_n, fn_s, f)
+            f = f * torch.where(m_t1, torch.roll(tscale, 1, dims=1), 1.0)
+            f = f * torch.where(m_t2, torch.roll(tscale, 2, dims=1), 1.0)
+        return f * active
+
+    f = proj(f0)
+    y = f
+    theta = torch.ones((B,), dtype=dt, device=rhs.device)
+    done = torch.zeros((B,), dtype=torch.bool, device=rhs.device)
+    its = torch.zeros((B,), dtype=torch.int64, device=rhs.device)
+    for _ in range(iterations):
+        if bool(done.all()):
+            break
+        g = matvec(y) - rhs
+        f_new = proj(y - g / L)
+        for e in eq_rows:
+            resid = (Ad[:, e] * f_new).sum(1) - rhs[:, e]
+            f_new = f_new.clone()
+            f_new[:, e] = f_new[:, e] - active[:, e] * resid
+        theta_new = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * theta * theta))
+        restart = ((y - f_new) * (f_new - f)).sum(1) > 0.0
+        beta = torch.where(restart, 0.0, (theta - 1.0) / theta_new)
+        y_new = f_new + beta[:, None] * (f_new - f)
+        d2 = ((f_new - f) ** 2).sum(1)
+        conv = d2 <= tol2 * (1e-12 + (f_new * f_new).sum(1))
+        live = ~done
+        its = its + live
+        f = torch.where(live[:, None], f_new, f)
+        y = torch.where(live[:, None], y_new, y)
+        theta = torch.where(live, torch.where(restart, 1.0, theta_new), theta)
+        done = done | conv
+    return (f, v, its) if return_iterations else (f, v)
+
+
+_ROW_TABLES: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _row_tables(nr, nonneg, box_rows, con0, eq_rows, device):
+    key = (nr, nonneg, box_rows, con0, eq_rows, str(device))
+    if key not in _ROW_TABLES:
+        types = np.zeros(nr, np.int32)
+        types[list(nonneg)] |= _NONNEG
+        types[list(box_rows)] |= _BOX
+        types[list(con0)] |= _CONE
+        eq = np.asarray(eq_rows if eq_rows else [0], np.int32)
+        _ROW_TABLES[key] = (torch.as_tensor(types, device=device),
+                            torch.as_tensor(eq, device=device))
+    return _ROW_TABLES[key]
+
+
+def apgd_iterate_batched(Ad, rhs, f0, v0, active, mu_full, bounds_full, *,
+                         nonneg, box_rows, con0, iterations: int, cold: bool,
+                         tol2: float = 1e-12, eq_rows: tuple = ()):
+    """Batched APGD iterate (contract of the JAX ``apgd_iterate_batched``).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on
+    the current stream (no synchronisation, outputs allocated here).
+    """
+    if not Ad.is_cuda:
+        return apgd_iterate_plain(
+            Ad, rhs, f0, v0, active, mu_full, bounds_full, nonneg=nonneg,
+            box_rows=box_rows, con0=con0, iterations=iterations, cold=cold,
+            tol2=tol2, eq_rows=eq_rows)
+    B, nr = rhs.shape
+    tensors = (Ad, rhs, f0, v0, active, mu_full, bounds_full)
+    for t in tensors:
+        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError('apgd_iterate_batched kernel takes contiguous '
+                             'float32 CUDA tensors')
+    if Ad.shape != (B, nr, nr) or mu_full.shape != (nr,) or \
+            bounds_full.shape != (nr,) or any(
+                t.shape != (B, nr) for t in (f0, v0, active)):
+        raise ValueError('apgd_iterate_batched: inconsistent shapes')
+    lib = _build.library('apgd_solve', _SIGNATURES)
+    if nr > 1024 or lib.apgd_smem_bytes(nr) > MAX_SHARED_BYTES:
+        raise ValueError(f'apgd_iterate_batched: nr={nr} does not fit in '
+                         'shared memory')
+    types, eq = _row_tables(nr, tuple(nonneg), tuple(box_rows), tuple(con0),
+                            tuple(eq_rows), Ad.device)
+    f = torch.empty_like(rhs)
+    v = torch.empty_like(rhs)
+    rc = lib.apgd_iterate_batched(
+        Ad.data_ptr(), rhs.data_ptr(), f0.data_ptr(), v0.data_ptr(),
+        active.data_ptr(), mu_full.data_ptr(), bounds_full.data_ptr(),
+        types.data_ptr(), eq.data_ptr(), len(eq_rows), B, nr,
+        int(iterations), int(bool(cold)), int(bool(len(con0))),
+        float(tol2), f.data_ptr(), v.data_ptr(),
+        torch.cuda.current_stream(Ad.device).cuda_stream)
+    _build.check(rc, 'apgd_iterate_batched')
+    launch_counts['apgd_solve'] += 1
+    return f, v

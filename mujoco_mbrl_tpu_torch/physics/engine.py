@@ -1,0 +1,182 @@
+"""Forward dynamics, constraint solve and semi-implicit Euler, batched.
+
+Port of mujoco_mbrl_tpu/physics/engine.py: ``forward`` (with the
+``acc_stage=False`` position/velocity-only pass), ``_euler`` with implicit
+joint damping, ``integrate_pos``, ``step``, ``step_warm`` and ``substep``
+(the constraint row forces and the APGD power vector carried from one
+substep's solve into the next), ``n_substeps`` and ``diverged``. Every
+function takes the env batch as the leading dimension. RK4 is not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from . import collision
+from . import model as M
+from . import smooth
+from . import solver as solver_mod
+
+
+def _check_integrator(m: M.Model):
+    if m.opt.integrator != M.EULER or m.opt.solver != 'apgd':
+        raise NotImplementedError(
+            'only Euler + APGD are ported (mujoco_mbrl_tpu.physics.engine._rk4'
+            ' / solver.solve)')
+
+
+def forward(m: M.Model, state: M.State, ctrl: torch.Tensor,
+            acc_stage: bool = True) -> M.Data:
+    """Kinematics -> forces -> constrained qacc (mj_forward), batched.
+
+    ``acc_stage=False`` stops after the position/velocity stages and
+    contact geometry (mj_step1's scope) and returns zeros for qacc, the
+    actuator and constraint forces and contact_force.
+    """
+    return _forward(m, state, ctrl, acc_stage=acc_stage)
+
+
+def _forward(m: M.Model, state: M.State, ctrl: torch.Tensor,
+             acc_stage: bool = True, need_qacc: bool = True,
+             warm_f=None, warm_v=None) -> M.Data:
+    _check_integrator(m)
+    meta = smooth.tree_meta(m)
+    qpos, qvel = state.qpos, state.qvel
+    B, dt, dev = qpos.shape[0], qpos.dtype, qpos.device
+
+    (xpos, xquat, xmat, geom_xpos, geom_xmat, site_xpos,
+     xanchor, xaxis) = smooth.kinematics(m, qpos, meta)
+    xipos = smooth.com_positions(m, xpos, xquat)
+    cdof = smooth.motion_subspace(m, xquat, xanchor, xaxis, meta)
+    cinert = smooth.body_spatial_inertia(m, xquat, xipos)
+    qM = smooth.crba(m, cdof, cinert, meta)
+    cvel, cdof_dot = smooth.velocities(m, qvel, cdof, meta)
+    gravity_on = not (m.opt.disableflags & M.DSBL_GRAVITY)
+    qfrc_bias = smooth.rnea_bias(m, qvel, cdof, cdof_dot, cvel, cinert,
+                                 meta, gravity_on)
+    qfrc_passive = (smooth.spring_force(m, qpos)
+                    + smooth.damping_force(m, qvel))
+    contact = None
+    if not (m.opt.disableflags & M.DSBL_CONTACT):
+        pairs = M.cached(m, 'candidate_pairs', lambda: (
+            collision.candidate_pairs(
+                m, include_geom_geom=m.opt.enable_geom_geom_contacts)))
+        if pairs:
+            contact = collision.detect(m, geom_xpos, geom_xmat, pairs)
+    n_con = len(contact.geom1) if contact is not None else 0
+    zeros = lambda *s: torch.zeros((B,) + s, dtype=dt, device=dev)
+    common = dict(
+        xpos=xpos, xquat=xquat, xipos=xipos, ximat=xmat,
+        geom_xpos=geom_xpos, geom_xmat=geom_xmat, site_xpos=site_xpos,
+        xanchor=xanchor, xaxis=xaxis, cdof=cdof, cvel=cvel, qM=qM,
+        qfrc_bias=qfrc_bias, qfrc_passive=qfrc_passive,
+        contact_dist=contact.dist if contact is not None else zeros(0),
+        contact_pos=contact.pos if contact is not None else zeros(0, 3),
+        cdof_dot=cdof_dot,
+        contact_frame=(contact.frame if contact is not None
+                       else zeros(0, 3, 3)))
+    if not acc_stage:
+        z = torch.zeros_like(qvel)
+        return M.Data(qfrc_actuator=z, qfrc_constraint=z, qacc=z,
+                      actuator_force=zeros(m.nu),
+                      contact_force=zeros(n_con, 3), **common)
+
+    actuator_force, qfrc_actuator = smooth.actuation(m, qpos, qvel, ctrl)
+    qfrc_smooth = qfrc_passive + qfrc_actuator - qfrc_bias
+    qM_chol = torch.linalg.cholesky(qM)
+    qacc_smooth = torch.cholesky_solve(qfrc_smooth[..., None], qM_chol)[..., 0]
+    cs = solver_mod.assemble(m, meta, qpos, qvel, cdof, contact)
+    qfrc_constraint, f_rows, power_v = solver_mod.solve_apgd(
+        m, cs, qM_chol, qacc_smooth, f0=warm_f, power_v0=warm_v)
+    if need_qacc:
+        qacc = qacc_smooth + torch.cholesky_solve(
+            qfrc_constraint[..., None], qM_chol)[..., 0]
+    else:
+        qacc = qacc_smooth     # _euler recomputes the velocity update
+    return M.Data(
+        qfrc_actuator=qfrc_actuator, qfrc_constraint=qfrc_constraint,
+        qacc=qacc, actuator_force=actuator_force,
+        contact_force=solver_mod.contact_forces(cs, f_rows, n_con, B, dt,
+                                                dev),
+        efc_force=f_rows, efc_power_v=power_v, **common)
+
+
+def integrate_pos(m: M.Model, qpos: torch.Tensor, qvel: torch.Tensor,
+                  dt) -> torch.Tensor:
+    """qpos += dt * qvel (hinge and slide joints only)."""
+    smooth._scalar_joints_only(m, 'integrate_pos')
+    qadr, dadr = list(m.jnt_qposadr), list(m.jnt_dofadr)
+    if qadr == list(range(m.nq)) and dadr == list(range(m.nv)):
+        return qpos + dt * qvel
+    out = qpos.clone()
+    out[:, qadr] = out[:, qadr] + dt * qvel[:, dadr]
+    return out
+
+
+def _euler(m: M.Model, state: M.State, ctrl, warm_f=None, warm_v=None
+           ) -> Tuple[M.State, Optional[torch.Tensor],
+                      Optional[torch.Tensor]]:
+    """One semi-implicit Euler step with implicit damping (mj_Euler):
+    v' = v + h (M + h diag(B))^-1 f_explicit. Also returns the row forces
+    and the APGD power vector for the next substep's warm start."""
+    h = m.opt.timestep.to(state.qpos.dtype)
+    d = _forward(m, state, ctrl, need_qacc=False, warm_f=warm_f,
+                 warm_v=warm_v)
+    f_total = (d.qfrc_passive + d.qfrc_actuator - d.qfrc_bias
+               + d.qfrc_constraint)
+    MhB = d.qM + h * torch.diag(m.dof_damping)
+    qacc = torch.cholesky_solve(f_total[..., None],
+                                torch.linalg.cholesky(MhB))[..., 0]
+    qvel = state.qvel + h * qacc
+    qpos = integrate_pos(m, state.qpos, qvel, h)
+    return (M.State(qpos=qpos, qvel=qvel, time=state.time + h),
+            d.efc_force, d.efc_power_v)
+
+
+def step(m: M.Model, state: M.State, ctrl: torch.Tensor) -> M.State:
+    """Advance physics by one timestep (cold constraint solve)."""
+    return _euler(m, state, ctrl)[0]
+
+
+def step_warm(m: M.Model, state: M.State, ctrl: torch.Tensor,
+              warm_f=None, warm_v=None):
+    """`step` threading row forces and the power vector for warm starts."""
+    return _euler(m, state, ctrl, warm_f=warm_f, warm_v=warm_v)
+
+
+def diverged(state: M.State, qpos_limit: float = 1e6,
+             qvel_limit: float = 1e6) -> torch.Tensor:
+    """(B,) bool: NaN/Inf or exploding state per env."""
+    bad_pos = (~torch.isfinite(state.qpos)
+               | (state.qpos.abs() > qpos_limit)).any(1)
+    bad_vel = (~torch.isfinite(state.qvel)
+               | (state.qvel.abs() > qvel_limit)).any(1)
+    return bad_pos | bad_vel
+
+
+def n_substeps(m: M.Model, control_timestep: float) -> int:
+    """Number of physics substeps per control step."""
+    ts = float(m.opt.timestep)
+    n = int(round(control_timestep / ts))
+    if abs(n * ts - control_timestep) > 1e-6:
+        raise ValueError(
+            f'control_timestep {control_timestep} not an integer multiple '
+            f'of physics timestep {ts}')
+    return n
+
+
+def substep(m: M.Model, state: M.State, ctrl: torch.Tensor,
+            n: int) -> M.State:
+    """n physics steps under constant ctrl; with ``solver_warmstart`` the
+    first solve runs cold and each later one starts from the previous
+    substep's row forces and power vector (JAX engine.py:336-346)."""
+    if n == 1 or not m.opt.solver_warmstart:
+        for _ in range(n):
+            state = step(m, state, ctrl)
+        return state
+    state, f, v = step_warm(m, state, ctrl)
+    for _ in range(n - 1):
+        state, f, v = step_warm(m, state, ctrl, warm_f=f, warm_v=v)
+    return state

@@ -1,0 +1,496 @@
+"""MJCF-subset compiler: XML string -> :class:`Model` (host-side numpy).
+
+Port of the part of mujoco_mbrl_tpu/physics/mjcf.py that the planar walker
+reaches: ``<compiler angle settotalmass>``, ``<option timestep gravity>``,
+nested ``<default>`` classes with ``childclass``, bodies with ``pos`` and
+orientation, hinge and slide joints with limits, plane and capsule geoms
+(mass from density), and motors. Cameras and lights are visual only and
+skipped. Every other MJCF feature raises ``NotImplementedError`` naming
+the JAX function that handles it.
+"""
+
+from __future__ import annotations
+
+import math
+import xml.etree.ElementTree as ET
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from . import model as M
+
+_JAX_PARSE = 'mujoco_mbrl_tpu.physics.mjcf.parse'
+
+
+def _unsupported(what: str):
+    return NotImplementedError(f'{what} is not ported (see {_JAX_PARSE})')
+
+
+def _nquat_mul(u, v):
+    w1, x1, y1, z1 = u
+    w2, x2, y2, z2 = v
+    return np.array([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+    ])
+
+
+def _nquat_axis_angle(axis, angle):
+    axis = np.asarray(axis, dtype=np.float64)
+    n = np.linalg.norm(axis)
+    if n < 1e-14:
+        return np.array([1.0, 0, 0, 0])
+    axis = axis / n
+    return np.concatenate([[math.cos(angle / 2)], axis * math.sin(angle / 2)])
+
+
+def _nquat_to_mat(q):
+    w, x, y, z = q
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ])
+
+
+def _zaxis_quat(z):
+    """Minimal rotation taking (0,0,1) to direction z."""
+    z = np.asarray(z, dtype=np.float64)
+    z = z / np.linalg.norm(z)
+    e = np.array([0.0, 0.0, 1.0])
+    c = float(np.dot(e, z))
+    if c > 1 - 1e-12:
+        return np.array([1.0, 0, 0, 0])
+    if c < -1 + 1e-12:
+        return np.array([0.0, 1.0, 0, 0])
+    return _nquat_axis_angle(np.cross(e, z), math.acos(max(-1.0, min(1.0, c))))
+
+
+def _floats(s: str) -> np.ndarray:
+    return np.array([float(x) for x in s.split()], dtype=np.float64)
+
+
+def _skew(p):
+    return np.array([[0, -p[2], p[1]], [p[2], 0, -p[0]], [-p[1], p[0], 0]])
+
+
+_JOINT_TYPES = {'slide': M.SLIDE, 'hinge': M.HINGE}
+_GEOM_TYPES = {'plane': M.PLANE, 'capsule': M.CAPSULE}
+_DEFAULT_SOLREF = np.array([0.02, 1.0])
+_DEFAULT_SOLIMP = np.array([0.9, 0.95, 0.001, 0.5, 2.0])
+
+
+class _Defaults:
+    """Nested default-class resolution (MJCF <default> tree)."""
+
+    def __init__(self):
+        self.classes: Dict[str, Dict[str, Dict[str, str]]] = {'main': {}}
+        self.parent: Dict[str, Optional[str]] = {'main': None}
+
+    def parse(self, elem: ET.Element, parent: str = 'main'):
+        cls = elem.get('class', parent if elem.tag == 'default' else 'main')
+        if cls not in self.classes:
+            self.classes[cls] = {}
+            self.parent[cls] = parent
+        for child in elem:
+            if child.tag == 'default':
+                self.parse(child, cls)
+            else:
+                self.classes[cls].setdefault(child.tag, {}).update(
+                    child.attrib)
+
+    def resolve(self, tag: str, attrib: Dict[str, str],
+                cls: Optional[str]) -> Dict[str, str]:
+        chain: List[str] = []
+        c = cls or 'main'
+        while c is not None:
+            chain.append(c)
+            c = self.parent.get(c)
+        if 'main' not in chain:
+            chain.append('main')
+        merged: Dict[str, str] = {}
+        for c in reversed(chain):
+            merged.update(self.classes.get(c, {}).get(tag, {}))
+        merged.update(attrib)
+        return merged
+
+
+def _orientation(attrs: Dict[str, str], deg: bool) -> np.ndarray:
+    if 'quat' in attrs:
+        q = _floats(attrs['quat'])
+        return q / np.linalg.norm(q)
+    if 'euler' in attrs:
+        e = [math.radians(a) if deg else a for a in _floats(attrs['euler'])]
+        q = np.array([1.0, 0, 0, 0])
+        for ax, ang in zip(np.eye(3), e):    # intrinsic xyz
+            q = _nquat_mul(q, _nquat_axis_angle(ax, ang))
+        return q
+    if 'zaxis' in attrs:
+        return _zaxis_quat(_floats(attrs['zaxis']))
+    if 'axisangle' in attrs:
+        aa = _floats(attrs['axisangle'])
+        return _nquat_axis_angle(aa[:3], math.radians(aa[3]) if deg
+                                 else aa[3])
+    if 'xyaxes' in attrs:
+        raise _unsupported('xyaxes orientation')
+    return np.array([1.0, 0, 0, 0])
+
+
+def _capsule_volume_inertia(size, mass=None):
+    r, h = size[0], size[1]
+    vol = math.pi * r * r * (2 * h) + 4.0 / 3.0 * math.pi * r ** 3
+    if mass is None:
+        return vol
+    height = 2 * h
+    sphere_mass = mass * 4 * r / (4 * r + 3 * height)
+    cyl_mass = mass - sphere_mass
+    ixy = cyl_mass * (3 * r * r + height * height) / 12.0
+    iz = cyl_mass * r * r / 2.0
+    sph_i = 0.4 * sphere_mass * r * r
+    ixy += sph_i + sphere_mass * height * (3 * r + 2 * height) / 8.0
+    iz += sph_i
+    return np.diag([ixy, ixy, iz])
+
+
+def parse(xml_string: str, dtype=torch.float32) -> M.Model:
+    """Compile an MJCF XML string into a CPU :class:`Model`."""
+    root = ET.fromstring(xml_string)
+    if root.tag != 'mujoco':
+        raise ValueError('not an MJCF document (root tag is not <mujoco>)')
+    for tag in ('tendon', 'equality', 'contact', 'sensor'):
+        if root.find(tag) is not None:
+            raise _unsupported(f'<{tag}>')
+    asset = root.find('asset')
+    if asset is not None and asset.find('hfield') is not None:
+        raise _unsupported('<hfield>')
+
+    compiler = root.find('compiler')
+    deg, settotalmass = True, None
+    if compiler is not None:
+        deg = compiler.get('angle') != 'radian'
+        if 'settotalmass' in compiler.attrib:
+            settotalmass = float(compiler.get('settotalmass'))
+
+    timestep = 0.002
+    gravity = np.array([0.0, 0.0, -9.81])
+    solver_iterations = 30
+    opt_el = root.find('option')
+    if opt_el is not None:
+        timestep = float(opt_el.get('timestep', timestep))
+        solver_iterations = int(opt_el.get('iterations', 30))
+        if 'gravity' in opt_el.attrib:
+            gravity = _floats(opt_el.get('gravity'))
+        if opt_el.get('integrator', 'Euler') != 'Euler':
+            raise _unsupported('integrator other than Euler')
+        if opt_el.get('cone', 'pyramidal') != 'pyramidal':
+            raise _unsupported('elliptic friction cone')
+        for k in ('viscosity', 'density', 'wind', 'impratio'):
+            if k in opt_el.attrib:
+                raise _unsupported(f'option {k} (fluid model)')
+        if opt_el.find('flag') is not None:
+            raise _unsupported('option <flag>')
+
+    defaults = _Defaults()
+    for d in root.findall('default'):
+        defaults.parse(d)
+
+    body_parent, body_pos, body_quat = [0], [np.zeros(3)], [
+        np.array([1.0, 0, 0, 0])]
+    body_names = {'world': 0}
+    body_mass, body_fm, body_io = [0.0], [np.zeros(3)], [np.zeros((3, 3))]
+    jnts, jnt_names = [], {}
+    geoms, geom_names = [], {}
+
+    def add_geom(attrs, body_id):
+        gname = attrs.get('type', 'sphere')
+        if gname not in _GEOM_TYPES or 'fromto' in attrs:
+            raise _unsupported(f'geom type {gname!r} / fromto')
+        gtype = _GEOM_TYPES[gname]
+        size = np.zeros(3)
+        if 'size' in attrs:
+            s = _floats(attrs['size'])
+            size[:len(s)] = s
+        quat = _orientation(attrs, deg)
+        pos = _floats(attrs['pos']) if 'pos' in attrs else np.zeros(3)
+        if gtype == M.CAPSULE:
+            mass = (float(attrs['mass']) if 'mass' in attrs else
+                    float(attrs.get('density', 1000.0))
+                    * _capsule_volume_inertia(size))
+        else:
+            mass = 0.0
+        friction = np.array([1.0, 0.005, 0.0001])
+        if 'friction' in attrs:
+            f = _floats(attrs['friction'])
+            friction[:len(f)] = f
+        solref = _DEFAULT_SOLREF.copy()
+        if 'solref' in attrs:
+            solref[:] = _floats(attrs['solref'])[:2]
+        solimp = _DEFAULT_SOLIMP.copy()
+        if 'solimp' in attrs:
+            si = _floats(attrs['solimp'])
+            solimp[:len(si)] = si
+        if attrs.get('name'):
+            geom_names[attrs['name']] = len(geoms)
+        geoms.append(dict(
+            type=gtype, body=body_id, pos=pos, quat=quat, size=size,
+            friction=friction, solref=solref, solimp=solimp,
+            margin=float(attrs.get('margin', 0.0)),
+            contype=int(attrs.get('contype', 1)),
+            conaffinity=int(attrs.get('conaffinity', 1)),
+            condim=int(attrs.get('condim', 3)),
+            priority=int(attrs.get('priority', 0)),
+            solmix=float(attrs.get('solmix', 1.0))))
+        if mass > 0.0:
+            R = _nquat_to_mat(quat)
+            inertia_com = R @ _capsule_volume_inertia(size, mass) @ R.T
+            cx = _skew(pos)
+            body_mass[body_id] += mass
+            body_fm[body_id] = body_fm[body_id] + mass * pos
+            body_io[body_id] = body_io[body_id] + inertia_com + mass * (
+                cx @ cx.T)
+
+    def add_joint(attrs, body_id):
+        jname = attrs.get('type', 'hinge')
+        if jname not in _JOINT_TYPES:
+            raise _unsupported(f'joint type {jname!r}')
+        jtype = _JOINT_TYPES[jname]
+        limited = attrs.get('limited', 'false') in ('true', '1')
+        rng = np.zeros(2)
+        if 'range' in attrs:
+            rng = _floats(attrs['range'])
+            if jtype == M.HINGE and limited and deg:
+                rng = np.radians(rng)
+        solref = _DEFAULT_SOLREF.copy()
+        if 'solreflimit' in attrs:
+            solref[:] = _floats(attrs['solreflimit'])[:2]
+        solimp = _DEFAULT_SOLIMP.copy()
+        if 'solimplimit' in attrs:
+            si = _floats(attrs['solimplimit'])
+            solimp[:len(si)] = si
+        to_rad = (lambda a: math.radians(a)) if (
+            deg and jtype == M.HINGE) else (lambda a: a)
+        if attrs.get('name'):
+            jnt_names[attrs['name']] = len(jnts)
+        jnts.append(dict(
+            type=jtype, body=body_id,
+            pos=_floats(attrs['pos']) if 'pos' in attrs else np.zeros(3),
+            axis=(_floats(attrs['axis']) if 'axis' in attrs
+                  else np.array([0.0, 0.0, 1.0])),
+            range=rng, limited=limited, solref=solref, solimp=solimp,
+            stiffness=float(attrs.get('stiffness', 0.0)),
+            springref=to_rad(float(attrs.get('springref', 0.0))),
+            ref=to_rad(float(attrs.get('ref', 0.0))),
+            damping=float(attrs.get('damping', 0.0)),
+            armature=float(attrs.get('armature', 0.0)),
+            frictionloss=float(attrs.get('frictionloss', 0.0)),
+            margin=float(attrs.get('margin', 0.0))))
+
+    def add_child(child, body_id, cls):
+        tag = child.tag
+        cattrs = defaults.resolve(tag, child.attrib,
+                                  child.attrib.get('class', cls))
+        if tag == 'joint':
+            add_joint(cattrs, body_id)
+        elif tag == 'geom':
+            add_geom(cattrs, body_id)
+        elif tag == 'body':
+            walk_body(child, body_id, cls)
+        elif tag in ('camera', 'light'):
+            pass                                   # visual only
+        else:
+            raise _unsupported(f'<{tag}> in the body tree')
+
+    def walk_body(elem, parent_id, childclass):
+        cls = elem.get('childclass', childclass)
+        body_id = len(body_parent)
+        body_parent.append(parent_id)
+        body_pos.append(_floats(elem.attrib['pos']) if 'pos' in elem.attrib
+                        else np.zeros(3))
+        body_quat.append(_orientation(elem.attrib, deg))
+        body_names[elem.attrib.get('name', f'body{body_id}')] = body_id
+        body_mass.append(0.0)
+        body_fm.append(np.zeros(3))
+        body_io.append(np.zeros((3, 3)))
+        for child in elem:
+            add_child(child, body_id, cls)
+
+    worldbody = root.find('worldbody')
+    for child in (worldbody if worldbody is not None else ()):
+        if child.tag == 'body':
+            walk_body(child, 0, child.get('childclass'))
+        else:
+            add_child(child, 0, None)
+
+    nbody, njnt = len(body_parent), len(jnts)
+    jnt_qposadr = list(range(njnt))       # hinge/slide: one qpos, one dof
+    nq = nv = njnt
+    for j in jnts:
+        if j['frictionloss'] != 0.0:
+            raise _unsupported('dof frictionloss rows')
+    qpos0 = np.array([j['ref'] for j in jnts])
+    qpos_spring = np.array([j['springref'] for j in jnts])
+
+    # the world body stays massless (mjModel semantics)
+    body_mass[0], body_fm[0], body_io[0] = 0.0, np.zeros(3), np.zeros((3, 3))
+    if settotalmass is not None:
+        total = sum(body_mass)
+        if total > 0:
+            scale = settotalmass / total
+            body_mass = [mm * scale for mm in body_mass]
+            body_fm = [fm * scale for fm in body_fm]
+            body_io = [ii * scale for ii in body_io]
+    bmass = np.array(body_mass)
+    body_ipos = np.zeros((nbody, 3))
+    body_inertia = np.zeros((nbody, 3, 3))
+    for i in range(nbody):
+        if bmass[i] > 0:
+            com = body_fm[i] / bmass[i]
+            cx = _skew(com)
+            body_ipos[i] = com
+            body_inertia[i] = body_io[i] - bmass[i] * (cx @ cx.T)
+
+    act_names, acts = {}, []
+    actuator_el = root.find('actuator')
+    for ael in (actuator_el if actuator_el is not None else ()):
+        if ael.tag != 'motor':
+            raise _unsupported(f'actuator <{ael.tag}>')
+        attrs = defaults.resolve('motor', ael.attrib, ael.attrib.get('class'))
+        if 'joint' not in attrs or attrs.get('dyntype', 'none') != 'none':
+            raise _unsupported('tendon transmission / activation dynamics')
+        if attrs.get('name'):
+            act_names[attrs['name']] = len(acts)
+        acts.append(dict(
+            trnid=jnt_names[attrs['joint']],
+            gear=float(_floats(attrs.get('gear', '1'))[0]),
+            ctrllimited=attrs.get('ctrllimited', 'false') in ('true', '1'),
+            ctrlrange=(_floats(attrs['ctrlrange']) if 'ctrlrange' in attrs
+                       else np.zeros(2)),
+            forcelimited=attrs.get('forcelimited', 'false') in ('true', '1'),
+            forcerange=(_floats(attrs['forcerange'])
+                        if 'forcerange' in attrs else np.zeros(2))))
+    nu = len(acts)
+
+    def arr(x, shape):
+        a = np.asarray(x, dtype=np.float64)
+        if a.size == 0:
+            a = a.reshape(shape)
+        return torch.as_tensor(a, dtype=dtype)
+
+    ng = len(geoms)
+    model = M.Model(
+        opt=M.Option(timestep=arr(timestep, ()), gravity=arr(gravity, (3,)),
+                     viscosity=arr(0.0, ()), density=arr(0.0, ()),
+                     wind=arr(np.zeros(3), (3,)),
+                     solver_iterations=solver_iterations),
+        nq=nq, nv=nv, nu=nu, nbody=nbody, njnt=njnt, ngeom=ng, nsite=0,
+        ntendon=0,
+        body_parent=tuple(body_parent),
+        jnt_type=tuple(j['type'] for j in jnts),
+        jnt_body=tuple(j['body'] for j in jnts),
+        jnt_qposadr=tuple(jnt_qposadr), jnt_dofadr=tuple(jnt_qposadr),
+        jnt_limited=tuple(bool(j['limited']) for j in jnts),
+        dof_jnt=tuple(range(njnt)),
+        geom_type=tuple(g['type'] for g in geoms),
+        geom_body=tuple(g['body'] for g in geoms),
+        site_body=(),
+        actuator_trntype=tuple(M.TRN_JOINT for _ in acts),
+        actuator_trnid=tuple(a['trnid'] for a in acts),
+        actuator_ctrllimited=tuple(a['ctrllimited'] for a in acts),
+        names={'body': body_names, 'joint': jnt_names, 'geom': geom_names,
+               'site': {}, 'actuator': act_names, 'tendon': {}},
+        body_pos=arr(body_pos, (nbody, 3)),
+        body_quat=arr(body_quat, (nbody, 4)),
+        body_mass=arr(bmass, (nbody,)),
+        body_ipos=arr(body_ipos, (nbody, 3)),
+        body_inertia=arr(body_inertia, (nbody, 3, 3)),
+        jnt_pos=arr([j['pos'] for j in jnts], (njnt, 3)),
+        jnt_axis=arr([j['axis'] / np.linalg.norm(j['axis']) for j in jnts],
+                     (njnt, 3)),
+        jnt_range=arr([j['range'] for j in jnts], (njnt, 2)),
+        jnt_solref=arr([j['solref'] for j in jnts], (njnt, 2)),
+        jnt_solimp=arr([j['solimp'] for j in jnts], (njnt, 5)),
+        jnt_stiffness=arr([j['stiffness'] for j in jnts], (njnt,)),
+        jnt_margin=arr([j['margin'] for j in jnts], (njnt,)),
+        dof_damping=arr([j['damping'] for j in jnts], (nv,)),
+        dof_armature=arr([j['armature'] for j in jnts], (nv,)),
+        dof_frictionloss=arr([j['frictionloss'] for j in jnts], (nv,)),
+        geom_pos=arr([g['pos'] for g in geoms], (ng, 3)),
+        geom_quat=arr([g['quat'] for g in geoms], (ng, 4)),
+        geom_size=arr([g['size'] for g in geoms], (ng, 3)),
+        geom_friction=arr([g['friction'] for g in geoms], (ng, 3)),
+        geom_solref=arr([g['solref'] for g in geoms], (ng, 2)),
+        geom_solimp=arr([g['solimp'] for g in geoms], (ng, 5)),
+        geom_margin=arr([g['margin'] for g in geoms], (ng,)),
+        geom_contype=tuple(g['contype'] for g in geoms),
+        geom_conaffinity=tuple(g['conaffinity'] for g in geoms),
+        geom_condim=tuple(g['condim'] for g in geoms),
+        geom_priority=tuple(g['priority'] for g in geoms),
+        geom_solmix=arr([g['solmix'] for g in geoms], (ng,)),
+        site_pos=arr([], (0, 3)), site_quat=arr([], (0, 4)),
+        actuator_gear=arr([a['gear'] for a in acts], (nu,)),
+        actuator_ctrlrange=arr([a['ctrlrange'] for a in acts], (nu, 2)),
+        actuator_gainprm=arr([[1.0, 0.0, 0.0] for _ in acts], (nu, 3)),
+        actuator_biasprm=arr([[0.0, 0.0, 0.0] for _ in acts], (nu, 3)),
+        actuator_forcerange=arr([a['forcerange'] for a in acts], (nu, 2)),
+        actuator_forcelimited=tuple(a['forcelimited'] for a in acts),
+        actuator_biastype=tuple(M.BIAS_NONE for _ in acts),
+        qpos0=arr(qpos0, (nq,)), qpos_spring=arr(qpos_spring, (nq,)),
+        actuator_dyntype=tuple(M.DYN_NONE for _ in acts),
+        actuator_actadr=tuple(-1 for _ in acts))
+    return _with_invweight0(model)
+
+
+def _with_invweight0(model: M.Model) -> M.Model:
+    """dof/body invweight0 at qpos0 (mj_setConst), as the JAX
+    ``_with_invweight0`` computes them."""
+    from . import smooth
+    from .solver import ancestor_dof_mask
+
+    meta = smooth.tree_meta(model)
+    q0 = model.qpos0[None]
+    xpos, xquat, _, _, _, _, xanchor, xaxis = smooth.kinematics(
+        model, q0, meta)
+    xipos = smooth.com_positions(model, xpos, xquat)
+    cdof = smooth.motion_subspace(model, xquat, xanchor, xaxis, meta)
+    cinert = smooth.body_spatial_inertia(model, xquat, xipos)
+    qM = smooth.crba(model, cdof, cinert, meta)
+    Minv = np.linalg.inv(qM[0].double().numpy())
+    dof_iw = np.diag(Minv).copy()
+
+    amask = ancestor_dof_mask(model, meta).astype(np.float64)
+    cdof_np = cdof[0].double().numpy()
+    xipos_np = xipos[0].double().numpy()
+    body_ipos_np = model.body_ipos.double().numpy()
+    body_mass_np = model.body_mass.double().numpy()
+    jnt_axis_np = model.jnt_axis.double().numpy()
+    has_child = set(model.body_parent[1:])
+
+    def _simple2(bb):
+        """Axis-aligned slide-only leaf body off the world, CoM at origin."""
+        joints = [j for j in range(model.njnt) if model.jnt_body[j] == bb]
+        if not joints or bb in has_child or model.body_parent[bb] != 0:
+            return False
+        for j in joints:
+            if model.jnt_type[j] != M.SLIDE:
+                return False
+            if np.count_nonzero(np.abs(jnt_axis_np[j]) > 1e-12) != 1:
+                return False
+        return bool(np.all(np.abs(body_ipos_np[bb]) < 1e-12))
+
+    body_iw = np.zeros((model.nbody, 2))
+    for bb in range(1, model.nbody):
+        if _simple2(bb) and body_mass_np[bb] > 0:
+            body_iw[bb] = (1.0 / body_mass_np[bb], 0.0)
+            continue
+        mask = amask[bb][:, None]
+        Jt = (cdof_np[:, 3:]
+              + np.cross(cdof_np[:, :3], xipos_np[bb][None, :])) * mask
+        Jr = cdof_np[:, :3] * mask
+        body_iw[bb] = (np.trace(Jt.T @ Minv @ Jt) / 3.0,
+                       np.trace(Jr.T @ Minv @ Jr) / 3.0)
+    dt = model.dtype
+    return model.replace(dof_invweight0=torch.as_tensor(dof_iw, dtype=dt),
+                         body_invweight0=torch.as_tensor(body_iw, dtype=dt))

@@ -1,0 +1,273 @@
+"""Smooth articulated-body dynamics in world-frame spatial algebra.
+
+Port of mujoco_mbrl_tpu/physics/smooth.py for hinge and slide joints (the
+walker's joint set). Every function takes the env batch as the leading
+dimension; the loops over bodies are static Python loops over the model's
+tree, as in the JAX package. Free and ball joints, tendons and the fluid
+model raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from . import math as pm
+from . import model as M
+
+
+class TreeMeta(NamedTuple):
+    """Static tree addressing plus host-side fast-path predicates."""
+    body_joints: Tuple[Tuple[int, ...], ...]
+    body_dofs: Tuple[Tuple[int, ...], ...]
+    ancestor_dofs: Tuple[Tuple[int, ...], ...]
+    dof_body: Tuple[int, ...]
+    identity_body_quat: Tuple[bool, ...]
+    zero_body_pos: Tuple[bool, ...]
+    zero_jnt_pos: Tuple[bool, ...]
+
+
+def _scalar_joints_only(m: M.Model, fn: str):
+    for t in m.jnt_type:
+        if t not in (M.SLIDE, M.HINGE):
+            raise NotImplementedError(
+                f'free/ball joints are not ported '
+                f'(mujoco_mbrl_tpu.physics.smooth.{fn})')
+
+
+def tree_meta(m: M.Model) -> TreeMeta:
+    """Static tree tables, built once per model (host copies only here)."""
+    return M.cached(m, 'tree_meta', lambda: _tree_meta(m))
+
+
+def _tree_meta(m: M.Model) -> TreeMeta:
+    _scalar_joints_only(m, 'tree_meta')
+    body_joints: List[List[int]] = [[] for _ in range(m.nbody)]
+    for j in range(m.njnt):
+        body_joints[m.jnt_body[j]].append(j)
+    body_dofs = [[m.jnt_dofadr[j] for j in js] for js in body_joints]
+    ancestor_dofs: List[List[int]] = [[] for _ in range(m.nbody)]
+    for b in range(1, m.nbody):
+        ancestor_dofs[b] = list(ancestor_dofs[m.body_parent[b]]) + body_dofs[b]
+    dof_body = [0] * m.nv
+    for b in range(m.nbody):
+        for k in body_dofs[b]:
+            dof_body[k] = b
+    bq, bp, jp = (m.body_quat.cpu().numpy(), m.body_pos.cpu().numpy(),
+                  m.jnt_pos.cpu().numpy())
+    return TreeMeta(tuple(tuple(x) for x in body_joints),
+                    tuple(tuple(x) for x in body_dofs),
+                    tuple(tuple(x) for x in ancestor_dofs),
+                    tuple(dof_body),
+                    tuple(bool(np.allclose(q, [1, 0, 0, 0])) for q in bq),
+                    tuple(bool(np.allclose(p, 0)) for p in bp),
+                    tuple(bool(np.allclose(p, 0)) for p in jp))
+
+
+def kinematics(m: M.Model, qpos: torch.Tensor, meta: TreeMeta):
+    """Body/geom/site poses and world joint anchors/axes, batched (B, ...).
+
+    mj_kinematics semantics: joints apply in declaration order within a
+    body, displacing relative to qpos0.
+    """
+    _scalar_joints_only(m, 'kinematics')
+    B = qpos.shape[0]
+    dev, dt = qpos.device, qpos.dtype
+
+    # all hinge local rotations at once
+    hq = None
+    hinges = [j for j in range(m.njnt) if m.jnt_type[j] == M.HINGE]
+    hq_index = {j: i for i, j in enumerate(hinges)}
+    if hinges:
+        h_adr = [m.jnt_qposadr[j] for j in hinges]
+        half = 0.5 * (qpos[:, h_adr] - m.qpos0[h_adr])
+        hq = torch.cat([torch.cos(half)[..., None],
+                        m.jnt_axis[hinges] * torch.sin(half)[..., None]], -1)
+
+    xpos = [torch.zeros((B, 3), dtype=dt, device=dev)]
+    xquat = [torch.tensor([1.0, 0, 0, 0], dtype=dt, device=dev).expand(B, 4)]
+    xanchor = [None] * m.njnt
+    xaxis = [None] * m.njnt
+    for b in range(1, m.nbody):
+        p = m.body_parent[b]
+        quat = (xquat[p] if meta.identity_body_quat[b]
+                else pm.quat_mul(xquat[p], m.body_quat[b]))
+        pos = (xpos[p] if meta.zero_body_pos[b]
+               else xpos[p] + pm.quat_rot(xquat[p], m.body_pos[b]))
+        for j in meta.body_joints[b]:
+            adr = m.jnt_qposadr[j]
+            zero_anchor = meta.zero_jnt_pos[j]
+            if m.jnt_type[j] == M.SLIDE:
+                axis_w = pm.quat_rot(quat, m.jnt_axis[j])
+                pos = pos + axis_w * (qpos[:, adr:adr + 1] - m.qpos0[adr])
+                anchor = (pos if zero_anchor
+                          else pos + pm.quat_rot(quat, m.jnt_pos[j]))
+                xaxis[j] = axis_w
+            else:
+                qloc = hq[:, hq_index[j]]
+                if zero_anchor:
+                    anchor = pos
+                    quat = pm.quat_mul(quat, qloc)
+                else:
+                    anchor = pos + pm.quat_rot(quat, m.jnt_pos[j])
+                    quat = pm.quat_mul(quat, qloc)
+                    pos = anchor - pm.quat_rot(quat, m.jnt_pos[j])
+                xaxis[j] = pm.quat_rot(quat, m.jnt_axis[j])
+            xanchor[j] = anchor
+        xpos.append(pos)
+        xquat.append(quat)
+
+    xpos = torch.stack(xpos, 1)                        # (B, nbody, 3)
+    xquat = torch.stack(xquat, 1)
+    xmat = pm.quat_to_mat(xquat)
+    gb = list(m.geom_body)
+    geom_xpos = xpos[:, gb] + pm.quat_rot(xquat[:, gb], m.geom_pos)
+    geom_xmat = pm.quat_to_mat(pm.quat_mul(xquat[:, gb], m.geom_quat))
+    site_xpos = torch.zeros((B, 0, 3), dtype=dt, device=dev)
+    if m.nsite:
+        raise NotImplementedError(
+            'sites are not ported (mujoco_mbrl_tpu.physics.smooth.kinematics)')
+    return (xpos, xquat, xmat, geom_xpos, geom_xmat, site_xpos,
+            torch.stack(xanchor, 1), torch.stack(xaxis, 1))
+
+
+def com_positions(m: M.Model, xpos, xquat):
+    """World CoM of each body (xipos)."""
+    return xpos + pm.quat_rot(xquat, m.body_ipos)
+
+
+def motion_subspace(m: M.Model, xquat, xanchor, xaxis, meta: TreeMeta):
+    """cdof (B, nv, 6): per-dof spatial motion vectors (world, origin)."""
+    _scalar_joints_only(m, 'motion_subspace')
+    cdof = [None] * m.nv
+    for j in range(m.njnt):
+        adr = m.jnt_dofadr[j]
+        ax = xaxis[:, j]
+        if m.jnt_type[j] == M.SLIDE:
+            cdof[adr] = torch.cat([torch.zeros_like(ax), ax], -1)
+        else:
+            cdof[adr] = torch.cat([ax, torch.linalg.cross(xanchor[:, j], ax)],
+                                  -1)
+    return torch.stack(cdof, 1)
+
+
+def body_spatial_inertia(m: M.Model, xquat, xipos):
+    """(B, nbody, 6, 6) spatial inertia about the world origin (cinert)."""
+    R = pm.quat_to_mat(xquat)
+    I_world = torch.einsum('nbij,bjk,nblk->nbil', R, m.body_inertia, R)
+    return pm.spatial_inertia(m.body_mass.expand(xquat.shape[:2]), I_world,
+                              xipos)
+
+
+def crba(m: M.Model, cdof, cinert, meta: TreeMeta) -> torch.Tensor:
+    """Joint-space inertia (B, nv, nv), composite rigid body algorithm."""
+    crb = list(cinert.unbind(1))
+    for b in range(m.nbody - 1, 0, -1):
+        p = m.body_parent[b]
+        crb[p] = crb[p] + crb[b]
+    crb = torch.stack(crb, 1)                          # (B, nbody, 6, 6)
+
+    def build_lower():
+        lower = np.zeros((m.nv, m.nv), np.float32)
+        for b in range(1, m.nbody):
+            for i in meta.body_dofs[b]:
+                for j in meta.ancestor_dofs[b]:
+                    if j <= i:
+                        lower[i, j] = 1.0
+        return torch.as_tensor(lower, dtype=cdof.dtype, device=cdof.device)
+
+    lower = M.cached(m, 'crba_lower', build_lower)
+    F = torch.einsum('nkij,nkj->nki', crb[:, list(meta.dof_body)], cdof)
+    Mfull = F @ cdof.transpose(1, 2)
+    Mlow = Mfull * lower
+    return Mlow + torch.tril(Mlow, -1).transpose(1, 2) + torch.diag(
+        m.dof_armature)
+
+
+def velocities(m: M.Model, qvel, cdof, meta: TreeMeta):
+    """Body spatial velocities cvel (B, nbody, 6) and cdof_dot (B, nv, 6)."""
+    _scalar_joints_only(m, 'velocities')
+    cvel = [torch.zeros_like(cdof[:, 0])]
+    cdof_dot = [None] * m.nv
+    for b in range(1, m.nbody):
+        v = cvel[m.body_parent[b]]
+        for j in meta.body_joints[b]:
+            adr = m.jnt_dofadr[j]
+            cdof_dot[adr] = pm.motion_cross(v, cdof[:, adr])
+            v = v + cdof[:, adr] * qvel[:, adr:adr + 1]
+        cvel.append(v)
+    return torch.stack(cvel, 1), torch.stack(cdof_dot, 1)
+
+
+def rnea_bias(m: M.Model, qvel, cdof, cdof_dot, cvel, cinert,
+              meta: TreeMeta, gravity_on: bool) -> torch.Tensor:
+    """qfrc_bias (B, nv): Coriolis/centrifugal + gravity (RNEA)."""
+    g = m.opt.gravity if gravity_on else torch.zeros_like(m.opt.gravity)
+    a0 = torch.cat([torch.zeros_like(g), -g]).expand(qvel.shape[0], 6)
+    a_bias = [a0]
+    for b in range(1, m.nbody):
+        a = a_bias[m.body_parent[b]]
+        for k in meta.body_dofs[b]:
+            a = a + cdof_dot[:, k] * qvel[:, k:k + 1]
+        a_bias.append(a)
+    a_stack = torch.stack(a_bias, 1)
+    Iv = torch.einsum('nbij,nbj->nbi', cinert, cvel)
+    f_stack = (torch.einsum('nbij,nbj->nbi', cinert, a_stack)
+               + pm.force_cross(cvel, Iv))
+    f = list(f_stack.unbind(1))
+    for b in range(m.nbody - 1, 0, -1):
+        p = m.body_parent[b]
+        f[p] = f[p] + f[b]
+    f = torch.stack(f, 1)
+    return torch.einsum('nkj,nkj->nk', cdof, f[:, list(meta.dof_body)])
+
+
+def spring_force(m: M.Model, qpos: torch.Tensor) -> torch.Tensor:
+    """Joint springs: -stiffness * (qpos - qpos_spring) (scalar joints)."""
+    _scalar_joints_only(m, 'spring_force')
+    qadr = list(m.jnt_qposadr)
+    qfrc = torch.zeros((qpos.shape[0], m.nv), dtype=qpos.dtype,
+                       device=qpos.device)
+    qfrc[:, list(m.jnt_dofadr)] = -m.jnt_stiffness * (
+        qpos[:, qadr] - m.qpos_spring[qadr])
+    return qfrc
+
+
+def damping_force(m: M.Model, qvel: torch.Tensor) -> torch.Tensor:
+    return -m.dof_damping * qvel
+
+
+def actuation(m: M.Model, qpos, qvel, ctrl):
+    """(actuator_force, qfrc_actuator): direct joint motors.
+
+    The JAX ``actuation`` also covers tendon transmissions, affine bias
+    and activation dynamics; the walker uses none of them.
+    """
+    B, dt, dev = qpos.shape[0], qpos.dtype, qpos.device
+    if m.nu == 0 or (m.opt.disableflags & M.DSBL_ACTUATION):
+        return (torch.zeros((B, m.nu), dtype=dt, device=dev),
+                torch.zeros((B, m.nv), dtype=dt, device=dev))
+    if (m.na or any(t != M.TRN_JOINT for t in m.actuator_trntype)
+            or any(bt != M.BIAS_NONE for bt in m.actuator_biastype)):
+        raise NotImplementedError(
+            'tendon/bias/stateful actuators are not ported '
+            '(mujoco_mbrl_tpu.physics.smooth.actuation)')
+
+    def clip_where(x, key, limited, rng):
+        if not any(limited):
+            return x
+        lim = M.cached(m, key, lambda: torch.as_tensor(limited, device=dev))
+        return torch.where(lim, torch.minimum(torch.maximum(
+            x, rng[:, 0]), rng[:, 1]), x)
+
+    c = clip_where(ctrl, 'ctrl_limited', m.actuator_ctrllimited,
+                   m.actuator_ctrlrange)
+    force = clip_where(m.actuator_gainprm[:, 0] * c, 'force_limited',
+                       m.actuator_forcelimited, m.actuator_forcerange)
+    dadr = M.cached(m, 'actuator_dofadr', lambda: torch.as_tensor(
+        [m.jnt_dofadr[j] for j in m.actuator_trnid], device=dev))
+    qfrc = torch.zeros((B, m.nv), dtype=dt, device=dev)
+    qfrc.index_add_(1, dadr, m.actuator_gear * force)
+    return force, qfrc

@@ -1,0 +1,326 @@
+"""Soft-constraint assembly and the APGD dual solve (batched over envs).
+
+Port of mujoco_mbrl_tpu/physics/solver.py for joint limits and pyramidal
+frictional contacts (condim 1 or 3) — the walker's row set. Each row has
+impedance d(pos) from solimp, reference acceleration aref = -b*vel - k*pos
+from solref, and regularizer R = (1-d)/d * invweight0; the dual
+min 1/2 f'(A+R)f - f'rhs is solved by ``solve_apgd`` through the batched
+iterate of ``ops.apgd_solve`` (CUDA kernel on the card, plain PyTorch on
+the CPU). The PGS ``solve``, dof friction loss, tendon rows, elliptic
+cones and the factored regime raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import model as M
+from .collision import Contact
+
+MAX_NR = 96      # JAX switches to its factored kernel past this row count
+
+
+def impedance(solimp: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """solimp impedance d(pos); solimp indexed along axis 0."""
+    dmin, dmax, width, mid, power = (solimp[0], solimp[1], solimp[2],
+                                     solimp[3], solimp[4])
+    x = torch.clamp(pos.abs() / torch.clamp(width, min=1e-10), 0.0, 1.0)
+    lo = mid * (x / torch.clamp(mid, min=1e-10)) ** power
+    hi = 1.0 - (1.0 - mid) * ((1.0 - x) / torch.clamp(1.0 - mid, min=1e-10)
+                              ) ** power
+    d = dmin + torch.where(x < mid, lo, hi) * (dmax - dmin)
+    return torch.clamp(d, 1e-4, 0.9999)
+
+
+def kbi(solref, solimp, pos, timestep):
+    """Stiffness k, damping b, impedance d (mj_makeImpedance)."""
+    d = impedance(solimp, pos)
+    dmax = solimp[1]
+    timeconst = torch.maximum(solref[0], 2.0 * timestep)
+    dampratio = solref[1]
+    b_std = 2.0 / torch.clamp(dmax * timeconst, min=1e-10)
+    k_std = d / torch.clamp(dmax * dmax * timeconst * timeconst
+                            * dampratio * dampratio, min=1e-10)
+    b_dir = -solref[1] / torch.clamp(dmax, min=1e-10)
+    k_dir = -solref[0] * d / torch.clamp(dmax * dmax, min=1e-10)
+    direct = torch.logical_or(solref[0] <= 0, solref[1] <= 0)
+    return (torch.where(direct, k_dir, k_std),
+            torch.where(direct, b_dir, b_std), d)
+
+
+class ConstraintSet:
+    """Assembled rows, batched: J (B, nr, nv), aref/R/active (B, nr).
+
+    ``blocks`` (static) lists (kind, row); ``mu`` (n_pyramids,) holds each
+    contact's slide friction; ``pyramids`` (contact, first_row, n_dirs)."""
+
+    def __init__(self, J, aref, R, active, blocks, mu, pyramids=()):
+        self.J = J
+        self.aref = aref
+        self.R = R
+        self.active = active
+        self.blocks = blocks
+        self.mu = mu
+        self.pyramids = pyramids
+
+
+def _limited_joints(m: M.Model) -> Tuple[int, ...]:
+    if m.opt.disableflags & M.DSBL_LIMIT:
+        return ()
+    return tuple(j for j in range(m.njnt)
+                 if m.jnt_limited[j] and m.jnt_type[j] in (M.SLIDE, M.HINGE))
+
+
+def ancestor_dof_mask(m: M.Model, meta) -> np.ndarray:
+    """Static (nbody, nv) 0/1 mask: dof k on the root->body chain."""
+    mask = np.zeros((m.nbody, m.nv), np.float32)
+    for b in range(m.nbody):
+        for k in meta.ancestor_dofs[b]:
+            mask[b, k] = 1.0
+    return mask
+
+
+def _pair_condim(m: M.Model, g1: int, g2: int) -> int:
+    p1, p2 = m.geom_priority[g1], m.geom_priority[g2]
+    if p1 > p2:
+        return m.geom_condim[g1]
+    if p2 > p1:
+        return m.geom_condim[g2]
+    return max(m.geom_condim[g1], m.geom_condim[g2])
+
+
+def assemble(m: M.Model, meta, qpos, qvel, cdof,
+             contact: Optional[Contact]) -> Optional[ConstraintSet]:
+    """Limit rows then pyramidal contact rows, in the JAX row order."""
+    if m.opt.cone != 'pyramidal':
+        raise NotImplementedError(
+            'elliptic cones are not ported '
+            '(mujoco_mbrl_tpu.physics.solver.assemble)')
+    B, nv, dt, dev = qpos.shape[0], m.nv, qpos.dtype, qpos.device
+    h = m.opt.timestep
+    rows_J: List[torch.Tensor] = []
+    rows_aref, rows_R, rows_active = [], [], []
+    blocks, mus, pyramids = [], [], []
+    nrows = 0
+    dof_iw = m.dof_invweight0
+    body_iw = m.body_invweight0[:, 0]
+
+    # ---- joint limits (batched over all limited joints) -----------------
+    lim = _limited_joints(m)
+    if lim:
+        qadr = [m.jnt_qposadr[j] for j in lim]
+        dadr = [m.jnt_dofadr[j] for j in lim]
+        q = qpos[:, qadr]
+        lo, hi = m.jnt_range[list(lim), 0], m.jnt_range[list(lim), 1]
+        dist_lo, dist_hi = q - lo, hi - q
+        use_lo = dist_lo < dist_hi
+        sign = torch.where(use_lo, 1.0, -1.0).to(dt)
+        pos = torch.where(use_lo, dist_lo, dist_hi) - m.jnt_margin[list(lim)]
+        posc = torch.clamp(pos, max=0.0)
+        eye = M.cached(m, 'limit_rows', lambda: torch.eye(
+            nv, dtype=dt, device=dev)[dadr])               # (nlim, nv)
+        k, b, d = kbi(m.jnt_solref[list(lim)].T[:, None],
+                      m.jnt_solimp[list(lim)].T[:, None], posc, h)
+        blocks += [('limit', nrows + i) for i in range(len(lim))]
+        nrows += len(lim)
+        rows_J.append(sign[..., None] * eye)
+        rows_aref.append(-b * (sign * qvel[:, dadr]) - k * posc)
+        rows_R.append((1.0 - d) / d * dof_iw[dadr])
+        rows_active.append((pos < 0.0).to(dt))
+
+    # ---- contacts (pyramidal facets, batched over contact points) -------
+    if contact is not None and len(contact.geom1):
+        C = len(contact.geom1)
+        body1 = [m.geom_body[g] for g in contact.geom1]
+        body2 = [m.geom_body[g] for g in contact.geom2]
+
+        def build_dmask():
+            amask = torch.as_tensor(ancestor_dof_mask(m, meta), dtype=dt,
+                                    device=dev)
+            return (amask[body2] - amask[body1])[:, :, None]   # (C, nv, 1)
+
+        dmask = M.cached(m, ('contact_dmask', contact.geom1, contact.geom2),
+                         build_dmask)
+        # J[c, k, :] = cdof[k, 3:] + cross(cdof[k, :3], point[c])
+        ang = cdof[:, None, :, :3].expand(B, C, nv, 3)
+        Jt = cdof[:, None, :, 3:] + torch.linalg.cross(
+            ang, contact.pos[:, :, None, :].expand(B, C, nv, 3))
+        Jc = torch.einsum('ncij,ncvj->nciv', contact.frame, Jt * dmask)
+        pos = torch.clamp(contact.dist, max=0.0)
+        k, b, d = kbi(contact.solref.T[:, None], contact.solimp.T[:, None],
+                      pos, h)                              # (B, C)
+        vel = torch.einsum('nciv,nv->nci', Jc, qvel)       # (B, C, 3)
+        active = (contact.dist < 0.0).to(dt)
+        cdim = np.array([_pair_condim(m, g1, g2)
+                         for g1, g2 in zip(contact.geom1, contact.geom2)])
+        if (cdim > 3).any() or ((cdim != 1) & (cdim != 3)).any():
+            raise NotImplementedError(
+                'condim other than 1 or 3 is not ported '
+                '(mujoco_mbrl_tpu.physics.solver.assemble)')
+        iw_pair = body_iw[body1] + body_iw[body2]          # (C,)
+        mu1 = contact.friction[:, 0]
+        R_con = (1.0 - d) / d * iw_pair * 2.0 * mu1 * mu1 * (1.0 + mu1 * mu1)
+        for grp_dim in sorted(set(cdim.tolist())):
+            idx = np.nonzero(cdim == grp_dim)[0]
+            G = len(idx)
+            Jn = Jc[:, idx, 0]                             # (B, G, nv)
+            aref_n = -b[:, idx] * vel[:, idx, 0] - k[:, idx] * pos[:, idx]
+            if grp_dim == 1:
+                for gi, c in enumerate(idx):
+                    blocks.append(('limit', nrows + gi))
+                    pyramids.append((int(c), nrows + gi, 0))
+                rows_J.append(Jn)
+                rows_aref.append(aref_n)
+                rows_R.append((1.0 - d[:, idx]) / d[:, idx] * iw_pair[idx])
+                rows_active.append(active[:, idx])
+                mus.append(mu1[idx] * 0)
+                nrows += G
+                continue
+            facet_J, facet_aref = [], []
+            for t in (1, 2):            # (d0+, d0-, d1+, d1-) per contact
+                Jd, mu_d = Jc[:, idx, t], mu1[idx]
+                vd = vel[:, idx, t]
+                facet_J += [Jn + mu_d[:, None] * Jd, Jn - mu_d[:, None] * Jd]
+                facet_aref += [aref_n - b[:, idx] * mu_d * vd,
+                               aref_n + b[:, idx] * mu_d * vd]
+            for gi, c in enumerate(idx):
+                pyramids.append((int(c), nrows + 4 * gi, 2))
+                blocks += [('facet', nrows + 4 * gi + r_) for r_ in range(4)]
+            rows_J.append(torch.stack(facet_J, 2).reshape(B, 4 * G, nv))
+            rows_aref.append(torch.stack(facet_aref, 2).reshape(B, 4 * G))
+            rows_R.append(R_con[:, idx].repeat_interleave(4, dim=1))
+            rows_active.append(active[:, idx].repeat_interleave(4, dim=1))
+            mus.append(mu1[idx])
+            nrows += 4 * G
+
+    if not rows_J:
+        return None
+    mu = torch.cat(mus) if mus else torch.zeros((0,), dtype=dt, device=dev)
+    return ConstraintSet(torch.cat(rows_J, 1), torch.cat(rows_aref, 1),
+                         torch.cat(rows_R, 1), torch.cat(rows_active, 1),
+                         blocks, mu, tuple(pyramids))
+
+
+def _row_structure(cs: ConstraintSet):
+    """Static row-type index arrays derived from the block list."""
+    nonneg, box_rows, con0 = [], [], []
+    for kind, i0 in cs.blocks:
+        if kind in ('limit', 'facet'):
+            nonneg.append(i0)
+        elif kind == 'friction':
+            box_rows.append(i0)
+        elif kind == 'contact':
+            con0.append(i0)
+    return (np.array(nonneg, np.int64), np.array(box_rows, np.int64),
+            np.array(con0, np.int64))
+
+
+def _factored_vmem_bytes(nr: int, nv: int, envs: int = 128) -> int:
+    nr8 = -(-nr // 8) * 8
+    nv8 = -(-nv // 8) * 8
+    return (nv * nr8 + nv * nv8 + 14 * nr8) * envs * 4
+
+
+def solve_apgd(m: M.Model, cs: Optional[ConstraintSet], qM_chol,
+               qacc_smooth: torch.Tensor,
+               iterations: Optional[int] = None,
+               f0: Optional[torch.Tensor] = None,
+               power_v0: Optional[torch.Tensor] = None):
+    """Accelerated projected gradient on the dual QP, batched over envs.
+
+    ``qM_chol`` is the lower Cholesky factor of the mass matrix. Jacobi
+    scaling, degenerate-row dropping, active-set masking of Ad and the
+    objective-certificate divergence fallback follow the JAX
+    ``solve_apgd`` line for line. Returns
+    ``(qfrc_constraint (B, nv), row forces f (B, nr), power_v (B, nr))``.
+    """
+    from ..ops import apgd_solve as _ker
+
+    if cs is None:
+        return torch.zeros_like(qacc_smooth), None, None
+    iterations = iterations or 2 * m.opt.solver_iterations
+    nr, nv = cs.J.shape[1], cs.J.shape[2]
+    eq_rows = tuple(int(i0) for kind, i0 in cs.blocks if kind == 'equality')
+    if nr > MAX_NR and not eq_rows and \
+            _factored_vmem_bytes(nr, nv) <= 10 * 1024 * 1024:
+        raise NotImplementedError(
+            'the factored APGD regime (nr > 96) is not ported '
+            '(mujoco_mbrl_tpu.physics.solver.solve_apgd use_factored)')
+
+    JT = cs.J.transpose(1, 2)
+    MinvJT = torch.cholesky_solve(JT, qM_chol)             # (B, nv, nr)
+    Ad = cs.J @ MinvJT + torch.diag_embed(cs.R)
+    d_all0 = torch.diagonal(Ad, dim1=1, dim2=2)
+    rhs = (cs.aref - (cs.J @ qacc_smooth[..., None])[..., 0]) * cs.active
+
+    nonneg, box_rows, con0 = _row_structure(cs)
+    if len(box_rows) or len(con0):
+        raise NotImplementedError(
+            'friction-loss and elliptic-cone rows are not ported '
+            '(mujoco_mbrl_tpu.physics.solver.solve_apgd)')
+    # Jacobi preconditioning; rows with a vanishing diagonal are dropped
+    degenerate = d_all0 < 1e-9 * d_all0.max(dim=1, keepdim=True).values
+    s_inv = torch.where(degenerate, 0.0, 1.0 / torch.sqrt(
+        torch.where(degenerate, 1.0, d_all0)))
+    act_m = cs.active
+    # scale, then mask Ad to the active submatrix so the step size is the
+    # ACTIVE set's spectral radius (JAX solver.py:543-555)
+    Ad = Ad * (s_inv * act_m)[:, :, None] * (s_inv * act_m)[:, None, :]
+    rhs = rhs * s_inv
+
+    dt, dev = qacc_smooth.dtype, qacc_smooth.device
+    zeros_nr = torch.zeros((nr,), dtype=dt, device=dev)
+    if f0 is None:
+        f0s = torch.zeros_like(rhs)
+    else:
+        f0s = torch.where(s_inv > 0, f0 * cs.active /
+                          torch.where(s_inv > 0, s_inv, 1.0), 0.0)
+    cold = power_v0 is None
+    v0 = torch.zeros_like(rhs) if cold else power_v0
+    f, v = _ker.apgd_iterate_batched(
+        Ad, rhs, f0s, v0, act_m, zeros_nr, zeros_nr,
+        nonneg=tuple(int(i) for i in nonneg), box_rows=(), con0=(),
+        iterations=int(iterations), cold=cold, eq_rows=eq_rows)
+    # divergence certificate: phi(f) = 1/2 f'Ad f - f'rhs <= phi(0) = 0
+    Adf = (Ad @ f[..., None])[..., 0]
+    phi = 0.5 * (f * Adf).sum(1) - (f * rhs).sum(1)
+    bad = ~((phi <= 0.0) & torch.isfinite(f).all(1))
+    f = torch.where(bad[:, None], 0.0, f)
+    v = torch.where(bad[:, None], 0.0, v)
+    f = f * s_inv
+    return (JT @ f[..., None])[..., 0], f, v
+
+
+_PYRAMID_INDEX = {}
+
+
+def contact_forces(cs: Optional[ConstraintSet], f: Optional[torch.Tensor],
+                   n_contacts: int, B: int, dtype, device) -> torch.Tensor:
+    """Per-contact (normal, t1, t2) forces (B, C, 3) from pyramid facets:
+    fn = sum(facets), ft_i = mu * (f_i+ - f_i-)."""
+    out = torch.zeros((B, n_contacts, 3), dtype=dtype, device=device)
+    if cs is None or f is None or not cs.pyramids:
+        return out
+    key = (cs.pyramids, str(device))
+    if key not in _PYRAMID_INDEX:
+        py = cs.pyramids
+        k2 = [k for k, p in enumerate(py) if p[2] == 2]
+        k0 = [k for k, p in enumerate(py) if p[2] == 0]
+        t = lambda a: torch.as_tensor(a, dtype=torch.long, device=device)
+        _PYRAMID_INDEX[key] = (
+            t(k2), t([py[k][0] for k in k2]),
+            t([[py[k][1] + r for r in range(4)] for k in k2]).reshape(-1, 4),
+            t([py[k][0] for k in k0]), t([py[k][1] for k in k0]))
+    k2, c2, rows2, c0, rows0 = _PYRAMID_INDEX[key]
+    if len(k2):
+        facets = f[:, rows2]                               # (B, P, 4)
+        mu = cs.mu[k2]
+        out[:, c2] = torch.stack([facets.sum(-1),
+                                  mu * (facets[..., 0] - facets[..., 1]),
+                                  mu * (facets[..., 2] - facets[..., 3])], -1)
+    if len(c0):
+        out[:, c0, 0] = f[:, rows0]
+    return out

@@ -1,0 +1,153 @@
+"""RL environment core over a batch of envs (dm_env TimeStep protocol).
+
+Port of mujoco_mbrl_tpu/suite/control.py: ``Environment.reset``,
+``_observe``, ``step`` and ``step_with_data``, plus ``flatten_observation``
+and ``action_spec``. The JAX environment is one env under ``vmap``; here
+every method takes and returns the env batch as the leading dimension.
+Auto-reset and reset retries are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..physics import engine
+from ..physics import model as M
+
+FIRST, MID, LAST = 0, 1, 2
+
+
+@dataclasses.dataclass(frozen=True)
+class TimeStep:
+    step_type: torch.Tensor   # (B,) int32: FIRST/MID/LAST
+    reward: torch.Tensor      # (B,)
+    discount: torch.Tensor    # (B,)
+    observation: Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvState:
+    """Carried env state: physics + task params + bookkeeping, batched."""
+    physics: M.State
+    params: Any
+    step_count: torch.Tensor   # (B,) int32 control steps this episode
+    last: torch.Tensor         # (B,) bool: previous step returned LAST
+
+
+class BoundedArraySpec:
+    def __init__(self, shape, dtype, minimum, maximum, name=''):
+        self.shape = tuple(shape)
+        self.dtype = np.dtype(dtype)
+        self.minimum = np.broadcast_to(np.asarray(minimum), shape)
+        self.maximum = np.broadcast_to(np.asarray(maximum), shape)
+        self.name = name
+
+
+def action_spec(model: M.Model) -> BoundedArraySpec:
+    """Action spec from actuator ctrlrange."""
+    lo = np.full(model.nu, -np.inf)
+    hi = np.full(model.nu, np.inf)
+    cr = model.actuator_ctrlrange.cpu().numpy()
+    for u in range(model.nu):
+        if model.actuator_ctrllimited[u]:
+            lo[u], hi[u] = cr[u, 0], cr[u, 1]
+    return BoundedArraySpec((model.nu,), np.float32, lo, hi, 'action')
+
+
+def flatten_observation(obs: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Concatenate a batched observation dict into (B, obs_dim)."""
+    parts = [v.reshape(v.shape[0], -1) for v in obs.values()]
+    return torch.cat(parts, dim=1)
+
+
+def _pytree_order(obs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Observation keys in sorted order: a JAX caller receives the TimeStep
+    from a jitted reset/step, and JAX pytrees sort dict keys, so that is
+    the order ``flatten_observation`` concatenates there (the task's own
+    dict, as ``_observe`` returns it, keeps insertion order)."""
+    return dict(sorted(obs.items()))
+
+
+class Environment:
+    """A task bound to a compiled model; episode state lives in EnvState."""
+
+    def __init__(self, model: M.Model, task, time_limit: float = float('inf'),
+                 control_timestep: Optional[float] = None):
+        self._model = model
+        self._task = task
+        if control_timestep is None:
+            control_timestep = float(model.opt.timestep)
+        self._n_sub_steps = engine.n_substeps(model, control_timestep)
+        self._control_timestep = control_timestep
+        self._max_steps = (np.iinfo(np.int32).max if time_limit == float('inf')
+                           else int(round(time_limit / control_timestep)))
+        self._obs_acc = bool(getattr(task, 'OBSERVES_ACC', True))
+
+    @property
+    def model(self) -> M.Model:
+        return self._model
+
+    def action_spec(self) -> BoundedArraySpec:
+        return action_spec(self._model)
+
+    def reset(self, batch: int, generator: torch.Generator
+              ) -> Tuple[EnvState, TimeStep]:
+        """Start `batch` new episodes (randomized from `generator`)."""
+        phys, params = self._task.initialize_episode(self._model, batch,
+                                                     generator)
+        return self.start(phys, params)
+
+    def start(self, phys: M.State, params=()) -> Tuple[EnvState, TimeStep]:
+        """EnvState and FIRST TimeStep for given initial physics states."""
+        obs = _pytree_order(self._observe(self._model, phys, params))
+        B, dev = phys.qpos.shape[0], phys.qpos.device
+        state = EnvState(physics=phys, params=params,
+                         step_count=torch.zeros((B,), dtype=torch.int32,
+                                                device=dev),
+                         last=torch.zeros((B,), dtype=torch.bool, device=dev))
+        zero = torch.zeros((B,), dtype=phys.qpos.dtype, device=dev)
+        return state, TimeStep(
+            step_type=torch.full((B,), FIRST, dtype=torch.int32, device=dev),
+            reward=zero, discount=zero + 1.0, observation=obs)
+
+    def _observe(self, m, phys, params):
+        # acc_stage follows the task's OBSERVES_ACC: in the JAX package XLA
+        # drops the unused constraint solve of this pass; eager PyTorch
+        # would run it, so it is skipped explicitly (same observation).
+        ctrl = torch.zeros((phys.qpos.shape[0], m.nu), dtype=phys.qpos.dtype,
+                           device=phys.qpos.device)
+        data = engine.forward(m, phys, ctrl, acc_stage=self._obs_acc)
+        return self._task.get_observation(m, phys, data)
+
+    def step(self, state: EnvState, action: torch.Tensor
+             ) -> Tuple[EnvState, TimeStep]:
+        """One control step: before_step -> N physics substeps -> reward."""
+        new_state, ts, _ = self.step_with_data(state, action)
+        return new_state, ts
+
+    def step_with_data(self, state: EnvState, action: torch.Tensor):
+        """`step` that also returns the post-step forward Data."""
+        m = self._model
+        ctrl = self._task.before_step(action, m)
+        phys = engine.substep(m, state.physics, ctrl, self._n_sub_steps)
+        data = engine.forward(m, phys, ctrl, acc_stage=self._obs_acc)
+        obs = _pytree_order(self._task.get_observation(m, phys, data))
+        reward = self._task.get_reward(m, phys, data, ctrl)
+        step_count = state.step_count + 1
+        is_last = step_count >= self._max_steps
+        discount = torch.ones_like(phys.time)
+        if hasattr(self._task, 'get_termination'):
+            raise NotImplementedError(
+                'early termination is not ported '
+                '(mujoco_mbrl_tpu.suite.control.Environment.step_with_data)')
+        step_type = torch.where(is_last, LAST, MID).to(torch.int32)
+        new_state = EnvState(physics=phys, params=state.params,
+                             step_count=step_count, last=is_last)
+        return new_state, TimeStep(step_type=step_type,
+                                   reward=reward.to(phys.qpos.dtype),
+                                   discount=discount, observation=obs), data
+

@@ -33,3 +33,8 @@ if _plat == 'tpu':
 # executables serialize fine — bench.py keeps its cache.
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        'markers', 'cuda: needs an NVIDIA CUDA card; skipped without one')

@@ -1,0 +1,76 @@
+"""The port stands alone: no JAX, no mujoco_mbrl_tpu, CUDA by default."""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import mujoco_mbrl_tpu_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.dirname(mujoco_mbrl_tpu_torch.__file__)
+_FORBIDDEN = re.compile(
+    r'^\s*(import|from)\s+(jax|jaxlib|flax|mujoco_mbrl_tpu)\b(?!_)', re.M)
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        [PKG], prefix='mujoco_mbrl_tpu_torch.'))
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        'import importlib, sys\n'
+        f'for name in {_modules()!r}:\n'
+        '    importlib.import_module(name)\n'
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'mujoco_mbrl_tpu'))\n"
+        'print(bad)\n'
+        'sys.exit(1 if bad else 0)\n')
+    env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert len(_modules()) > 20
+
+
+@pytest.mark.parametrize('path', sorted(
+    [os.path.join(dp, f) for dp, _, fs in os.walk(PKG) for f in fs
+     if f.endswith('.py')] + [os.path.join(ROOT, 'chip_smoke.py')]))
+def test_sources_import_no_jax(path):
+    with open(path) as fh:
+        src = fh.read()
+    assert not _FORBIDDEN.search(src), path
+
+
+def test_cuda_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA card is present: the default device works')
+    from mujoco_mbrl_tpu_torch import suite
+    from mujoco_mbrl_tpu_torch.bench import build_bench
+    with pytest.raises(RuntimeError, match='CUDA'):
+        suite.load('walker', 'walk')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        build_bench('walker_walk', 2, 8, 3, 1, 1)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        mujoco_mbrl_tpu_torch.resolve_device('cuda')
+    assert mujoco_mbrl_tpu_torch.resolve_device('cpu').type == 'cpu'
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    """Without CUDA the smoke script exits non-zero and prints no result,
+    also from a directory holding nothing but the script."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA card is present')
+    script = os.path.join(ROOT, 'chip_smoke.py')
+    alone = tmp_path / 'chip_smoke.py'
+    alone.write_text(open(script).read())
+    for path, cwd in ((script, ROOT), (str(alone), str(tmp_path))):
+        out = subprocess.run([sys.executable, path], cwd=cwd,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
