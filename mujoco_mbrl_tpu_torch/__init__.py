@@ -1,17 +1,23 @@
 """PyTorch / CUDA port of mujoco_mbrl_tpu for NVIDIA Hopper (H100).
 
 The JAX package ``mujoco_mbrl_tpu`` stays the reference; this package
-re-implements the walker_walk MPC control step (batched CEM over an MLP
-dynamics model, then one batched physics step) with plain PyTorch around
-two hand-written CUDA kernels (``csrc/``):
+re-implements, for the walker, the MPC control step (batched CEM over the
+MLP or the ensemble dynamics model, then one batched physics step) and
+the MBRL agent loop around it (``experiment`` -> ``agents.GoalStateAgent``
+-> ``envs`` collection -> ``data`` replay -> ``models.train`` fitting),
+with plain PyTorch around three hand-written CUDA kernels (``csrc/``):
 
 * ``ops.apgd_solve`` — the batched APGD constraint solve;
-* ``ops.cem_rollout`` — the fused CEM sample + MLP rollout + cost.
+* ``ops.cem_rollout.mlp_sample_rollout_costs`` — the fused CEM sample +
+  MLP rollout + cost (normal, triangular and spline4 noise);
+* ``ops.cem_rollout.mlp_sample_rollout_costs_ensemble`` — the same over
+  an ensemble, candidate k rolled by member k % n (TS-infinity).
 
 Layout follows the JAX package (``physics/``, ``suite/``, ``models/``,
-``planners/``, ``ops/``); the env batch is an explicit leading dimension
-where JAX used ``vmap``. Entry points run on ``cuda`` unless the caller
-passes ``device='cpu'``; asking for CUDA without a card raises.
+``planners/``, ``ops/``, ``envs/``, ``data/``, ``agents/``, ``utils/``);
+the env batch is an explicit leading dimension where JAX used ``vmap``.
+Entry points run on ``cuda`` unless the caller passes ``device='cpu'``;
+asking for CUDA without a card raises.
 
 This package never imports ``jax`` or ``mujoco_mbrl_tpu``.
 """

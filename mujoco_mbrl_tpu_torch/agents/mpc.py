@@ -1,0 +1,349 @@
+"""MPC agents: the collect -> replay -> fit -> plan loop.
+
+Port of the batched-CEM path of mujoco_mbrl_tpu/agents/mpc.py:
+``BatchedMPCPolicy``, ``MPCAgent``, ``GoalStateAgent`` and ``save`` /
+``load``. Planning always goes through the fused sampler: the
+``mlp_sample_rollout_costs`` kernel for ``MLPDynamics``, the
+``mlp_sample_rollout_costs_ensemble`` kernel (TS-infinity, candidate k ->
+member k % n) for ``EnsembleDynamics``; on CPU tensors the same functions
+run their plain versions. The per-env ``MPCPolicy``, ``RewardAgent`` and
+the non-fused ``rollout_costs_fn`` path (the TPU kernel
+``ops/cem_rollout.py:_kernel``) are not ported and raise.
+
+Randomness comes from one CPU ``torch.Generator`` seeded by ``seed`` (the
+JAX agent's key); model weights and optimizer state live on the env's
+device, and the model parameters are updated in place by the optimizer.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from .. import data as D
+from .. import models as Mo
+from ..envs import EnvWrapper
+from ..models.train import make_normalizers, param_leaves, train_model
+from ..ops.cem_rollout import (mlp_sample_rollout_costs,
+                               mlp_sample_rollout_costs_ensemble)
+from ..planners import CEMPlanner, cem_batched
+from ..utils import MetricsWriter, load_tree, logger, save_tree
+
+# TPU layout knobs of the JAX kernels, dropped from kernel_kwargs
+_TPU_KNOBS = ('envs_per_program', 'return_padded', 'unroll')
+
+
+class MPCPolicy:
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            'the per-env MPC policy is not ported '
+            '(mujoco_mbrl_tpu.agents.mpc.MPCPolicy); GoalStateAgent with '
+            'CEMPlanner plans through BatchedMPCPolicy')
+
+
+class BatchedMPCPolicy:
+    """Whole-env-batch MPC policy over ``planners.cem_batched``.
+
+    ``policy(generator, t, state (B, sd), obs (B, od), carry) ->
+    (actions (B, ad), carry)``. The previous plan seeds the CEM mean; it
+    is invalidated at t == 0. ``sample_costs_builder(obs) ->
+    sample_costs_fn`` binds the planning states into the fused sampler.
+    """
+
+    def __init__(self, horizon: int, action_dim: int,
+                 planner_kwargs: Optional[dict] = None,
+                 rollout_costs_fn: Optional[Callable] = None,
+                 sample_costs_builder: Optional[Callable] = None,
+                 plan_on_observations: bool = True):
+        if sample_costs_builder is None or rollout_costs_fn is not None:
+            raise NotImplementedError(
+                'only the fused sampler path is ported: the rollout_costs_fn'
+                ' / XLA scan path (mujoco_mbrl_tpu.ops.cem_rollout._kernel '
+                'via mlp_rollout_costs_t) is not')
+        cfg = {**CEMPlanner.defaults, **(planner_kwargs or {})}
+        cfg.pop('action_dim', None)
+        self.cfg = cfg
+        self.horizon = horizon
+        self.action_dim = action_dim
+        self.sample_costs_builder = sample_costs_builder
+        self.plan_on_observations = plan_on_observations
+
+    def init_carry(self):
+        return (False, None)
+
+    def __call__(self, generator, t, state_mat, obs_mat, carry):
+        plan_vec = obs_mat if self.plan_on_observations else state_mat
+        valid, last_actions = carry
+        init_mean = (last_actions.transpose(0, 1) if valid and t != 0
+                     else None)
+        seeds = torch.randint(0, 2 ** 31 - 1, (self.cfg['num_iterations'],),
+                              generator=generator).tolist()
+        traj = cem_batched(
+            seeds, plan_vec, self.horizon, self.action_dim,
+            num_candidates=self.cfg['num_candidates'],
+            num_elites=self.cfg['num_elites'], init_mean=init_mean,
+            action_low=self.cfg['action_low'],
+            action_high=self.cfg['action_high'],
+            sample_costs_fn=self.sample_costs_builder(plan_vec))
+        return traj.actions[0], (True, traj.actions)
+
+
+def save(agent: 'MPCAgent', path: str) -> None:
+    """Checkpoint the agent's training state to ``<path>.pt``."""
+    save_tree(path, agent.checkpoint_state())
+
+
+def load(agent: 'MPCAgent', path: str) -> None:
+    """Restore state saved by `save` into an identically-configured agent."""
+    agent.restore_state(load_tree(path, map_location=agent.device))
+
+
+class MPCAgent:
+    """Outer-loop scaffolding: collection into the replay, metrics,
+    model fitting, checkpoints."""
+
+    def __init__(self, environment: EnvWrapper, planner, model,
+                 horizon: int, optimizer: Callable, rollout_length: int,
+                 num_rollouts_per_iteration: int, num_train_iterations: int,
+                 writer: Optional[MetricsWriter], base_path: str,
+                 dataset: Optional[D.ReplayBuffer] = None,
+                 planner_kwargs: Optional[dict] = None,
+                 train_epochs: int = 50, train_batch_size: int = 512,
+                 num_initial_rollouts: int = 20, seed: int = 0,
+                 kernel_kwargs: Optional[dict] = None):
+        self.environment = environment
+        self.device = environment.device
+        self.planner = planner
+        self.model = model
+        self.horizon = horizon
+        self.rollout_length = rollout_length
+        self.num_rollouts_per_iteration = num_rollouts_per_iteration
+        self.num_train_iterations = num_train_iterations
+        self.writer = writer
+        self.base_path = base_path
+        self.planner_kwargs = planner_kwargs or {}
+        # extra options of the fused sampler, e.g. {'sampler': 'spline4'}
+        self.kernel_kwargs = kernel_kwargs or {}
+        self.train_epochs = train_epochs
+        self.train_batch_size = train_batch_size
+        self.num_initial_rollouts = num_initial_rollouts
+
+        self.generator = torch.Generator().manual_seed(seed)
+        self.params = model.init(self.generator, device=self.device)
+        # `optimizer` is a factory over the parameter leaves
+        # (models.train.adam / sgd); it updates them in place
+        self.optimizer = optimizer(param_leaves(self.params))
+        self.train_iterations = 0
+        self.obs_only = True
+
+        if dataset is None:
+            cap_rollouts = max(10000 // rollout_length, 1)
+            dataset = D.init_replay(
+                cap_rollouts, rollout_length,
+                state_dim=environment.state_dim,
+                obs_dim=environment.observation_dim,
+                act_dim=environment.action_dim, device=self.device)
+        self.dataset = dataset
+
+    # ------------------------------------------------------------------
+    def checkpoint_state(self):
+        return {'params': self.params,
+                'opt_state': self.optimizer.state_dict(),
+                'dataset': D.replay.as_tree(self.dataset),
+                'generator': self.generator.get_state(),
+                'iter': self.train_iterations}
+
+    def restore_state(self, state):
+        with torch.no_grad():
+            for dst, src in zip(param_leaves(self.params),
+                                param_leaves(state['params'])):
+                dst.copy_(src)
+        self.optimizer.load_state_dict(state['opt_state'])
+        self.dataset = D.replay.from_tree(state['dataset'], self.device)
+        self.generator.set_state(state['generator'].cpu())
+        self.train_iterations = int(state['iter'])
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def add_rollouts(self, policy_collect=None, num_rollouts=None,
+                     goal_state=None):
+        """Collect rollouts (lockstep batch) and append to the replay."""
+        rollout_type = 'policy' if policy_collect is not None else 'random'
+        n = num_rollouts or self.num_rollouts_per_iteration
+        logger.info('Generating %d %s rollouts of %d length.',
+                    n, rollout_type, self.rollout_length)
+        if policy_collect is not None:
+            rolls = policy_collect(self.generator, goal_state)
+        else:
+            rolls = self.environment.get_rollouts(
+                self.generator, n, self.rollout_length, policy=None,
+                goal_state=goal_state)
+        self.dataset = D.add_rollouts(self.dataset, rolls)
+        self._record_metrics(rolls, rollout_type)
+        return rolls
+
+    def _record_metrics(self, rolls: D.Rollouts, rollout_type: str):
+        if self.writer is None:
+            return
+        sums = rolls.sum_of_rewards().cpu().numpy()
+        self.writer.add_scalar(f'AvgRolloutRewards/{rollout_type}',
+                               sums.mean(), self.train_iterations)
+        self.writer.add_histogram(f'RolloutRewards/{rollout_type}',
+                                  sums, self.train_iterations)
+
+    def _normalizers(self):
+        return make_normalizers(self.dataset, use_observations=self.obs_only)
+
+    def fit_model(self):
+        """One model-fitting phase on the current replay buffer."""
+        norms = self._normalizers()
+        self.params, self.optimizer, log = train_model(
+            self.model, self.params, self.dataset, self.generator,
+            optimizer=self.optimizer, batch_size=self.train_batch_size,
+            num_epochs=self.train_epochs, normalizers=norms,
+            obs_only=self.obs_only)
+        if self.writer is not None:
+            losses = log.losses.cpu().numpy()
+            for i in range(0, len(losses), max(len(losses) // 50, 1)):
+                self.writer.add_scalar(
+                    f'loss/state/{self.train_iterations}', losses[i], i)
+        return log
+
+    def train(self):
+        raise NotImplementedError
+
+    def get_action(self, key, obs_vec):
+        raise NotImplementedError
+
+
+class GoalStateAgent(MPCAgent):
+    """Cost = smooth-abs(state - goal) + cosh(action)."""
+
+    def __init__(self, *, action_cost=None, state_cost_weights=None,
+                 **kwargs):
+        super().__init__(**kwargs)
+        if self.planner is not CEMPlanner:
+            raise NotImplementedError(
+                f'planner {getattr(self.planner, "__name__", self.planner)} '
+                'is not ported: GoalStateAgent plans with CEMPlanner '
+                '(mujoco_mbrl_tpu.agents.mpc.GoalStateAgent._make_policy)')
+        if not isinstance(self.model, (Mo.MLPDynamics, Mo.EnsembleDynamics)):
+            raise NotImplementedError(
+                f'model {type(self.model).__name__} is not ported '
+                '(mujoco_mbrl_tpu.agents.mpc.GoalStateAgent)')
+        env = self.environment
+        self.state_cost_weights = (
+            state_cost_weights if state_cost_weights is not None
+            else env.get_goal_weights()).to(self.device)
+        self.action_cost_alpha = getattr(action_cost, 'alpha', 0.25)
+        self.training_goal_state = None
+        # plan in the space the goal lives in: the featured state on
+        # locomotion domains, observations elsewhere
+        goal_dim = int(self.state_cost_weights.shape[0])
+        if goal_dim == env.observation_dim:
+            self.obs_only = True
+        elif goal_dim == env.state_dim:
+            self.obs_only = False
+        else:
+            raise ValueError(
+                f'goal weights dim {goal_dim} matches neither '
+                f'observation_dim {env.observation_dim} nor state_dim '
+                f'{env.state_dim} of {type(env).__name__}')
+        self.plan_dim = goal_dim
+        self._sample_costs_builder(self.params, None)   # fail early
+
+    def _sample_costs_builder(self, params, norms):
+        """builder(plan_vec, goal) -> sample_costs_fn(seed, mean, std),
+        bound to the fused sampler of the model family."""
+        K = {**CEMPlanner.defaults, **self.planner_kwargs}['num_candidates']
+        kkw = {k: v for k, v in self.kernel_kwargs.items()
+               if k not in _TPU_KNOBS}
+        common = dict(normalizers=norms, alpha_action=self.action_cost_alpha,
+                      num_candidates=K, **kkw)
+        weights = self.state_cost_weights
+        if isinstance(self.model, Mo.EnsembleDynamics):
+            n = self.model.n
+            if K % n:
+                raise NotImplementedError(
+                    f'num_candidates={K} is not divisible by the {n}-member '
+                    'ensemble: JAX then plans on its XLA scan path '
+                    '(mujoco_mbrl_tpu.agents.mpc.GoalStateAgent.'
+                    '_sample_costs_builder), which is not ported')
+            return lambda obs, goal: (
+                lambda seed, mean, std: mlp_sample_rollout_costs_ensemble(
+                    params, seed, obs, mean, std, goal, weights,
+                    n_members=n, **common))
+        return lambda obs, goal: (
+            lambda seed, mean, std: mlp_sample_rollout_costs(
+                params, seed, obs, mean, std, goal, weights, **common))
+
+    def _make_batched_policy(self, params, norms, goal_state):
+        build = self._sample_costs_builder(params, norms)
+        return BatchedMPCPolicy(
+            horizon=self.horizon, action_dim=self.environment.action_dim,
+            planner_kwargs=self.planner_kwargs,
+            sample_costs_builder=lambda plan_vec: build(plan_vec,
+                                                        goal_state),
+            plan_on_observations=self.obs_only)
+
+    def _policy_collect(self, n):
+        """collect(params, norms, goal, generator) -> n MPC rollouts."""
+        env = self.environment
+
+        def collect(params, norms, goal, generator):
+            policy = self._make_batched_policy(params, norms, goal)
+            return env.get_rollouts_batched(
+                generator, n, self.rollout_length, policy_batched=policy,
+                goal_state=goal, policy_init=policy.init_carry)
+        return collect
+
+    def _reset_goal(self):
+        self.training_goal_state = self.environment.set_goal(self.generator)
+
+    def _record_metrics(self, rolls, rollout_type):
+        super()._record_metrics(rolls, rollout_type)
+        if self.writer is None or self.training_goal_state is None:
+            return
+        vecs = rolls.observations if self.obs_only else rolls.states
+        sc = Mo.smooth_abs_loss(vecs, self.training_goal_state,
+                                self.state_cost_weights).sum(-1)
+        ac = Mo.cosh_loss(rolls.actions, self.action_cost_alpha).sum(-1)
+        for name, vals in [('State', sc), ('Action', ac),
+                           ('Total', sc + ac)]:
+            vals = vals.cpu().numpy()
+            self.writer.add_scalar(f'AvgRollout{name}Costs/{rollout_type}',
+                                   vals.mean(), self.train_iterations)
+            self.writer.add_histogram(f'Rollout{name}Costs/{rollout_type}',
+                                      vals, self.train_iterations)
+
+    def train(self):
+        """Seed rollouts -> [fit -> collect] x N."""
+        logger.info('Starting outer training loop.')
+        self._reset_goal()
+        self.add_rollouts(num_rollouts=self.num_initial_rollouts,
+                          goal_state=self.training_goal_state)
+        for iteration in range(1, self.num_train_iterations + 1):
+            logger.info('Iteration %d', iteration)
+            self._reset_goal()
+            self.train_iterations = iteration
+            self.fit_model()
+            norms = self._normalizers()
+            collect = self._policy_collect(self.num_rollouts_per_iteration)
+            self.add_rollouts(
+                policy_collect=lambda generator, goal: collect(
+                    self.params, norms, goal, generator),
+                goal_state=self.training_goal_state)
+
+    def get_action(self, key, obs_vec, carry=None, t=0):
+        raise NotImplementedError(
+            'GoalStateAgent.get_action plans with the per-env MPCPolicy, '
+            'which is not ported (mujoco_mbrl_tpu.agents.mpc.MPCPolicy)')
+
+
+class RewardAgent(MPCAgent):
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            'RewardAgent is not ported (mujoco_mbrl_tpu.agents.mpc.'
+            'RewardAgent): it plans through the learned reward head of '
+            'RewardDynamics')

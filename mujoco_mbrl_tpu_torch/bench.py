@@ -1,10 +1,12 @@
-"""The MPC control step: batched CEM over the MLP, then the physics step.
+"""The MPC control step: batched CEM over the model, then the physics step.
 
 Port of ``bench.py:build_bench`` (defaults of its ``main``): walker_walk
 envs in lockstep, CEM with K candidates, horizon H and ``cem_iters``
 refits over a 50-hidden MLP dynamics model with random weights from a
 seed (goal e_1, unit cost weights, K // 10 elites), then one batched
-``env.step`` of 10 physics substeps. The sampler kernel runs
+``env.step`` of 10 physics substeps. ``model_kind='ensemble'`` plans
+through an ``n_ensemble``-member ensemble with TS-infinity propagation
+instead (the walker_ens configuration). The sampler kernel runs
 ``cem_iters`` times and the APGD kernel once per substep per control step.
 ``chip_smoke.py`` drives it on the card.
 """
@@ -18,12 +20,14 @@ import torch
 
 from . import models, suite
 from .device import resolve_device
-from .ops.cem_rollout import mlp_sample_rollout_costs
+from .ops.cem_rollout import (mlp_sample_rollout_costs,
+                              mlp_sample_rollout_costs_ensemble)
 from .planners import cem_batched
 
 
 def build_bench(task: str, B: int, K: int, H: int, cem_iters: int,
-                steps: int, sampler: str = 'triangular', device=None):
+                steps: int, sampler: str = 'triangular', device=None,
+                model_kind: str = 'mlp', n_ensemble: int = 5):
     """Returns ``(run, (params, state0, generator))``.
 
     ``run(params, env_state, generator, profile=None)`` drives ``steps``
@@ -38,6 +42,10 @@ def build_bench(task: str, B: int, K: int, H: int, cem_iters: int,
     obs_dim = suite.flatten_observation(ts0.observation).shape[1]
     act_dim = env.model.nu
     model = models.MLPDynamics(obs_dim, act_dim, hidden_units=50)
+    if model_kind == 'ensemble':
+        model = models.EnsembleDynamics(model, n_ensemble)
+    elif model_kind != 'mlp':
+        raise ValueError(f'unknown model_kind {model_kind!r}')
     params = model.init(torch.Generator().manual_seed(1), device=dev)
     goal = torch.zeros(obs_dim, device=dev)
     goal[1] = 1.0
@@ -45,6 +53,10 @@ def build_bench(task: str, B: int, K: int, H: int, cem_iters: int,
 
     def plan_batch(params, obs, seeds):
         def scf(seed, mean, std):
+            if model_kind == 'ensemble':
+                return mlp_sample_rollout_costs_ensemble(
+                    params, seed, obs, mean, std, goal, weights,
+                    num_candidates=K, n_members=n_ensemble, sampler=sampler)
             return mlp_sample_rollout_costs(params, seed, obs, mean, std,
                                             goal, weights, num_candidates=K,
                                             sampler=sampler)

@@ -12,6 +12,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from .data.replay import ReplayBuffer, Rollouts, compute_stats
 from .models.dynamics import Normalizers
 from .physics.model import State
 from .suite.control import EnvState
@@ -25,6 +26,31 @@ def mlp_params(params: Mapping[str, Mapping[str, Any]], device='cpu'):
     """MLP param tree {'l1','l2','l3'} x {'w','b'} (w stored (in, out))."""
     return {layer: {k: tensor(params[layer][k], device) for k in ('w', 'b')}
             for layer in ('l1', 'l2', 'l3')}
+
+
+def ensemble_params(params: Mapping[str, Mapping[str, Any]], device='cpu'):
+    """EnsembleDynamics params: the MLP tree with a leading member axis
+    (w (n, in, out), b (n, out))."""
+    if np.ndim(params['l1']['w']) != 3:
+        raise ValueError('ensemble params carry a leading member axis')
+    return mlp_params(params, device)
+
+
+def rollouts(rolls: Any, device='cpu') -> Rollouts:
+    """From a JAX ``Rollouts`` whose fields are arrays."""
+    return Rollouts(**{k: tensor(getattr(rolls, k), device) for k in
+                       ('states', 'observations', 'actions', 'rewards')})
+
+
+def replay_buffer(buf: Any, device='cpu') -> ReplayBuffer:
+    """From a JAX ``ReplayBuffer`` whose fields are arrays; the stats are
+    recomputed by the port."""
+    out = ReplayBuffer(
+        **{k: tensor(getattr(buf, k), device) for k in
+           ('states', 'observations', 'actions', 'rewards')},
+        cursor=int(np.asarray(buf.cursor)), filled=int(np.asarray(buf.filled)),
+        stats={})
+    return out.replace(stats=compute_stats(out))
 
 
 _NORM_FIELDS = ('state_mean', 'state_std', 'action_mean', 'action_std',

@@ -1,0 +1,243 @@
+"""MBRL env wrappers: featured state, goals, batched rollout collection.
+
+Port of the EnvWrapper base and the Walker wrapper of
+mujoco_mbrl_tpu/envs/wrappers.py. The JAX wrapper collects under
+``vmap`` + ``lax.scan``; here the env batch is the leading dimension and
+collection is a Python loop over control steps. Collection is two steps,
+``reset`` and ``collect_from(env_state, ...)``, so a caller can start it
+from given states. Randomness comes from a ``torch.Generator`` in place of
+JAX keys.
+
+Observation order. The JAX collectors flatten observation dicts in two
+orders: a dict flattened inside the traced function keeps the task's key
+order (orientations, height, velocity), one that crossed a ``vmap``
+boundary first is in sorted pytree order (height, orientations,
+velocity). ``get_rollouts_batched`` flattens its first observation in task
+order (``_observe_full`` under ``vmap``) and every later one in sorted
+order (``ts.observation`` returned by ``vmap(env.step_with_data)``); the
+random collector ``rollout_fn`` flattens inside its scan body, so all its
+observations are in task order. ``collect_from`` reproduces both.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import suite as _suite
+from ..data import Rollouts
+from ..physics import engine
+from ..suite import sensors
+from ..suite.control import EnvState, flatten_observation
+
+
+class EnvWrapper:
+    """Adapts a suite Environment for the MBRL loop; the "state" vector is
+    [qpos, qvel] unless a subclass feature-engineers it."""
+
+    #: subclasses may force a control timestep
+    override_control_timestep: Optional[float] = None
+
+    def __init__(self, env: _suite.Environment, env_name: str,
+                 task_name: str):
+        self._env = env
+        self._env_name = env_name
+        self._task_name = task_name
+        self._state_penalty = 1.0
+        self.action_dim = env.model.nu
+        self._action_spec = env.action_spec()
+        ts_obs = env.observation_spec()
+        self._obs_keys = list(ts_obs)              # the task's key order
+        self.observation_dim = int(sum(np.prod(s.shape) or 1
+                                       for s in ts_obs.values()))
+        if getattr(self, 'state_dim', None) is None:
+            self.state_dim = env.model.nq + env.model.nv
+
+    @staticmethod
+    def load(env_name: str, task_name: str, device=None,
+             **kwargs) -> 'EnvWrapper':
+        """The wrapper class for `env_name` around its suite env."""
+        classname = ''.join(p.capitalize() for p in env_name.split('_'))
+        wrapper_class = _WRAPPERS.get(classname)
+        if wrapper_class is None:
+            raise NotImplementedError(
+                f'no ported wrapper for {env_name!r} '
+                '(mujoco_mbrl_tpu.envs.wrappers.EnvWrapper.load)')
+        env_kwargs = dict(kwargs.pop('environment_kwargs', {}) or {})
+        if kwargs:
+            raise NotImplementedError(
+                f'task kwargs {sorted(kwargs)} are not ported '
+                '(mujoco_mbrl_tpu.envs.wrappers.EnvWrapper.load)')
+        if wrapper_class.override_control_timestep is not None:
+            env_kwargs['control_timestep'] = (
+                wrapper_class.override_control_timestep)
+        env = _suite.load(env_name, task_name, device=device,
+                          environment_kwargs=env_kwargs or None)
+        return wrapper_class(env, env_name=env_name, task_name=task_name)
+
+    @property
+    def env(self) -> _suite.Environment:
+        return self._env
+
+    @property
+    def device(self) -> torch.device:
+        return self._env.model.device
+
+    def action_spec(self):
+        return self._action_spec
+
+    def observation_spec(self):
+        return self._env.observation_spec()
+
+    # -- state featurization (identity by default) ----------------------
+    def get_state(self, env_state: EnvState, data=None) -> torch.Tensor:
+        """(B, state_dim): [qpos, qvel]."""
+        return torch.cat([env_state.physics.qpos, env_state.physics.qvel], 1)
+
+    def _observe_full(self, env_state: EnvState
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(state (B, sd), obs (B, od)) for the current configuration, the
+        observation flattened in the task's key order. The forward stops
+        at the velocity stage when the task observes no acceleration: the
+        JAX forward computes the constraint solve and XLA drops it as
+        unused; run eagerly it would cost one APGD launch."""
+        env = self._env
+        m = env.model
+        phys = env_state.physics
+        ctrl = torch.zeros((phys.qpos.shape[0], m.nu), dtype=phys.qpos.dtype,
+                           device=phys.qpos.device)
+        data = engine.forward(m, phys, ctrl, acc_stage=env._obs_acc)
+        obs = env._task.get_observation(m, phys, data)
+        return self.get_state(env_state, data), flatten_observation(obs)
+
+    # -- sampling and goals ---------------------------------------------
+    def sample_action(self, generator: torch.Generator,
+                      batch_shape: Tuple[int, ...] = ()) -> torch.Tensor:
+        """Uniform in ctrlrange clipped to +-3, on the env's device."""
+        lo = float(max(self._action_spec.minimum[0], -3))
+        hi = float(min(self._action_spec.maximum[0], 3))
+        u = torch.rand(tuple(batch_shape) + (self.action_dim,),
+                       generator=generator, device=generator.device)
+        return (lo + (hi - lo) * u).to(self.device)
+
+    def set_goal(self, generator: torch.Generator) -> torch.Tensor:
+        """Sample a goal; returns the goal state vector."""
+        raise NotImplementedError
+
+    def apply_goal(self, env_state: EnvState,
+                   goal_state: torch.Tensor) -> EnvState:
+        """Write the goal into episode params. Default: no-op."""
+        return env_state
+
+    def get_goal_weights(self) -> torch.Tensor:
+        return torch.zeros(self.state_dim, device=self.device)
+
+    # -- rollout collection ---------------------------------------------
+    def reset(self, num_rollouts: int, generator: torch.Generator,
+              goal_state=None) -> EnvState:
+        """`num_rollouts` new episodes with the goal applied."""
+        env_state, _ = self._env.reset(num_rollouts, generator)
+        if goal_state is not None:
+            env_state = self.apply_goal(env_state, goal_state)
+        return env_state
+
+    def collect_from(self, env_state: EnvState, num_steps: int,
+                     policy_batched: Callable, generator: torch.Generator,
+                     policy_init: Optional[Callable] = None,
+                     sorted_later_obs: bool = True) -> Rollouts:
+        """Roll `num_steps` control steps from `env_state`.
+
+        ``policy_batched(generator, t, state (B, sd), obs (B, od), carry)
+        -> (actions (B, ad), carry)``. Observations after the first are
+        flattened in sorted key order when ``sorted_later_obs`` (the JAX
+        batched collector) and in the task's order otherwise (the JAX
+        random collector); see the module docstring.
+        """
+        env = self._env
+        s, o = self._observe_full(env_state)
+        carry = policy_init() if policy_init is not None else 0
+        states, obs, actions, rewards = [s], [o], [], []
+        for t in range(num_steps):
+            a, carry = policy_batched(generator, t, s, o, carry)
+            env_state, ts, data = env.step_with_data(env_state, a)
+            s = self.get_state(env_state, data)
+            ob = ts.observation
+            if not sorted_later_obs:
+                ob = {k: ob[k] for k in self._obs_keys}
+            o = flatten_observation(ob)
+            states.append(s)
+            obs.append(o)
+            actions.append(a)
+            rewards.append(ts.reward)
+        return Rollouts(states=torch.stack(states, 1),
+                        observations=torch.stack(obs, 1),
+                        actions=torch.stack(actions, 1),
+                        rewards=torch.stack(rewards, 1))
+
+    def get_rollouts_batched(self, generator: torch.Generator,
+                             num_rollouts: int, num_steps: int,
+                             policy_batched: Callable, goal_state=None,
+                             policy_init=None) -> Rollouts:
+        """`num_rollouts` lockstep rollouts whose policy sees the whole
+        env batch (the batched-planner collector)."""
+        env_state = self.reset(num_rollouts, generator, goal_state)
+        return self.collect_from(env_state, num_steps, policy_batched,
+                                 generator, policy_init)
+
+    def random_policy(self, generator, t, state, obs, carry):
+        return self.sample_action(generator, (state.shape[0],)), carry
+
+    def get_rollouts(self, generator: torch.Generator, num_rollouts: int,
+                     num_steps: int, policy: Optional[Callable] = None,
+                     goal_state=None, initial_states=None,
+                     policy_init=None) -> Rollouts:
+        """`num_rollouts` rollouts of uniformly random actions."""
+        if policy is not None or initial_states is not None:
+            raise NotImplementedError(
+                'per-env policies and initial states are not ported '
+                '(mujoco_mbrl_tpu.envs.wrappers.EnvWrapper.get_rollouts)')
+        env_state = self.reset(num_rollouts, generator, goal_state)
+        return self.collect_from(env_state, num_steps, self.random_policy,
+                                 generator, sorted_later_obs=False)
+
+
+class Walker(EnvWrapper):
+    """Drop x, append upright / height / speed (wrappers.py:537-583)."""
+    state_dim = 18 - 1 + 3
+    observation_dim = 24
+
+    def get_state(self, env_state, data=None):
+        m = self._env.model
+        phys = env_state.physics
+        base = torch.cat([phys.qpos[:, 1:], phys.qvel], 1)
+        if data is None:
+            return torch.cat([base, base.new_zeros((base.shape[0], 3))], 1)
+        torso = m.name2id('body', 'torso')
+        upright = data.ximat[:, torso, 2, 2]
+        height = data.xpos[:, torso, 2]
+        speed = sensors.subtree_linvel(m, data, torso)[:, 0]
+        return torch.cat([base, upright[:, None], height[:, None],
+                          speed[:, None]], 1)
+
+    def get_goal_weights(self):
+        w = torch.zeros(self.state_dim, device=self.device)
+        w[-3:] = self._state_penalty
+        return w
+
+    def set_goal(self, generator=None):
+        g = torch.zeros(self.state_dim, device=self.device)
+        g[-3] = 1.0   # upright
+        g[-2] = 1.3   # height
+        g[-1] = 3.0   # speed
+        return g
+
+
+_WRAPPERS = {'Walker': Walker}
+
+
+def load(env_name: str, task_name: str, device=None,
+         **kwargs) -> EnvWrapper:
+    """Wrapped env on `device` (default ``cuda``)."""
+    return EnvWrapper.load(env_name, task_name, device=device, **kwargs)

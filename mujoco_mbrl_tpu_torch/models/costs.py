@@ -14,3 +14,13 @@ def smooth_abs_loss(x, goal_state, weights, alpha: float = 0.4):
 def cosh_loss(u, alpha: float = 0.25):
     """alpha^2 * mean(cosh(u/alpha) - 1) over the last axis."""
     return (alpha ** 2) * torch.mean(torch.cosh(u / alpha) - 1, dim=-1)
+
+
+class CoshLoss:
+    """Action cost module (costs.py:75-80); agents read its ``alpha``."""
+
+    def __init__(self, alpha: float = 0.25):
+        self.alpha = alpha
+
+    def __call__(self, u):
+        return cosh_loss(u, self.alpha)

@@ -4,7 +4,8 @@
 where it launches its kernel and nowhere else.
 """
 
-launch_counts = {'apgd_solve': 0, 'cem_sample_rollout': 0}
+launch_counts = {'apgd_solve': 0, 'cem_sample_rollout': 0,
+                 'cem_sample_rollout_ens': 0}
 
 
 def reset_launch_counts() -> None:

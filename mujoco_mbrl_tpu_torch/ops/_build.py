@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` becomes ``_build/lib<name>-<hash>.so`` (plain C
 interface, no PyTorch headers, so a build takes seconds). The hash covers
-the source text and the flags, so an edited source rebuilds and an
-unchanged one is reused. All missing libraries build in parallel, one
+the source text, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header rebuilds and an unchanged one is reused. All missing libraries build in parallel, one
 ``nvcc`` process per source, at the first kernel launch or on an explicit
 ``build_all()``. Nothing here runs when the package is imported.
 """
@@ -46,8 +46,11 @@ def sources() -> Dict[str, str]:
 
 def _target(name: str, path: str) -> str:
     h = hashlib.sha256()
-    with open(path, 'rb') as fh:
-        h.update(fh.read())
+    headers = sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                     if f.endswith('.cuh'))
+    for p in [path] + headers:
+        with open(p, 'rb') as fh:
+            h.update(fh.read())
     h.update(' '.join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f'lib{name}-{h.hexdigest()[:16]}.so')
 

@@ -1,14 +1,26 @@
-"""Fused CEM sample + MLP rollout + cost: CUDA kernel and plain version.
+"""Fused CEM sample + MLP rollout + cost: CUDA kernels and plain versions.
 
-``mlp_sample_rollout_costs`` replaces the TPU kernel
-mujoco_mbrl_tpu/ops/cem_rollout.py:_sample_kernel_multi. For CUDA tensors
-it launches ``csrc/cem_sample_rollout.cu`` (Philox noise in the kernel)
-and raises on inputs the kernel does not take; for CPU tensors it runs
-``mlp_sample_rollout_costs_plain``, which draws the same distributions
-from a ``torch.Generator`` seeded by ``seed`` (or takes the noise ``z``
-explicitly). Both return exact-K buffers: costs (B, K) float32 and
-actions (B, H, ad, K). Dataset normalization folds into the first and
-last layers (``_fold_normalizers``), as in the JAX package.
+``mlp_sample_rollout_costs`` replaces two TPU kernels of
+mujoco_mbrl_tpu/ops/cem_rollout.py: ``_sample_kernel_multi`` (G envs per
+program) and ``_sample_kernel`` (one env per program, with the ``spline4``
+sampler). ``mlp_sample_rollout_costs_ensemble`` replaces the ensemble
+TS-infinity pair ``_sample_kernel_ens_grouped`` and ``_sample_kernel_ens``:
+candidate k is rolled by member k % n for the whole horizon. For CUDA
+tensors each launches its kernel (``csrc/cem_sample_rollout.cu``,
+``csrc/cem_sample_rollout_ens.cu``; Philox noise in the kernel) and raises
+on inputs the kernel does not take; for CPU tensors each runs its plain
+version, which draws the same distributions from a ``torch.Generator``
+seeded by ``seed`` (or takes the noise ``z`` explicitly). All return
+exact-K buffers: costs (B, K) float32 and actions (B, H, ad, K). Dataset
+normalization folds into the first and last layers (``_fold_normalizers``),
+as in the JAX package.
+
+Samplers: ``normal`` (Box-Muller, the default, as in JAX), ``triangular``
+(Irwin-Hall(2) scaled to unit variance) and ``spline4`` (triangular knots
+every 4 steps, lerped along the horizon and renormalised to unit
+variance; the kernel draws knot i of a pair from the Philox counter
+(env, i, pair, draw)). The TPU layout knobs ``envs_per_program``,
+``unroll`` and ``return_padded`` have no counterpart here.
 """
 
 from __future__ import annotations
@@ -21,13 +33,20 @@ import torch
 
 from . import _build, launch_counts
 
-_SAMPLERS = {'triangular': 0, 'normal': 1}
+_SAMPLERS = {'triangular': 0, 'normal': 1, 'spline4': 2}
 MAX_SHARED_BYTES = 232448
 _SIGNATURES = {
-    'cem_smem_bytes': (ctypes.c_size_t, [ctypes.c_int] * 6),
+    'cem_smem_bytes': (ctypes.c_size_t, [ctypes.c_int] * 7),
     'cem_sample_rollout': (ctypes.c_int, [ctypes.c_void_p] * 11
                            + [ctypes.c_ulonglong] + [ctypes.c_int] * 8
                            + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 3),
+}
+_ENS_SIGNATURES = {
+    'cem_ens_smem_bytes': (ctypes.c_size_t, [ctypes.c_int] * 3),
+    'cem_sample_rollout_ens': (ctypes.c_int, [ctypes.c_void_p] * 11
+                               + [ctypes.c_ulonglong] + [ctypes.c_int] * 9
+                               + [ctypes.c_float] * 4
+                               + [ctypes.c_void_p] * 3),
 }
 
 
@@ -95,10 +114,65 @@ def rollout_costs_of_actions(params, s0, actions, goal, weights,
         alpha_state, alpha_action)
 
 
+def rollout_costs_of_actions_ensemble(params, s0, actions, goal, weights,
+                                      normalizers=None,
+                                      alpha_state: float = 0.4,
+                                      alpha_action: float = 0.25
+                                      ) -> torch.Tensor:
+    """Costs (B, K) of sampler-layout actions (B, H, ad, K) from s0 (B, sd)
+    under the ensemble ``params`` (leading member axis n, K % n == 0):
+    candidate k is rolled by member k % n for the whole horizon, as
+    ``EnsembleDynamics.forward_ts`` assigns it. The members run as one
+    batched product per layer."""
+    w1, b1, w2, b2, w3, b3 = _fold_normalizers(params, normalizers)
+    n = w1.shape[0]
+    B, H, ad, K = actions.shape
+    if K % n:
+        raise ValueError(f'{K} candidates do not divide over {n} members')
+    Kn, sd = K // n, s0.shape[-1]
+    # (B, H, ad, Kn, n) -> (n, H, B * Kn, ad): member m takes k = q * n + m
+    acts = actions.reshape(B, H, ad, Kn, n).permute(4, 1, 0, 3, 2).reshape(
+        n, H, B * Kn, ad)
+    s = s0[None, :, None, :].expand(n, B, Kn, sd).reshape(n, B * Kn, sd)
+    acc = torch.zeros((n, B * Kn), dtype=s0.dtype, device=s0.device)
+    for t in range(H):
+        a = acts[:, t]
+        h = torch.relu(torch.baddbmm(b1[:, None], torch.cat([s, a], -1), w1))
+        h = torch.relu(torch.baddbmm(b2[:, None], h, w2))
+        s = torch.baddbmm(b3[:, None], h, w3)
+        d = (s - goal) * weights
+        acc = acc + (torch.sum(torch.sqrt(d * d + alpha_state ** 2)
+                               - alpha_state, dim=-1)
+                     + alpha_action ** 2 * torch.mean(
+                         torch.cosh(a / alpha_action) - 1.0, dim=-1))
+    return acc.reshape(n, B, Kn).permute(1, 2, 0).reshape(B, K)
+
+
+def spline4_from_knots(knots: torch.Tensor, horizon: int) -> torch.Tensor:
+    """spline4 noise (..., H, ad, Kz) from knots (..., n_knots, ad, Kz),
+    n_knots = (H + 3) // 4 + 1: step t = 4 i + r takes knot i when r = 0,
+    else ((1 - w) knot_i + w knot_{i+1}) / sqrt((1 - w)^2 + w^2) with
+    w = r / 4 (mujoco_mbrl_tpu/ops/cem_rollout.py:295-306)."""
+    rows = []
+    for t in range(horizon):
+        i, w = t // 4, (t % 4) * 0.25
+        k0 = knots[..., i, :, :]
+        rows.append(k0 if w == 0.0 else (
+            ((1.0 - w) * k0 + w * knots[..., i + 1, :, :])
+            * (1.0 / math.sqrt((1.0 - w) ** 2 + w ** 2))))
+    return torch.stack(rows, dim=-3)
+
+
 def draw_noise(generator: torch.Generator, shape, sampler: str,
                dtype=torch.float32) -> torch.Tensor:
-    """Unit-variance proposal noise: triangular (u1 + u2 - 1) * sqrt(6)
-    or Box-Muller normal with u1 clipped to >= 1e-7."""
+    """Unit-variance proposal noise of ``shape`` (B, H, ad, Kz):
+    triangular (u1 + u2 - 1) * sqrt(6), Box-Muller normal with u1 clipped
+    to >= 1e-7, or spline4 from (H + 3) // 4 + 1 triangular knots."""
+    if sampler == 'spline4':
+        B, H, ad, Kz = shape
+        knots = draw_noise(generator, (B, (H + 3) // 4 + 1, ad, Kz),
+                           'triangular', dtype)
+        return spline4_from_knots(knots, H)
     u = torch.rand((2,) + tuple(shape), generator=generator, dtype=dtype,
                    device=generator.device)
     if sampler == 'triangular':
@@ -106,9 +180,7 @@ def draw_noise(generator: torch.Generator, shape, sampler: str,
     if sampler == 'normal':
         return torch.sqrt(-2.0 * torch.log(torch.clamp(u[0], 1e-7, 1.0))) \
             * torch.cos((2.0 * math.pi) * u[1])
-    raise NotImplementedError(
-        f'sampler {sampler!r} is not ported (mujoco_mbrl_tpu.ops.cem_rollout'
-        '._sample_kernel spline4)')
+    raise ValueError(f'unknown sampler {sampler!r}')
 
 
 def actions_from_noise(mean, std, z, num_candidates: int,
@@ -123,25 +195,64 @@ def actions_from_noise(mean, std, z, num_candidates: int,
                        action_high)
 
 
-def mlp_sample_rollout_costs_plain(
-        params, seed, s0, mean, std, goal, weights, num_candidates: int,
-        normalizers=None, alpha_state: float = 0.4,
-        alpha_action: float = 0.25, action_low: float = -1.0,
-        action_high: float = 1.0, antithetic: bool = True,
-        sampler: str = 'triangular', z: Optional[torch.Tensor] = None):
-    """Plain version: noise from ``torch.Generator().manual_seed(seed)``
-    unless ``z`` (B, H, ad, Kz) is given. Returns (costs, actions)."""
+def _check_compute_dtype(compute_dtype) -> None:
+    if compute_dtype not in (None, torch.float32):
+        raise NotImplementedError(
+            f'compute_dtype={compute_dtype} is not ported: the kernels run '
+            'float32 (mujoco_mbrl_tpu.ops.cem_rollout.mlp_sample_rollout_costs'
+            ' compute_dtype)')
+
+
+def _sample_actions(seed, s0, mean, std, num_candidates, antithetic,
+                    sampler, action_low, action_high, z):
     B, H, ad = mean.shape
     K = num_candidates
     if z is None:
         g = torch.Generator(device=s0.device).manual_seed(int(seed))
         z = draw_noise(g, (B, H, ad, (K + 1) // 2 if antithetic else K),
                        sampler, s0.dtype)
-    actions = actions_from_noise(mean, std, z, K, antithetic, action_low,
-                                 action_high)
+    return actions_from_noise(mean, std, z, K, antithetic, action_low,
+                              action_high)
+
+
+def mlp_sample_rollout_costs_plain(
+        params, seed, s0, mean, std, goal, weights, num_candidates: int,
+        normalizers=None, alpha_state: float = 0.4,
+        alpha_action: float = 0.25, action_low: float = -1.0,
+        action_high: float = 1.0, antithetic: bool = True,
+        sampler: str = 'normal', z: Optional[torch.Tensor] = None):
+    """Plain version: noise from ``torch.Generator().manual_seed(seed)``
+    unless ``z`` (B, H, ad, Kz) is given. Returns (costs, actions)."""
+    actions = _sample_actions(seed, s0, mean, std, num_candidates,
+                              antithetic, sampler, action_low, action_high,
+                              z)
     costs = rollout_costs_of_actions(params, s0, actions, goal, weights,
                                      normalizers, alpha_state, alpha_action)
     return costs, actions
+
+
+def _kernel_inputs(what, params, normalizers, s0, mean, std, goal, weights,
+                   n_members=None):
+    """Folded weights and every launch input, checked: contiguous float32
+    CUDA tensors of consistent shapes."""
+    w1, b1, w2, b2, w3, b3 = (t.detach().contiguous() for t in
+                              _fold_normalizers(params, normalizers))
+    B, sd = s0.shape
+    _, H, ad = mean.shape
+    hid = w2.shape[-1]
+    lead = () if n_members is None else (n_members,)
+    tensors = (s0, mean, std, w1, b1, w2, b2, w3, b3, goal, weights)
+    for t in tensors:
+        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f'{what} kernel takes contiguous float32 CUDA '
+                             'tensors')
+    if (mean.shape != std.shape or mean.shape[0] != B
+            or w1.shape != lead + (sd + ad, hid)
+            or w2.shape != lead + (hid, hid) or w3.shape != lead + (hid, sd)
+            or b1.shape != lead + (hid,) or b3.shape != lead + (sd,)
+            or goal.shape != (sd,) or weights.shape != (sd,)):
+        raise ValueError(f'{what}: inconsistent shapes')
+    return tensors, (B, H, sd, ad, hid)
 
 
 def mlp_sample_rollout_costs(params, seed, s0, mean, std, goal, weights,
@@ -151,39 +262,29 @@ def mlp_sample_rollout_costs(params, seed, s0, mean, std, goal, weights,
                              action_low: float = -1.0,
                              action_high: float = 1.0,
                              antithetic: bool = True,
-                             sampler: str = 'triangular'):
+                             sampler: str = 'normal',
+                             compute_dtype=None):
     """Sample + roll out + cost K candidates per env.
 
     s0 (B, sd), mean / std (B, H, ad), goal / weights (sd,), ``seed`` an
     int. Returns costs (B, K) float32 and actions (B, H, ad, K). CPU
     tensors take the plain version; CUDA tensors launch the kernel.
     """
+    _check_compute_dtype(compute_dtype)
+    if sampler not in _SAMPLERS:
+        raise ValueError(f'unknown sampler {sampler!r}')
     if not s0.is_cuda:
         return mlp_sample_rollout_costs_plain(
             params, seed, s0, mean, std, goal, weights, num_candidates,
             normalizers, alpha_state, alpha_action, action_low, action_high,
             antithetic, sampler)
-    if sampler not in _SAMPLERS:
-        raise NotImplementedError(
-            f'sampler {sampler!r} has no CUDA kernel (spline4 waits for '
-            'mujoco_mbrl_tpu.ops.cem_rollout._sample_kernel)')
-    w1, b1, w2, b2, w3, b3 = (t.contiguous() for t in
-                              _fold_normalizers(params, normalizers))
-    B, sd = s0.shape
-    _, H, ad = mean.shape
-    hid, K = w2.shape[0], int(num_candidates)
-    tensors = (s0, mean, std, w1, b1, w2, b2, w3, b3, goal, weights)
-    for t in tensors:
-        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError('mlp_sample_rollout_costs kernel takes '
-                             'contiguous float32 CUDA tensors')
-    if (mean.shape != std.shape or mean.shape[0] != B
-            or w1.shape != (sd + ad, hid) or w3.shape != (hid, sd)
-            or goal.shape != (sd,) or weights.shape != (sd,)):
-        raise ValueError('mlp_sample_rollout_costs: inconsistent shapes')
+    tensors, (B, H, sd, ad, hid) = _kernel_inputs(
+        'mlp_sample_rollout_costs', params, normalizers, s0, mean, std, goal,
+        weights)
+    K = int(num_candidates)
     lib = _build.library('cem_sample_rollout', _SIGNATURES)
-    if lib.cem_smem_bytes(K, H, sd, ad, hid, int(antithetic)) > \
-            MAX_SHARED_BYTES:
+    if lib.cem_smem_bytes(K, H, sd, ad, hid, int(antithetic),
+                          _SAMPLERS[sampler]) > MAX_SHARED_BYTES:
         raise ValueError('mlp_sample_rollout_costs: model too large for the '
                          'kernel shared-memory layout')
     costs = torch.empty((B, K), dtype=torch.float32, device=s0.device)
@@ -197,4 +298,85 @@ def mlp_sample_rollout_costs(params, seed, s0, mean, std, goal, weights,
         torch.cuda.current_stream(s0.device).cuda_stream)
     _build.check(rc, 'mlp_sample_rollout_costs')
     launch_counts['cem_sample_rollout'] += 1
+    return costs, actions
+
+
+def _ensemble_sampler(sampler: str) -> str:
+    # The JAX ensemble kernels know normal and triangular only: the
+    # grouped kernel is skipped for spline4 (cem_rollout.py:981) and the
+    # per-env kernel treats every sampler but 'triangular' as normal
+    # (:873-878), so spline4 draws normal noise there. Both versions here
+    # do the same.
+    if sampler not in _SAMPLERS:
+        raise ValueError(f'unknown sampler {sampler!r}')
+    return 'normal' if sampler == 'spline4' else sampler
+
+
+def mlp_sample_rollout_costs_ensemble_plain(
+        params, seed, s0, mean, std, goal, weights, num_candidates: int,
+        n_members: int, normalizers=None, alpha_state: float = 0.4,
+        alpha_action: float = 0.25, action_low: float = -1.0,
+        action_high: float = 1.0, antithetic: bool = True,
+        sampler: str = 'normal', z: Optional[torch.Tensor] = None):
+    """Plain version of ``mlp_sample_rollout_costs_ensemble``: the
+    single-MLP sampler's noise (``z`` or drawn from ``seed``), costs by
+    member k % n. Returns (costs, actions)."""
+    if num_candidates % n_members:
+        raise ValueError(f'num_candidates {num_candidates} must divide '
+                         f'evenly over {n_members} ensemble members')
+    actions = _sample_actions(seed, s0, mean, std, num_candidates,
+                              antithetic, _ensemble_sampler(sampler),
+                              action_low, action_high, z)
+    costs = rollout_costs_of_actions_ensemble(
+        params, s0, actions, goal, weights, normalizers, alpha_state,
+        alpha_action)
+    return costs, actions
+
+
+def mlp_sample_rollout_costs_ensemble(params, seed, s0, mean, std, goal,
+                                      weights, num_candidates: int,
+                                      n_members: int, normalizers=None,
+                                      alpha_state: float = 0.4,
+                                      alpha_action: float = 0.25,
+                                      action_low: float = -1.0,
+                                      action_high: float = 1.0,
+                                      antithetic: bool = True,
+                                      sampler: str = 'normal',
+                                      compute_dtype=None):
+    """Ensemble TS-infinity sample + roll out + cost, one launch.
+
+    ``params`` leaves carry a leading (n_members,) axis (EnsembleDynamics
+    layout); candidate k belongs to member k % n. Returns costs (B, K)
+    float32 and actions (B, H, ad, K). CPU tensors take the plain version;
+    CUDA tensors launch the kernel.
+    """
+    _check_compute_dtype(compute_dtype)
+    n, K = int(n_members), int(num_candidates)
+    if K % n:
+        raise ValueError(f'num_candidates {K} must divide evenly over {n} '
+                         'ensemble members')
+    sampler = _ensemble_sampler(sampler)
+    if not s0.is_cuda:
+        return mlp_sample_rollout_costs_ensemble_plain(
+            params, seed, s0, mean, std, goal, weights, K, n, normalizers,
+            alpha_state, alpha_action, action_low, action_high, antithetic,
+            sampler)
+    tensors, (B, H, sd, ad, hid) = _kernel_inputs(
+        'mlp_sample_rollout_costs_ensemble', params, normalizers, s0, mean,
+        std, goal, weights, n_members=n)
+    lib = _build.library('cem_sample_rollout_ens', _ENS_SIGNATURES)
+    if lib.cem_ens_smem_bytes(sd, ad, hid) > MAX_SHARED_BYTES:
+        raise ValueError('mlp_sample_rollout_costs_ensemble: model too large '
+                         'for the kernel shared-memory layout')
+    costs = torch.empty((B, K), dtype=torch.float32, device=s0.device)
+    actions = torch.empty((B, H, ad, K), dtype=torch.float32,
+                          device=s0.device)
+    rc = lib.cem_sample_rollout_ens(
+        *(t.data_ptr() for t in tensors), int(seed) & (2 ** 64 - 1),
+        B, K, n, H, sd, ad, hid, _SAMPLERS[sampler], int(bool(antithetic)),
+        float(action_low), float(action_high), float(alpha_state),
+        float(alpha_action), costs.data_ptr(), actions.data_ptr(),
+        torch.cuda.current_stream(s0.device).cuda_stream)
+    _build.check(rc, 'mlp_sample_rollout_costs_ensemble')
+    launch_counts['cem_sample_rollout_ens'] += 1
     return costs, actions

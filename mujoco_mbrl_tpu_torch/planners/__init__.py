@@ -1,5 +1,6 @@
 """Planners: the batched CEM of the MPC control step."""
 
+from .api import CEMPlanner
 from .shooting import Trajectory, cem_batched
 
-__all__ = ['Trajectory', 'cem_batched']
+__all__ = ['CEMPlanner', 'Trajectory', 'cem_batched']

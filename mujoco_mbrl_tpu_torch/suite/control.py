@@ -1,8 +1,8 @@
 """RL environment core over a batch of envs (dm_env TimeStep protocol).
 
 Port of mujoco_mbrl_tpu/suite/control.py: ``Environment.reset``,
-``_observe``, ``step`` and ``step_with_data``, plus ``flatten_observation``
-and ``action_spec``. The JAX environment is one env under ``vmap``; here
+``_observe``, ``step``, ``step_with_data`` and ``observation_spec``, plus
+``flatten_observation`` and ``action_spec``. The JAX environment is one env under ``vmap``; here
 every method takes and returns the env batch as the leading dimension.
 Auto-reset and reset retries are not ported.
 """
@@ -36,6 +36,13 @@ class EnvState:
     params: Any
     step_count: torch.Tensor   # (B,) int32 control steps this episode
     last: torch.Tensor         # (B,) bool: previous step returned LAST
+
+
+class ArraySpec:
+    def __init__(self, shape, dtype, name=''):
+        self.shape = tuple(shape)
+        self.dtype = np.dtype(dtype)
+        self.name = name
 
 
 class BoundedArraySpec:
@@ -93,6 +100,16 @@ class Environment:
 
     def action_spec(self) -> BoundedArraySpec:
         return action_spec(self._model)
+
+    def observation_spec(self) -> Dict[str, ArraySpec]:
+        """Per-env shape of each observation, in the task's key order (the
+        JAX method resets one env outside any jit, so its TimeStep keeps
+        the task's order)."""
+        phys, params = self._task.initialize_episode(
+            self._model, 1, torch.Generator().manual_seed(0))
+        obs = self._observe(self._model, phys, params)
+        return {k: ArraySpec(v.shape[1:], str(v.dtype).split('.')[-1], k)
+                for k, v in obs.items()}
 
     def reset(self, batch: int, generator: torch.Generator
               ) -> Tuple[EnvState, TimeStep]:

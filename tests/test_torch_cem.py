@@ -158,7 +158,7 @@ def test_plain_sampler_noise(sampler):
     B, H, K = 4, 10, 2000
     s0 = torch.zeros((B, SD))
     params = models.MLPDynamics(SD, AD, HID).init(
-        torch.Generator().manual_seed(0))
+        torch.Generator().manual_seed(0), device='cpu')
     mean = torch.zeros((B, H, AD))
     std = torch.full((B, H, AD), 0.1)
     costs, acts = cem_rollout.mlp_sample_rollout_costs(

@@ -59,6 +59,37 @@ def test_cuda_entry_points_raise_without_a_card():
     with pytest.raises(RuntimeError, match='CUDA'):
         mujoco_mbrl_tpu_torch.resolve_device('cuda')
     assert mujoco_mbrl_tpu_torch.resolve_device('cpu').type == 'cpu'
+    # the agent loop's entry points default to the card too
+    from mujoco_mbrl_tpu_torch import agents, data, envs, experiment
+    from mujoco_mbrl_tpu_torch import planners
+    from mujoco_mbrl_tpu_torch.models import (EnsembleDynamics, MLPDynamics,
+                                              train)
+    from mujoco_mbrl_tpu_torch.ops import _build
+    with pytest.raises(RuntimeError, match='CUDA'):
+        envs.load('walker', 'walk')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        data.init_replay(4, 8, 20, 24, 6)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        MLPDynamics(20, 6).init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match='CUDA'):
+        EnsembleDynamics(MLPDynamics(20, 6), 5).init(
+            torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match='CUDA'):
+        agents.GoalStateAgent(
+            environment=envs.load('walker', 'stand'),
+            planner=planners.CEMPlanner, model=MLPDynamics(20, 6),
+            horizon=4, optimizer=train.adam(), rollout_length=8,
+            num_rollouts_per_iteration=2, num_train_iterations=1,
+            writer=None, base_path='')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        experiment.main(experiment.parse_args(
+            ['--exp_dir', '', '--environment', 'walker_walk']))
+    # the ensemble sampler's card path: build_bench plans through it, and
+    # without the CUDA toolkit its kernel cannot be built
+    with pytest.raises(RuntimeError, match='CUDA'):
+        build_bench('walker_walk', 2, 8, 3, 1, 1, model_kind='ensemble')
+    with pytest.raises(RuntimeError, match='nvcc'):
+        _build._nvcc()
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -9,7 +9,8 @@ import pytest
 import torch
 
 from mujoco_mbrl_tpu_torch import ops
-from mujoco_mbrl_tpu_torch.models import MLPDynamics
+from mujoco_mbrl_tpu_torch.models import (EnsembleDynamics, MLPDynamics,
+                                          Normalizers)
 from mujoco_mbrl_tpu_torch.ops import apgd_solve, cem_rollout
 
 pytestmark = pytest.mark.cuda
@@ -60,9 +61,25 @@ def test_apgd_kernel_rejects_float64(dev):
             cold=True)
 
 
+def _normalizers(dev, sd, ad):
+    """Replay-like stats: one near-constant state dim gives large folded
+    W1 rows, as a fitted replay does (the states are then drawn from the
+    same stats, so the folded product cancels as it does in the loop)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    s_std = 0.1 + torch.rand(sd, generator=g, device=dev)
+    s_std[3] = 1e-3
+    return Normalizers(
+        state_mean=torch.randn(sd, generator=g, device=dev), state_std=s_std,
+        action_mean=0.1 * torch.randn(ad, generator=g, device=dev),
+        action_std=0.5 + torch.rand(ad, generator=g, device=dev))
+
+
+# sd 20 is the walker's featured state, which the agent plans on: the
+# kernels pad it to 24 lanes; 24 (the observation) needs no padding
+@pytest.mark.parametrize('sd', [20, 24])
 @pytest.mark.parametrize('sampler', ['triangular', 'normal'])
-def test_sampler_kernel_matches_plain_cost(dev, sampler):
-    B, K, H, sd, ad = 8, 101, 7, 24, 6
+def test_sampler_kernel_matches_plain_cost(dev, sampler, sd):
+    B, K, H, ad = 8, 101, 7, 6
     params = MLPDynamics(sd, ad).init(torch.Generator().manual_seed(0),
                                       device=dev)
     g = torch.Generator(device=dev).manual_seed(1)
@@ -76,3 +93,93 @@ def test_sampler_kernel_matches_plain_cost(dev, sampler):
     ref = cem_rollout.rollout_costs_of_actions(params, s0, acts, goal, w)
     torch.testing.assert_close(costs, ref, rtol=1e-4, atol=1e-4)
     assert float(acts.abs().max()) <= 1.0
+
+
+def _proposal(dev, B, H, ad, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mean = 0.3 * torch.randn((B, H, ad), generator=g, device=dev)
+    std = 0.2 + torch.rand((B, H, ad), generator=g, device=dev)
+    return g, mean, std
+
+
+def _unclipped_noise(acts, mean, std):
+    """z = (a - mean) / std, NaN where the action was clipped."""
+    z = (acts - mean[..., None]) / std[..., None]
+    return torch.where(acts.abs() < 1.0, z, torch.nan)
+
+
+@pytest.mark.parametrize('sd', [20, 24])
+@pytest.mark.parametrize('sampler', ['triangular', 'normal', 'spline4'])
+def test_ensemble_kernel_matches_plain_cost(dev, sampler, sd):
+    # K = 60, n = 4: the antithetic partner of candidate k (k + 30) belongs
+    # to member (k + 2) % 4, so pairs straddle members
+    B, K, n, H, ad = 8, 60, 4, 7, 6
+    params = EnsembleDynamics(MLPDynamics(sd, ad), n).init(
+        torch.Generator().manual_seed(0), device=dev)
+    g, mean, std = _proposal(dev, B, H, ad, 1)
+    s0 = torch.randn((B, sd), generator=g, device=dev)
+    goal, w = torch.zeros(sd, device=dev), torch.ones(sd, device=dev)
+    norms = _normalizers(dev, sd, ad)
+    s0 = norms.state_mean + norms.state_std * s0
+    before = ops.launch_counts['cem_sample_rollout_ens']
+    costs, acts = cem_rollout.mlp_sample_rollout_costs_ensemble(
+        params, 3, s0, mean, std, goal, w, K, n, normalizers=norms,
+        sampler=sampler)
+    assert ops.launch_counts['cem_sample_rollout_ens'] == before + 1
+    assert costs.shape == (B, K) and acts.shape == (B, H, ad, K)
+    ref = cem_rollout.rollout_costs_of_actions_ensemble(
+        params, s0, acts, goal, w, normalizers=norms)
+    torch.testing.assert_close(costs, ref, rtol=1e-4, atol=1e-4)
+    assert float(acts.abs().max()) <= 1.0
+    z = _unclipped_noise(acts, mean, std)
+    pair = (z[..., :K // 2] + z[..., K // 2:]).abs()
+    assert float(pair.nan_to_num(0.0).max()) < 1e-4
+
+
+def test_ensemble_kernel_with_one_member_is_the_mlp_kernel(dev):
+    B, K, H, sd, ad = 4, 33, 5, 24, 6
+    params = MLPDynamics(sd, ad).init(torch.Generator().manual_seed(0),
+                                      device=dev)
+    stacked = {l: {k: v[None] for k, v in p.items()}
+               for l, p in params.items()}
+    g, mean, std = _proposal(dev, B, H, ad, 2)
+    s0 = torch.randn((B, sd), generator=g, device=dev)
+    goal, w = torch.zeros(sd, device=dev), torch.ones(sd, device=dev)
+    c1, a1 = cem_rollout.mlp_sample_rollout_costs(
+        params, 5, s0, mean, std, goal, w, K, sampler='normal')
+    c2, a2 = cem_rollout.mlp_sample_rollout_costs_ensemble(
+        stacked, 5, s0, mean, std, goal, w, K, 1, sampler='normal')
+    torch.testing.assert_close(a2, a1, rtol=0, atol=1e-6)
+    torch.testing.assert_close(c2, c1, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('sd,H', [(24, 11), (20, 20)])
+def test_spline4_kernel_matches_plain_cost(dev, sd, H):
+    # (20, 20): the CLI's featured state and horizon, with normalizers
+    B, K, ad = 5, 101, 6
+    params = MLPDynamics(sd, ad).init(torch.Generator().manual_seed(0),
+                                      device=dev)
+    g, mean, std = _proposal(dev, B, H, ad, 4)
+    s0 = torch.randn((B, sd), generator=g, device=dev)
+    goal, w = torch.zeros(sd, device=dev), torch.ones(sd, device=dev)
+    norms = _normalizers(dev, sd, ad) if sd == 20 else None
+    if norms is not None:
+        s0 = norms.state_mean + norms.state_std * s0
+    costs, acts = cem_rollout.mlp_sample_rollout_costs(
+        params, 9, s0, mean, std, goal, w, K, normalizers=norms,
+        sampler='spline4')
+    ref = cem_rollout.rollout_costs_of_actions(params, s0, acts, goal, w,
+                                               normalizers=norms)
+    torch.testing.assert_close(costs, ref, rtol=1e-4, atol=1e-4)
+    # between observed knots (t = 0, 4, 8) the noise is the renormalised
+    # lerp of its two knots
+    z = _unclipped_noise(acts, mean, std)
+    for t in range(H):
+        i, r = divmod(t, 4)
+        if r == 0 or 4 * i + 4 >= H:
+            continue
+        wgt = r / 4
+        lerp = ((1 - wgt) * z[:, 4 * i] + wgt * z[:, 4 * i + 4]) / (
+            (1 - wgt) ** 2 + wgt ** 2) ** 0.5
+        err = (z[:, t] - lerp).abs().nan_to_num(0.0)
+        assert float(err.max()) < 1e-4, (t, float(err.max()))
