@@ -5,11 +5,11 @@ Run from the repository root:  python3 chip_smoke.py
 
 1. prints the card (nvidia-smi name and power limit) and torch version,
    builds every kernel in mujoco_mbrl_tpu_torch/csrc (nvcc, in parallel);
-2. holds the APGD kernel against its plain PyTorch version on synthetic
-   problems (non-negative, box, cone and equality rows; cold and warm)
-   and on inputs captured from the port's own walker_walk solves at 1024
-   envs, at reset and in contact (rtol = atol = 2e-4 on f and v; see
-   apgd_phase for the envs whose step size rounding decides);
+2. holds the dense APGD kernel against its plain PyTorch version on
+   synthetic problems (non-negative, box, cone and equality rows; cold and
+   warm) and on inputs captured from the port's own walker_walk solves at
+   1024 envs, at reset and in contact (rtol = atol = 2e-4 on f and v; see
+   hold_apgd for the envs whose step size rounding decides);
 3. holds the CEM sampler kernel against the plain rollout cost of the
    kernel's own actions at 1024 envs x 1000 candidates x horizon 30
    (rtol 1e-4) for the triangular, normal and spline4 samplers, and checks
@@ -21,10 +21,10 @@ Run from the repository root:  python3 chip_smoke.py
    candidates x horizon 30, 5 members; rtol 1e-4), with the same action
    checks, a small case whose antithetic pairs straddle members, and the
    one-member case against the single-MLP kernel;
-5. drives each path with every launch count set to 0 just before and read
-   just after:
-   a. slice 1's main path, ``bench.build_bench('walker_walk', 1024, 1000,
-      30, 3, steps)``, checks the physics of the last control step against
+5. drives each walker path with every launch count set to 0 just before
+   and read just after (exact counts of every kernel):
+   a. slice 1's control step, ``bench.build_bench('walker_walk', 1024,
+      1000, 30, 3, steps)``, checks the physics of a control step against
       the plain (CPU) step and profiles the device time by kernel;
    b. the walker_ens control step, the same with ``model_kind='ensemble'``;
    c. the agent loop at full width: GoalStateAgent on walker_walk with a
@@ -32,8 +32,28 @@ Run from the repository root:  python3 chip_smoke.py
       rollouts (cut to 10 steps), one fit of 5 epochs;
    d. the experiment CLI on the single MLP with the spline4 sampler and 5
       policy rollouts;
-6. prints one ``{"kernels": [...]}`` line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+6. cheetah_run, each path with exact launch counts:
+   a. the control step, ``build_bench('cheetah_run', 1024, 1000, 30, 3,
+      steps)`` (3 sampler + 1 factored APGD launch per control step), its
+      physics against the CPU step, a profile;
+   b. the factored APGD kernel against its plain version on solves
+      captured from cheetah at 1024 envs (at reset and after 20 control
+      steps of random actions, cold and warm) and on a humanoid-shaped
+      synthetic batch (303 rows, nv 27, 512 envs), with the same
+      tolerance and rounding allowance as the dense kernel;
+   c. the rollout-cost kernel (given actions) against its plain version at
+      1024 x 1000 candidates, H 30, sd 17 (rtol 1e-4), and the sampler at
+      the same shapes;
+   d. the control step through cem_batched's non-fused branch (3
+      rollout-cost launches, no sampler launch, per control step);
+   e. ``bench.full_loop_bench`` at CONFIGS['cheetah1024'] (seed
+      collection, then collect -> replay add -> fit 50 epochs), then the
+      rollout-cost kernel on the fitted MLP with the replay's normalizers
+      folded in (candidates decided by rounding left out, at most 0.1%);
+   f. the experiment CLI on cheetah_run (single MLP, 5 policy rollouts);
+7. prints one ``{"kernels": [...]}`` line (one entry per TPU kernel), a
+   ``{"paths": ...}`` line with the cheetah paths' times, the card line,
+   and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the process exits non-zero. It also exits
 non-zero without a result when no CUDA card is present or when the
@@ -85,6 +105,126 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def hold_apgd(torch, label, run_k, run_p, dense_Ad, cases,
+              joint_force=None):
+    """Each case's kernel (run_k) against its plain version (run_p) at
+    rtol = atol = 2e-4 on f and v; returns (largest difference, envs
+    decided by rounding). ``dense_Ad(args)`` gives the cases' Ad for the
+    report of the envs that differ. A kernel that also returns its
+    iteration counts has an env at the cap where either version is.
+    ``joint_force(args, f)`` (the factored regime's J~' f) admits, as
+    decided by rounding, a converged env whose f differs while its dual
+    objective (to 1e-6 relative) and its joint-space constraint force
+    (rtol = atol = 2e-4 of its largest entry) agree."""
+    worst, rounding_envs = 0.0, 0
+    for tag, args, kw in cases:
+        Bs = args[4].shape[0]
+        out = run_k(*args, **kw)
+        f_k, v_k = out[:2]
+        f_p, v_p, its = run_p(*args, **kw, return_iterations=True)
+        torch.cuda.synchronize()
+        # Every env that both versions converged in must agree. An env that
+        # runs to the iteration cap ends wherever its step size L took it,
+        # and L can be decided by rounding: with unit-diagonal (Jacobi)
+        # scaling the flat start is an exact eigenvector of a 2-row active
+        # block, so the direction the power iteration leaves it in, or a
+        # borderline staleness test, depends on summation order (plain
+        # float32 vs float64 differ in the same way on the CPU). Such envs
+        # may differ, in at most 1% of the batch.
+        close = lambda a, b: torch.isclose(a, b, rtol=2e-4,
+                                           atol=2e-4).all(1)
+        f_bad, v_bad = ~close(f_k, f_p), ~close(v_k, v_p)
+        at_cap = its == kw['iterations']
+        its_k = out[2] if len(out) == 3 else its
+        excused = at_cap | (its_k == kw['iterations'])
+        odd = f_bad | v_bad
+        n_odd = int(odd.sum())
+        if n_odd:
+            Ad = dense_Ad(args)[odd].double()
+            ev = torch.linalg.eigvalsh(Ad)[:, -2:].flip(1)
+            quad = lambda v: (v[odd].double() * (Ad @ v[odd].double()[
+                ..., None])[..., 0]).sum(1)
+            # the dual objective 1/2 f'Ad f - f'rhs of each answer
+            rhs = (args[4] if len(args) == 10 else args[1])[odd].double()
+            phi = lambda f: 0.5 * quad(f) - (f[odd].double() * rhs).sum(1)
+            phi_k, phi_p = phi(f_k), phi(f_p)
+            flat = torch.zeros_like(odd)
+            if joint_force is not None:
+                # A dual with far more rows than dofs (cheetah: 146 over 9)
+                # is strictly convex only through the small Rs, so its
+                # optimum lies in a flat valley: rounding moves f along it
+                # without moving the objective or the force in joint space
+                jf_k = joint_force(args, f_k)[odd]
+                jf_p = joint_force(args, f_p)[odd]
+                scale = jf_p.abs().amax(1, keepdim=True)
+                flat[odd] = (((phi_k - phi_p).abs()
+                              <= 1e-6 * phi_p.abs())
+                             & ((jf_k - jf_p).abs()
+                                <= 2e-4 * (1.0 + scale)).all(1))
+            act = args[7] if len(args) == 10 else args[4]
+            for i, e in enumerate(odd.nonzero()[:, 0].tolist()[:12]):
+                why = (f'kernel {int(its_k[e])}, '
+                       + ('at the cap' if bool(excused[e]) else
+                          'converged in a flat valley' if bool(flat[e])
+                          else 'converged'))
+                extra = ''
+                if joint_force is not None:
+                    extra = (f', |J~\'(f_k - f_p)| '
+                             f'{float((jf_k[i] - jf_p[i]).abs().max()):.3e}'
+                             f' of |J~\'f_p| {float(scale[i]):.3e}')
+                df = float((f_k[e] - f_p[e]).abs().max())
+                print(f'  {label} {tag} env {e}: f differs {bool(f_bad[e])} '
+                      f'(by {df:.3e}), v differs {bool(v_bad[e])}, '
+                      f'{int(its[e])} iterations ({why}), '
+                      f'{int(act[e].sum())} active rows, top eigenvalues '
+                      f'{ev[i].tolist()}, Rayleigh kernel '
+                      f'{float(quad(v_k)[i]):.6f} plain '
+                      f'{float(quad(v_p)[i]):.6f}, objective kernel '
+                      f'{float(phi_k[i]):.9e} plain {float(phi_p[i]):.9e}'
+                      f'{extra}')
+            excused = excused | flat
+        check(not bool((f_bad & ~excused).any()), (
+            label, tag, (f_bad & ~excused).nonzero()[:, 0].tolist()))
+        check(n_odd <= Bs // 100, (label, tag, n_odd))
+        rounding_envs += n_odd
+        err = max(float((f_k - f_p)[~odd].abs().max()),
+                  float((v_k - v_p)[~odd].abs().max()))
+        worst = max(worst, err)
+        print(f'{label} {tag} cold={kw["cold"]} eq={kw.get("eq_rows", ())}: '
+              f'max|kernel - plain| = {err:.3e} over {Bs - n_odd} of {Bs} '
+              f'envs; {int(at_cap.sum())} envs at the iteration cap; max|f| '
+              f'{float(f_p.abs().max()):.3e}')
+    return worst, rounding_envs
+
+
+def time_apgd(torch, label, run_k, run_p, cases, matvec_flops, n_bytes,
+              trace_bound):
+    """Kernel and plain times of each case, beside the bound: the bytes
+    ``n_bytes(args)`` once at the HBM rate, or the matvecs that this
+    case's envs run, (25 cold | 10 warm + APGD iterations) x
+    ``matvec_flops(args)`` per env, at the FP32 peak (warm solves add the
+    staleness bound's pass, ``trace_bound`` or the row sums)."""
+    times = {}
+    for tag, args, kw in cases:
+        tag = tag + ('-cold' if kw['cold'] else '-warm')
+        Bs, nr = args[4].shape
+        _, _, its = run_p(*args, **kw, return_iterations=True)
+        n_mv = (25 if kw['cold'] else 10) + its.double()
+        flops = float((matvec_flops(args) * n_mv).sum())
+        if not kw['cold']:
+            flops += Bs * (nr if trace_bound else 2.0 * nr * nr)
+        bms, by = bound_ms(n_bytes(args), flops)
+        k_ms = time_ms(lambda: run_k(*args, **kw), 20)
+        p_ms = time_ms(lambda: run_p(*args, **kw), 3)
+        times[tag] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by,
+                          mean_iterations=float(its.double().mean()))
+        print(f'{label} {tag} B={Bs} nr={nr}: kernel {k_ms:.4f} ms, '
+              f'plain {p_ms:.3f} ms (reference only), bound {bms:.5f} ms '
+              f'({by}), mean APGD iterations '
+              f'{times[tag]["mean_iterations"]:.1f}')
+    return times
+
+
 def apgd_phase(dev, torch, walker_cases):
     from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
 
@@ -113,94 +253,100 @@ def apgd_phase(dev, torch, walker_cases):
             cases.append(('synthetic', synthetic(B), dict(
                 nonneg=nonneg, box_rows=box, con0=con0, iterations=40,
                 cold=cold, eq_rows=eq)))
-    cases += walker_cases
-    worst, rounding_envs = 0.0, 0
-    for label, args, kw in cases:
-        Bs = args[1].shape[0]
-        f_k, v_k = A.apgd_iterate_batched(*args, **kw)
-        f_p, v_p, its = A.apgd_iterate_plain(*args, **kw,
-                                             return_iterations=True)
-        torch.cuda.synchronize()
-        # Every env the plain iterate converged in must agree. An env that
-        # runs to the iteration cap ends wherever its step size L took it,
-        # and L can be decided by rounding: with unit-diagonal (Jacobi)
-        # scaling the flat start is an exact eigenvector of a 2-row active
-        # block, so the direction the power iteration leaves it in, or a
-        # borderline staleness test, depends on summation order (plain
-        # float32 vs float64 differ in the same way on the CPU). Such envs
-        # may differ, in at most 1% of the batch.
-        f_bad = ~torch.isclose(f_k, f_p, rtol=2e-4, atol=2e-4).all(1)
-        v_bad = ~torch.isclose(v_k, v_p, rtol=2e-4, atol=2e-4).all(1)
-        at_cap = its == kw['iterations']
-        check(not bool((f_bad & ~at_cap).any()), (
-            label, (f_bad & ~at_cap).nonzero()[:, 0].tolist()))
-        odd = f_bad | v_bad
-        n_odd = int(odd.sum())
-        if n_odd:
-            Ad = args[0][odd].double()
-            ev = torch.linalg.eigvalsh(Ad)[:, -2:].flip(1)
-            rq = lambda v: (v[odd].double() * (Ad @ v[odd].double()[
-                ..., None])[..., 0]).sum(1)
-            for i, e in enumerate(odd.nonzero()[:, 0].tolist()[:6]):
-                print(f'  apgd {label} env {e}: f differs {bool(f_bad[e])}, '
-                      f'v differs {bool(v_bad[e])}, {int(its[e])} '
-                      f'iterations, {int(args[4][e].sum())} active rows, '
-                      f'top eigenvalues {ev[i].tolist()}'
-                      f', Rayleigh kernel {float(rq(v_k)[i]):.6f} plain '
-                      f'{float(rq(v_p)[i]):.6f}')
-        check(n_odd <= Bs // 100, n_odd)
-        rounding_envs += n_odd
-        err = max(float((f_k - f_p)[~odd].abs().max()),
-                  float((v_k - v_p)[~odd].abs().max()))
-        worst = max(worst, err)
-        print(f'apgd {label} cold={kw["cold"]} eq={kw.get("eq_rows", ())}: '
-              f'max|kernel - plain| = {err:.3e} over {Bs - n_odd} of {Bs} '
-              f'envs; {int(at_cap.sum())} envs at the iteration cap')
-
+    worst, rounding_envs = hold_apgd(
+        torch, 'apgd', A.apgd_iterate_batched, A.apgd_iterate_plain,
+        lambda args: args[0], cases + walker_cases)
     # times on the walker-captured inputs (cold and warm)
-    times = {}
-    for label, args, kw in walker_cases:
-        tag = label + ('-cold' if kw['cold'] else '-warm')
-        Bs, nr_w = args[1].shape
-        f_p, v_p, its = A.apgd_iterate_plain(*args, **kw,
-                                             return_iterations=True)
-        n_mv = (25 if kw['cold'] else 10) + its.double()
-        flops = float((2.0 * nr_w * nr_w * n_mv).sum())
-        if not kw['cold']:
-            flops += 2.0 * Bs * nr_w * nr_w          # row-sum bound
-        n_bytes = 4.0 * (Bs * nr_w * nr_w + 6 * Bs * nr_w + 2 * nr_w)
-        bms, by = bound_ms(n_bytes, flops)
-        k_ms = time_ms(lambda: A.apgd_iterate_batched(*args, **kw), 20)
-        p_ms = time_ms(lambda: A.apgd_iterate_plain(*args, **kw), 3)
-        times[tag] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by,
-                          mean_iterations=float(its.double().mean()))
-        print(f'apgd {tag} B={Bs} nr={nr_w}: kernel {k_ms:.4f} ms, '
-              f'plain {p_ms:.3f} ms (reference only), bound {bms:.5f} ms '
-              f'({by}), mean APGD iterations '
-              f'{times[tag]["mean_iterations"]:.1f}')
+    times = time_apgd(
+        torch, 'apgd', A.apgd_iterate_batched, A.apgd_iterate_plain,
+        walker_cases, lambda a: 2.0 * a[1].shape[1] ** 2,
+        lambda a: 4.0 * (a[0].numel() + 6 * a[1].numel() + 2 * a[1].shape[1]),
+        trace_bound=False)
     return worst, rounding_envs, times
 
 
-def capture_walker_solves(dev, torch, env, state, label):
-    """Inputs of the port's own walker_walk solves at B envs for one
-    control step of zero actions from `state`: the cold first substep
-    and the first warm one."""
+def factored_problem(dev, torch, Bs, nr, nv, n_nonneg, cold, seed):
+    """A humanoid-shaped factored dual QP batch, as
+    tests/test_apgd_kernel.py _factored_problem builds one: limit rows,
+    then friction-cone triples; scaled and active-masked J~, dense PSD
+    M^-1, a quarter of the rows active."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    J = torch.randn((Bs, nr, nv), generator=g, device=dev)
+    G = torch.randn((Bs, nv + 2, nv), generator=g, device=dev)
+    Minv = (torch.einsum('bij,bik->bjk', G, G) / nv
+            + 0.1 * torch.eye(nv, device=dev)).contiguous()
+    R = 0.05 + 0.25 * torch.rand((Bs, nr), generator=g, device=dev)
+    act = (torch.rand((Bs, nr), generator=g, device=dev) > 0.75).float()
+    d = torch.einsum('brv,bvw,brw->br', J, Minv, J) + R
+    s = d.rsqrt()
+    vec = lambda: torch.randn((Bs, nr), generator=g, device=dev)
+    con0 = tuple(range(n_nonneg, nr, 3))
+    mu = torch.zeros(nr, device=dev)
+    mu[list(con0)] = 0.7
+    args = ((J * (s * act)[:, :, None]).contiguous(), Minv, s * s * R * act,
+            s * s * d * act, vec() * act, 0.3 * vec(), vec(), act, mu,
+            torch.zeros(nr, device=dev))
+    return args, dict(nonneg=tuple(range(n_nonneg)), box_rows=(), con0=con0,
+                      iterations=40, cold=cold)
+
+
+def factored_phase(dev, torch, cheetah_cases):
+    """TPU kernel #7 against its plain version: the cheetah solves
+    captured from the main path (146 rows, nv 9) and a humanoid-shaped
+    synthetic batch (303 rows: 36 limits, 89 cone triples; nv 27;
+    B = 512), cold and warm."""
     from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
 
+    humanoid = []
+    for cold in (True, False):
+        args, kw = factored_problem(dev, torch, 512, 303, 27, 36, cold,
+                                    seed=int(cold))
+        humanoid.append(('humanoid-synthetic', args, kw))
+    dense = lambda a: (a[0] @ a[1]) @ a[0].transpose(1, 2) + torch.diag_embed(
+        a[2])
+    worst, rounding_envs = hold_apgd(
+        torch, 'apgd factored',
+        lambda *a, **k: A.apgd_iterate_factored(*a, **k,
+                                                return_iterations=True),
+        A.apgd_iterate_factored_plain, dense, cheetah_cases + humanoid,
+        joint_force=lambda a, f: torch.einsum('brv,br->bv', a[0], f))
+    times = time_apgd(
+        torch, 'apgd factored', A.apgd_iterate_factored,
+        A.apgd_iterate_factored_plain, cheetah_cases + humanoid,
+        lambda a: 4.0 * a[0].shape[1] * a[0].shape[2] + 2.0 * a[0].shape[2]
+        ** 2,
+        lambda a: 4.0 * (a[0].numel() + a[1].numel() + 8 * a[4].numel()
+                         + 2 * a[4].shape[1]),
+        trace_bound=True)
+    return worst, rounding_envs, times
+
+
+def capture_solves(dev, torch, env, state, label, kernel):
+    """Inputs of the port's own solves at B envs from `state`, zero
+    actions: a cold physics step, then a warm one from its row forces and
+    power vector (what the walker's 10-substep control step runs first;
+    cheetah's 1-substep control step solves cold only, so its warm case
+    comes from this warm step). `kernel` names the wrapper to capture:
+    apgd_iterate_batched (walker, 62 rows) or apgd_iterate_factored
+    (cheetah, 146 rows)."""
+    from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
+    from mujoco_mbrl_tpu_torch.physics import engine
+
     captured = []
-    real = A.apgd_iterate_batched
+    real = getattr(A, kernel)
 
     def capture(*args, **kw):
-        if len(captured) < 2:
-            captured.append((label, tuple(a.clone() for a in args),
-                             dict(kw)))
+        captured.append((label, tuple(a.clone() for a in args), dict(kw)))
         return real(*args, **kw)
 
-    A.apgd_iterate_batched = capture
+    m = env.model
+    zero = torch.zeros((B, m.nu), device=dev)
+    setattr(A, kernel, capture)
     try:
-        env.step(state, torch.zeros((B, env.model.nu), device=dev))
+        s1, f, v = engine.step_warm(m, state.physics, zero)
+        engine.step_warm(m, s1, zero, warm_f=f, warm_v=v)
     finally:
-        A.apgd_iterate_batched = real
+        setattr(A, kernel, real)
     torch.cuda.synchronize()
     check([c[2]['cold'] for c in captured] == [True, False], label)
     return captured
@@ -425,6 +571,30 @@ def folded_costs64(torch, C, params, norms, fold_dtype, s0, acts, goal,
              weights.double(), alpha_action=alpha_action)
 
 
+def decided_by_rounding(torch, label, costs, ref, r64, r64_w32):
+    """Candidates whose float64 cost moves by more than 1e-5 relative
+    when only the folded weights are rounded to float32 (r64_w32 vs r64):
+    printed, with every candidate beyond rtol 1e-4 of the float32 plain
+    ``ref``; at most 0.1% may be. Returns (mask, count)."""
+    torch.cuda.synchronize()
+    sens = (r64_w32 - r64).abs() / (r64.abs() + 1e-4)
+    decided = sens > 1e-5
+    off = ~torch.isclose(costs, ref, rtol=1e-4, atol=1e-4)
+    n_dec, n_off = int(decided.sum()), int(off.sum())
+    rel = lambda x: float(((x - r64).abs() / (r64.abs() + 1e-4)).max())
+    print(f'{label}: {n_dec} of {costs.numel()} candidates decided by '
+          f'rounding (max sensitivity {float(sens.max()):.2e}); {n_off} '
+          f'beyond rtol 1e-4 of the float32 plain; max rel. error vs '
+          f'float64: kernel {rel(costs):.2e}, float32 plain {rel(ref):.2e}')
+    for b, k in off.nonzero()[:8].tolist():
+        print(f'  env {b} candidate {k}: kernel {float(costs[b, k]):.6f} '
+              f'plain {float(ref[b, k]):.6f} float64 '
+              f'{float(r64[b, k]):.6f} sensitivity '
+              f'{float(sens[b, k]):.2e}')
+    check(n_dec <= costs.numel() // 1000, (label, n_dec))
+    return decided, n_dec
+
+
 def fitted_sampler_check(dev, torch, label, agent, s0, horizon, sampler):
     """The agent's own sampler kernel on its fitted params, with the
     replay's normalizers folded into W1 / W3, at the shapes its loop gives
@@ -474,23 +644,8 @@ def fitted_sampler_check(dev, torch, label, agent, s0, horizon, sampler):
         c64 = lambda fold_dtype: folded_costs64(
             torch, C, p, kw['normalizers'], fold_dtype, s0, acts, goal,
             weights, kw['alpha_action'])
-        r64, r64_w32 = c64(torch.float64), c64(torch.float32)
-        torch.cuda.synchronize()
-        sens = (r64_w32 - r64).abs() / (r64.abs() + 1e-4)
-        decided = sens > 1e-5
-        off = ~torch.isclose(costs, ref, rtol=1e-4, atol=1e-4)
-        n_dec, n_off = int(decided.sum()), int(off.sum())
-        rel = lambda x: float(((x - r64).abs() / (r64.abs() + 1e-4)).max())
-        print(f'{label}: {n_dec} of {Bs * K} candidates decided by rounding '
-              f'(max sensitivity {float(sens.max()):.2e}); {n_off} beyond '
-              f'rtol 1e-4 of the float32 plain; max rel. error vs float64: '
-              f'kernel {rel(costs):.2e}, float32 plain {rel(ref):.2e}')
-        for b, k in off.nonzero()[:8].tolist():
-            print(f'  env {b} candidate {k}: kernel {float(costs[b, k]):.6f} '
-                  f'plain {float(ref[b, k]):.6f} float64 '
-                  f'{float(r64[b, k]):.6f} sensitivity '
-                  f'{float(sens[b, k]):.2e}')
-        check(n_dec <= Bs * K // 1000, (label, n_dec))
+        decided, n_dec = decided_by_rounding(
+            torch, label, costs, ref, c64(torch.float64), c64(torch.float32))
         err, pair = check_actions(torch, label, costs, ref, acts, mean, K,
                                   skip=decided)
         extra = ''
@@ -537,34 +692,15 @@ def profile_phase(torch, run, params, state, gen, wall_plain):
 def ens_control_step_phase(dev, torch):
     """The walker_ens control step: build_bench with the 5-member
     ensemble; 3 ensemble sampler + 10 APGD launches per control step."""
-    from mujoco_mbrl_tpu_torch import ops
     from mujoco_mbrl_tpu_torch.bench import build_bench
 
     run, (params, state0, gen) = build_bench(
         'walker_walk', B, K, H, ITERS, STEPS, device=dev,
         model_kind='ensemble')
-    warm_state, _ = run(params, state0, gen)             # warm-up
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    profile = {}
-    t0 = time.perf_counter()
-    state, rewards = run(params, warm_state, gen, profile=profile)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = dict(ops.launch_counts)
-    check(counts == dict(counts, cem_sample_rollout_ens=ITERS * STEPS,
-                         apgd_solve=10 * STEPS, cem_sample_rollout=0),
-          counts)
-    for name, x in (('qpos', state.physics.qpos), ('reward', rewards)):
-        check(bool(torch.isfinite(x).all()), name)
-    out = dict(ms_per_step=1e3 * wall / STEPS,
-               plan_ms=1e3 * profile['plan'] / STEPS,
-               physics_ms=1e3 * profile['physics'] / STEPS)
-    print(f'walker_ens control step: {STEPS} control steps x {B} envs in '
-          f'{wall:.3f} s = {B * STEPS / wall:.1f} env-steps/s, '
-          f'{out["ms_per_step"]:.2f} ms per control step (plan '
-          f'{out["plan_ms"]:.2f} ms, physics {out["physics_ms"]:.2f} ms); '
-          f'launches {counts}')
+    counts, out, _, _ = control_step(dev, torch, run, params, state0, gen,
+                                     'walker_ens control step')
+    exact_counts('walker_ens control step', counts,
+                 cem_sample_rollout_ens=ITERS * STEPS, apgd_solve=10 * STEPS)
     return counts, out
 
 
@@ -623,9 +759,9 @@ def agent_phase(dev, torch, tmp):
     # 3 CEM iterations per policy step; 10 physics substeps per control
     # step of both collections (the featured-state forward of reset and
     # step stops at the velocity stage: no solve)
-    check(counts == dict(counts, cem_sample_rollout_ens=ITERS * AGENT_T,
-                         apgd_solve=2 * 10 * AGENT_T, cem_sample_rollout=0),
-          counts)
+    exact_counts('agent loop', counts,
+                 cem_sample_rollout_ens=ITERS * AGENT_T,
+                 apgd_solve=2 * 10 * AGENT_T)
     check(agent.dataset.filled == 2 * B, agent.dataset.filled)
     buf = agent.dataset
     for name in ('states', 'observations', 'actions', 'rewards'):
@@ -673,8 +809,11 @@ def cli_phase(dev, torch, tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(ops.launch_counts)
-    check(counts['cem_sample_rollout'] == 5 * 10
-          and counts['cem_sample_rollout_ens'] == 0, counts)
+    # 5 CEM iterations per policy step of the 5 rollouts (plain walker
+    # physics and the dense solve: 10 substeps, 3 x 10 control steps, the
+    # observation-spec reset solves nothing)
+    exact_counts('CLI', counts, cem_sample_rollout=5 * 10,
+                 apgd_solve=10 * (2 * 10))
     check(os.path.exists(os.path.join(tmp, 'agent_final.pt')),
           'agent_final not written')
     print(f'experiment CLI (nn, spline4, 5 rollouts of 10 steps): {wall:.3f} '
@@ -688,6 +827,267 @@ def cli_phase(dev, torch, tmp):
     fitted = fitted_sampler_check(dev, torch, 'CLI MLP sampler', agent,
                                   states, agent.horizon, 'spline4')
     return counts, fitted
+
+
+def rollout_costs_bound(N, H_, sd, ad, hid):
+    """FLOP of the rollout (sampler_bound's) and the bytes of the given
+    actions, the states, the costs and the weights, read or written once."""
+    in_dim = sd + ad
+    flops = 2.0 * N * H_ * (in_dim * hid + hid * hid + hid * sd)
+    n_bytes = 4.0 * (N * H_ * ad + N * sd + N + in_dim * hid + hid * hid
+                     + hid * sd + 2 * hid + 3 * sd)
+    return flops, bound_ms(n_bytes, flops)
+
+
+def candidates(dev, torch, Bs, Hh, ad, seed):
+    """Sampler-layout candidates (B, H, ad, K) as cem_batched's non-fused
+    branch draws them, a clipped normal around a proposal; and the same
+    actions in the rollout-cost kernel's layout (H, ad, B K)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mean = (0.3 * torch.randn((Bs, Hh, ad, 1), generator=g,
+                              device=dev)).clamp(-0.9, 0.9)
+    std = 0.2 + torch.rand((Bs, Hh, ad, 1), generator=g, device=dev)
+    acts = torch.clamp(mean + std * torch.randn(
+        (Bs, Hh, ad, K), generator=g, device=dev), -1.0, 1.0)
+    return acts, acts.permute(1, 2, 0, 3).reshape(Hh, ad, Bs * K)
+
+
+def states_t(s0):
+    """(sd, B K): each env's state repeated for its K candidates."""
+    sd, Bs = s0.shape[1], s0.shape[0]
+    return s0.T[:, :, None].expand(sd, Bs, K).reshape(sd, Bs * K).contiguous()
+
+
+def rollout_costs_phase(dev, torch, params, obs, goal, weights):
+    """TPU kernel #4 against its plain version on given actions at the
+    cheetah control step's shapes (B=1024 x K=1000 candidates, H=30,
+    sd 17, padded to 24 lanes in the kernel; the bench's random MLP):
+    rtol 1e-4. Also times the fused sampler (#2) at the same shapes."""
+    from mujoco_mbrl_tpu_torch.ops import cem_rollout as C
+
+    sd, ad, hid = obs.shape[1], 6, params['l2']['w'].shape[0]
+    acts, aT = candidates(dev, torch, B, H, ad, 13)
+    s0T = states_t(obs)
+    run_k = lambda: C.mlp_rollout_costs_t(params, s0T, aT, goal, weights)
+    run_p = lambda: C.mlp_rollout_costs_reference(
+        params, s0T.T, aT.transpose(1, 2), goal, weights)
+    with torch.no_grad():
+        costs, ref = run_k(), run_p()
+        torch.cuda.synchronize()
+        check(costs.shape == (B * K,) and bool(torch.isfinite(costs).all()),
+              costs.shape)
+        torch.testing.assert_close(costs, ref, rtol=1e-4, atol=1e-4)
+        err = float((costs - ref).abs().max())
+        k_ms, p_ms = time_ms(run_k, 5), time_ms(run_p, 2)
+    flops, (bms, by) = rollout_costs_bound(B * K, H, sd, ad, hid)
+    print(f'rollout costs (given actions) B={B} K={K} H={H} sd={sd}: '
+          f'max|kernel - plain| = {err:.3e} (max |cost| '
+          f'{float(costs.abs().max()):.3f}); kernel {k_ms:.3f} ms, plain '
+          f'{p_ms:.3f} ms (reference only), bound {bms:.3f} ms ({by}), '
+          f'{flops / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s achieved')
+    main_case = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by,
+                     max_abs_err=err)
+
+    # the fused sampler (#2) at the same shapes, as the control step runs it
+    g = torch.Generator(device=dev).manual_seed(14)
+    mean = (0.3 * torch.randn((B, H, ad), generator=g, device=dev)).clamp(
+        -0.9, 0.9)
+    std = 0.2 + torch.rand((B, H, ad), generator=g, device=dev)
+    with torch.no_grad():
+        c_s, a_s = C.mlp_sample_rollout_costs(params, 7, obs, mean, std, goal,
+                                              weights, K)
+        ref_s = C.rollout_costs_of_actions(params, obs, a_s, goal, weights)
+        s_err, _ = check_actions(torch, 'sampler sd 17', c_s, ref_s, a_s,
+                                 mean, K)
+        s_ms = time_ms(lambda: C.mlp_sample_rollout_costs(
+            params, 7, obs, mean, std, goal, weights, K,
+            sampler='triangular'), 5)
+        sp_ms = time_ms(lambda: C.mlp_sample_rollout_costs_plain(
+            params, 7, obs, mean, std, goal, weights, K,
+            sampler='triangular'), 2)
+    s_flops, (s_bms, s_by) = sampler_bound(B, K, H, sd, ad, hid)
+    print(f'sampler triangular at the cheetah shapes (sd={sd}): max|cost - '
+          f'plain(actions)| = {s_err:.3e}; kernel {s_ms:.3f} ms, plain '
+          f'{sp_ms:.3f} ms (reference only), bound {s_bms:.3f} ms ({s_by}), '
+          f'{s_flops / (s_ms * 1e-3) / 1e12:.2f} TFLOP/s achieved')
+    sampler_case = dict(ms=s_ms, plain_ms=sp_ms, bound_ms=s_bms,
+                        bound_by=s_by, max_abs_err=s_err)
+    return main_case, sampler_case
+
+
+def fitted_rollout_costs_check(dev, torch, loop, goal, weights):
+    """Kernel #4 on the full loop's fitted MLP with the replay's
+    normalizers folded in, from the policy rollouts' last states, against
+    its plain version (rtol 1e-4), leaving out the candidates decided by
+    rounding (see decided_by_rounding; at most 0.1%)."""
+    from mujoco_mbrl_tpu_torch.models import train as Mt
+    from mujoco_mbrl_tpu_torch.ops import cem_rollout as C
+
+    p, buf = loop['params'], loop['replay']
+    norms = Mt.make_normalizers(buf)
+    Bc = buf.filled // 2            # the seed rollouts, then the policy's
+    s0 = buf.observations[Bc:2 * Bc, -1].contiguous()
+    acts, aT = candidates(dev, torch, Bc, H, 6, 15)
+    s0T = states_t(s0)
+    run_k = lambda: C.mlp_rollout_costs_t(p, s0T, aT, goal, weights,
+                                          normalizers=norms)
+    with torch.no_grad():
+        costs = run_k().reshape(Bc, K)
+        ref = C.rollout_costs_of_actions(p, s0, acts, goal, weights,
+                                         normalizers=norms)
+        c64 = lambda fold_dtype: folded_costs64(
+            torch, C, p, norms, fold_dtype, s0, acts, goal, weights, 0.25)
+        decided, n_dec = decided_by_rounding(
+            torch, 'fitted rollout costs', costs, ref, c64(torch.float64),
+            c64(torch.float32))
+        torch.testing.assert_close(costs[~decided], ref[~decided],
+                                   rtol=1e-4, atol=1e-4)
+        err = float((costs - ref)[~decided].abs().max())
+        k_ms = time_ms(run_k, 5)
+    print(f'fitted rollout costs (B={Bc} K={K} H={H}, folded normalizers): '
+          f'max|kernel - plain| = {err:.3e} over the rest (max |cost| '
+          f'{float(costs.abs().max()):.3f}); kernel {k_ms:.3f} ms')
+    return dict(ms=k_ms, max_abs_err=err, rounding_decided_candidates=n_dec)
+
+
+def exact_counts(label, counts, **expected):
+    """Every kernel's launch count: `expected` where named, else 0."""
+    want = {k: expected.get(k, 0) for k in counts}
+    check(counts == want, (label, counts, want))
+
+
+def control_step(dev, torch, run, params, state0, gen, label):
+    """One warm-up run, then the timed run with a synchronize around each
+    phase; returns (launch counts, times, final state, warm-up state)."""
+    from mujoco_mbrl_tpu_torch import ops
+
+    warm_state, _ = run(params, state0, gen)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    profile = {}
+    t0 = time.perf_counter()
+    state, rewards = run(params, warm_state, gen, profile=profile)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.launch_counts)
+    for name, x in (('qpos', state.physics.qpos),
+                    ('qvel', state.physics.qvel), ('reward', rewards)):
+        check(bool(torch.isfinite(x).all()), (label, name))
+    out = dict(ms_per_step=1e3 * wall / STEPS, wall_s=wall,
+               plan_ms=1e3 * profile['plan'] / STEPS,
+               physics_ms=1e3 * profile['physics'] / STEPS)
+    print(f'{label}: {STEPS} control steps x {B} envs in {wall:.3f} s = '
+          f'{B * STEPS / wall:.1f} env-steps/s, {out["ms_per_step"]:.2f} ms '
+          f'per control step (plan {out["plan_ms"]:.2f} ms, physics '
+          f'{out["physics_ms"]:.2f} ms); launches {counts}; mean reward per '
+          f'step {rewards.tolist()}')
+    return counts, out, state, warm_state
+
+
+def card_vs_cpu_step(dev, torch, domain, task, start):
+    """One env.step of random actions from `start`, on the card and with
+    the plain versions on the CPU: qpos and reward within 1e-3."""
+    from mujoco_mbrl_tpu_torch import suite
+
+    env = suite.load(domain, task, device=dev)
+    env_cpu = suite.load(domain, task, device='cpu')
+    nu = env.model.nu
+    acts = 2 * torch.rand((B, nu), generator=torch.Generator().manual_seed(
+        5)) - 1
+    to_cpu = lambda s: type(s)(physics=type(s.physics)(
+        qpos=s.physics.qpos.cpu(), qvel=s.physics.qvel.cpu(),
+        time=s.physics.time.cpu()), params=(), step_count=s.step_count.cpu(),
+        last=s.last.cpu())
+    s_gpu, ts_gpu = env.step(start, acts.to(dev))
+    s_cpu, ts_cpu = env_cpu.step(to_cpu(start), acts)
+    dq = float((s_gpu.physics.qpos.cpu() - s_cpu.physics.qpos).abs().max())
+    dr = float((ts_gpu.reward.cpu() - ts_cpu.reward).abs().max())
+    print(f'{domain}_{task} physics step, card vs plain CPU at {B} envs: '
+          f'max|dqpos| {dq:.2e}, max|dreward| {dr:.2e}')
+    check(dq < 1e-3 and dr < 1e-3, (domain, dq, dr))
+
+
+FULL_T, FULL_EPOCHS, FULL_BATCH = 10, 50, 512
+
+
+def full_loop_phase(dev, torch):
+    """bench.full_loop_bench at CONFIGS['cheetah1024']: B=1024, CEM 1000 x
+    30 x 3, rollouts of 10 steps, the fit's 50 epochs at batch 512: the
+    seed collection, then one timed iteration (collect -> add -> fit)."""
+    from mujoco_mbrl_tpu_torch import bench, ops
+
+    cfg = bench.config('cheetah1024')
+    Bc, Kc, Hc = cfg['envs'], cfg['candidates'], cfg['horizon']
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    loop = bench.full_loop_bench(cfg['task'], Bc, Kc, Hc, ITERS, FULL_T,
+                                 repeats=1, device=dev,
+                                 train_epochs=FULL_EPOCHS,
+                                 train_batch=FULL_BATCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.launch_counts)
+    # 200 settling solves in the reset, one solve per control step of the
+    # seed and the policy collection (1 substep), 3 CEM iterations per
+    # policy step
+    exact_counts('full loop', counts, apgd_factored=200 + 2 * FULL_T,
+                 cem_sample_rollout=ITERS * FULL_T)
+    losses = loop['losses']
+    n_up = losses.shape[0]
+    check(n_up == FULL_EPOCHS * (2 * Bc * FULL_T // FULL_BATCH), n_up)
+    check(bool(torch.isfinite(losses).all()), 'non-finite training loss')
+    first, last = float(losses[:n_up // 10].mean()), float(
+        losses[-(n_up // 10):].mean())
+    check(last < first, ('training loss did not decrease', first, last))
+    phys = loop['env_state'].physics
+    check(bool(torch.isfinite(phys.qpos).all()
+               and torch.isfinite(phys.qvel).all()), 'non-finite state')
+    check(loop['replay'].filled == 2 * Bc, loop['replay'].filled)
+    times = {k: loop[k] for k in ('reset_s', 'seed_collect_s', 'collect_s',
+                                  'add_s', 'fit_s', 'iteration_s',
+                                  'env_steps_per_s')}
+    print(f'full loop (cheetah1024: {Bc} envs, CEM {Kc}x{Hc}x{ITERS}, '
+          f'{FULL_T}-step rollouts, fit {FULL_EPOCHS} epochs = {n_up} '
+          f'updates at batch {FULL_BATCH}): '
+          + ', '.join(f'{k} {v:.3f}' for k, v in times.items())
+          + f'; loss {first:.4f} -> {last:.4f} (final '
+          f'{loop["final_loss"]:.4f}); {wall:.1f} s in all; launches '
+          f'{counts}')
+    return counts, dict(times, final_loss=loop['final_loss']), loop
+
+
+def cheetah_cli_phase(dev, torch, tmp):
+    """The experiment CLI on cheetah_run: GoalStateAgent, single MLP over
+    the 19-dim featured state, CEM 1000 candidates x 5 iterations
+    (planner defaults), 20 seed and 5 policy rollouts of 10 steps."""
+    from mujoco_mbrl_tpu_torch import experiment, ops
+
+    args = experiment.parse_args([
+        '--exp_dir', tmp, '--environment', 'cheetah_run', '--planner', 'cem',
+        '--model', 'nn', '--num_rollouts_per_iteration', '5',
+        '--rollout_length', '10', '--num_train_iterations', '1',
+        '--train_epochs', '2'])
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    agent = experiment.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.launch_counts)
+    # three resets of 200 settling solves (the wrapper's observation spec
+    # resets one env, then the seed and the policy collections), one solve
+    # per control step of both collections; 5 CEM iterations per policy
+    # step
+    exact_counts('cheetah CLI', counts, apgd_factored=3 * 200 + 2 * 10,
+                 cem_sample_rollout=5 * 10)
+    check(os.path.exists(os.path.join(tmp, 'agent_final.pt')),
+          'agent_final not written')
+    buf = agent.dataset
+    check(buf.filled == 25 and not agent.obs_only and agent.plan_dim == 19,
+          (buf.filled, agent.obs_only, agent.plan_dim))
+    check(bool(torch.isfinite(buf.states).all()), 'non-finite states')
+    print(f'experiment CLI (cheetah_run, nn, 5 rollouts of 10 steps): '
+          f'{wall:.3f} s; launches {counts}')
+    return counts
 
 
 def main() -> int:
@@ -730,55 +1130,24 @@ def main() -> int:
     fallen = state0
     for _ in range(20):
         fallen, _ = env.step(fallen, torch.zeros((B, 6), device=dev))
-    walker_cases = (capture_walker_solves(dev, torch, env, state0, 'reset')
-                    + capture_walker_solves(dev, torch, env, fallen,
-                                            'contact'))
+    walker_cases = (capture_solves(dev, torch, env, state0, 'reset',
+                                   'apgd_iterate_batched')
+                    + capture_solves(dev, torch, env, fallen, 'contact',
+                                     'apgd_iterate_batched'))
     apgd_err, rounding_envs, apgd_t = apgd_phase(dev, torch, walker_cases)
     obs0 = suite.flatten_observation(env._observe(
         env.model, state0.physics, ()))
     samp_err, samp_t = sampler_phase(dev, torch, params, obs0)
     ens_err, ens_t = ensemble_phase(dev, torch, obs0)
 
-    # ---- slice 1's main path: the MPC control step over the MLP ---------
-    warm_state, _ = run(params, state0, gen)             # warm-up
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    profile = {}
-    t0 = time.perf_counter()
-    state, rewards = run(params, warm_state, gen, profile=profile)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = dict(ops.launch_counts)
-    check(counts == dict(counts, cem_sample_rollout=ITERS * STEPS,
-                         apgd_solve=10 * STEPS, cem_sample_rollout_ens=0),
-          counts)
-    for name, x in (('qpos', state.physics.qpos), ('qvel', state.physics.qvel),
-                    ('reward', rewards)):
-        check(bool(torch.isfinite(x).all()), name)
+    # ---- slice 1's main path: the walker MPC control step over the MLP --
+    counts, w_out, state, warm_state = control_step(
+        dev, torch, run, params, state0, gen, 'walker control step')
+    exact_counts('walker control step', counts,
+                 cem_sample_rollout=ITERS * STEPS, apgd_solve=10 * STEPS)
     check(state.physics.qpos.shape == (B, 9), state.physics.qpos.shape)
-    print(f'main path: {STEPS} control steps x {B} envs in {wall:.3f} s = '
-          f'{B * STEPS / wall:.1f} env-steps/s, {1e3 * wall / STEPS:.2f} ms '
-          f'per control step (plan {1e3 * profile["plan"] / STEPS:.2f} ms, '
-          f'physics {1e3 * profile["physics"] / STEPS:.2f} ms); launches '
-          f'{counts}; mean reward per step {rewards.tolist()}')
-
-    # the last control step's physics against the plain version on the CPU
-    env_cpu = suite.load('walker', 'walk', device='cpu')
-    g_cpu = torch.Generator().manual_seed(5)
-    acts = 2 * torch.rand((B, 6), generator=g_cpu) - 1
-    start = warm_state
-    to_cpu = lambda s: type(s)(physics=type(s.physics)(
-        qpos=s.physics.qpos.cpu(), qvel=s.physics.qvel.cpu(),
-        time=s.physics.time.cpu()), params=(), step_count=s.step_count.cpu(),
-        last=s.last.cpu())
-    s_gpu, ts_gpu = env.step(start, acts.to(dev))
-    s_cpu, ts_cpu = env_cpu.step(to_cpu(start), acts)
-    dq = float((s_gpu.physics.qpos.cpu() - s_cpu.physics.qpos).abs().max())
-    dr = float((ts_gpu.reward.cpu() - ts_cpu.reward).abs().max())
-    print(f'physics step, card vs plain CPU at {B} envs: max|dqpos| {dq:.2e}, '
-          f'max|dreward| {dr:.2e}')
-    check(dq < 1e-3 and dr < 1e-3, (dq, dr))
-    profile_phase(torch, run, params, state, gen, wall)
+    card_vs_cpu_step(dev, torch, 'walker', 'walk', warm_state)
+    profile_phase(torch, run, params, state, gen, w_out['wall_s'])
 
     # ---- slice 3: walker_ens control step, agent loop, CLI -------------
     ens_counts, _ = ens_control_step_phase(dev, torch)
@@ -788,39 +1157,127 @@ def main() -> int:
         cli_counts, cli_fit = cli_phase(dev, torch, tmp)
     samp_t['cases']['cli_b5_h20_spline4_fitted'] = cli_fit
     ens_t['cases']['agent_b1024_sd20_fitted'] = agent_fit
-    samp_err = max(samp_err, cli_fit['max_abs_err'])
     ens_err = max(ens_err, agent_fit['max_abs_err'])
 
-    by_path = lambda key: {
-        'control_step': counts[key], 'walker_ens_control_step':
-        ens_counts[key], 'agent_loop': agent_counts[key],
-        'cli_spline4': cli_counts[key]}
+    # ---- slice 4: cheetah_run (factored APGD, given-action costs) ------
+    c_run, (c_params, c_state0, c_gen) = build_bench(
+        'cheetah_run', B, K, H, ITERS, STEPS, device=dev)
+    c_counts, c_out, c_state, c_warm = control_step(
+        dev, torch, c_run, c_params, c_state0, c_gen, 'cheetah control step')
+    exact_counts('cheetah control step', c_counts,
+                 cem_sample_rollout=ITERS * STEPS, apgd_factored=STEPS)
+    card_vs_cpu_step(dev, torch, 'cheetah', 'run', c_warm)
+    profile_phase(torch, c_run, c_params, c_state, c_gen, c_out['wall_s'])
+    c_env = suite.load('cheetah', 'run', device=dev)
+    # solves at the reset states (resting on the floor) and after 20
+    # control steps of random actions (running, legs in contact)
+    moving, g_act = c_state0, torch.Generator(device=dev).manual_seed(8)
+    for _ in range(20):
+        moving, _ = c_env.step(moving, 2 * torch.rand(
+            (B, 6), generator=g_act, device=dev) - 1)
+    cheetah_cases = (capture_solves(dev, torch, c_env, c_state0, 'reset',
+                                    'apgd_iterate_factored')
+                     + capture_solves(dev, torch, c_env, moving, 'moving',
+                                      'apgd_iterate_factored'))
+    fact_err, fact_rounding, fact_t = factored_phase(dev, torch,
+                                                     cheetah_cases)
+    c_obs = suite.flatten_observation(c_env._observe(
+        c_env.model, c_warm.physics, ()))
+    goal = torch.zeros(c_obs.shape[1], device=dev)
+    goal[1] = 1.0
+    weights = torch.ones(c_obs.shape[1], device=dev)
+    costs_t, samp_cheetah = rollout_costs_phase(dev, torch, c_params, c_obs,
+                                                goal, weights)
+
+    # the non-fused CEM route on the same envs: candidates drawn by
+    # cem_batched, costed by kernel #4 (one launch per CEM iteration)
+    nf_run = build_bench('cheetah_run', B, K, H, ITERS, STEPS, device=dev,
+                         fused=False)[0]
+    nf_counts, nf_out, _, _ = control_step(
+        dev, torch, nf_run, c_params, c_state0, c_gen,
+        'cheetah control step, non-fused CEM')
+    exact_counts('non-fused control step', nf_counts,
+                 cem_rollout_costs=ITERS * STEPS, apgd_factored=STEPS)
+    loop_counts, loop_t, loop = full_loop_phase(dev, torch)
+    fitted_costs = fitted_rollout_costs_check(dev, torch, loop, goal,
+                                              weights)
+    with tempfile.TemporaryDirectory() as tmp:
+        c_cli_counts = cheetah_cli_phase(dev, torch, tmp)
+
+    paths = {'walker_control_step': counts,
+             'walker_ens_control_step': ens_counts,
+             'walker_agent_loop': agent_counts, 'walker_cli_spline4': cli_counts,
+             'cheetah_control_step': c_counts,
+             'cheetah_non_fused_control_step': nf_counts,
+             'cheetah_full_loop': loop_counts, 'cheetah_cli': c_cli_counts}
+    by_path = lambda key: {p: c[key] for p, c in paths.items() if c[key]}
+    src = lambda f: f'mujoco_mbrl_tpu_torch/csrc/{f}'
+    tpu = lambda f, line, fn: f'mujoco_mbrl_tpu/ops/{f}:{line} ({fn})'
+    plain_keys = ('ms', 'plain_ms', 'bound_ms', 'bound_by')
+    pick = lambda d: {k: d[k] for k in plain_keys}
     kernels = [
         dict(name='apgd_iterate_batched', route='cuda',
-             source='mujoco_mbrl_tpu_torch/csrc/apgd_solve.cu',
-             replaces='mujoco_mbrl_tpu/ops/apgd_solve.py:60',
+             source=src('apgd_solve.cu'),
+             replaces=tpu('apgd_solve.py', 60, '_apgd_kernel'),
              launches=counts['apgd_solve'], max_abs_err=apgd_err,
-             library_ms=None, **apgd_t['contact-warm'],
+             library_ms=None, **pick(apgd_t['contact-warm']),
              rounding_decided_envs=rounding_envs,
              launches_by_path=by_path('apgd_solve'), cases=apgd_t),
         dict(name='mlp_sample_rollout_costs', route='cuda',
-             source='mujoco_mbrl_tpu_torch/csrc/cem_sample_rollout.cu',
-             replaces='mujoco_mbrl_tpu/ops/cem_rollout.py:364 '
-                      '(_sample_kernel_multi), mujoco_mbrl_tpu/ops/'
-                      'cem_rollout.py:258 (_sample_kernel)',
-             launches=counts['cem_sample_rollout'], max_abs_err=samp_err,
-             library_ms=None, launches_by_path=by_path('cem_sample_rollout'),
-             **samp_t),
+             source=src('cem_sample_rollout.cu'),
+             replaces=tpu('cem_rollout.py', 364, '_sample_kernel_multi'),
+             launches=c_counts['cem_sample_rollout'],
+             max_abs_err=max(samp_err, samp_cheetah['max_abs_err']),
+             library_ms=None, **pick(samp_cheetah),
+             launches_by_path=by_path('cem_sample_rollout'),
+             cases=dict(samp_t['cases'], cheetah_sd17=samp_cheetah)),
+        dict(name='mlp_sample_rollout_costs[spline4]', route='cuda',
+             source=src('cem_sample_rollout.cu'),
+             replaces=tpu('cem_rollout.py', 258, '_sample_kernel'),
+             launches=cli_counts['cem_sample_rollout'],
+             max_abs_err=cli_fit['max_abs_err'], library_ms=None,
+             **pick(samp_t['cases']['spline4']),
+             launches_by_path={'walker_cli_spline4': cli_counts[
+                 'cem_sample_rollout']}, cli_b5_h20=cli_fit),
+        dict(name='mlp_rollout_costs_t', route='cuda',
+             source=src('cem_rollout_costs.cu'),
+             replaces=tpu('cem_rollout.py', 70, '_kernel'),
+             launches=nf_counts['cem_rollout_costs'],
+             max_abs_err=max(costs_t['max_abs_err'],
+                             fitted_costs['max_abs_err']),
+             library_ms=None, **pick(costs_t),
+             launches_by_path=by_path('cem_rollout_costs'),
+             fitted=fitted_costs),
         dict(name='mlp_sample_rollout_costs_ensemble', route='cuda',
-             source='mujoco_mbrl_tpu_torch/csrc/cem_sample_rollout_ens.cu',
-             replaces='mujoco_mbrl_tpu/ops/cem_rollout.py:671 '
-                      '(_sample_kernel_ens_grouped), mujoco_mbrl_tpu/ops/'
-                      'cem_rollout.py:840 (_sample_kernel_ens)',
+             source=src('cem_sample_rollout_ens.cu'),
+             replaces=tpu('cem_rollout.py', 671,
+                          '_sample_kernel_ens_grouped'),
              launches=agent_counts['cem_sample_rollout_ens'],
              max_abs_err=ens_err, library_ms=None,
-             launches_by_path=by_path('cem_sample_rollout_ens'), **ens_t),
+             **pick(ens_t['cases']['b1024_h30_sd24']),
+             launches_by_path=by_path('cem_sample_rollout_ens'),
+             cases=ens_t['cases']),
+        dict(name='mlp_sample_rollout_costs_ensemble[B=5]', route='cuda',
+             source=src('cem_sample_rollout_ens.cu'),
+             replaces=tpu('cem_rollout.py', 840, '_sample_kernel_ens'),
+             launches=agent_counts['cem_sample_rollout_ens'],
+             launches_by_path=by_path('cem_sample_rollout_ens'),
+             launches_note='the same CUDA kernel as '
+                           'mlp_sample_rollout_costs_ensemble',
+             max_abs_err=ens_t['cases']['b5_h20_sd20']['max_abs_err'],
+             library_ms=None, **pick(ens_t['cases']['b5_h20_sd20'])),
+        dict(name='apgd_iterate_factored', route='cuda',
+             source=src('apgd_factored.cu'),
+             replaces=tpu('apgd_solve.py', 236, '_apgd_factored_kernel'),
+             launches=c_counts['apgd_factored'], max_abs_err=fact_err,
+             library_ms=None, **pick(fact_t['moving-cold']),
+             rounding_decided_envs=fact_rounding,
+             launches_by_path=by_path('apgd_factored'), cases=fact_t),
     ]
     print(json.dumps({'kernels': kernels}))
+    print(json.dumps({'paths': dict(
+        cheetah_control_step=c_out, cheetah_non_fused_control_step=nf_out,
+        cheetah_full_loop=loop_t)}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -2,13 +2,15 @@
 
 Port of the batched-CEM path of mujoco_mbrl_tpu/agents/mpc.py:
 ``BatchedMPCPolicy``, ``MPCAgent``, ``GoalStateAgent`` and ``save`` /
-``load``. Planning always goes through the fused sampler: the
+``load``. The agent plans through the fused sampler: the
 ``mlp_sample_rollout_costs`` kernel for ``MLPDynamics``, the
 ``mlp_sample_rollout_costs_ensemble`` kernel (TS-infinity, candidate k ->
 member k % n) for ``EnsembleDynamics``; on CPU tensors the same functions
-run their plain versions. The per-env ``MPCPolicy``, ``RewardAgent`` and
-the non-fused ``rollout_costs_fn`` path (the TPU kernel
-``ops/cem_rollout.py:_kernel``) are not ported and raise.
+run their plain versions. ``BatchedMPCPolicy`` also takes the non-fused
+``rollout_costs_fn`` (``ops.mlp_rollout_costs_t``, which the agent builds
+for a plain MLP as the JAX agent does) and plans through it when no
+sampler builder is given. The per-env ``MPCPolicy`` and ``RewardAgent``
+are not ported and raise.
 
 Randomness comes from one CPU ``torch.Generator`` seeded by ``seed`` (the
 JAX agent's key); model weights and optimizer state live on the env's
@@ -25,7 +27,7 @@ from .. import data as D
 from .. import models as Mo
 from ..envs import EnvWrapper
 from ..models.train import make_normalizers, param_leaves, train_model
-from ..ops.cem_rollout import (mlp_sample_rollout_costs,
+from ..ops.cem_rollout import (mlp_rollout_costs_t, mlp_sample_rollout_costs,
                                mlp_sample_rollout_costs_ensemble)
 from ..planners import CEMPlanner, cem_batched
 from ..utils import MetricsWriter, load_tree, logger, save_tree
@@ -48,7 +50,9 @@ class BatchedMPCPolicy:
     ``policy(generator, t, state (B, sd), obs (B, od), carry) ->
     (actions (B, ad), carry)``. The previous plan seeds the CEM mean; it
     is invalidated at t == 0. ``sample_costs_builder(obs) ->
-    sample_costs_fn`` binds the planning states into the fused sampler.
+    sample_costs_fn`` binds the planning states into the fused sampler;
+    without one, ``rollout_costs_fn(s0T, actionsT)`` costs the candidates
+    that ``cem_batched`` draws (JAX agents/mpc.py:150-152).
     """
 
     def __init__(self, horizon: int, action_dim: int,
@@ -56,11 +60,12 @@ class BatchedMPCPolicy:
                  rollout_costs_fn: Optional[Callable] = None,
                  sample_costs_builder: Optional[Callable] = None,
                  plan_on_observations: bool = True):
-        if sample_costs_builder is None or rollout_costs_fn is not None:
+        if sample_costs_builder is None and rollout_costs_fn is None:
             raise NotImplementedError(
-                'only the fused sampler path is ported: the rollout_costs_fn'
-                ' / XLA scan path (mujoco_mbrl_tpu.ops.cem_rollout._kernel '
-                'via mlp_rollout_costs_t) is not')
+                'planning through the model / cost scan is not ported '
+                '(mujoco_mbrl_tpu.planners.shooting._rollout_costs): give a '
+                'sample_costs_builder or a rollout_costs_fn')
+        self.rollout_costs_fn = rollout_costs_fn
         cfg = {**CEMPlanner.defaults, **(planner_kwargs or {})}
         cfg.pop('action_dim', None)
         self.cfg = cfg
@@ -79,13 +84,17 @@ class BatchedMPCPolicy:
                      else None)
         seeds = torch.randint(0, 2 ** 31 - 1, (self.cfg['num_iterations'],),
                               generator=generator).tolist()
+        scf = (self.sample_costs_builder(plan_vec)
+               if self.sample_costs_builder is not None else None)
         traj = cem_batched(
             seeds, plan_vec, self.horizon, self.action_dim,
             num_candidates=self.cfg['num_candidates'],
             num_elites=self.cfg['num_elites'], init_mean=init_mean,
             action_low=self.cfg['action_low'],
             action_high=self.cfg['action_high'],
-            sample_costs_fn=self.sample_costs_builder(plan_vec))
+            rollout_costs_fn=None if scf is not None
+            else self.rollout_costs_fn,
+            sample_costs_fn=scf)
         return traj.actions[0], (True, traj.actions)
 
 
@@ -279,10 +288,19 @@ class GoalStateAgent(MPCAgent):
                 params, seed, obs, mean, std, goal, weights, **common))
 
     def _make_batched_policy(self, params, norms, goal_state):
+        """Batched-CEM policy over the fused sampler; for a plain
+        ``MLPDynamics`` it also carries the non-fused rollout-cost kernel
+        (JAX agents/mpc.py:376-380), which the policy takes only without
+        a sampler builder."""
         build = self._sample_costs_builder(params, norms)
+        rc = None
+        if type(self.model) is Mo.MLPDynamics:
+            rc = lambda s0T, aT: mlp_rollout_costs_t(
+                params, s0T, aT, goal_state, self.state_cost_weights,
+                normalizers=norms, alpha_action=self.action_cost_alpha)
         return BatchedMPCPolicy(
             horizon=self.horizon, action_dim=self.environment.action_dim,
-            planner_kwargs=self.planner_kwargs,
+            planner_kwargs=self.planner_kwargs, rollout_costs_fn=rc,
             sample_costs_builder=lambda plan_vec: build(plan_vec,
                                                         goal_state),
             plan_on_observations=self.obs_only)

@@ -23,66 +23,11 @@
 // 16 MB at B = 1024), so the kernel is latency-bound by that serial chain,
 // far above both the bytes bound and the FP32 operations bound.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "apgd_common.cuh"
 
 namespace {
 
-constexpr int kNonneg = 1;
-constexpr int kBox = 2;
-constexpr int kConeNormal = 4;
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// Block-wide sums of three values; every thread receives the totals.
-__device__ void block_sum3(float& a, float& b, float& c, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = (blockDim.x + 31) >> 5;
-  a = warp_sum(a);
-  b = warp_sum(b);
-  c = warp_sum(c);
-  __syncthreads();
-  if (lane == 0) {
-    red[warp] = a;
-    red[32 + warp] = b;
-    red[64 + warp] = c;
-  }
-  __syncthreads();
-  a = b = c = 0.f;
-  for (int w = 0; w < nw; ++w) {
-    a += red[w];
-    b += red[32 + w];
-    c += red[64 + w];
-  }
-}
-
-__device__ float block_sum(float a, float* red) {
-  float b = 0.f, c = 0.f;
-  block_sum3(a, b, c, red);
-  return a;
-}
-
-__device__ float block_max(float a, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = (blockDim.x + 31) >> 5;
-  a = warp_max(a);
-  __syncthreads();
-  if (lane == 0) red[warp] = a;
-  __syncthreads();
-  a = red[0];
-  for (int w = 1; w < nw; ++w) a = fmaxf(a, red[w]);
-  return a;
-}
+using namespace apgd;
 
 __global__ void apgd_kernel(const float* __restrict__ Ad_g,
                             const float* __restrict__ rhs_g,
@@ -101,8 +46,8 @@ __global__ void apgd_kernel(const float* __restrict__ Ad_g,
   float* xs = Ad + nr * ld;        // matvec operand
   float* ps = xs + nr;             // pre-projection values / polish buffer
   float* ts = ps + nr;             // cone tangent scales
-  float* red = ts + nr;            // 96 reduction slots
-  int* types = reinterpret_cast<int*>(red + 96);   // nr row types
+  float* red = ts + nr;            // kRedSlots reduction slots
+  int* types = reinterpret_cast<int*>(red + kRedSlots);   // nr row types
 
   const int b = blockIdx.x;
   const int i = threadIdx.x;
@@ -169,34 +114,9 @@ __global__ void apgd_kernel(const float* __restrict__ Ad_g,
   }
 
   // ---- projection: non-negative, then box, then friction cone -------
+  const Row rw{i, nr, type_i, row, mu_i, bnd_i, act_i};
   auto proj = [&](float x) -> float {
-    if (type_i & kNonneg) x = fmaxf(x, 0.f);
-    if (type_i & kBox) x = fminf(fmaxf(x, -bnd_i), bnd_i);
-    if (has_cone) {
-      __syncthreads();
-      if (row) ps[i] = x;
-      __syncthreads();
-      float tsc = 1.f;
-      if (type_i & kConeNormal) {
-        // tangent rows read through a wrapping shift, as jnp.roll does
-        const float ft1 = ps[(i + 1) % nr], ft2 = ps[(i + 2) % nr];
-        const float t = sqrtf(ft1 * ft1 + ft2 * ft2);
-        const bool inside = t <= mu_i * x;
-        const bool apex = mu_i * t + x <= 0.f;
-        const float fn = inside ? x
-                         : (apex ? 0.f : (x + mu_i * t) / (1.f + mu_i * mu_i));
-        tsc = inside ? 1.f : (apex ? 0.f : mu_i * fn / fmaxf(t, 1e-12f));
-        x = fn;
-      }
-      if (row) ts[i] = tsc;
-      __syncthreads();
-      if (row) {
-        const int p1 = (i + nr - 1) % nr, p2 = (i + nr - 2) % nr;
-        if (types[p1] & kConeNormal) x *= ts[p1];
-        if (types[p2] & kConeNormal) x *= ts[p2];
-      }
-    }
-    return x * act_i;
+    return project(x, rw, has_cone, ps, ts, types);
   };
 
   // ---- Nesterov APGD with adaptive restart, per-env exit ------------
@@ -244,7 +164,8 @@ __global__ void apgd_kernel(const float* __restrict__ Ad_g,
 
 extern "C" size_t apgd_smem_bytes(int nr) {
   const int ld = nr | 1;
-  return sizeof(float) * ((size_t)nr * ld + 3 * nr + 96) + sizeof(int) * nr;
+  return sizeof(float) * ((size_t)nr * ld + 3 * nr + apgd::kRedSlots) +
+         sizeof(int) * nr;
 }
 
 extern "C" int apgd_iterate_batched(

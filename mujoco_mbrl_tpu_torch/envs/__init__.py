@@ -1,5 +1,5 @@
 """MBRL-facing env wrappers: featured state, goals, batched collection."""
 
-from .wrappers import EnvWrapper, Walker, load
+from .wrappers import Cheetah, EnvWrapper, Walker, load
 
-__all__ = ['EnvWrapper', 'Walker', 'load']
+__all__ = ['Cheetah', 'EnvWrapper', 'Walker', 'load']

@@ -1,6 +1,6 @@
 """MBRL env wrappers: featured state, goals, batched rollout collection.
 
-Port of the EnvWrapper base and the Walker wrapper of
+Port of the EnvWrapper base and the Walker and Cheetah wrappers of
 mujoco_mbrl_tpu/envs/wrappers.py. The JAX wrapper collects under
 ``vmap`` + ``lax.scan``; here the env batch is the leading dimension and
 collection is a Python loop over control steps. Collection is two steps,
@@ -234,7 +234,37 @@ class Walker(EnvWrapper):
         return g
 
 
-_WRAPPERS = {'Walker': Walker}
+class Cheetah(EnvWrapper):
+    """Drop x, append speed and torso height (wrappers.py:489-535).
+    ``sample_state`` is not ported, as for the walker."""
+    state_dim = 18 - 1 + 2
+    observation_dim = 17
+
+    def get_state(self, env_state, data=None):
+        m = self._env.model
+        phys = env_state.physics
+        base = torch.cat([phys.qpos[:, 1:], phys.qvel], 1)
+        if data is None:
+            return torch.cat([base, base.new_zeros((base.shape[0], 2))], 1)
+        torso = m.name2id('body', 'torso')
+        speed = sensors.subtree_linvel(m, data, torso)[:, 0]
+        height = sensors.subtree_com(m, data, torso)[:, 2]
+        return torch.cat([base, speed[:, None], height[:, None]], 1)
+
+    def get_goal_weights(self):
+        w = torch.zeros(self.state_dim, device=self.device)
+        w[17] = self._state_penalty
+        w[18] = self._state_penalty / 2.0
+        return w
+
+    def set_goal(self, generator=None):
+        g = torch.zeros(self.state_dim, device=self.device)
+        g[-2] = 2.0   # target speed
+        g[-1] = 0.4   # target torso height
+        return g
+
+
+_WRAPPERS = {'Cheetah': Cheetah, 'Walker': Walker}
 
 
 def load(env_name: str, task_name: str, device=None,

@@ -4,8 +4,9 @@
 where it launches its kernel and nowhere else.
 """
 
-launch_counts = {'apgd_solve': 0, 'cem_sample_rollout': 0,
-                 'cem_sample_rollout_ens': 0}
+launch_counts = {'apgd_solve': 0, 'apgd_factored': 0,
+                 'cem_sample_rollout': 0, 'cem_sample_rollout_ens': 0,
+                 'cem_rollout_costs': 0}
 
 
 def reset_launch_counts() -> None:

@@ -1,12 +1,19 @@
-"""Batched APGD constraint-solve iterate: CUDA kernel and plain version.
+"""Batched APGD constraint-solve iterates: CUDA kernels and plain versions.
 
 ``apgd_iterate_batched`` replaces the TPU kernel
 mujoco_mbrl_tpu/ops/apgd_solve.py:_apgd_kernel. For CUDA tensors it
 launches ``csrc/apgd_solve.cu`` (one thread block per env, Ad resident in
 shared memory, a real per-env early exit) and raises on inputs the kernel
 does not take; for CPU tensors it runs ``apgd_iterate_plain``, the batched
-PyTorch form of physics/solver.py's ``_apgd_dispatch.impl``. There is no
-fallback from the kernel to the plain version.
+PyTorch form of physics/solver.py's ``_apgd_dispatch.impl``.
+
+``apgd_iterate_factored`` replaces ``_apgd_factored_kernel``, the regime
+past 96 rows where Ad = J~ M^-1 J~' + diag(Rs) is never materialized. For
+CUDA tensors it launches ``csrc/apgd_factored.cu`` (one block per env, J~
+and M^-1 resident in shared memory, the matvec in three stages); for CPU
+tensors it runs ``apgd_iterate_factored_plain``, which materializes Ad and
+runs the plain iterate with the trace staleness bound. There is no
+fallback from a kernel to its plain version.
 """
 
 from __future__ import annotations
@@ -28,6 +35,12 @@ _SIGNATURES = {
                              + [ctypes.c_int] * 6 + [ctypes.c_float]
                              + [ctypes.c_void_p] * 3),
 }
+_FACTORED_SIGNATURES = {
+    'apgd_factored_smem_bytes': (ctypes.c_size_t, [ctypes.c_int] * 2),
+    'apgd_iterate_factored': (ctypes.c_int, [ctypes.c_void_p] * 11
+                              + [ctypes.c_int] * 6 + [ctypes.c_float]
+                              + [ctypes.c_void_p] * 4),
+}
 
 
 def _masks(nr: int, nonneg, box_rows, con0, device):
@@ -41,13 +54,16 @@ def _masks(nr: int, nonneg, box_rows, con0, device):
 def apgd_iterate_plain(Ad, rhs, f0, v0, active, mu_full, bounds_full, *,
                        nonneg, box_rows, con0, iterations: int, cold: bool,
                        tol2: float = 1e-12, eq_rows: tuple = (),
-                       return_iterations: bool = False):
+                       return_iterations: bool = False,
+                       trace_safe_l: bool = False):
     """Plain PyTorch iterate over the env batch (leading dim B).
 
     Same contract as the JAX ``apgd_iterate_batched``: Ad (B, nr, nr),
     rhs / f0 (scaled warm start) / v0 (power vector) / active (B, nr),
     mu_full / bounds_full (nr,). Returns (f, v), each (B, nr), and with
     ``return_iterations`` also the APGD iterations each env ran (B,).
+    ``trace_safe_l`` takes the trace of Ad, not its largest absolute row
+    sum, as the warm staleness fallback (the factored regime's bound).
     """
     B, nr = rhs.shape
     dt = rhs.dtype
@@ -75,7 +91,11 @@ def apgd_iterate_plain(Ad, rhs, f0, v0, active, mu_full, bounds_full, *,
         for _ in range(2):
             v = power(v)
         r8 = (v * matvec(v)).sum(1)
-        safe_L = torch.clamp(Ad.abs().sum(2).max(1).values, min=1.0)
+        if trace_safe_l:
+            safe_L = torch.clamp(torch.diagonal(Ad, dim1=1, dim2=2).sum(1),
+                                 min=1.0)
+        else:
+            safe_L = torch.clamp(Ad.abs().sum(2).max(1).values, min=1.0)
         stale = (r8 - r6) > 0.02 * torch.clamp(r8, min=1e-12)
         L = torch.where(stale, safe_L, 1.5 * torch.clamp(r8, min=1.0))
     L = L[:, None]
@@ -189,3 +209,72 @@ def apgd_iterate_batched(Ad, rhs, f0, v0, active, mu_full, bounds_full, *,
     _build.check(rc, 'apgd_iterate_batched')
     launch_counts['apgd_solve'] += 1
     return f, v
+
+
+def apgd_iterate_factored_plain(J_s, Minv, Rs, diag_s, rhs, f0, v0, active,
+                                mu_full, bounds_full, *, nonneg, box_rows,
+                                con0, iterations: int, cold: bool,
+                                tol2: float = 1e-12,
+                                return_iterations: bool = False):
+    """Plain factored iterate: the batched form of physics/solver.py's
+    ``_apgd_dispatch_factored.impl_f``. Materializes
+    Ad = (J~ M^-1) J~' + diag(Rs) and runs ``apgd_iterate_plain`` with the
+    trace staleness bound; ``diag_s`` (the kernel's trace input) is not
+    read, as ``impl_f`` does not read it."""
+    Ad = (J_s @ Minv) @ J_s.transpose(1, 2) + torch.diag_embed(Rs)
+    return apgd_iterate_plain(
+        Ad, rhs, f0, v0, active, mu_full, bounds_full, nonneg=nonneg,
+        box_rows=box_rows, con0=con0, iterations=iterations, cold=cold,
+        tol2=tol2, return_iterations=return_iterations, trace_safe_l=True)
+
+
+def apgd_iterate_factored(J_s, Minv, Rs, diag_s, rhs, f0, v0, active,
+                          mu_full, bounds_full, *, nonneg, box_rows, con0,
+                          iterations: int, cold: bool, tol2: float = 1e-12,
+                          return_iterations: bool = False):
+    """Batched factored APGD iterate (contract of the JAX
+    ``apgd_iterate_factored``): J_s (B, nr, nv) scaled and active-masked
+    Jacobian, Minv (B, nv, nv), Rs / diag_s / rhs / f0 / v0 / active
+    (B, nr), mu_full / bounds_full (nr,). Returns (f, v), each (B, nr),
+    and with ``return_iterations`` also the APGD iterations each env ran
+    (B,), as the plain version does.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on
+    the current stream (no synchronisation, outputs allocated here). The
+    kernel has no equality polish, as the JAX kernel has none.
+    """
+    if not J_s.is_cuda:
+        return apgd_iterate_factored_plain(
+            J_s, Minv, Rs, diag_s, rhs, f0, v0, active, mu_full, bounds_full,
+            nonneg=nonneg, box_rows=box_rows, con0=con0,
+            iterations=iterations, cold=cold, tol2=tol2,
+            return_iterations=return_iterations)
+    B, nr, nv = J_s.shape
+    tensors = (J_s, Minv, Rs, diag_s, rhs, f0, v0, active, mu_full,
+               bounds_full)
+    for t in tensors:
+        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError('apgd_iterate_factored kernel takes contiguous '
+                             'float32 CUDA tensors')
+    if Minv.shape != (B, nv, nv) or mu_full.shape != (nr,) or \
+            bounds_full.shape != (nr,) or any(
+                t.shape != (B, nr) for t in tensors[2:8]):
+        raise ValueError('apgd_iterate_factored: inconsistent shapes')
+    lib = _build.library('apgd_factored', _FACTORED_SIGNATURES)
+    if nr > 1024 or lib.apgd_factored_smem_bytes(nr, nv) > MAX_SHARED_BYTES:
+        raise ValueError(f'apgd_iterate_factored: nr={nr}, nv={nv} does not '
+                         'fit in shared memory')
+    types, _ = _row_tables(nr, tuple(nonneg), tuple(box_rows), tuple(con0),
+                           (), J_s.device)
+    f = torch.empty_like(rhs)
+    v = torch.empty_like(rhs)
+    its = (torch.empty((B,), dtype=torch.int32, device=rhs.device)
+           if return_iterations else None)
+    rc = lib.apgd_iterate_factored(
+        *(t.data_ptr() for t in tensors), types.data_ptr(), B, nr, nv,
+        int(iterations), int(bool(cold)), int(bool(len(con0))), float(tol2),
+        f.data_ptr(), v.data_ptr(), its.data_ptr() if its is not None else 0,
+        torch.cuda.current_stream(J_s.device).cuda_stream)
+    _build.check(rc, 'apgd_iterate_factored')
+    launch_counts['apgd_factored'] += 1
+    return (f, v, its) if return_iterations else (f, v)

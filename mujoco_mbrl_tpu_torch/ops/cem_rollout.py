@@ -1,4 +1,11 @@
-"""Fused CEM sample + MLP rollout + cost: CUDA kernels and plain versions.
+"""CEM candidate rollout + cost: CUDA kernels and plain versions.
+
+``mlp_rollout_costs_t`` (and its (N, sd) / (H, N, ad) form
+``mlp_rollout_costs``) replaces the TPU kernel
+mujoco_mbrl_tpu/ops/cem_rollout.py:_kernel: the MLP rollout and cost of
+GIVEN actions, the ``rollout_costs_fn`` of ``cem_batched``'s non-fused
+branch. For CUDA tensors it launches ``csrc/cem_rollout_costs.cu``; for
+CPU tensors it runs ``mlp_rollout_costs_reference``.
 
 ``mlp_sample_rollout_costs`` replaces two TPU kernels of
 mujoco_mbrl_tpu/ops/cem_rollout.py: ``_sample_kernel_multi`` (G envs per
@@ -40,6 +47,12 @@ _SIGNATURES = {
     'cem_sample_rollout': (ctypes.c_int, [ctypes.c_void_p] * 11
                            + [ctypes.c_ulonglong] + [ctypes.c_int] * 8
                            + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 3),
+}
+_COSTS_SIGNATURES = {
+    'cem_rollout_costs_smem_bytes': (ctypes.c_size_t, [ctypes.c_int] * 3),
+    'cem_rollout_costs': (ctypes.c_int, [ctypes.c_void_p] * 10
+                          + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                          + [ctypes.c_void_p] * 2),
 }
 _ENS_SIGNATURES = {
     'cem_ens_smem_bytes': (ctypes.c_size_t, [ctypes.c_int] * 3),
@@ -101,6 +114,59 @@ def mlp_rollout_costs_reference(params, s0, actions, goal, weights,
                      + alpha_action ** 2 * torch.mean(
                          torch.cosh(a / alpha_action) - 1.0, dim=-1))
     return acc
+
+
+def mlp_rollout_costs_t(params, s0T, actionsT, goal, weights,
+                        normalizers=None, alpha_state: float = 0.4,
+                        alpha_action: float = 0.25,
+                        compute_dtype=None) -> torch.Tensor:
+    """Rollout + cost of given actions in the kernel's layout: s0T (sd, N),
+    actionsT (H, ad, N) -> costs (N,) float32. CPU tensors run
+    ``mlp_rollout_costs_reference``; CUDA tensors launch the kernel on the
+    current stream. The TPU ``tile`` and ``interpret`` knobs have no
+    counterpart."""
+    _check_compute_dtype(compute_dtype)
+    if not s0T.is_cuda:
+        return mlp_rollout_costs_reference(
+            params, s0T.T, actionsT.transpose(1, 2), goal, weights,
+            normalizers, alpha_state, alpha_action)
+    w = tuple(t.detach().contiguous() for t in
+              _fold_normalizers(params, normalizers))
+    sd, N = s0T.shape
+    H, ad = actionsT.shape[:2]
+    hid = w[2].shape[0]
+    tensors = (s0T, actionsT) + w + (goal, weights)
+    for t in tensors:
+        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError('mlp_rollout_costs_t kernel takes contiguous '
+                             'float32 CUDA tensors')
+    if (actionsT.shape != (H, ad, N) or w[0].shape != (sd + ad, hid)
+            or w[1].shape != (hid,) or w[2].shape != (hid, hid)
+            or w[4].shape != (hid, sd) or w[5].shape != (sd,)
+            or goal.shape != (sd,) or weights.shape != (sd,)):
+        raise ValueError('mlp_rollout_costs_t: inconsistent shapes')
+    lib = _build.library('cem_rollout_costs', _COSTS_SIGNATURES)
+    if lib.cem_rollout_costs_smem_bytes(sd, ad, hid) > MAX_SHARED_BYTES:
+        raise ValueError('mlp_rollout_costs_t: model too large for the '
+                         'kernel shared-memory layout')
+    costs = torch.empty((N,), dtype=torch.float32, device=s0T.device)
+    rc = lib.cem_rollout_costs(
+        *(t.data_ptr() for t in tensors), N, H, sd, ad, hid,
+        float(alpha_state), float(alpha_action), costs.data_ptr(),
+        torch.cuda.current_stream(s0T.device).cuda_stream)
+    _build.check(rc, 'mlp_rollout_costs_t')
+    launch_counts['cem_rollout_costs'] += 1
+    return costs
+
+
+def mlp_rollout_costs(params, s0, actions, goal, weights, normalizers=None,
+                      alpha_state: float = 0.4, alpha_action: float = 0.25,
+                      compute_dtype=None) -> torch.Tensor:
+    """Costs (K,) of candidates s0 (K, sd), actions (H, K, ad): the JAX
+    ``mlp_rollout_costs`` layout, through ``mlp_rollout_costs_t``."""
+    return mlp_rollout_costs_t(
+        params, s0.T.contiguous(), actions.transpose(1, 2).contiguous(),
+        goal, weights, normalizers, alpha_state, alpha_action, compute_dtype)
 
 
 def rollout_costs_of_actions(params, s0, actions, goal, weights,

@@ -1,10 +1,11 @@
 """Collision detection: static candidate pairs -> fixed-size contact set.
 
-Port of mujoco_mbrl_tpu/physics/collision.py for plane-capsule pairs (the
-walker's only colliding pairs: 7 pairs, 2 points each, 14 contacts). The
-candidate list is static per model; inactive contacts are masked by
-distance downstream. Any other geom pair type raises
-``NotImplementedError``.
+Port of mujoco_mbrl_tpu/physics/collision.py for plane-capsule pairs (2
+points each) and capsule-capsule pairs (1 point each): the walker's 7
+plane-capsule pairs (14 contacts) and the cheetah's 8 plane-capsule and 19
+capsule-capsule pairs (35 contacts). The candidate list is static per
+model; inactive contacts are masked by distance downstream. Any other
+geom pair type raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -113,42 +114,120 @@ def _tangent_frame(n: torch.Tensor):
     return t1, torch.linalg.cross(n, t1)
 
 
+def _dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return (x * y).sum(-1)
+
+
+def _segment(xpos, xmat, half):
+    """World end points of capsule axes: xpos (B, P, 3), half (P, 1)."""
+    axis = xmat[..., :, 2]
+    return xpos - half * axis, xpos + half * axis
+
+
+def _closest_segment_segment(a0, a1, b0, b1):
+    """Closest points between segments [a0, a1] and [b0, b1] (..., 3):
+    the JAX ``_closest_segment_segment`` clamped solve, in its order (s
+    from the unclamped solve, t from s and clamped, s again from the
+    clamped t; a near-parallel pair takes s = 0 first)."""
+    d1, d2, r = a1 - a0, b1 - b0, a0 - b0
+    a, e, f = _dot(d1, d1), _dot(d2, d2), _dot(d2, r)
+    c, b = _dot(d1, r), _dot(d1, d2)
+    denom = a * e - b * b
+    s = torch.where(denom > 1e-12, torch.clamp(
+        (b * f - c * e) / torch.clamp(denom, min=1e-12), 0.0, 1.0), 0.0)
+    t = torch.clamp((b * s + f) / torch.clamp(e, min=1e-12), 0.0, 1.0)
+    s = torch.clamp((b * t - c) / torch.clamp(a, min=1e-12), 0.0, 1.0)
+    return a0 + d1 * s[..., None], b0 + d2 * t[..., None]
+
+
+def _k_plane_capsule(p1, R1, s1, p2, R2, s2):
+    """Plane normal vs the capsule's two end caps as spheres:
+    dist = n.(end - plane_pos) - r. Returns (dist, pos, normal), each
+    (B, P, 2, ...)."""
+    n = R1[..., :, 2][:, :, None, :]                     # (B, P, 1, 3)
+    r = s2[:, 0:1]                                       # (P, 1)
+    e0, e1 = _segment(p2, R2, s2[:, 1:2])
+    ends = torch.stack([e0, e1], dim=2)                  # (B, P, 2, 3)
+    dist = ((ends - p1[:, :, None, :]) * n).sum(-1) - r  # (B, P, 2)
+    pos = ends - (r[:, :, None] + 0.5 * dist[..., None]) * n
+    return dist, pos, n.expand(pos.shape)
+
+
+def _k_capsule_capsule(p1, R1, s1, p2, R2, s2):
+    """One contact between the axes' closest points (JAX
+    ``_k_capsule_capsule``). Returns (dist, pos, normal), (B, P, 1, ...)."""
+    r1, r2 = s1[:, 0], s2[:, 0]                          # (P,)
+    c1, c2 = _closest_segment_segment(*_segment(p1, R1, s1[:, 1:2]),
+                                      *_segment(p2, R2, s2[:, 1:2]))
+    dvec = c2 - c1
+    dist = torch.linalg.vector_norm(dvec, dim=-1)        # (B, P)
+    n = dvec / torch.clamp(dist, min=1e-12)[..., None]
+    d = dist - (r1 + r2)
+    pos = c1 + n * (r1 + 0.5 * d)[..., None]
+    return d[..., None], pos[:, :, None], n[:, :, None]
+
+
+_KERNELS = {(M.PLANE, M.CAPSULE): _k_plane_capsule,
+            (M.CAPSULE, M.CAPSULE): _k_capsule_capsule}
+
+
 def detect(m: M.Model, geom_xpos, geom_xmat,
            pairs: List[Tuple[int, int]]) -> Contact:
-    """Evaluate all candidate pairs -> Contact with C rows in pair order."""
-    for g1, g2 in pairs:
-        if (m.geom_type[g1], m.geom_type[g2]) != (M.PLANE, M.CAPSULE):
+    """Evaluate all candidate pairs -> Contact with C rows in pair order.
+
+    Pairs are grouped by geom-type combination and each group is one
+    batched evaluation; the rows go back into the candidate order (each
+    pair's points contiguous), as the JAX ``detect`` emits them."""
+    keys = [(m.geom_type[g1], m.geom_type[g2]) for g1, g2 in pairs]
+    for key in keys:
+        if key not in _KERNELS:
             raise NotImplementedError(
-                'only plane-capsule contacts are ported '
+                'only plane-capsule and capsule-capsule contacts are ported '
                 '(mujoco_mbrl_tpu.physics.collision.detect)')
 
     def build():
-        ga = np.array([g1 for g1, _ in pairs])
-        gb = np.array([g2 for _, g2 in pairs])
-        row_pair = np.repeat(np.arange(len(pairs)), 2)
-        friction, solref, solimp = _combine_batched(m, ga, gb)
-        idx = lambda a: torch.as_tensor(a, device=m.device)
-        return (idx(ga), idx(gb), m.geom_size[gb, 0][:, None],
-                m.geom_size[gb, 1][:, None],
-                tuple(int(ga[i]) for i in row_pair),
-                tuple(int(gb[i]) for i in row_pair),
-                friction[row_pair], solref[row_pair], solimp[row_pair])
+        npts = [_PAIR_POINTS[k] for k in keys]
+        offsets = np.concatenate([[0], np.cumsum(npts)[:-1]])
+        groups = {}
+        for i, k in enumerate(keys):
+            groups.setdefault(k, []).append(i)
+        idx = lambda a: torch.as_tensor(np.asarray(a, np.int64),
+                                        device=m.device)
+        evals, rows = [], []
+        for key, members in groups.items():
+            ga = np.array([pairs[i][0] for i in members])
+            gb = np.array([pairs[i][1] for i in members])
+            evals.append((_KERNELS[key], idx(ga), idx(gb), m.geom_size[ga],
+                          m.geom_size[gb]))
+            rows += [offsets[i] + q for i in members
+                     for q in range(_PAIR_POINTS[key])]
+        # output row j comes from row order[j] of the grouped evaluation
+        order = idx(np.argsort(np.asarray(rows)))
+        row_pair = np.repeat(np.arange(len(pairs)), npts)
+        friction, solref, solimp = _combine_batched(
+            m, np.array([g1 for g1, _ in pairs]),
+            np.array([g2 for _, g2 in pairs]))
+        return (evals, order, tuple(pairs[i][0] for i in row_pair),
+                tuple(pairs[i][1] for i in row_pair), friction[row_pair],
+                solref[row_pair], solimp[row_pair])
 
-    (ga, gb, r, half, geom1, geom2, friction, solref,
-     solimp) = M.cached(m, ('plane_capsule', tuple(pairs)), build)
-    # plane normal vs the capsule's two end caps as spheres
-    # (_k_plane_capsule): dist = n.(end - plane_pos) - r
-    n = geom_xmat[:, ga, :, 2][:, :, None, :]            # (B, P, 1, 3)
-    p1 = geom_xpos[:, ga][:, :, None, :]
-    axis = geom_xmat[:, gb, :, 2]
-    ends = torch.stack([geom_xpos[:, gb] - half * axis,
-                        geom_xpos[:, gb] + half * axis], dim=2)  # (B,P,2,3)
-    dist = ((ends - p1) * n).sum(-1) - r                 # (B, P, 2)
-    pos = ends - (r[:, :, None] + 0.5 * dist[..., None]) * n
-    B, P = dist.shape[:2]
-    nrm = n.expand(B, P, 2, 3).reshape(B, 2 * P, 3)
+    (evals, order, geom1, geom2, friction, solref,
+     solimp) = M.cached(m, ('detect', tuple(pairs)), build)
+    B = geom_xpos.shape[0]
+    dist, pos, nrm = [], [], []
+    for fn, ga, gb, s1, s2 in evals:
+        d, p, n = fn(geom_xpos[:, ga], geom_xmat[:, ga], s1,
+                     geom_xpos[:, gb], geom_xmat[:, gb], s2)
+        dist.append(d.reshape(B, -1))
+        pos.append(p.reshape(B, -1, 3))
+        nrm.append(n.reshape(B, -1, 3))
+    if len(evals) == 1:
+        dist, pos, nrm = dist[0], pos[0], nrm[0]
+    else:
+        dist = torch.cat(dist, 1)[:, order]
+        pos = torch.cat(pos, 1)[:, order]
+        nrm = torch.cat(nrm, 1)[:, order]
     t1, t2 = _tangent_frame(nrm)
-    return Contact(dist=dist.reshape(B, 2 * P), pos=pos.reshape(B, 2 * P, 3),
-                   frame=torch.stack([nrm, t1, t2], dim=2),
+    return Contact(dist=dist, pos=pos, frame=torch.stack([nrm, t1, t2], 2),
                    geom1=geom1, geom2=geom2, friction=friction,
                    solref=solref, solimp=solimp)

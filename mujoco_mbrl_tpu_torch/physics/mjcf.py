@@ -1,10 +1,11 @@
 """MJCF-subset compiler: XML string -> :class:`Model` (host-side numpy).
 
 Port of the part of mujoco_mbrl_tpu/physics/mjcf.py that the planar walker
-reaches: ``<compiler angle settotalmass>``, ``<option timestep gravity>``,
-nested ``<default>`` classes with ``childclass``, bodies with ``pos`` and
-orientation, hinge and slide joints with limits, plane and capsule geoms
-(mass from density), and motors. Cameras and lights are visual only and
+and cheetah reach: ``<compiler angle settotalmass>``, ``<option timestep
+gravity>``, nested ``<default>`` classes with ``childclass``, bodies with
+``pos`` and orientation, hinge and slide joints with limits, plane and
+capsule geoms (placed by ``pos`` + orientation or by ``fromto``; mass from
+density), and motors. Cameras and lights are visual only and
 skipped. Every other MJCF feature raises ``NotImplementedError`` naming
 the JAX function that handles it.
 """
@@ -206,8 +207,8 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
 
     def add_geom(attrs, body_id):
         gname = attrs.get('type', 'sphere')
-        if gname not in _GEOM_TYPES or 'fromto' in attrs:
-            raise _unsupported(f'geom type {gname!r} / fromto')
+        if gname not in _GEOM_TYPES:
+            raise _unsupported(f'geom type {gname!r}')
         gtype = _GEOM_TYPES[gname]
         size = np.zeros(3)
         if 'size' in attrs:
@@ -215,6 +216,16 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
             size[:len(s)] = s
         quat = _orientation(attrs, deg)
         pos = _floats(attrs['pos']) if 'pos' in attrs else np.zeros(3)
+        if 'fromto' in attrs:
+            if gtype != M.CAPSULE:
+                raise _unsupported(f'fromto on geom type {gname!r}')
+            ft = _floats(attrs['fromto'])
+            p0, p1 = ft[:3], ft[3:]
+            # the frame's +z is the minimal rotation onto (from - to), as
+            # the JAX compiler (and mjModel) places it
+            pos = 0.5 * (p0 + p1)
+            quat = _zaxis_quat(p0 - p1)
+            size[1] = 0.5 * np.linalg.norm(p1 - p0)
         if gtype == M.CAPSULE:
             mass = (float(attrs['mass']) if 'mass' in attrs else
                     float(attrs.get('density', 1000.0))

@@ -6,8 +6,10 @@ impedance d(pos) from solimp, reference acceleration aref = -b*vel - k*pos
 from solref, and regularizer R = (1-d)/d * invweight0; the dual
 min 1/2 f'(A+R)f - f'rhs is solved by ``solve_apgd`` through the batched
 iterate of ``ops.apgd_solve`` (CUDA kernel on the card, plain PyTorch on
-the CPU). The PGS ``solve``, dof friction loss, tendon rows, elliptic
-cones and the factored regime raise ``NotImplementedError``.
+the CPU): the dense iterate up to 96 rows (walker: 62), the factored one
+past it (cheetah: 146), as the JAX solver selects them. The PGS ``solve``,
+dof friction loss, tendon rows and elliptic cones raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -218,10 +220,14 @@ def _row_structure(cs: ConstraintSet):
             np.array(con0, np.int64))
 
 
-def _factored_vmem_bytes(nr: int, nv: int, envs: int = 128) -> int:
+def factored_fits(nr: int, nv: int) -> bool:
+    """The JAX rule (ops/apgd_solve.py factored_fits): the TPU kernel's
+    VMEM need for 128 envs, (nv nr8 + nv nv8 + 14 nr8) 128 * 4 bytes, at
+    most 10 MiB. It is a TPU budget, kept because it decides which math
+    (and which staleness bound) a model's solve runs."""
     nr8 = -(-nr // 8) * 8
     nv8 = -(-nv // 8) * 8
-    return (nv * nr8 + nv * nv8 + 14 * nr8) * envs * 4
+    return (nv * nr8 + nv * nv8 + 14 * nr8) * 128 * 4 <= 10 * 1024 * 1024
 
 
 def solve_apgd(m: M.Model, cs: Optional[ConstraintSet], qM_chol,
@@ -244,16 +250,16 @@ def solve_apgd(m: M.Model, cs: Optional[ConstraintSet], qM_chol,
     iterations = iterations or 2 * m.opt.solver_iterations
     nr, nv = cs.J.shape[1], cs.J.shape[2]
     eq_rows = tuple(int(i0) for kind, i0 in cs.blocks if kind == 'equality')
-    if nr > MAX_NR and not eq_rows and \
-            _factored_vmem_bytes(nr, nv) <= 10 * 1024 * 1024:
-        raise NotImplementedError(
-            'the factored APGD regime (nr > 96) is not ported '
-            '(mujoco_mbrl_tpu.physics.solver.solve_apgd use_factored)')
+    # the factored regime (JAX solver.py:505-513): Ad is never formed
+    use_factored = nr > MAX_NR and factored_fits(nr, nv) and not eq_rows
 
     JT = cs.J.transpose(1, 2)
     MinvJT = torch.cholesky_solve(JT, qM_chol)             # (B, nv, nr)
-    Ad = cs.J @ MinvJT + torch.diag_embed(cs.R)
-    d_all0 = torch.diagonal(Ad, dim1=1, dim2=2)
+    if use_factored:
+        d_all0 = torch.einsum('brv,bvr->br', cs.J, MinvJT) + cs.R
+    else:
+        Ad = cs.J @ MinvJT + torch.diag_embed(cs.R)
+        d_all0 = torch.diagonal(Ad, dim1=1, dim2=2)
     rhs = (cs.aref - (cs.J @ qacc_smooth[..., None])[..., 0]) * cs.active
 
     nonneg, box_rows, con0 = _row_structure(cs)
@@ -266,9 +272,11 @@ def solve_apgd(m: M.Model, cs: Optional[ConstraintSet], qM_chol,
     s_inv = torch.where(degenerate, 0.0, 1.0 / torch.sqrt(
         torch.where(degenerate, 1.0, d_all0)))
     act_m = cs.active
-    # scale, then mask Ad to the active submatrix so the step size is the
-    # ACTIVE set's spectral radius (JAX solver.py:543-555)
-    Ad = Ad * (s_inv * act_m)[:, :, None] * (s_inv * act_m)[:, None, :]
+    sa = s_inv * act_m
+    if not use_factored:
+        # scale, then mask Ad to the active submatrix so the step size is
+        # the ACTIVE set's spectral radius (JAX solver.py:543-555)
+        Ad = Ad * sa[:, :, None] * sa[:, None, :]
     rhs = rhs * s_inv
 
     dt, dev = qacc_smooth.dtype, qacc_smooth.device
@@ -280,12 +288,28 @@ def solve_apgd(m: M.Model, cs: Optional[ConstraintSet], qM_chol,
                           torch.where(s_inv > 0, s_inv, 1.0), 0.0)
     cold = power_v0 is None
     v0 = torch.zeros_like(rhs) if cold else power_v0
-    f, v = _ker.apgd_iterate_batched(
-        Ad, rhs, f0s, v0, act_m, zeros_nr, zeros_nr,
-        nonneg=tuple(int(i) for i in nonneg), box_rows=(), con0=(),
-        iterations=int(iterations), cold=cold, eq_rows=eq_rows)
+    rows = dict(nonneg=tuple(int(i) for i in nonneg), box_rows=(), con0=(),
+                iterations=int(iterations), cold=cold)
+    if use_factored:
+        # Ad = J~ M^-1 J~' + diag(Rs), the row scale and active mask folded
+        # into J~ (JAX solver.py:583-597)
+        J_s = (cs.J * sa[..., None]).contiguous()
+        eye = torch.eye(nv, dtype=dt, device=dev).expand(J_s.shape[0], nv,
+                                                        nv)
+        Minv = torch.cholesky_solve(eye, qM_chol).contiguous()
+        Rs = s_inv * s_inv * cs.R * act_m
+        diag_s = s_inv * s_inv * d_all0 * act_m
+        f, v = _ker.apgd_iterate_factored(
+            J_s, Minv, Rs, diag_s, rhs, f0s, v0, act_m, zeros_nr, zeros_nr,
+            **rows)
+        Adf = (J_s @ (Minv @ (J_s.transpose(1, 2) @ f[..., None])))[
+            ..., 0] + Rs * f
+    else:
+        f, v = _ker.apgd_iterate_batched(
+            Ad, rhs, f0s, v0, act_m, zeros_nr, zeros_nr, eq_rows=eq_rows,
+            **rows)
+        Adf = (Ad @ f[..., None])[..., 0]
     # divergence certificate: phi(f) = 1/2 f'Ad f - f'rhs <= phi(0) = 0
-    Adf = (Ad @ f[..., None])[..., 0]
     phi = 0.5 * (f * Adf).sum(1) - (f * rhs).sum(1)
     bad = ~((phi <= 0.0) & torch.isfinite(f).all(1))
     f = torch.where(bad[:, None], 0.0, f)

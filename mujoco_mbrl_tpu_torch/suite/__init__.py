@@ -1,12 +1,13 @@
-"""Control-suite port: the walker domain and the environment core."""
+"""Control-suite port: the walker and cheetah domains and the environment
+core."""
 
 from __future__ import annotations
 
 from ..device import resolve_device
-from . import control, walker
+from . import cheetah, control, walker
 from .control import EnvState, Environment, TimeStep, flatten_observation
 
-_DOMAINS = {'walker': walker}
+_DOMAINS = {'cheetah': cheetah, 'walker': walker}
 
 
 def load(domain: str, task: str, device=None, **kwargs) -> Environment:
@@ -18,5 +19,5 @@ def load(domain: str, task: str, device=None, **kwargs) -> Environment:
                                            **kwargs)
 
 
-__all__ = ['EnvState', 'Environment', 'TimeStep', 'control',
+__all__ = ['EnvState', 'Environment', 'TimeStep', 'cheetah', 'control',
            'flatten_observation', 'load', 'walker']

@@ -1,4 +1,5 @@
-"""Sensor helpers: the walker's part of mujoco_mbrl_tpu/suite/sensors.py."""
+"""Sensor helpers: the walker's and cheetah's part of
+mujoco_mbrl_tpu/suite/sensors.py."""
 
 from __future__ import annotations
 
@@ -31,3 +32,11 @@ def subtree_linvel(m: M.Model, data: M.Data, root: int) -> torch.Tensor:
                                            data.xipos[:, bodies])
     mass = m.body_mass[bodies]
     return (mass[:, None] * v).sum(1) / torch.clamp(mass.sum(), min=1e-12)
+
+
+def subtree_com(m: M.Model, data: M.Data, root: int) -> torch.Tensor:
+    """(B, 3) centre of mass of the subtree: sum_b m_b xipos_b / sum_b m_b."""
+    bodies = subtree_bodies(m, root)
+    mass = m.body_mass[bodies]
+    return ((mass[:, None] * data.xipos[:, bodies]).sum(1)
+            / torch.clamp(mass.sum(), min=1e-12))

@@ -238,10 +238,10 @@ def test_unported_choices_raise(tmp_path, wrapper):
         agents.RewardAgent()
     with pytest.raises(NotImplementedError, match='MPCPolicy'):
         agents.MPCPolicy()
-    with pytest.raises(NotImplementedError, match='_kernel'):
-        agents.BatchedMPCPolicy(4, 6, rollout_costs_fn=lambda s, a: s)
-    with pytest.raises(NotImplementedError, match='cheetah'):
-        envs.load('cheetah', 'run', device='cpu')
+    with pytest.raises(NotImplementedError, match='_rollout_costs'):
+        agents.BatchedMPCPolicy(4, 6)
+    with pytest.raises(NotImplementedError, match='hopper'):
+        envs.load('hopper', 'hop', device='cpu')
     with pytest.raises(NotImplementedError, match='divisible'):
         _agent(tmp_path, models.EnsembleDynamics(
             models.MLPDynamics(20, 6, hidden_units=8), 5))

@@ -90,6 +90,16 @@ def test_cuda_entry_points_raise_without_a_card():
         build_bench('walker_walk', 2, 8, 3, 1, 1, model_kind='ensemble')
     with pytest.raises(RuntimeError, match='nvcc'):
         _build._nvcc()
+    # the cheetah slice's entry points
+    from mujoco_mbrl_tpu_torch.bench import full_loop_bench
+    with pytest.raises(RuntimeError, match='CUDA'):
+        suite.load('cheetah', 'run')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        envs.load('cheetah', 'run')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        build_bench('cheetah_run', 2, 8, 3, 1, 1, fused=False)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        full_loop_bench('cheetah_run', 2, 8, 3, 1, 1)
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -183,3 +183,104 @@ def test_spline4_kernel_matches_plain_cost(dev, sd, H):
             (1 - wgt) ** 2 + wgt ** 2) ** 0.5
         err = (z[:, t] - lerp).abs().nan_to_num(0.0)
         assert float(err.max()) < 1e-4, (t, float(err.max()))
+
+
+def _factored_problem(dev, B, nr, nv, con0, seed):
+    """A factored dual QP batch shaped like solve_apgd's factored branch
+    (tests/test_apgd_kernel.py _factored_problem): scaled and
+    active-masked Jacobian, dense PSD M^-1, scaled regularizer and
+    diagonal; a quarter of the rows active."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    J = torch.randn((B, nr, nv), generator=g, device=dev)
+    G = torch.randn((B, nv + 2, nv), generator=g, device=dev)
+    Minv = (torch.einsum('bij,bik->bjk', G, G) / nv
+            + 0.1 * torch.eye(nv, device=dev)).contiguous()
+    R = 0.05 + 0.25 * torch.rand((B, nr), generator=g, device=dev)
+    active = (torch.rand((B, nr), generator=g, device=dev) > 0.75).float()
+    d = torch.einsum('brv,bvw,brw->br', J, Minv, J) + R
+    s = d.rsqrt()
+    J_s = (J * (s * active)[:, :, None]).contiguous()
+    vec = lambda scale: scale * torch.randn((B, nr), generator=g, device=dev)
+    mu = torch.zeros(nr, device=dev)
+    mu[list(con0)] = 0.7
+    return (J_s, Minv, s * s * R * active, s * s * d * active,
+            vec(1.0) * active, vec(0.3), vec(1.0), active, mu,
+            torch.zeros(nr, device=dev))
+
+
+# (146, 9): cheetah's rows, all non-negative (pyramid facets and limits);
+# (120, 11): limit rows then friction-cone triples, as the JAX test
+@pytest.mark.parametrize('nr,nv,n_nonneg', [(146, 9, 146), (120, 11, 24)])
+@pytest.mark.parametrize('cold', [True, False])
+def test_apgd_factored_kernel_matches_plain(dev, cold, nr, nv, n_nonneg):
+    con0 = tuple(range(n_nonneg, nr, 3))
+    args = _factored_problem(dev, 37, nr, nv, con0, seed=int(cold))
+    kw = dict(nonneg=tuple(range(n_nonneg)), box_rows=(), con0=con0,
+              iterations=40, cold=cold)
+    before = ops.launch_counts['apgd_factored']
+    f, v, its = apgd_solve.apgd_iterate_factored(*args, **kw,
+                                                 return_iterations=True)
+    assert ops.launch_counts['apgd_factored'] == before + 1
+    f_p, v_p, its_p = apgd_solve.apgd_iterate_factored_plain(
+        *args, **kw, return_iterations=True)
+    torch.testing.assert_close(f, f_p, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(v, v_p, rtol=2e-4, atol=2e-4)
+    # the same exits, up to an env whose last step rounding decides
+    assert its.dtype == torch.int32 and its.shape == (37,)
+    assert int((its.long() - its_p).abs().max()) <= 1
+
+
+def test_apgd_factored_kernel_rejects_what_it_does_not_take(dev):
+    args = _factored_problem(dev, 4, 146, 9, (), seed=0)
+    kw = dict(nonneg=tuple(range(146)), box_rows=(), con0=(),
+              iterations=5, cold=True)
+    with pytest.raises(ValueError):
+        apgd_solve.apgd_iterate_factored(*[a.double() for a in args], **kw)
+    big = _factored_problem(dev, 2, 1100, 9, (), seed=0)
+    with pytest.raises(ValueError, match='shared memory'):
+        apgd_solve.apgd_iterate_factored(
+            *big, **dict(kw, nonneg=tuple(range(1100))))
+
+
+@pytest.mark.parametrize('normalized', [False, True])
+def test_rollout_costs_kernel_matches_plain(dev, normalized):
+    N, H, sd, ad = 3 * 201, 9, 17, 6
+    params = MLPDynamics(sd, ad).init(torch.Generator().manual_seed(0),
+                                      device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    norms = _normalizers(dev, sd, ad) if normalized else None
+    s0T = torch.randn((sd, N), generator=g, device=dev)
+    if norms is not None:
+        s0T = norms.state_mean[:, None] + norms.state_std[:, None] * s0T
+    aT = torch.rand((H, ad, N), generator=g, device=dev) * 2 - 1
+    goal = torch.randn(sd, generator=g, device=dev)
+    w = torch.rand(sd, generator=g, device=dev)
+    before = ops.launch_counts['cem_rollout_costs']
+    costs = cem_rollout.mlp_rollout_costs_t(params, s0T, aT, goal, w,
+                                            normalizers=norms)
+    assert ops.launch_counts['cem_rollout_costs'] == before + 1
+    ref = cem_rollout.mlp_rollout_costs_reference(
+        params, s0T.T, aT.transpose(1, 2), goal, w, normalizers=norms)
+    assert costs.shape == (N,)
+    torch.testing.assert_close(costs, ref, rtol=1e-4, atol=1e-4)
+    # the (K, sd) / (H, K, ad) form is the same launch on transposed input
+    costs2 = cem_rollout.mlp_rollout_costs(
+        params, s0T.T, aT.transpose(1, 2), goal, w, normalizers=norms)
+    torch.testing.assert_close(costs2, costs, rtol=0, atol=0)
+
+
+def test_non_fused_cem_launches_rollout_costs_per_iteration(dev):
+    from mujoco_mbrl_tpu_torch.planners import cem_batched
+    B, K, H, sd, ad = 4, 50, 6, 17, 6
+    params = MLPDynamics(sd, ad).init(torch.Generator().manual_seed(0),
+                                      device=dev)
+    s0 = torch.randn((B, sd), device=dev)
+    goal, w = torch.zeros(sd, device=dev), torch.ones(sd, device=dev)
+    ops.reset_launch_counts()
+    traj = cem_batched([1, 2, 3], s0, H, ad, num_candidates=K,
+                       num_elites=5, rollout_costs_fn=lambda s, a: (
+                           cem_rollout.mlp_rollout_costs_t(params, s, a,
+                                                           goal, w)))
+    assert ops.launch_counts['cem_rollout_costs'] == 3
+    assert ops.launch_counts['cem_sample_rollout'] == 0
+    assert traj.actions.shape == (H, B, ad)
