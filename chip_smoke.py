@@ -15,7 +15,9 @@ Run from the repository root:  python3 chip_smoke.py
    (rtol 1e-4) for the triangular, normal and spline4 samplers, and checks
    the action range, the antithetic identity, the moments of the sampled
    noise and, for spline4, the lerp-and-renormalise identity between knots
-   and the knots' moments;
+   and the knots' moments; the sampler kernels (3xTF32 on the tensor
+   cores) are timed beside two bounds: the tensor-core bound they are held
+   to (3 x FLOP at 495 TFLOP/s) and the FP32 bound (FLOP at 67 TFLOP/s);
 4. holds the ensemble TS-infinity sampler kernel against the plain cost of
    its own actions by member k % n at walker_ens shapes (1024 envs x 1000
    candidates x horizon 30, 5 members; rtol 1e-4), with the same action
@@ -69,6 +71,7 @@ import time
 
 B, K, H, ITERS, STEPS = 1024, 1000, 30, 3, 3
 PEAK_FP32_FLOPS = 67e12      # H100 SXM, non-tensor FP32 (data sheet)
+PEAK_TF32_FLOPS = 495e12     # H100 SXM, dense TF32 tensor cores (data sheet)
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3 (data sheet)
 
 
@@ -412,12 +415,39 @@ def spline4_identity(torch, acts, mean, std):
 
 
 def sampler_bound(B_, K_, H_, sd, ad, hid, n=1):
+    """FLOP of the rollout (unpadded) and the sampler kernels' two bounds,
+    each the larger of its operation time and the bytes at the HBM rate:
+    the tensor-core bound they are held to (3 x FLOP at the TF32 tensor
+    rate: the 3xTF32 split) and the FP32 bound (FLOP at the non-tensor
+    FP32 rate, what the earlier FFMA kernels were held to)."""
     in_dim = sd + ad
     flops = 2.0 * B_ * K_ * H_ * (in_dim * hid + hid * hid + hid * sd)
     n_bytes = 4.0 * (B_ * H_ * ad * K_ + B_ * K_ + B_ * sd + 2 * B_ * H_ * ad
                      + n * (in_dim * hid + hid * hid + hid * sd + 2 * hid
                             + sd) + 2 * sd)
-    return flops, bound_ms(n_bytes, flops)
+    t_b, t_o = n_bytes / PEAK_BYTES, 3.0 * flops / PEAK_TF32_FLOPS
+    tensor = (max(t_b, t_o) * 1e3, 'bytes' if t_b >= t_o else 'operations')
+    return flops, tensor, bound_ms(n_bytes, flops)
+
+
+def sampler_case(label, flops, bounds, k_ms, p_ms, **extra):
+    """Print a sampler kernel's time beside both bounds, with its share of
+    each, and return its entry: ``bound_ms`` is the tensor-core bound it is
+    held to (a share of at most 100%, checked); ``bound_fp32_ms`` the FP32
+    bound, which a tensor-core kernel may beat (no share is then given)."""
+    (tc_ms, tc_by), (fp_ms, fp_by) = bounds
+    check(tc_ms <= k_ms, (label, 'faster than its bound', k_ms, tc_ms))
+    fp = (f'{100 * fp_ms / k_ms:.1f}% of it' if fp_ms <= k_ms else
+          f'beaten {fp_ms / k_ms:.2f}x, so no share')
+    print(f'{label}: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms (reference '
+          f'only); held to the 3xTF32 tensor-core bound {tc_ms:.4f} ms '
+          f'({tc_by}): {100 * tc_ms / k_ms:.1f}% of it; FP32 bound '
+          f'{fp_ms:.4f} ms ({fp_by}): {fp}; '
+          f'{flops / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s of model FLOP')
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=tc_ms, bound_by=tc_by,
+                bound_fp32_ms=fp_ms, bound_fp32_by=fp_by,
+                held_to='3xTF32 tensor cores: 3 x FLOP at 495 TFLOP/s',
+                **extra)
 
 
 def sampler_phase(dev, torch, params, obs):
@@ -449,7 +479,7 @@ def sampler_phase(dev, torch, params, obs):
               f'z mean {zm:+.2e} var {zv:.4f}{extra}')
 
     hid = params['l2']['w'].shape[0]
-    flops, (bms, by) = sampler_bound(B, K, H, sd, ad, hid)
+    flops, *bounds = sampler_bound(B, K, H, sd, ad, hid)
     cases = {}
     for sampler in ('triangular', 'spline4'):
         run_k = lambda: C.mlp_sample_rollout_costs(
@@ -458,11 +488,9 @@ def sampler_phase(dev, torch, params, obs):
             params, 7, obs, mean, std, goal, weights, K, sampler=sampler)
         k_ms = time_ms(run_k, 5)
         p_ms = time_ms(run_p, 2)
-        cases[sampler] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms,
-                              bound_by=by)
-        print(f'sampler {sampler} B={B} K={K} H={H}: kernel {k_ms:.3f} ms, '
-              f'plain {p_ms:.3f} ms (reference only), bound {bms:.3f} ms '
-              f'({by}), {flops / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s achieved')
+        cases[sampler] = sampler_case(
+            f'sampler {sampler} B={B} K={K} H={H} sd={sd}', flops, bounds,
+            k_ms, p_ms)
     return worst, dict(cases['triangular'], cases=cases)
 
 
@@ -537,16 +565,13 @@ def ensemble_phase(dev, torch, obs, n=5):
         err, _ = check_actions(torch, f'ensemble {tag}', costs, ref, acts,
                                args[3], K)
         worst = max(worst, err)
-        flops, (bms, by) = sampler_bound(Bs, K, Hc, s0.shape[1], ad, hid, n)
+        flops, *bounds = sampler_bound(Bs, K, Hc, s0.shape[1], ad, hid, n)
         k_ms = time_ms(lambda: C.mlp_sample_rollout_costs_ensemble(*args), 5)
         p_ms = time_ms(
             lambda: C.mlp_sample_rollout_costs_ensemble_plain(*args), 2)
-        cases[tag] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by,
-                          max_abs_err=err)
-        print(f'ensemble sampler {tag} (B={Bs} K={K} H={Hc} n={n}): kernel '
-              f'{k_ms:.3f} ms, plain {p_ms:.3f} ms (reference only), bound '
-              f'{bms:.4f} ms ({by}), {flops / (k_ms * 1e-3) / 1e12:.2f} '
-              f'TFLOP/s achieved')
+        cases[tag] = sampler_case(
+            f'ensemble sampler {tag} (B={Bs} K={K} H={Hc} n={n})', flops,
+            bounds, k_ms, p_ms, max_abs_err=err)
     main_case = {k: v for k, v in cases['b1024_h30_sd24'].items()
                  if k != 'max_abs_err'}
     return worst, dict(main_case, cases=cases)
@@ -575,27 +600,39 @@ def decided_by_rounding(torch, label, costs, ref, r64, r64_w32):
     """Candidates whose float64 cost moves by more than 1e-5 relative
     when only the folded weights are rounded to float32 (r64_w32 vs r64):
     printed, with every candidate beyond rtol 1e-4 of the float32 plain
-    ``ref``; at most 0.1% may be. Returns (mask, count)."""
+    ``ref``; at most 0.1% may be. Also printed: the errors of the kernel and
+    of the float32 plain against float64 arithmetic on the same float32
+    weights (r64_w32), and the gate's margin, the tolerance over the
+    largest |cost - plain| among the candidates not decided by rounding
+    (the check fails below 1). Returns (mask, count, margin)."""
     torch.cuda.synchronize()
     sens = (r64_w32 - r64).abs() / (r64.abs() + 1e-4)
     decided = sens > 1e-5
     off = ~torch.isclose(costs, ref, rtol=1e-4, atol=1e-4)
     n_dec, n_off = int(decided.sum()), int(off.sum())
-    rel = lambda x: float(((x - r64).abs() / (r64.abs() + 1e-4)).max())
+    rel = lambda x: (x.double() - r64_w32).abs() / (r64_w32.abs() + 1e-4)
+    rk, rp = rel(costs), rel(ref)
+    used = ((costs - ref).abs() / (1e-4 + 1e-4 * ref.abs()))[~decided]
+    margin = 1.0 / max(float(used.max()), 1e-30)
     print(f'{label}: {n_dec} of {costs.numel()} candidates decided by '
           f'rounding (max sensitivity {float(sens.max()):.2e}); {n_off} '
-          f'beyond rtol 1e-4 of the float32 plain; max rel. error vs '
-          f'float64: kernel {rel(costs):.2e}, float32 plain {rel(ref):.2e}')
+          f'beyond rtol 1e-4 of the float32 plain; rel. error vs float64 '
+          f'on the float32 weights: kernel mean {float(rk.mean()):.3e} max '
+          f'{float(rk.max()):.3e} ({float(rk[~decided].max()):.3e} not '
+          f'decided), float32 plain mean {float(rp.mean()):.3e} max '
+          f'{float(rp.max()):.3e} ({float(rp[~decided].max()):.3e}); gate '
+          f'margin {margin:.2f}x')
     for b, k in off.nonzero()[:8].tolist():
         print(f'  env {b} candidate {k}: kernel {float(costs[b, k]):.6f} '
               f'plain {float(ref[b, k]):.6f} float64 '
               f'{float(r64[b, k]):.6f} sensitivity '
               f'{float(sens[b, k]):.2e}')
     check(n_dec <= costs.numel() // 1000, (label, n_dec))
-    return decided, n_dec
+    return decided, n_dec, margin
 
 
-def fitted_sampler_check(dev, torch, label, agent, s0, horizon, sampler):
+def fitted_sampler_check(dev, torch, label, agent, s0, horizon, sampler,
+                         rounding_note=''):
     """The agent's own sampler kernel on its fitted params, with the
     replay's normalizers folded into W1 / W3, at the shapes its loop gives
     it (s0 the 20-dim featured states, padded to 24 lanes in the kernel):
@@ -644,7 +681,7 @@ def fitted_sampler_check(dev, torch, label, agent, s0, horizon, sampler):
         c64 = lambda fold_dtype: folded_costs64(
             torch, C, p, kw['normalizers'], fold_dtype, s0, acts, goal,
             weights, kw['alpha_action'])
-        decided, n_dec = decided_by_rounding(
+        decided, n_dec, margin = decided_by_rounding(
             torch, label, costs, ref, c64(torch.float64), c64(torch.float32))
         err, pair = check_actions(torch, label, costs, ref, acts, mean, K,
                                   skip=decided)
@@ -654,16 +691,23 @@ def fitted_sampler_check(dev, torch, label, agent, s0, horizon, sampler):
                      f'{spline4_identity(torch, acts, mean, std):.2e}')
         k_ms = time_ms(run, 5)
         p_ms = time_ms(run_p, 1)
-    flops, (bms, by) = sampler_bound(Bs, K, horizon, sd, ad, hid, n)
+        # the wrapper's host-side share: the centred fold and the packing
+        prep_ms = time_ms(lambda: C._kernel_inputs(
+            label, p, kw['normalizers'], s0, mean, std, goal, weights,
+            n_members=None if n == 1 else n), 5)
+    flops, *bounds = sampler_bound(Bs, K, horizon, sd, ad, hid, n)
     w1 = C._fold_normalizers(p, kw['normalizers'])[0].detach()
     print(f'{label} (fitted params, folded normalizers, max|W1\'| '
           f'{float(w1.abs().max()):.3e}; B={Bs} K={K} H={horizon} sd={sd} '
           f'{sampler}): max|cost - plain(actions)| = {err:.3e} (max |cost| '
           f'{float(costs.abs().max()):.3f}); antithetic max dev {pair:.2e}'
-          f'{extra}; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms (reference '
-          f'only), bound {bms:.4f} ms ({by})')
-    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by,
-                max_abs_err=err, rounding_decided_candidates=n_dec)
+          f'{extra}; {n_dec} of {costs.numel()} candidates decided by '
+          f'rounding{rounding_note}; the wrapper call {k_ms:.4f} ms, of '
+          f'which fold + pack {prep_ms:.4f} ms')
+    return sampler_case(f'{label} (B={Bs} K={K} H={horizon})', flops,
+                        bounds, k_ms, p_ms, max_abs_err=err,
+                        rounding_decided_candidates=n_dec,
+                        gate_margin=margin, fold_pack_ms=prep_ms)
 
 
 def profile_phase(torch, run, params, state, gen, wall_plain):
@@ -788,8 +832,9 @@ def agent_phase(dev, torch, tmp):
           f'{rewards}; launches {counts}')
     states = phases[2][2].states[:, -1].contiguous()
     check(states.shape == (B, 20), states.shape)
-    fitted = fitted_sampler_check(dev, torch, 'agent ensemble sampler',
-                                  agent, states, H, 'normal')
+    fitted = fitted_sampler_check(
+        dev, torch, 'agent ensemble sampler', agent, states, H, 'normal',
+        rounding_note=' (the earlier FP32 FFMA kernel: 6 of 1,024,000)')
     return counts, times, fitted
 
 
@@ -905,14 +950,12 @@ def rollout_costs_phase(dev, torch, params, obs, goal, weights):
         sp_ms = time_ms(lambda: C.mlp_sample_rollout_costs_plain(
             params, 7, obs, mean, std, goal, weights, K,
             sampler='triangular'), 2)
-    s_flops, (s_bms, s_by) = sampler_bound(B, K, H, sd, ad, hid)
+    s_flops, *s_bounds = sampler_bound(B, K, H, sd, ad, hid)
     print(f'sampler triangular at the cheetah shapes (sd={sd}): max|cost - '
-          f'plain(actions)| = {s_err:.3e}; kernel {s_ms:.3f} ms, plain '
-          f'{sp_ms:.3f} ms (reference only), bound {s_bms:.3f} ms ({s_by}), '
-          f'{s_flops / (s_ms * 1e-3) / 1e12:.2f} TFLOP/s achieved')
-    sampler_case = dict(ms=s_ms, plain_ms=sp_ms, bound_ms=s_bms,
-                        bound_by=s_by, max_abs_err=s_err)
-    return main_case, sampler_case
+          f'plain(actions)| = {s_err:.3e}')
+    return main_case, sampler_case(
+        f'sampler triangular B={B} K={K} H={H} sd={sd}', s_flops, s_bounds,
+        s_ms, sp_ms, max_abs_err=s_err)
 
 
 def fitted_rollout_costs_check(dev, torch, loop, goal, weights):
@@ -937,7 +980,7 @@ def fitted_rollout_costs_check(dev, torch, loop, goal, weights):
                                          normalizers=norms)
         c64 = lambda fold_dtype: folded_costs64(
             torch, C, p, norms, fold_dtype, s0, acts, goal, weights, 0.25)
-        decided, n_dec = decided_by_rounding(
+        decided, n_dec, margin = decided_by_rounding(
             torch, 'fitted rollout costs', costs, ref, c64(torch.float64),
             c64(torch.float32))
         torch.testing.assert_close(costs[~decided], ref[~decided],
@@ -947,7 +990,8 @@ def fitted_rollout_costs_check(dev, torch, loop, goal, weights):
     print(f'fitted rollout costs (B={Bc} K={K} H={H}, folded normalizers): '
           f'max|kernel - plain| = {err:.3e} over the rest (max |cost| '
           f'{float(costs.abs().max()):.3f}); kernel {k_ms:.3f} ms')
-    return dict(ms=k_ms, max_abs_err=err, rounding_decided_candidates=n_dec)
+    return dict(ms=k_ms, max_abs_err=err, rounding_decided_candidates=n_dec,
+                gate_margin=margin)
 
 
 def exact_counts(label, counts, **expected):
@@ -1118,8 +1162,17 @@ def main() -> int:
           f'(per source: {_build.BUILD_SECONDS})')
     for name in _build.sources():
         for line in _build.build_log(name).splitlines():
-            if 'registers' in line or 'spill' in line:
+            if ('registers' in line or 'spill' in line
+                    or 'Compiling entry' in line):
                 print(f'[{name}] {line.strip()}')
+    from mujoco_mbrl_tpu_torch.ops import cem_rollout as C
+    smem = (_build.library('cem_sample_rollout', C._SIGNATURES)
+            .cem_sample_smem_bytes(K, H, 24, 6, 50, 1),
+            _build.library('cem_sample_rollout_ens', C._ENS_SIGNATURES)
+            .cem_ens_smem_bytes(K, 5, H, 24, 6, 50, 1))
+    print(f'sampler kernels, dynamic shared memory per block of '
+          f'{8 * 32} threads at the walker shapes: MLP {smem[0]} bytes, '
+          f'ensemble {smem[1]} bytes')
 
     run, (params, state0, gen) = build_bench('walker_walk', B, K, H, ITERS,
                                              STEPS, device=dev)
@@ -1215,6 +1268,9 @@ def main() -> int:
     tpu = lambda f, line, fn: f'mujoco_mbrl_tpu/ops/{f}:{line} ({fn})'
     plain_keys = ('ms', 'plain_ms', 'bound_ms', 'bound_by')
     pick = lambda d: {k: d[k] for k in plain_keys}
+    # the sampler kernels: held to the tensor-core bound, FP32's beside it
+    pick_s = lambda d: dict(pick(d), bound_fp32_ms=d['bound_fp32_ms'],
+                            held_to=d['held_to'])
     kernels = [
         dict(name='apgd_iterate_batched', route='cuda',
              source=src('apgd_solve.cu'),
@@ -1228,7 +1284,7 @@ def main() -> int:
              replaces=tpu('cem_rollout.py', 364, '_sample_kernel_multi'),
              launches=c_counts['cem_sample_rollout'],
              max_abs_err=max(samp_err, samp_cheetah['max_abs_err']),
-             library_ms=None, **pick(samp_cheetah),
+             library_ms=None, **pick_s(samp_cheetah),
              launches_by_path=by_path('cem_sample_rollout'),
              cases=dict(samp_t['cases'], cheetah_sd17=samp_cheetah)),
         dict(name='mlp_sample_rollout_costs[spline4]', route='cuda',
@@ -1236,7 +1292,7 @@ def main() -> int:
              replaces=tpu('cem_rollout.py', 258, '_sample_kernel'),
              launches=cli_counts['cem_sample_rollout'],
              max_abs_err=cli_fit['max_abs_err'], library_ms=None,
-             **pick(samp_t['cases']['spline4']),
+             **pick_s(samp_t['cases']['spline4']),
              launches_by_path={'walker_cli_spline4': cli_counts[
                  'cem_sample_rollout']}, cli_b5_h20=cli_fit),
         dict(name='mlp_rollout_costs_t', route='cuda',
@@ -1254,7 +1310,7 @@ def main() -> int:
                           '_sample_kernel_ens_grouped'),
              launches=agent_counts['cem_sample_rollout_ens'],
              max_abs_err=ens_err, library_ms=None,
-             **pick(ens_t['cases']['b1024_h30_sd24']),
+             **pick_s(ens_t['cases']['b1024_h30_sd24']),
              launches_by_path=by_path('cem_sample_rollout_ens'),
              cases=ens_t['cases']),
         dict(name='mlp_sample_rollout_costs_ensemble[B=5]', route='cuda',
@@ -1265,7 +1321,7 @@ def main() -> int:
              launches_note='the same CUDA kernel as '
                            'mlp_sample_rollout_costs_ensemble',
              max_abs_err=ens_t['cases']['b5_h20_sd20']['max_abs_err'],
-             library_ms=None, **pick(ens_t['cases']['b5_h20_sd20'])),
+             library_ms=None, **pick_s(ens_t['cases']['b5_h20_sd20'])),
         dict(name='apgd_iterate_factored', route='cuda',
              source=src('apgd_factored.cu'),
              replaces=tpu('apgd_solve.py', 236, '_apgd_factored_kernel'),

@@ -1,7 +1,9 @@
-// Device helpers shared by the CEM sampler kernels (cem_sample_rollout.cu,
-// cem_sample_rollout_ens.cu): the Philox4x32-10 generator, the bits ->
-// uniform map of the TPU kernels, the proposal noise, and the
-// register-blocked dense layer over per-thread shared-memory columns.
+// Device helpers of the CEM kernels: the Philox4x32-10 generator, the
+// bits -> uniform map of the TPU kernels and the proposal noise (used by
+// the tensor-core sampler body, cem_mma.cuh), and the FP32 rollout body of
+// the given-action cost kernel (cem_rollout_costs.cu): the weights staged
+// transposed into shared memory and a register-blocked dense layer over
+// per-thread shared-memory columns.
 
 #pragma once
 
@@ -34,20 +36,6 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
 // bits viewed as int32, times 2^-32, plus 0.5 (cem_rollout.py:392-396)
 __device__ __forceinline__ float to_uniform(uint32_t bits) {
   return (float)(int32_t)bits * 2.3283064365386963e-10f + 0.5f;
-}
-
-// nu uniforms (a multiple of 4) into column U from counter (c0, c1, c2, q)
-__device__ __forceinline__ void draw_uniforms(float* U, int nu, uint32_t c0,
-                                              uint32_t c1, uint32_t c2,
-                                              uint32_t key0, uint32_t key1) {
-  for (int q = 0; q < nu / 4; ++q) {
-    const uint4 r = philox4x32_10(make_uint4(c0, c1, c2, (uint32_t)q), key0,
-                                  key1);
-    U[(4 * q + 0) * kThreads] = to_uniform(r.x);
-    U[(4 * q + 1) * kThreads] = to_uniform(r.y);
-    U[(4 * q + 2) * kThreads] = to_uniform(r.z);
-    U[(4 * q + 3) * kThreads] = to_uniform(r.w);
-  }
 }
 
 // Unit-variance noise from the uniforms u1 = U[j], u2 = U[ad + j]:

@@ -1,0 +1,560 @@
+// Tensor-core rollout body shared by the CEM sampler kernels
+// (cem_sample_rollout.cu, cem_sample_rollout_ens.cu) for Hopper (sm_90a).
+//
+// One warp rolls one tile of 16 candidates (the M dimension of
+// mma.sync.m16n8k8 TF32) through the three products of a model step,
+//   [16 x (sd+ad)] [(sd+ad) x hid], [16 x hid] [hid x hid],
+//   [16 x hid] [hid x sd],
+// every dimension zero-padded to a multiple of 8, for all H steps. The
+// state is rolled in coordinates centred at the replay's state mean
+// (ops/cem_mma.py fold_centred folds the normalizers that way), which
+// keeps the folded first layer free of cancellation.
+//
+// Precision (3xTF32): each product is hi*hi + hi*lo + lo*hi with
+// hi = tf32(v) and lo = tf32(v - hi) (cvt.rna), accumulated in float32.
+// The weights arrive in fragment order (ops/cem_mma.py pack_weights) and
+// are split once, when a block stages them into shared memory (or as they
+// are loaded, in the instantiation that reads them from global memory);
+// the activations are split in registers, one k-tile at a time. The two
+// correction products accumulate in the tensor core (their truncation is
+// 2^-11 below the result); each k-tile's hi*hi product is added to the
+// float32 sum by a rounded FADD, because the tensor core's accumulation
+// truncates (letting it accumulate failed the fitted-model check of
+// chip_smoke.py). The two sums are added once per layer.
+//
+// Register-resident activations: the accumulator (C) fragment of a layer
+// holds columns 8j + 2t, 8j + 2t + 1 of rows g and g + 8 (g = lane / 4,
+// t = lane % 4); the next layer's A fragment wants columns t, t + 4. The
+// packer permutes each weight matrix's rows within every 8-block (row
+// 8j + p holds input 8j + 2p for p < 4, 8j + 2(p - 4) + 1 for p >= 4), so
+// C feeds A with no shuffle and no shared-memory round trip. The layer-1
+// input is [s; a] as the model concatenates it: a thread owns the same
+// input columns as the state columns it receives from layer 3, and writes
+// its own actions into the columns sd .. sd + ad - 1.
+//
+// Rows: in the shared-pair mode (antithetic, pairs inside one member) row
+// g and row g + 8 are an antithetic pair, so z is drawn once for both;
+// otherwise each row draws its own z (ops/cem_mma.py tile_rows is the same
+// map). Noise keeps the Philox4x32-10 counters of the earlier kernels:
+// (env, t, pair, draw), and for spline4 (env, knot, pair, draw); the quad's
+// draws and the Box-Muller / triangular transforms are spread over the
+// warp's lanes through a per-warp shared-memory scratch.
+//
+// Per warp and step the actions go to a shared-memory stage [ad][16] and
+// leave as runs of consecutive candidates (strided by n in the ensemble,
+// whose tile holds one member's candidates k = q n + m); the stores are
+// not waited on, so they overlap the step's products.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "cem_common.cuh"
+
+namespace cem_mma {
+
+constexpr int kTileFloats = 128;          // floats per fragment tile
+constexpr int kWarps = 8;                 // warps per block
+constexpr int kMinBlocks = 2;             // per SM: 128 registers a thread
+constexpr int kBlock = 32 * kWarps;
+constexpr int kMaxSharedBytes = 232448;
+
+// Packed weights of one member, offsets in floats (ops/cem_mma.py layout)
+struct Layout {
+  int ni, nh, nso;        // k-tiles of [s; a], hidden tiles, state tiles
+  int l1, l2, l3;         // fragment tiles: [k][n][lane] x float4
+  int b1, b2, b3, goal, wvec, total;
+};
+
+__host__ __device__ inline Layout make_layout(int sd, int ad, int hid) {
+  Layout L;
+  L.ni = (sd + ad + 7) / 8;
+  L.nh = (hid + 7) / 8;
+  L.nso = (sd + 7) / 8;
+  L.l1 = 0;
+  L.l2 = L.l1 + kTileFloats * L.ni * L.nh;
+  L.l3 = L.l2 + kTileFloats * L.nh * L.nh;
+  L.b1 = L.l3 + kTileFloats * L.nh * L.nso;
+  L.b2 = L.b1 + 8 * L.nh;
+  L.b3 = L.b2 + 8 * L.nh;
+  L.goal = L.b3 + 8 * L.ni;
+  L.wvec = L.goal + 8 * L.ni;
+  L.total = (L.wvec + 8 * L.ni + 3) / 4 * 4;
+  return L;
+}
+
+struct Cfg {
+  int B, K, Kz, n, H, sd, ad, nu, T;  // T: tiles per (member, env)
+  int Kzn, Kn;                         // Kz / n, K / n
+  int P;                               // work items per member, rounded
+                                       // up to whole blocks (ensemble)
+  int shared;                          // rows g, g + 8 are one pair
+  int antithetic, sampler;
+  float low, high, alpha_s, alpha_a;
+  uint32_t key0, key1;
+  Layout L;
+};
+
+// tiles per (member, env) and the row mode (ops/cem_mma.py tiles_per_env)
+__host__ __device__ inline void tiling(int K, int n, int antithetic,
+                                       int* T, int* shared) {
+  const int Kz = antithetic ? (K + 1) / 2 : K;
+  *shared = antithetic && Kz % n == 0;
+  *T = *shared ? (Kz / n + 7) / 8 : (K / n + 15) / 16;
+}
+
+// Per-warp scratch, floats: uniforms (16 x nu, first: float4 stores),
+// mean, std (H x ad), noise, two spline4 knot rows and the action stage
+// (16 x ad each).
+__host__ __device__ inline int warp_floats(int H, int ad, int nu) {
+  return (2 * H * ad + 16 * nu + 64 * ad + 3) / 4 * 4;
+}
+
+struct Row {
+  int k, p;       // candidate, Philox pair index
+  float sign;     // -1 for the antithetic half
+  bool valid;
+};
+
+// Row r (0..15) of tile i of member m (n = 1: the single MLP)
+__device__ __forceinline__ Row row_of(const Cfg& c, int m, int i, int r) {
+  Row o;
+  if (c.shared) {
+    const int q = 8 * i + (r & 7);
+    const int k0 = q * c.n + m;
+    o.p = k0;
+    o.k = r < 8 ? k0 : k0 + c.Kz;
+    o.sign = r < 8 ? 1.f : -1.f;
+    o.valid = q < c.Kzn && o.k < c.K;
+  } else {
+    const int q = 16 * i + r;
+    o.k = q * c.n + m;
+    o.valid = q < c.Kn;
+    const bool second = c.antithetic && o.k >= c.Kz;
+    o.p = second ? o.k - c.Kz : o.k;
+    o.sign = second ? -1.f : 1.f;
+  }
+  return o;
+}
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    float b0, float b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+        "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)));
+}
+
+// C fragment (c0 = (g, 2t), c1 = (g, 2t+1), c2 = (g+8, 2t), c3 = (g+8,
+// 2t+1)) -> A fragment hi / lo (a0 = (g, t), a1 = (g+8, t), a2 = (g, t+4),
+// a3 = (g+8, t+4)) under the row permutation of the weights
+__device__ __forceinline__ void split(const float (&c)[4], uint32_t (&hi)[4],
+                                      uint32_t (&lo)[4]) {
+  const float v[4] = {c[0], c[2], c[1], c[3]};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    hi[q] = tf32(v[q]);
+    lo[q] = tf32(v[q] - __uint_as_float(hi[q]));
+  }
+}
+
+// d = a b (a fresh accumulator)
+__device__ __forceinline__ void mma0(float (&d)[4], const uint32_t (&a)[4],
+                                     float b0, float b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),
+        "r"(__float_as_uint(b0)), "r"(__float_as_uint(b1)), "f"(0.f));
+}
+
+// (b0, b1, ., .) -> (hi(b0), hi(b1), lo(b0), lo(b1))
+__device__ __forceinline__ float4 split_b(float4 v) {
+  const uint32_t h0 = tf32(v.x), h1 = tf32(v.y);
+  return make_float4(__uint_as_float(h0), __uint_as_float(h1),
+                     __uint_as_float(tf32(v.x - __uint_as_float(h0))),
+                     __uint_as_float(tf32(v.y - __uint_as_float(h1))));
+}
+
+// 3xTF32 product of one k-tile; b = (hi(b0), hi(b1), lo(b0), lo(b1)).
+// The correction products accumulate in the tensor core; the hi*hi
+// product goes to a fresh accumulator and is added to the float32 sum
+// with a rounded FADD (the tensor core's own accumulation truncates).
+__device__ __forceinline__ void mma3(float (&big)[4], float (&small)[4],
+                                     const uint32_t (&hi)[4],
+                                     const uint32_t (&lo)[4], float4 b) {
+  mma(small, lo, b.x, b.y);
+  mma(small, hi, b.z, b.w);
+  float d[4];
+  mma0(d, hi, b.x, b.y);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) big[q] += d[q];
+}
+
+template <int NT>
+__device__ __forceinline__ void init_acc(float (&big)[NT][4],
+                                         float (&small)[NT][4],
+                                         const float* __restrict__ bias,
+                                         int nt, int t) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    float2 b = make_float2(0.f, 0.f);
+    if (n < nt) b = *reinterpret_cast<const float2*>(bias + 8 * n + 2 * t);
+    big[n][0] = big[n][2] = b.x;
+    big[n][1] = big[n][3] = b.y;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) small[n][q] = 0.f;
+  }
+}
+
+// acc[n] += sum_k x[k] W[k][n] over k < kt, n < nt (fragment tiles
+// frag[(k * nt + n) * 32 + lane]; SPLIT_B: not yet split into hi / lo)
+template <int KT, int NT, bool SPLIT_B>
+__device__ __forceinline__ void product(const float4* frag,
+                                        const float (&x)[KT][4], int kt,
+                                        int nt, float (&big)[NT][4],
+                                        float (&small)[NT][4], int lane) {
+#pragma unroll
+  for (int k = 0; k < KT; ++k) {
+    if (k < kt) {
+      uint32_t hi[4], lo[4];
+      split(x[k], hi, lo);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        if (n < nt) {
+          const float4 b = frag[(k * nt + n) * 32 + lane];
+          mma3(big[n], small[n], hi, lo, SPLIT_B ? split_b(b) : b);
+        }
+    }
+  }
+}
+
+// cosh(a / aa) - 1 from one exp (inv_aa = 1 / aa)
+__device__ __forceinline__ float cosh_m1(float a, float inv_aa) {
+  const float e = expf(a * inv_aa);
+  return 0.5f * (e + __frcp_rn(e)) - 1.f;
+}
+
+// (row, column) of item e = lane + 32 s of an R x cols array, stepped
+// without an integer division per item
+struct Walk {
+  int r, j, dr, dj, cols;
+  __device__ __forceinline__ Walk(int lane, int ncols)
+      : r(lane / ncols), j(lane % ncols), dr(32 / ncols), dj(32 % ncols),
+        cols(ncols) {}
+  __device__ __forceinline__ void next() {
+    r += dr;
+    j += dj;
+    if (j >= cols) {
+      j -= cols;
+      ++r;
+    }
+  }
+};
+
+// Philox draws for R rows (counter (b, ctr, pair of row r, q)) into the
+// uniforms, then unit-variance noise dest[r][j] for j < ad
+__device__ inline void draw_round(const Cfg& c, int m, int i, int b,
+                                  uint32_t ctr, int R, bool triangular,
+                                  float* ubuf, float* dest, int lane) {
+  const int nq = c.nu / 4;
+  for (Walk w(lane, nq); w.r < R; w.next()) {
+    const uint4 v = cem::philox4x32_10(
+        make_uint4((uint32_t)b, ctr, (uint32_t)row_of(c, m, i, w.r).p,
+                   (uint32_t)w.j), c.key0, c.key1);
+    *reinterpret_cast<float4*>(ubuf + w.r * c.nu + 4 * w.j) = make_float4(
+        cem::to_uniform(v.x), cem::to_uniform(v.y), cem::to_uniform(v.z),
+        cem::to_uniform(v.w));
+  }
+  __syncwarp();
+  for (Walk w(lane, c.ad); w.r < R; w.next())
+    dest[w.r * c.ad + w.j] = cem::noise(ubuf[w.r * c.nu + w.j],
+                                        ubuf[w.r * c.nu + c.ad + w.j],
+                                        triangular);
+  __syncwarp();
+}
+
+// One tile: 16 candidates of member m and env b, rolled for H steps.
+// W: this member's packed weights (shared or global memory); ws: this
+// warp's scratch. NI, NH, NSO bound the tile counts; with EXACT they are
+// the layout's, so the unrolled loops carry no run-time guard. SPLIT_B:
+// W is the packed buffer itself (global memory), split as it is loaded.
+template <int NI, int NH, int NSO, bool EXACT, bool SPLIT_B>
+__device__ void rollout_tile(const Cfg& c, const float* W, float* ws, int m,
+                             int b, int i, const float* __restrict__ s0_g,
+                             const float* __restrict__ mean_g,
+                             const float* __restrict__ std_g,
+                             float* __restrict__ costs_g,
+                             float* __restrict__ act_g) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const Layout& L = c.L;
+  const int sd = c.sd, ad = c.ad, H = c.H;
+  const int ni = EXACT ? NI : L.ni, nh = EXACT ? NH : L.nh;
+  const int nso = EXACT ? NSO : L.nso;
+  const float4* frag = reinterpret_cast<const float4*>(W);
+  float* ubuf = ws;
+  float* mean = ubuf + 16 * c.nu;
+  float* stdv = mean + H * ad;
+  float* zbuf = stdv + H * ad;
+  float* k0buf = zbuf + 16 * ad;
+  float* k1buf = k0buf + 16 * ad;
+  float* abuf = k1buf + 16 * ad;
+
+  __syncwarp();  // the previous tile's readers of the scratch are done
+  for (int e = lane; e < H * ad; e += 32) {
+    mean[e] = mean_g[(size_t)b * H * ad + e];
+    stdv[e] = std_g[(size_t)b * H * ad + e];
+  }
+  const Row r0 = row_of(c, m, i, g), r1 = row_of(c, m, i, g + 8);
+  const int z1row = c.shared ? g : g + 8;
+  const Row rs = row_of(c, m, i, lane & 15);  // this lane's store row
+  const int R = c.shared ? 8 : 16;
+  const float inv_aa = 1.f / c.alpha_a;
+
+  float x[NI][4];
+#pragma unroll
+  for (int k = 0; k < NI; ++k)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * k + 2 * t + e;
+      const float v = col < sd ? s0_g[(size_t)b * sd + col] : 0.f;
+      x[k][e] = x[k][2 + e] = v;
+    }
+  float cs0 = 0.f, cs1 = 0.f, ca0 = 0.f, ca1 = 0.f;
+
+  for (int tt = 0; tt < H; ++tt) {
+    __syncwarp();  // the previous step's readers of the scratch are done
+    // ---- noise z[row][j] for this step
+    const float* z = zbuf;
+    if (c.sampler == cem::kSpline4) {
+      const int rr = tt & 3;
+      if (rr == 0) {
+        if (tt == 0)
+          draw_round(c, m, i, b, 0u, R, true, ubuf, k1buf, lane);
+        for (int e = lane; e < R * ad; e += 32) k0buf[e] = k1buf[e];
+        draw_round(c, m, i, b, (uint32_t)(tt / 4 + 1), R, true, ubuf,
+                   k1buf, lane);
+        z = k0buf;
+      } else {
+        // (1 - w), w and 1 / sqrt((1 - w)^2 + w^2) for w = rr / 4, in
+        // the TPU kernel's float32 operation order
+        const float wa = rr == 1 ? 0.75f : (rr == 2 ? 0.5f : 0.25f);
+        const float wb = 1.f - wa;
+        const float cc = rr == 2 ? 1.4142135623730951f : 1.2649110640673518f;
+        for (int e = lane; e < R * ad; e += 32)
+          zbuf[e] = __fmul_rn(__fadd_rn(__fmul_rn(wa, k0buf[e]),
+                                        __fmul_rn(wb, k1buf[e])), cc);
+        __syncwarp();
+      }
+    } else {
+      draw_round(c, m, i, b, (uint32_t)tt, R, c.sampler == cem::kTriangular,
+                 ubuf, zbuf, lane);
+    }
+    // ---- actions into this thread's input columns sd .. sd + ad - 1
+#pragma unroll
+    for (int k = 0; k < NI; ++k) {
+      if (k < ni && 8 * k + 8 > sd) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 8 * k + 2 * t + e - sd;
+          if (j >= 0 && j < ad) {
+            const float mu = mean[tt * ad + j], sg = stdv[tt * ad + j];
+            const float a0 = fminf(fmaxf(fmaf(sg, r0.sign * z[g * ad + j],
+                                              mu), c.low), c.high);
+            const float a1 = fminf(fmaxf(fmaf(sg, r1.sign * z[z1row * ad + j],
+                                              mu), c.low), c.high);
+            x[k][e] = a0;
+            x[k][2 + e] = a1;
+            abuf[j * 16 + g] = a0;
+            abuf[j * 16 + 8 + g] = a1;
+            ca0 += cosh_m1(a0, inv_aa);
+            ca1 += cosh_m1(a1, inv_aa);
+          }
+        }
+      }
+    }
+    __syncwarp();
+    // ---- the step's actions: runs of consecutive candidates, no wait
+    if (rs.valid) {
+      float* dst = act_g + ((size_t)b * H + tt) * ad * c.K + rs.k;
+      for (int j = lane >> 4; j < ad; j += 2)
+        dst[(size_t)j * c.K] = abuf[j * 16 + (lane & 15)];
+    }
+    // ---- layer 1: h = relu([s; a] W1 + b1)
+    float big[NH][4], small[NH][4], h[NH][4];
+    init_acc<NH>(big, small, W + L.b1, nh, t);
+    product<NI, NH, SPLIT_B>(frag + L.l1 / 4, x, ni, nh, big, small, lane);
+#pragma unroll
+    for (int n = 0; n < NH; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) h[n][q] = fmaxf(big[n][q] + small[n][q], 0.f);
+    // ---- layer 2: h = relu(h W2 + b2)
+    init_acc<NH>(big, small, W + L.b2, nh, t);
+    product<NH, NH, SPLIT_B>(frag + L.l2 / 4, h, nh, nh, big, small, lane);
+#pragma unroll
+    for (int n = 0; n < NH; ++n)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) h[n][q] = fmaxf(big[n][q] + small[n][q], 0.f);
+    // ---- layer 3: s = h W3 + b3, into the state columns of x
+    float sbig[NSO][4], ssmall[NSO][4];
+    init_acc<NSO>(sbig, ssmall, W + L.b3, nso, t);
+    product<NH, NSO, SPLIT_B>(frag + L.l3 / 4, h, nh, nso, sbig, ssmall,
+                              lane);
+    const float* goal = W + L.goal;
+    const float* wv = W + L.wvec;
+    const float as = c.alpha_s;
+#pragma unroll
+    for (int n = 0; n < NI; ++n) {
+      const bool st = n < NSO && n < nso;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        x[n][q] = st ? sbig[n < NSO ? n : 0][q] + ssmall[n < NSO ? n : 0][q]
+                     : 0.f;
+      if (st) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * n + 2 * t + e;
+          if (col < sd) {
+            const float d0 = (x[n][e] - goal[col]) * wv[col];
+            const float d1 = (x[n][2 + e] - goal[col]) * wv[col];
+            cs0 += sqrtf(d0 * d0 + as * as) - as;
+            cs1 += sqrtf(d1 * d1 + as * as) - as;
+          }
+        }
+      }
+    }
+  }
+  // ---- the quad's partial sums -> the two rows' costs
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    cs0 += __shfl_xor_sync(0xffffffffu, cs0, off);
+    cs1 += __shfl_xor_sync(0xffffffffu, cs1, off);
+    ca0 += __shfl_xor_sync(0xffffffffu, ca0, off);
+    ca1 += __shfl_xor_sync(0xffffffffu, ca1, off);
+  }
+  if (t == 0) {
+    const float aa2 = c.alpha_a * c.alpha_a;
+    if (r0.valid)
+      costs_g[(size_t)b * c.K + r0.k] = cs0 + aa2 * (ca0 / (float)ad);
+    if (r1.valid)
+      costs_g[(size_t)b * c.K + r1.k] = cs1 + aa2 * (ca1 / (float)ad);
+  }
+}
+
+// Copy one member's packed weights into shared memory (whole block),
+// splitting the fragment tiles into hi / lo on the way
+__device__ inline void stage(float* dst, const float* __restrict__ src,
+                             const Layout& L) {
+  const float4* s4 = reinterpret_cast<const float4*>(src);
+  float4* d4 = reinterpret_cast<float4*>(dst);
+  for (int e = threadIdx.x; e < L.total / 4; e += blockDim.x) {
+    const float4 v = __ldg(s4 + e);
+    d4[e] = e < L.b1 / 4 ? split_b(v) : v;
+  }
+}
+
+// Host: the configuration of a launch
+inline Cfg make_cfg(int B, int K, int n, int H, int sd, int ad, int hid,
+                    int sampler, int antithetic, float low, float high,
+                    float alpha_s, float alpha_a, unsigned long long seed) {
+  Cfg c;
+  c.B = B;
+  c.K = K;
+  c.Kz = antithetic ? (K + 1) / 2 : K;
+  c.n = n;
+  c.Kzn = c.Kz / n;
+  c.Kn = K / n;
+  c.H = H;
+  c.sd = sd;
+  c.ad = ad;
+  c.nu = (2 * ad + 3) / 4 * 4;
+  tiling(K, n, antithetic, &c.T, &c.shared);
+  c.P = (B * c.T + kWarps - 1) / kWarps * kWarps;
+  c.antithetic = antithetic;
+  c.sampler = sampler;
+  c.low = low;
+  c.high = high;
+  c.alpha_s = alpha_s;
+  c.alpha_a = alpha_a;
+  c.key0 = (uint32_t)seed;
+  c.key1 = (uint32_t)(seed >> 32);
+  c.L = make_layout(sd, ad, hid);
+  return c;
+}
+
+// exact: the walker (sd 19-24, ad 6, hidden 50) and cheetah (sd 17)
+// models' tile counts, weights in shared memory; large: any other shape
+// the guarded instantiation takes, weights read from global memory
+inline bool is_exact(const Layout& L) {
+  return (L.ni == 4 || L.ni == 3) && L.nh == 7 && L.nso == 3;
+}
+inline bool is_large(const Layout& L) { return L.ni <= 16 && L.nh <= 16; }
+
+// The instantiation that takes layout L: exact tile counts (no run-time
+// guard in the unrolled loops), or guarded loops up to 16 / 16 tiles.
+template <typename F>
+inline int dispatch(const Layout& L, const F& f) {
+  if (is_exact(L) && L.ni == 4) return f.template run<4, 7, 3, true, true>();
+  if (is_exact(L)) return f.template run<3, 7, 3, true, true>();
+  return f.template run<16, 16, 16, false, false>();
+}
+
+inline size_t smem_bytes(const Cfg& c) {
+  const size_t scratch = (size_t)kWarps * warp_floats(c.H, c.ad, c.nu);
+  return sizeof(float) * ((is_exact(c.L) ? c.L.total : 0) + scratch);
+}
+
+// grid: every SM filled at the kernel's occupancy, no more blocks than
+// block-rounds of work. The queries are made once per (device, kernel,
+// shared memory) and remembered; the kernel's dynamic shared-memory limit
+// is raised to the card's maximum (it only bounds what a launch may ask
+// for), so a smaller launch never lowers it under a larger one.
+template <typename Kern>
+inline cudaError_t grid_size(Kern kern, size_t smem, long long work_blocks,
+                             int* grid) {
+  struct Entry {
+    int dev;
+    const void* kern;
+    size_t smem;
+    int blocks;  // SMs x blocks per SM
+  };
+  static Entry seen[32];
+  static int n_seen = 0;
+  int dev = 0, blocks = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  for (int k = 0; k < n_seen; ++k)
+    if (seen[k].dev == dev && seen[k].kern == (const void*)kern &&
+        seen[k].smem == smem)
+      blocks = seen[k].blocks;
+  if (blocks == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxSharedBytes);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kBlock,
+                                                        smem);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    blocks = sms * per_sm;
+    if (n_seen < 32)
+      seen[n_seen++] = Entry{dev, (const void*)kern, smem, blocks};
+  }
+  const long long gsz = work_blocks < blocks ? work_blocks : blocks;
+  *grid = (int)(gsz < 1 ? 1 : gsz);
+  return cudaSuccess;
+}
+
+}  // namespace cem_mma

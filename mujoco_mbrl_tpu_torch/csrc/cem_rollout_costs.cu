@@ -16,8 +16,8 @@
 // staged in shared memory, and each thread keeps its state, action and
 // hidden activations in shared-memory columns of stride 64 floats
 // (conflict-free); the rollout body (stage_mlp, the register-blocked dense
-// layers, mlp_step_cost) is cem_common.cuh's, shared with the fused CEM
-// sampler, so the two kernels roll and cost a candidate the same way. A
+// layers, mlp_step_cost) is cem_common.cuh's, the FP32 body the samplers
+// used before they moved to the tensor cores (cem_mma.cuh). A
 // thread reads its s0 column and its H * ad actions with N as the trailing
 // axis, so a warp's loads are coalesced.
 //

@@ -1,0 +1,256 @@
+"""Staging layout of the tensor-core CEM sampler kernels (csrc/cem_mma.cuh).
+
+The sampler kernels (``csrc/cem_sample_rollout.cu``,
+``csrc/cem_sample_rollout_ens.cu``) run the three products of a model step
+on ``mma.sync.m16n8k8`` TF32 with the 3xTF32 split (hi*hi + hi*lo + lo*hi).
+This module builds what they read, and says how they map candidates to
+rows, so that the CPU tests can check both without a card:
+
+- ``tf32``: round to TF32 as ``cvt.rna.tf32.f32`` does (nearest, ties away
+  from zero, 13 low mantissa bits cleared); ``split``: hi = tf32(w),
+  lo = tf32(w - hi), what the kernels do to each weight when a block
+  stages it (``split_b`` in cem_mma.cuh) and to each activation.
+- ``ROW_PERM``: within every 8-block of a weight matrix's rows, B fragment
+  row p holds input 8j + ROW_PERM[p], so that a layer's accumulator
+  fragment (columns 2t, 2t+1 of a thread) is the next layer's A fragment
+  (columns t, t+4).
+- ``layout`` / ``pack_weights``: every matrix zero-padded to multiples of
+  8, permuted, in fragment order ([k-tile][n-tile][lane] x (b0, b1, b0,
+  b1), lane = 4 g + t, b0 = W[8k + ROW_PERM[t]][8n + g], b1 = W[8k +
+  ROW_PERM[t + 4]][8n + g]; the kernel stages each float4 as (hi(b0),
+  hi(b1), lo(b0), lo(b1))), then the padded biases, goal and cost
+  weights: one float32 row per member.
+- ``fold_centred``: the kernels roll the state in coordinates centred at
+  the replay's state mean mu (x = s - mu). Folding the normalizers as the
+  plain version does (``cem_rollout._fold_normalizers``) puts rows of
+  1 / std into W1 that cancel against b1 = b1 - (mu / std) W1 for
+  near-constant state dimensions; centred, that term drops out exactly,
+  the layer-1 product is O(1), and the 3xTF32 representation error (about
+  2^-22 of each operand) is no longer amplified by the cancellation.
+- ``tile_rows`` / ``tiles_per_env``: which candidate each of the 16 rows of
+  a tile holds, with its Philox pair index and sign.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+
+ROW_PERM = (0, 2, 4, 6, 1, 3, 5, 7)
+MAX_TILES = 16       # k-tiles of [s; a] and hidden tiles the kernels take
+
+
+class Layout(NamedTuple):
+    ni: int      # k-tiles of the layer-1 input [s; a]
+    nh: int      # hidden tiles
+    nso: int     # state tiles (layer-3 output)
+    l1: int      # float offsets: fragment tiles of W1, W2, W3
+    l2: int
+    l3: int
+    b1: int      # padded b1, b2 (8 nh), b3, goal, cost weights (8 ni)
+    b2: int
+    b3: int
+    goal: int
+    wvec: int
+    total: int   # floats per member, a multiple of 4
+
+
+def layout(sd: int, ad: int, hid: int) -> Layout:
+    """Float offsets of one member's packed weights (cem_mma.cuh
+    make_layout)."""
+    ni, nh, nso = -(-(sd + ad) // 8), -(-hid // 8), -(-sd // 8)
+    l1 = 0
+    l2 = l1 + 128 * ni * nh
+    l3 = l2 + 128 * nh * nh
+    b1 = l3 + 128 * nh * nso
+    b2 = b1 + 8 * nh
+    b3 = b2 + 8 * nh
+    goal = b3 + 8 * ni
+    wvec = goal + 8 * ni
+    total = -(-(wvec + 8 * ni) // 4) * 4
+    return Layout(ni, nh, nso, l1, l2, l3, b1, b2, b3, goal, wvec, total)
+
+
+def check_shapes(what: str, sd: int, ad: int, hid: int) -> Layout:
+    """The layout, or a ValueError for shapes the kernels do not take."""
+    lay = layout(sd, ad, hid)
+    if lay.ni > MAX_TILES or lay.nh > MAX_TILES:
+        raise ValueError(
+            f'{what}: the tensor-core kernel takes sd + ad <= 128 and '
+            f'hidden <= 128 (got sd {sd}, ad {ad}, hidden {hid})')
+    return lay
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> TF32 (as float32), round to nearest, ties away from zero:
+    what ``cvt.rna.tf32.f32`` gives."""
+    # on the int32 bit pattern: adding half an ulp of TF32 to the
+    # magnitude carries into the exponent where it must and cannot reach
+    # the sign of a finite value
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """3xTF32 split: hi = tf32(x), lo = tf32(x - hi)."""
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def _pad_matrix_index(rows: int, cols: int, rows_p: int, cols_p: int,
+                      row_src, base: int) -> torch.Tensor:
+    """(rows_p, cols_p) indices into the flat source (0 = the zero slot):
+    padded row r takes source row row_src(r) (None: zero) of a row-major
+    (rows, cols) matrix at offset ``base``."""
+    idx = torch.zeros((rows_p, cols_p), dtype=torch.int64)
+    for r in range(rows_p):
+        s = row_src(r)
+        if s is not None:
+            idx[r, :cols] = base + s * cols + torch.arange(cols)
+    return idx
+
+
+def _fragments(idx: torch.Tensor) -> torch.Tensor:
+    """(8 kt, 8 nt) padded matrix indices -> (kt, nt, 32 lanes, 2): lane
+    4 g + t takes rows 8k + ROW_PERM[t] and 8k + ROW_PERM[t + 4] of
+    column 8n + g."""
+    kt, nt = idx.shape[0] // 8, idx.shape[1] // 8
+    lane = torch.arange(32)
+    g, t = lane // 4, lane % 4
+    perm = torch.tensor(ROW_PERM)
+    k = torch.arange(kt)[:, None, None]
+    n = torch.arange(nt)[None, :, None]
+    col = 8 * n + g
+    b0 = idx[8 * k + perm[t], col]
+    b1 = idx[8 * k + perm[t + 4], col]
+    return torch.stack([b0, b1], dim=-1)
+
+
+_INDEX_CACHE: Dict[tuple, torch.Tensor] = {}
+
+
+def _index(sd: int, ad: int, hid: int, device) -> torch.Tensor:
+    """For every float of the packed layout, its source index into the
+    flat vector [0, w1, w2, w3, b1, b2, b3, goal, wvec] (0: a zero of the
+    padding)."""
+    key = (sd, ad, hid, str(device))
+    if key not in _INDEX_CACHE:
+        lay = layout(sd, ad, hid)
+        inn = sd + ad
+        o_w1 = 1
+        o_w2 = o_w1 + inn * hid
+        o_w3 = o_w2 + hid * hid
+        o_b1 = o_w3 + hid * sd
+        o_b2, o_b3 = o_b1 + hid, o_b1 + 2 * hid
+        o_goal = o_b3 + sd
+        o_wvec = o_goal + sd
+        row = lambda n: (lambda r: r if r < n else None)
+        w1 = _pad_matrix_index(inn, hid, 8 * lay.ni, 8 * lay.nh, row(inn),
+                               o_w1)
+        w2 = _pad_matrix_index(hid, hid, 8 * lay.nh, 8 * lay.nh, row(hid),
+                               o_w2)
+        w3 = _pad_matrix_index(hid, sd, 8 * lay.nh, 8 * lay.nso, row(hid),
+                               o_w3)
+        # (tiles, 32 lanes, 2) -> (b0, b1, b0, b1) a lane
+        frag = torch.cat([_fragments(w).reshape(-1, 32, 2)
+                          for w in (w1, w2, w3)]).repeat(1, 1, 2)
+        vec = lambda base, n, n_p: torch.cat([
+            base + torch.arange(n), torch.zeros(n_p - n, dtype=torch.int64)])
+        tail = torch.cat([vec(o_b1, hid, 8 * lay.nh),
+                          vec(o_b2, hid, 8 * lay.nh),
+                          vec(o_b3, sd, 8 * lay.ni),
+                          vec(o_goal, sd, 8 * lay.ni),
+                          vec(o_wvec, sd, 8 * lay.ni)])
+        tail = torch.cat([tail, torch.zeros(lay.total - lay.b1 - tail.numel(),
+                                            dtype=torch.int64)])
+        _INDEX_CACHE[key] = torch.cat([frag.reshape(-1), tail]).to(device)
+    return _INDEX_CACHE[key]
+
+
+def fold_centred(params, normalizers, s0, goal):
+    """The MLP (an optional leading member axis) with the normalizers
+    folded in, in coordinates x = s - mu (mu the state mean; 0 without
+    normalizers): returns (w1, b1, w2, b2, w3, b3, x0, goal - mu) with
+        W1' = W1 / sigma[:, None],  b1' = b1 - (a_mu / a_sigma) W1[sd:],
+        W3' = W3 sigma[None, :],    b3' = b3 sigma,
+    the same map as ``cem_rollout._fold_normalizers`` shifted by mu on the
+    way in and out (sigma = std + 1e-6)."""
+    w1, b1 = params['l1']['w'], params['l1']['b']
+    w2, b2 = params['l2']['w'], params['l2']['b']
+    w3, b3 = params['l3']['w'], params['l3']['b']
+    if normalizers is None or normalizers.state_mean is None:
+        return w1, b1, w2, b2, w3, b3, s0, goal
+    sd = normalizers.state_mean.shape[-1]
+    s_mu, s_sig = normalizers.state_mean, normalizers.state_std + 1e-6
+    if normalizers.action_mean is not None:
+        a_mu = normalizers.action_mean
+        a_sig = normalizers.action_std + 1e-6
+        sig = torch.cat([s_sig, a_sig])
+        b1 = b1 - (a_mu / a_sig) @ w1[..., sd:, :]
+    else:
+        sig = torch.cat([s_sig, torch.ones(w1.shape[-2] - sd,
+                                           dtype=w1.dtype, device=w1.device)])
+    return (w1 / sig[:, None], b1, w2, b2, w3 * s_sig, b3 * s_sig,
+            s0 - s_mu, goal - s_mu)
+
+
+def pack_weights(w1, b1, w2, b2, w3, b3, goal, wvec) -> torch.Tensor:
+    """Folded MLP weights ((in, hid), (hid,), (hid, hid), (hid,), (hid,
+    sd), (sd,), each with an optional leading member axis n) and the cost's
+    goal / weights (sd,) -> (n, layout.total) float32 on the weights'
+    device (n = 1 without a member axis), as the kernels stage it."""
+    lead = w1.shape[:-2]
+    n = int(torch.tensor(lead).prod()) if lead else 1
+    inn, hid = w1.shape[-2:]
+    sd = w3.shape[-1]
+    flat = lambda t: t.reshape(n, -1)
+    src = torch.cat([
+        torch.zeros((n, 1), dtype=w1.dtype, device=w1.device),
+        flat(w1), flat(w2), flat(w3), flat(b1), flat(b2), flat(b3),
+        goal.reshape(1, sd).expand(n, sd), wvec.reshape(1, sd).expand(n, sd),
+    ], dim=1).float()
+    return src[:, _index(sd, inn - sd, hid, src.device)]
+
+
+class Row(NamedTuple):
+    k: int         # candidate
+    pair: int      # Philox pair index (counter word 2)
+    sign: float    # -1.0 for the antithetic half
+    valid: bool
+
+
+def shared_pairs(K: int, n: int, antithetic: bool) -> bool:
+    """Whether rows g and g + 8 of a tile hold an antithetic pair (its two
+    candidates k and k + ceil(K/2) then belong to one member)."""
+    return bool(antithetic) and ((K + 1) // 2) % n == 0
+
+
+def tiles_per_env(K: int, n: int = 1, antithetic: bool = True) -> int:
+    """Tiles of 16 rows per (member, env) (cem_mma.cuh tiling)."""
+    if shared_pairs(K, n, antithetic):
+        return -(-((K + 1) // 2 // n) // 8)
+    return -(-(K // n) // 16)
+
+
+def tile_rows(K: int, n: int, antithetic: bool, m: int, i: int):
+    """The 16 rows of tile i of member m (cem_mma.cuh row_of): with shared
+    pairs row g holds pair q = 8 i + g's first candidate k = q n + m and
+    row g + 8 its partner k + ceil(K/2); otherwise row r holds candidate
+    (16 i + r) n + m, whose pair is k or k - ceil(K/2)."""
+    Kz = (K + 1) // 2 if antithetic else K
+    rows = []
+    for r in range(16):
+        if shared_pairs(K, n, antithetic):
+            q = 8 * i + (r & 7)
+            k0 = q * n + m
+            k = k0 if r < 8 else k0 + Kz
+            rows.append(Row(k, k0, 1.0 if r < 8 else -1.0,
+                            q < Kz // n and k < K))
+        else:
+            q = 16 * i + r
+            k = q * n + m
+            second = bool(antithetic) and k >= Kz
+            rows.append(Row(k, k - Kz if second else k,
+                            -1.0 if second else 1.0, q < K // n))
+    return rows

@@ -14,8 +14,10 @@ sampler). ``mlp_sample_rollout_costs_ensemble`` replaces the ensemble
 TS-infinity pair ``_sample_kernel_ens_grouped`` and ``_sample_kernel_ens``:
 candidate k is rolled by member k % n for the whole horizon. For CUDA
 tensors each launches its kernel (``csrc/cem_sample_rollout.cu``,
-``csrc/cem_sample_rollout_ens.cu``; Philox noise in the kernel) and raises
-on inputs the kernel does not take; for CPU tensors each runs its plain
+``csrc/cem_sample_rollout_ens.cu``: the model products on the tensor
+cores with the 3xTF32 split, weights staged by ``cem_mma.pack_weights``;
+Philox noise in the kernel) and raises on inputs the kernel does not take
+(sd + ad or hidden above 128); for CPU tensors each runs its plain
 version, which draws the same distributions from a ``torch.Generator``
 seeded by ``seed`` (or takes the noise ``z`` explicitly). All return
 exact-K buffers: costs (B, K) float32 and actions (B, H, ad, K). Dataset
@@ -38,13 +40,13 @@ from typing import Optional
 
 import torch
 
-from . import _build, launch_counts
+from . import _build, cem_mma, launch_counts
 
 _SAMPLERS = {'triangular': 0, 'normal': 1, 'spline4': 2}
 MAX_SHARED_BYTES = 232448
 _SIGNATURES = {
-    'cem_smem_bytes': (ctypes.c_size_t, [ctypes.c_int] * 7),
-    'cem_sample_rollout': (ctypes.c_int, [ctypes.c_void_p] * 11
+    'cem_sample_smem_bytes': (ctypes.c_size_t, [ctypes.c_int] * 6),
+    'cem_sample_rollout': (ctypes.c_int, [ctypes.c_void_p] * 4
                            + [ctypes.c_ulonglong] + [ctypes.c_int] * 8
                            + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 3),
 }
@@ -55,8 +57,8 @@ _COSTS_SIGNATURES = {
                           + [ctypes.c_void_p] * 2),
 }
 _ENS_SIGNATURES = {
-    'cem_ens_smem_bytes': (ctypes.c_size_t, [ctypes.c_int] * 3),
-    'cem_sample_rollout_ens': (ctypes.c_int, [ctypes.c_void_p] * 11
+    'cem_ens_smem_bytes': (ctypes.c_size_t, [ctypes.c_int] * 7),
+    'cem_sample_rollout_ens': (ctypes.c_int, [ctypes.c_void_p] * 4
                                + [ctypes.c_ulonglong] + [ctypes.c_int] * 9
                                + [ctypes.c_float] * 4
                                + [ctypes.c_void_p] * 3),
@@ -299,26 +301,39 @@ def mlp_sample_rollout_costs_plain(
 
 def _kernel_inputs(what, params, normalizers, s0, mean, std, goal, weights,
                    n_members=None):
-    """Folded weights and every launch input, checked: contiguous float32
-    CUDA tensors of consistent shapes."""
-    w1, b1, w2, b2, w3, b3 = (t.detach().contiguous() for t in
-                              _fold_normalizers(params, normalizers))
+    """Every launch input, checked (float32 CUDA tensors of consistent
+    shapes, the per-env inputs contiguous, sd + ad and hidden within the
+    kernels' tiles), with the weights folded in the kernels' centred
+    coordinates and packed for the tensor cores (``cem_mma``)."""
     B, sd = s0.shape
     _, H, ad = mean.shape
+    w1, b1 = params['l1']['w'], params['l1']['b']
+    w2, w3, b3 = params['l2']['w'], params['l3']['w'], params['l3']['b']
     hid = w2.shape[-1]
     lead = () if n_members is None else (n_members,)
-    tensors = (s0, mean, std, w1, b1, w2, b2, w3, b3, goal, weights)
-    for t in tensors:
-        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f'{what} kernel takes contiguous float32 CUDA '
-                             'tensors')
+    leaves = [v for layer in params.values() for v in layer.values()]
+    for t in (s0, mean, std, goal, weights, *leaves):
+        if not t.is_cuda or t.dtype != torch.float32:
+            raise ValueError(f'{what} kernel takes float32 CUDA tensors')
+    if not all(t.is_contiguous() for t in (s0, mean, std)):
+        raise ValueError(f'{what} kernel takes contiguous s0, mean, std')
     if (mean.shape != std.shape or mean.shape[0] != B
             or w1.shape != lead + (sd + ad, hid)
             or w2.shape != lead + (hid, hid) or w3.shape != lead + (hid, sd)
             or b1.shape != lead + (hid,) or b3.shape != lead + (sd,)
             or goal.shape != (sd,) or weights.shape != (sd,)):
         raise ValueError(f'{what}: inconsistent shapes')
-    return tensors, (B, H, sd, ad, hid)
+    cem_mma.check_shapes(what, sd, ad, hid)
+    *folded, x0, goal_c = (t.detach() for t in cem_mma.fold_centred(
+        params, normalizers, s0, goal))
+    packed = cem_mma.pack_weights(*folded, goal_c, weights)
+    return (x0.contiguous(), mean, std, packed), (B, H, sd, ad, hid)
+
+
+def _check_smem(what, n_bytes):
+    if n_bytes == 0 or n_bytes > MAX_SHARED_BYTES:
+        raise ValueError(f'{what}: horizon x action dim too large for the '
+                         f'kernel shared-memory scratch ({n_bytes} bytes)')
 
 
 def mlp_sample_rollout_costs(params, seed, s0, mean, std, goal, weights,
@@ -349,10 +364,8 @@ def mlp_sample_rollout_costs(params, seed, s0, mean, std, goal, weights,
         weights)
     K = int(num_candidates)
     lib = _build.library('cem_sample_rollout', _SIGNATURES)
-    if lib.cem_smem_bytes(K, H, sd, ad, hid, int(antithetic),
-                          _SAMPLERS[sampler]) > MAX_SHARED_BYTES:
-        raise ValueError('mlp_sample_rollout_costs: model too large for the '
-                         'kernel shared-memory layout')
+    _check_smem('mlp_sample_rollout_costs', lib.cem_sample_smem_bytes(
+        K, H, sd, ad, hid, int(bool(antithetic))))
     costs = torch.empty((B, K), dtype=torch.float32, device=s0.device)
     actions = torch.empty((B, H, ad, K), dtype=torch.float32,
                           device=s0.device)
@@ -431,9 +444,8 @@ def mlp_sample_rollout_costs_ensemble(params, seed, s0, mean, std, goal,
         'mlp_sample_rollout_costs_ensemble', params, normalizers, s0, mean,
         std, goal, weights, n_members=n)
     lib = _build.library('cem_sample_rollout_ens', _ENS_SIGNATURES)
-    if lib.cem_ens_smem_bytes(sd, ad, hid) > MAX_SHARED_BYTES:
-        raise ValueError('mlp_sample_rollout_costs_ensemble: model too large '
-                         'for the kernel shared-memory layout')
+    _check_smem('mlp_sample_rollout_costs_ensemble', lib.cem_ens_smem_bytes(
+        K, n, H, sd, ad, hid, int(bool(antithetic))))
     costs = torch.empty((B, K), dtype=torch.float32, device=s0.device)
     actions = torch.empty((B, H, ad, K), dtype=torch.float32,
                           device=s0.device)

@@ -185,6 +185,87 @@ def test_spline4_kernel_matches_plain_cost(dev, sd, H):
         assert float(err.max()) < 1e-4, (t, float(err.max()))
 
 
+# The tensor-core layout at the edges of what it takes: the CLI's B=5,
+# ragged K (odd K leaves the last pair one candidate), antithetic off (16
+# own draws a tile), cheetah's sd 17 (state and action share a k-tile),
+# and the guarded instantiation that takes every other shape (sd + ad and
+# hidden up to 128, weights read from global memory)
+@pytest.mark.parametrize('B,K,H,sd,ad,hid,antithetic,sampler', [
+    (5, 1000, 20, 20, 6, 50, True, 'spline4'),
+    (5, 37, 30, 17, 6, 50, False, 'normal'),
+    (3, 101, 7, 19, 6, 50, True, 'triangular'),
+    (7, 99, 9, 17, 6, 50, True, 'spline4'),
+    (2, 50, 5, 100, 20, 128, True, 'normal'),
+    (2, 33, 4, 9, 3, 20, False, 'triangular'),
+])
+def test_sampler_kernel_shapes(dev, B, K, H, sd, ad, hid, antithetic,
+                               sampler):
+    params = MLPDynamics(sd, ad, hidden_units=hid).init(
+        torch.Generator().manual_seed(0), device=dev)
+    g, mean, std = _proposal(dev, B, H, ad, 6)
+    s0 = torch.randn((B, sd), generator=g, device=dev)
+    goal = torch.randn(sd, generator=g, device=dev)
+    w = torch.rand(sd, generator=g, device=dev)
+    before = ops.launch_counts['cem_sample_rollout']
+    costs, acts = cem_rollout.mlp_sample_rollout_costs(
+        params, 11, s0, mean, std, goal, w, K, antithetic=antithetic,
+        sampler=sampler)
+    assert ops.launch_counts['cem_sample_rollout'] == before + 1
+    assert costs.shape == (B, K) and acts.shape == (B, H, ad, K)
+    assert bool(torch.isfinite(costs).all())
+    ref = cem_rollout.rollout_costs_of_actions(params, s0, acts, goal, w)
+    torch.testing.assert_close(costs, ref, rtol=1e-4, atol=1e-4)
+    assert float(acts.abs().max()) <= 1.0
+    if antithetic:
+        z = _unclipped_noise(acts, mean, std)
+        Kz = (K + 1) // 2
+        pair = (z[..., :K - Kz] + z[..., Kz:]).abs()
+        assert float(pair.nan_to_num(0.0).max()) < 1e-4
+
+
+@pytest.mark.parametrize('B,K,n,H,sd,hid,antithetic', [
+    (5, 1000, 5, 20, 20, 50, True),
+    (5, 65, 5, 30, 17, 50, True),
+    (3, 45, 5, 7, 24, 50, False),
+    (2, 40, 4, 5, 100, 128, True),
+])
+def test_ensemble_kernel_shapes(dev, B, K, n, H, sd, hid, antithetic):
+    ad = 6
+    params = EnsembleDynamics(MLPDynamics(sd, ad, hidden_units=hid), n).init(
+        torch.Generator().manual_seed(0), device=dev)
+    g, mean, std = _proposal(dev, B, H, ad, 8)
+    s0 = torch.randn((B, sd), generator=g, device=dev)
+    goal, w = torch.zeros(sd, device=dev), torch.ones(sd, device=dev)
+    costs, acts = cem_rollout.mlp_sample_rollout_costs_ensemble(
+        params, 13, s0, mean, std, goal, w, K, n, antithetic=antithetic)
+    assert costs.shape == (B, K) and acts.shape == (B, H, ad, K)
+    ref = cem_rollout.rollout_costs_of_actions_ensemble(params, s0, acts,
+                                                        goal, w)
+    torch.testing.assert_close(costs, ref, rtol=1e-4, atol=1e-4)
+    if antithetic:
+        z = _unclipped_noise(acts, mean, std)
+        Kz = (K + 1) // 2
+        pair = (z[..., :K - Kz] + z[..., Kz:]).abs()
+        assert float(pair.nan_to_num(0.0).max()) < 1e-4
+
+
+def test_sampler_kernels_raise_past_128(dev):
+    B, K, H, sd, ad = 2, 10, 3, 24, 6
+    params = MLPDynamics(sd, ad, hidden_units=136).init(
+        torch.Generator().manual_seed(0), device=dev)
+    g, mean, std = _proposal(dev, B, H, ad, 9)
+    s0 = torch.randn((B, sd), generator=g, device=dev)
+    goal, w = torch.zeros(sd, device=dev), torch.ones(sd, device=dev)
+    with pytest.raises(ValueError, match='128'):
+        cem_rollout.mlp_sample_rollout_costs(params, 1, s0, mean, std, goal,
+                                             w, K)
+    stacked = {l: {k: v[None] for k, v in p.items()}
+               for l, p in params.items()}
+    with pytest.raises(ValueError, match='128'):
+        cem_rollout.mlp_sample_rollout_costs_ensemble(
+            stacked, 1, s0, mean, std, goal, w, K, 1)
+
+
 def _factored_problem(dev, B, nr, nv, con0, seed):
     """A factored dual QP batch shaped like solve_apgd's factored branch
     (tests/test_apgd_kernel.py _factored_problem): scaled and
