@@ -7,9 +7,14 @@ Run from the repository root:  python3 chip_smoke.py
    builds every kernel in mujoco_mbrl_tpu_torch/csrc (nvcc, in parallel);
 2. holds the dense APGD kernel against its plain PyTorch version on
    synthetic problems (non-negative, box, cone and equality rows; cold and
-   warm) and on inputs captured from the port's own walker_walk solves at
-   1024 envs, at reset and in contact (rtol = atol = 2e-4 on f and v; see
-   hold_apgd for the envs whose step size rounding decides);
+   warm; 17, 62 and 96 rows, one case per instantiation of the kernel) and
+   on inputs captured from the port's own walker_walk solves at 1024 envs,
+   at reset and in contact (rtol = atol = 2e-4 on f and v; see hold_apgd
+   for the envs whose step size rounding decides); times it (device time,
+   from a CUDA graph of the calls; the wrapper call's time beside it) with
+   the largest iteration count among the envs and the time per dependent
+   step (kernel time / (power steps + that count)), and the latency of one
+   APGD iteration from two iteration caps;
 3. holds the CEM sampler kernel against the plain rollout cost of the
    kernel's own actions at 1024 envs x 1000 candidates x horizon 30
    (rtol 1e-4) for the triangular, normal and spline4 samplers, and checks
@@ -43,9 +48,12 @@ Run from the repository root:  python3 chip_smoke.py
       steps of random actions, cold and warm) and on a humanoid-shaped
       synthetic batch (303 rows, nv 27, 512 envs), with the same
       tolerance and rounding allowance as the dense kernel;
-   c. the rollout-cost kernel (given actions) against its plain version at
-      1024 x 1000 candidates, H 30, sd 17 (rtol 1e-4), and the sampler at
-      the same shapes;
+   c. the rollout-cost kernel (given actions, the samplers' tensor-core
+      body) against its plain version (rtol 1e-4) at 1024 x 1000
+      candidates, H 30, sd 17; at the walker widths (sd 24) with N not a
+      multiple of 16; and at a shape only the guarded instantiation takes;
+      timed beside both bounds with its gate margin; and the sampler at
+      the cheetah shapes;
    d. the control step through cem_batched's non-fused branch (3
       rollout-cost launches, no sampler launch, per control step);
    e. ``bench.full_loop_bench`` at CONFIGS['cheetah1024'] (seed
@@ -106,6 +114,33 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time of one ``fn()``: ``reps`` calls captured in a CUDA graph
+    and the graph replayed between CUDA events, so the host's work per
+    call (the wrapper's checks, its allocations, the ctypes launch) is
+    left out; for kernels whose device time is below that host work."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (5 * reps)
 
 
 def hold_apgd(torch, label, run_k, run_p, dense_Ad, cases,
@@ -206,25 +241,39 @@ def time_apgd(torch, label, run_k, run_p, cases, matvec_flops, n_bytes,
     ``n_bytes(args)`` once at the HBM rate, or the matvecs that this
     case's envs run, (25 cold | 10 warm + APGD iterations) x
     ``matvec_flops(args)`` per env, at the FP32 peak (warm solves add the
-    staleness bound's pass, ``trace_bound`` or the row sums)."""
+    staleness bound's pass, ``trace_bound`` or the row sums). The kernel
+    time is its device time (``device_ms``); the wrapper call's time, host
+    work included, stands beside it (``call_ms``). Also the largest APGD
+    iteration count among the kernel's envs (the slowest env sets the
+    launch's time) and the time per dependent step, kernel time / (power
+    steps, 24 cold or 8 warm, + that count)."""
     times = {}
     for tag, args, kw in cases:
         tag = tag + ('-cold' if kw['cold'] else '-warm')
         Bs, nr = args[4].shape
         _, _, its = run_p(*args, **kw, return_iterations=True)
+        max_its = int(run_k(*args, **kw, return_iterations=True)[2].max())
+        steps = (24 if kw['cold'] else 8) + max_its
         n_mv = (25 if kw['cold'] else 10) + its.double()
         flops = float((matvec_flops(args) * n_mv).sum())
         if not kw['cold']:
             flops += Bs * (nr if trace_bound else 2.0 * nr * nr)
         bms, by = bound_ms(n_bytes(args), flops)
-        k_ms = time_ms(lambda: run_k(*args, **kw), 20)
+        k_ms = device_ms(lambda: run_k(*args, **kw), 20)
+        c_ms = time_ms(lambda: run_k(*args, **kw), 20)
         p_ms = time_ms(lambda: run_p(*args, **kw), 3)
-        times[tag] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by,
-                          mean_iterations=float(its.double().mean()))
-        print(f'{label} {tag} B={Bs} nr={nr}: kernel {k_ms:.4f} ms, '
+        times[tag] = dict(ms=k_ms, call_ms=c_ms, plain_ms=p_ms, bound_ms=bms,
+                          bound_by=by,
+                          mean_iterations=float(its.double().mean()),
+                          max_iterations=max_its,
+                          us_per_dependent_step=1e3 * k_ms / steps)
+        print(f'{label} {tag} B={Bs} nr={nr}: kernel {k_ms:.4f} ms '
+              f'(device; the wrapper call {c_ms:.4f} ms), '
               f'plain {p_ms:.3f} ms (reference only), bound {bms:.5f} ms '
               f'({by}), mean APGD iterations '
-              f'{times[tag]["mean_iterations"]:.1f}')
+              f'{times[tag]["mean_iterations"]:.1f}, largest {max_its} '
+              f'(kernel); {1e3 * k_ms / steps:.3f} us per dependent step '
+              f'({steps} = {steps - max_its} power steps + {max_its})')
     return times
 
 
@@ -234,7 +283,7 @@ def apgd_phase(dev, torch, walker_cases):
     g = torch.Generator(device=dev).manual_seed(0)
     nonneg, box, con0, nr = (0, 1, 2), (3,), (5, 8, 11, 14), 17
 
-    def synthetic(Bs):
+    def synthetic(Bs, nr=nr, con0=con0):
         G = torch.randn((Bs, nr + 4, nr), generator=g, device=dev)
         Am = torch.einsum('bij,bik->bjk', G, G) / (nr + 4) + 0.05 * torch.eye(
             nr, device=dev)
@@ -245,7 +294,9 @@ def apgd_phase(dev, torch, walker_cases):
         v0 = torch.randn((Bs, nr), generator=g, device=dev)
         act = (torch.rand((Bs, nr), generator=g, device=dev) > 0.15).float()
         mu = torch.zeros(nr, device=dev)
-        mu[list(con0)] = torch.tensor([0.6, 0.8, 1.0, 0.5], device=dev)
+        mu[list(con0)] = torch.tensor([0.6, 0.8, 1.0, 0.5],
+                                      device=dev).repeat(len(con0))[
+                                          :len(con0)]
         bnd = torch.zeros(nr, device=dev)
         bnd[list(box)] = 0.7
         return Ad, rhs, f0, v0, act, mu, bnd
@@ -256,6 +307,14 @@ def apgd_phase(dev, torch, walker_cases):
             cases.append(('synthetic', synthetic(B), dict(
                 nonneg=nonneg, box_rows=box, con0=con0, iterations=40,
                 cold=cold, eq_rows=eq)))
+    # one warp per env with two rows a lane (62, the walker's size) and
+    # the block per env (96, the dense regime's ceiling); cones to the
+    # last rows, the last wrapping to row 0
+    for n_rows, cold in ((62, True), (96, False)):
+        cones = tuple(range(n_rows - 29, n_rows, 3))
+        cases.append((f'synthetic-nr{n_rows}', synthetic(B, n_rows, cones),
+                      dict(nonneg=nonneg, box_rows=box, con0=cones,
+                           iterations=40, cold=cold, eq_rows=(4,))))
     worst, rounding_envs = hold_apgd(
         torch, 'apgd', A.apgd_iterate_batched, A.apgd_iterate_plain,
         lambda args: args[0], cases + walker_cases)
@@ -265,7 +324,19 @@ def apgd_phase(dev, torch, walker_cases):
         walker_cases, lambda a: 2.0 * a[1].shape[1] ** 2,
         lambda a: 4.0 * (a[0].numel() + 6 * a[1].numel() + 2 * a[1].shape[1]),
         trace_bound=False)
-    return worst, rounding_envs, times
+    # the latency of one APGD iteration: the walker's warm solve in
+    # contact, with no exit on convergence (tol2 = 0; the slowest env runs
+    # to the cap), at caps of 1 and 41 iterations
+    tag, args, kw = walker_cases[-1]
+    check(tag == 'contact' and not kw['cold'], tag)
+    cap = lambda n: device_ms(lambda: A.apgd_iterate_batched(
+        *args, **dict(kw, iterations=n, tol2=0.0)), 20)
+    t1, t41 = cap(1), cap(41)
+    iteration_ns = 1e6 * (t41 - t1) / 40
+    print(f'apgd {tag}-warm, tol2 = 0: {t1:.4f} ms at 1 iteration, '
+          f'{t41:.4f} ms at 41: '
+          f'{iteration_ns:.0f} ns per APGD iteration')
+    return worst, rounding_envs, times, iteration_ns
 
 
 def factored_problem(dev, torch, Bs, nr, nv, n_nonneg, cold, seed):
@@ -875,13 +946,17 @@ def cli_phase(dev, torch, tmp):
 
 
 def rollout_costs_bound(N, H_, sd, ad, hid):
-    """FLOP of the rollout (sampler_bound's) and the bytes of the given
-    actions, the states, the costs and the weights, read or written once."""
+    """FLOP of the rollout (sampler_bound's) and the given-action kernel's
+    two bounds, as sampler_bound gives them, over the bytes of the given
+    actions, the states, the costs and the weights, read or written once:
+    the 3xTF32 tensor-core bound it is held to and the FP32 bound."""
     in_dim = sd + ad
     flops = 2.0 * N * H_ * (in_dim * hid + hid * hid + hid * sd)
     n_bytes = 4.0 * (N * H_ * ad + N * sd + N + in_dim * hid + hid * hid
                      + hid * sd + 2 * hid + 3 * sd)
-    return flops, bound_ms(n_bytes, flops)
+    t_b, t_o = n_bytes / PEAK_BYTES, 3.0 * flops / PEAK_TF32_FLOPS
+    tensor = (max(t_b, t_o) * 1e3, 'bytes' if t_b >= t_o else 'operations')
+    return flops, tensor, bound_ms(n_bytes, flops)
 
 
 def candidates(dev, torch, Bs, Hh, ad, seed):
@@ -903,35 +978,73 @@ def states_t(s0):
     return s0.T[:, :, None].expand(sd, Bs, K).reshape(sd, Bs * K).contiguous()
 
 
-def rollout_costs_phase(dev, torch, params, obs, goal, weights):
-    """TPU kernel #4 against its plain version on given actions at the
-    cheetah control step's shapes (B=1024 x K=1000 candidates, H=30,
-    sd 17, padded to 24 lanes in the kernel; the bench's random MLP):
-    rtol 1e-4. Also times the fused sampler (#2) at the same shapes."""
+def hold_given(torch, label, params, s0T, aT, goal, weights):
+    """Kernel #4 against its plain version on given actions (rtol = atol =
+    1e-4, every candidate), timed beside both bounds with its gate margin
+    (the tolerance over the largest |cost - plain|)."""
     from mujoco_mbrl_tpu_torch.ops import cem_rollout as C
 
-    sd, ad, hid = obs.shape[1], 6, params['l2']['w'].shape[0]
-    acts, aT = candidates(dev, torch, B, H, ad, 13)
-    s0T = states_t(obs)
+    (sd, N), (Hh, ad) = s0T.shape, aT.shape[:2]
+    hid = params['l2']['w'].shape[0]
     run_k = lambda: C.mlp_rollout_costs_t(params, s0T, aT, goal, weights)
     run_p = lambda: C.mlp_rollout_costs_reference(
         params, s0T.T, aT.transpose(1, 2), goal, weights)
     with torch.no_grad():
         costs, ref = run_k(), run_p()
         torch.cuda.synchronize()
-        check(costs.shape == (B * K,) and bool(torch.isfinite(costs).all()),
-              costs.shape)
+        check(costs.shape == (N,) and bool(torch.isfinite(costs).all()),
+              (label, costs.shape))
         torch.testing.assert_close(costs, ref, rtol=1e-4, atol=1e-4)
         err = float((costs - ref).abs().max())
+        margin = 1.0 / max(float(((costs - ref).abs() / (
+            1e-4 + 1e-4 * ref.abs())).max()), 1e-30)
         k_ms, p_ms = time_ms(run_k, 5), time_ms(run_p, 2)
-    flops, (bms, by) = rollout_costs_bound(B * K, H, sd, ad, hid)
-    print(f'rollout costs (given actions) B={B} K={K} H={H} sd={sd}: '
-          f'max|kernel - plain| = {err:.3e} (max |cost| '
-          f'{float(costs.abs().max()):.3f}); kernel {k_ms:.3f} ms, plain '
-          f'{p_ms:.3f} ms (reference only), bound {bms:.3f} ms ({by}), '
-          f'{flops / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s achieved')
-    main_case = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bms, bound_by=by,
-                     max_abs_err=err)
+    flops, *bounds = rollout_costs_bound(N, Hh, sd, ad, hid)
+    print(f'{label}: max|kernel - plain| = {err:.3e} (max |cost| '
+          f'{float(costs.abs().max()):.3f}); gate margin {margin:.2f}x')
+    return sampler_case(f'{label} N={N} H={Hh} sd={sd} ad={ad} hid={hid}',
+                        flops, bounds, k_ms, p_ms, max_abs_err=err,
+                        gate_margin=margin)
+
+
+def rollout_costs_phase(dev, torch, params, obs, goal, weights, walker):
+    """TPU kernel #4 against its plain version on given actions (rtol
+    1e-4): at the cheetah control step's shapes (B=1024 x K=1000
+    candidates, H=30, sd 17: the exact (3, 7, 3) instantiation; the
+    bench's random MLP), at the walker widths (``walker`` = (params, obs),
+    sd 24: the exact (4, 7, 3) instantiation) with N = B K - 9, not a
+    multiple of 16, and at a shape only the guarded instantiation takes
+    (sd 40, hidden 64). Also times the fused sampler (#2) at the cheetah
+    shapes."""
+    from mujoco_mbrl_tpu_torch import models
+    from mujoco_mbrl_tpu_torch.ops import cem_rollout as C
+
+    sd, ad, hid = obs.shape[1], 6, params['l2']['w'].shape[0]
+    acts, aT = candidates(dev, torch, B, H, ad, 13)
+    main_case = hold_given(torch, 'rollout costs (given actions)', params,
+                           states_t(obs), aT, goal, weights)
+    del acts, aT
+    cases = {'cheetah_sd17': main_case}
+    w_params, w_obs = walker
+    w_goal, w_weights = proposal(dev, torch)[:2]
+    N = B * K - 9
+    _, aT = candidates(dev, torch, B, H, ad, 16)
+    cases['walker_sd24_ragged'] = hold_given(
+        torch, 'rollout costs, walker widths, ragged N', w_params,
+        states_t(w_obs)[:, :N].contiguous(), aT[..., :N].contiguous(),
+        w_goal, w_weights)
+    del aT
+    gsd, ghid, gN, gH = 40, 64, 100003, 10
+    g_params = models.MLPDynamics(gsd, ad, hidden_units=ghid).init(
+        torch.Generator().manual_seed(4), device=dev)
+    g = torch.Generator(device=dev).manual_seed(17)
+    cases['guarded_sd40_hid64'] = hold_given(
+        torch, 'rollout costs, guarded instantiation', g_params,
+        torch.randn((gsd, gN), generator=g, device=dev),
+        torch.rand((gH, ad, gN), generator=g, device=dev) * 2 - 1,
+        torch.randn(gsd, generator=g, device=dev),
+        torch.rand(gsd, generator=g, device=dev))
+    main_case = dict(main_case, cases=cases)
 
     # the fused sampler (#2) at the same shapes, as the control step runs it
     g = torch.Generator(device=dev).manual_seed(14)
@@ -1187,7 +1300,8 @@ def main() -> int:
                                    'apgd_iterate_batched')
                     + capture_solves(dev, torch, env, fallen, 'contact',
                                      'apgd_iterate_batched'))
-    apgd_err, rounding_envs, apgd_t = apgd_phase(dev, torch, walker_cases)
+    apgd_err, rounding_envs, apgd_t, apgd_iter_ns = apgd_phase(
+        dev, torch, walker_cases)
     obs0 = suite.flatten_observation(env._observe(
         env.model, state0.physics, ()))
     samp_err, samp_t = sampler_phase(dev, torch, params, obs0)
@@ -1240,7 +1354,8 @@ def main() -> int:
     goal[1] = 1.0
     weights = torch.ones(c_obs.shape[1], device=dev)
     costs_t, samp_cheetah = rollout_costs_phase(dev, torch, c_params, c_obs,
-                                                goal, weights)
+                                                goal, weights,
+                                                walker=(params, obs0))
 
     # the non-fused CEM route on the same envs: candidates drawn by
     # cem_batched, costed by kernel #4 (one launch per CEM iteration)
@@ -1268,7 +1383,8 @@ def main() -> int:
     tpu = lambda f, line, fn: f'mujoco_mbrl_tpu/ops/{f}:{line} ({fn})'
     plain_keys = ('ms', 'plain_ms', 'bound_ms', 'bound_by')
     pick = lambda d: {k: d[k] for k in plain_keys}
-    # the sampler kernels: held to the tensor-core bound, FP32's beside it
+    # the tensor-core kernels (the samplers, #4): held to the tensor-core
+    # bound, FP32's beside it
     pick_s = lambda d: dict(pick(d), bound_fp32_ms=d['bound_fp32_ms'],
                             held_to=d['held_to'])
     kernels = [
@@ -1277,6 +1393,11 @@ def main() -> int:
              replaces=tpu('apgd_solve.py', 60, '_apgd_kernel'),
              launches=counts['apgd_solve'], max_abs_err=apgd_err,
              library_ms=None, **pick(apgd_t['contact-warm']),
+             call_ms=apgd_t['contact-warm']['call_ms'],
+             max_iterations=apgd_t['contact-warm']['max_iterations'],
+             us_per_dependent_step=apgd_t['contact-warm'][
+                 'us_per_dependent_step'],
+             iteration_ns=apgd_iter_ns,
              rounding_decided_envs=rounding_envs,
              launches_by_path=by_path('apgd_solve'), cases=apgd_t),
         dict(name='mlp_sample_rollout_costs', route='cuda',
@@ -1299,11 +1420,12 @@ def main() -> int:
              source=src('cem_rollout_costs.cu'),
              replaces=tpu('cem_rollout.py', 70, '_kernel'),
              launches=nf_counts['cem_rollout_costs'],
-             max_abs_err=max(costs_t['max_abs_err'],
+             max_abs_err=max(max(c['max_abs_err']
+                                 for c in costs_t['cases'].values()),
                              fitted_costs['max_abs_err']),
-             library_ms=None, **pick(costs_t),
+             library_ms=None, **pick_s(costs_t),
              launches_by_path=by_path('cem_rollout_costs'),
-             fitted=fitted_costs),
+             cases=costs_t['cases'], fitted=fitted_costs),
         dict(name='mlp_sample_rollout_costs_ensemble', route='cuda',
              source=src('cem_sample_rollout_ens.cu'),
              replaces=tpu('cem_rollout.py', 671,

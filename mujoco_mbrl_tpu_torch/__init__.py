@@ -9,7 +9,8 @@ the agent loop around it (``experiment`` -> ``agents.GoalStateAgent`` ->
 plain PyTorch around hand-written CUDA kernels (``csrc/``):
 
 * ``ops.apgd_solve.apgd_iterate_batched`` — the batched APGD constraint
-  solve up to 96 rows (Ad in shared memory);
+  solve up to 96 rows (one warp per env with Ad in registers up to 64
+  rows, one block per env with Ad in shared memory past that);
 * ``ops.apgd_solve.apgd_iterate_factored`` — the same past 96 rows, over
   the factors J~ and M^-1;
 * ``ops.cem_rollout.mlp_sample_rollout_costs`` — the fused CEM sample +
@@ -17,7 +18,8 @@ plain PyTorch around hand-written CUDA kernels (``csrc/``):
 * ``ops.cem_rollout.mlp_sample_rollout_costs_ensemble`` — the same over
   an ensemble, candidate k rolled by member k % n (TS-infinity);
 * ``ops.cem_rollout.mlp_rollout_costs_t`` — the rollout + cost of given
-  candidate actions (cem_batched's non-fused branch).
+  candidate actions (cem_batched's non-fused branch), on the samplers'
+  tensor-core body.
 
 Layout follows the JAX package (``physics/``, ``suite/``, ``models/``,
 ``planners/``, ``ops/``, ``envs/``, ``data/``, ``agents/``, ``utils/``);

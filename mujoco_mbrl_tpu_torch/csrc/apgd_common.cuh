@@ -73,8 +73,11 @@ struct Row {
   float mu, bnd, act;
 };
 
-// Non-negative, then box, then friction cone (tangent rows read through a
-// wrapping shift, as jnp.roll does), then the active mask. With has_cone
+// Non-negative, then box, then friction cone (a normal row reads its
+// tangents i + 1, i + 2 through a wrapping shift, as jnp.roll does; rows
+// i - 1, i - 2 of a normal take its tangent scale without wrapping, as
+// physics/solver.py masks them by con0 + 1, con0 + 2), then the active
+// mask. With has_cone
 // every thread of the block must call it (it synchronises); ps and ts are
 // nr shared floats each, types the nr row types in shared memory.
 __device__ inline float project(float x, const Row& r, bool has_cone,
@@ -101,9 +104,8 @@ __device__ inline float project(float x, const Row& r, bool has_cone,
     if (r.valid) ts[i] = tsc;
     __syncthreads();
     if (r.valid) {
-      const int p1 = (i + nr - 1) % nr, p2 = (i + nr - 2) % nr;
-      if (types[p1] & kConeNormal) x *= ts[p1];
-      if (types[p2] & kConeNormal) x *= ts[p2];
+      if (i >= 1 && (types[i - 1] & kConeNormal)) x *= ts[i - 1];
+      if (i >= 2 && (types[i - 2] & kConeNormal)) x *= ts[i - 2];
     }
   }
   return x * r.act;

@@ -9,19 +9,39 @@
 // rows, a Gauss-Seidel polish on equality rows, and a per-env exit once
 // converged (|df|^2 <= tol2 * (1e-12 + |f|^2)) or at the iteration cap.
 //
-// Design: one thread block per env, one thread per constraint row. The
-// env's preconditioned matrix Ad is read from device memory once into
-// shared memory (row stride nr|1, odd, so a warp reading one column of
-// consecutive rows hits 32 distinct banks) and every matvec is a row dot
-// product from there. Norms, the restart test and the convergence test
-// are block reductions. The loop is a real per-env loop that leaves as
-// soon as its env converges (the TPU's 128-env lanes, 8-row padding and
-// chunked early exit were layout artefacts and are gone).
+// Design. The kernel is latency-bound: each env is a chain of ~70
+// dependent matvecs of nr^2 FMAs (walker: nr 56-62; 10 power steps and up
+// to 60 APGD iterations), and the slowest env sets the launch's time, so
+// the design shortens each dependent step.
+//   nr <= 64 (apgd_warp_kernel<R>, R = 1 for nr <= 32, else 2): one env
+//   per warp, two envs per block, row i in lane i % 32, slot i / 32. The
+//   env's Ad, zero-padded to 32R x 32R, passes through shared memory once
+//   (coalesced from device memory, row stride 32R + 1) into registers: a
+//   lane holds its R rows, 64 or 32 floats each. A matvec writes the
+//   operand to a per-warp shared vector (__syncwarp, no block barrier),
+//   reads it back as float4 broadcasts and runs each row's dot product on
+//   four independent accumulators (chains of 8R FMAs instead of nr).
+//   Norms and the restart and convergence tests are xor-shuffle warp sums
+//   (identical in every lane, so the per-env exit is warp-uniform). The
+//   gradient step and the power step's normalisation multiply by a
+//   reciprocal taken once (y - g (1 / L), w (1 / |w|); within 1.5 ulp of
+//   the divisions): an IEEE division is a branch around a slow path, and a
+//   lane's two per step ran in turn, a third of an iteration's latency.
+//   The cone projection reads its neighbour rows (i + 1, i + 2; the
+//   tangents' normals i - 1, i - 2) with shuffles; the Gauss-Seidel polish
+//   of each equality row is a warp dot product of its shared-memory row.
+//   nr > 64 (apgd_block_kernel; the dense regime ends at 96 rows): one
+//   block per env, one thread per row, Ad in shared memory (row
+//   stride nr | 1, odd, conflict-free column reads), block reductions and
+//   the projection of apgd_common.cuh.
+// Both run a real per-env loop that leaves as soon as its env converges
+// (the TPU's 128-env lanes, 8-row padding and chunked early exit were
+// layout artefacts and are gone); the APGD iterations each env ran go to
+// its_out where it is given.
 //
-// Bound: the work is a chain of ~70 dependent matvecs of nr^2 FMAs
-// (walker: nr = 62) per env; device memory sees Ad once (B * nr^2 * 4 B,
-// 16 MB at B = 1024), so the kernel is latency-bound by that serial chain,
-// far above both the bytes bound and the FP32 operations bound.
+// Bound: device memory sees Ad once (B * nr^2 * 4 B, 16 MB at B = 1024);
+// the FLOP are ~70 matvecs of 2 nr^2 per env; the serial chain of
+// dependent steps keeps the kernel far above both bounds.
 
 #include "apgd_common.cuh"
 
@@ -29,7 +49,7 @@ namespace {
 
 using namespace apgd;
 
-__global__ void apgd_kernel(const float* __restrict__ Ad_g,
+__global__ void apgd_block_kernel(const float* __restrict__ Ad_g,
                             const float* __restrict__ rhs_g,
                             const float* __restrict__ f0_g,
                             const float* __restrict__ v0_g,
@@ -40,7 +60,8 @@ __global__ void apgd_kernel(const float* __restrict__ Ad_g,
                             const int* __restrict__ eq_g, int n_eq, int nr,
                             int ld, int iterations, int cold, int has_cone,
                             float tol2, float* __restrict__ f_out,
-                            float* __restrict__ v_out) {
+                            float* __restrict__ v_out,
+                            int* __restrict__ its_out) {
   extern __shared__ float sm[];
   float* Ad = sm;                  // nr * ld
   float* xs = Ad + nr * ld;        // matvec operand
@@ -122,6 +143,7 @@ __global__ void apgd_kernel(const float* __restrict__ Ad_g,
   // ---- Nesterov APGD with adaptive restart, per-env exit ------------
   float f = proj(row ? f0_g[off + i] : 0.f);
   float y = f, theta = 1.f;
+  int n_it = 0;
   for (int it = 0; it < iterations; ++it) {
     const float g = matvec(y) - rhs_i;
     float fn = proj(y - g / L);
@@ -152,17 +174,300 @@ __global__ void apgd_kernel(const float* __restrict__ Ad_g,
     y = fn + beta * (fn - f);
     f = fn;
     theta = restart ? 1.f : th_new;
+    ++n_it;
     if (d2 <= tol2 * (1e-12f + n2)) break;   // block-uniform
   }
   if (row) {
     f_out[off + i] = f;
     v_out[off + i] = v;
   }
+  if (its_out != nullptr && i == 0) its_out[b] = n_it;
+}
+
+constexpr int kWarpEnvs = 2;  // envs (warps) per block of the warp kernel
+constexpr unsigned kFull = 0xffffffffu;
+
+// Shared floats of one warp: Ad zero-padded to NC x (NC + 1), then the
+// matvec operand (NC floats, 16-byte aligned)
+template <int R>
+__host__ __device__ constexpr int warp_floats() {
+  return 32 * R * (32 * R + 1) + 32 * R;
+}
+
+// Row src's entry of a vector held as x[slot] in lane src % 32, slot
+// src / 32, for every lane (all lanes must call it)
+template <int R>
+__device__ __forceinline__ float fetch(const float (&x)[R], int src) {
+  float v = __shfl_sync(kFull, x[0], src & 31);
+  if (R == 2) {
+    const float w = __shfl_sync(kFull, x[R - 1], src & 31);
+    v = (src >> 5) ? w : v;
+  }
+  return v;
+}
+
+template <int R>
+__global__ void __launch_bounds__(32 * kWarpEnvs)
+    apgd_warp_kernel(const float* __restrict__ Ad_g,
+                     const float* __restrict__ rhs_g,
+                     const float* __restrict__ f0_g,
+                     const float* __restrict__ v0_g,
+                     const float* __restrict__ act_g,
+                     const float* __restrict__ mu_g,
+                     const float* __restrict__ bnd_g,
+                     const int* __restrict__ rowtype_g,
+                     const int* __restrict__ eq_g, int n_eq, int B, int nr,
+                     int iterations, int cold, int has_cone, float tol2,
+                     float* __restrict__ f_out, float* __restrict__ v_out,
+                     int* __restrict__ its_out) {
+  constexpr int NC = 32 * R, LD = NC + 1;
+  extern __shared__ __align__(16) float sm[];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int b = blockIdx.x * kWarpEnvs + w;
+  if (b >= B) return;  // the warp's env; no block barrier below
+  float* As = sm + w * warp_floats<R>();
+  float* ys = As + NC * LD;
+
+  // ---- Ad: device memory -> shared (zero-padded) -> registers ---------
+  const float* Adb = Ad_g + (size_t)b * nr * nr;
+  for (int k = lane; k < NC * NC; k += 32) {
+    const int r = k / NC, c = k % NC;
+    As[r * LD + c] = r < nr && c < nr ? Adb[r * nr + c] : 0.f;
+  }
+  __syncwarp();
+  float a[R][NC];
+#pragma unroll
+  for (int s = 0; s < R; ++s)
+#pragma unroll
+    for (int j = 0; j < NC; ++j) a[s][j] = As[(lane + 32 * s) * LD + j];
+
+  // ---- this lane's rows i = lane + 32 s ------------------------------
+  const size_t off = (size_t)b * nr;
+  bool valid[R], cp1[R], cp2[R];
+  int type[R], n1[R], n2[R], p1[R], p2[R];
+  float rhs[R], act[R], mu[R], bnd[R];
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    const int i = lane + 32 * s;
+    valid[s] = i < nr;
+    rhs[s] = valid[s] ? rhs_g[off + i] : 0.f;
+    act[s] = valid[s] ? act_g[off + i] : 0.f;
+    mu[s] = valid[s] ? mu_g[i] : 0.f;
+    bnd[s] = valid[s] ? bnd_g[i] : 0.f;
+    type[s] = valid[s] ? rowtype_g[i] : 0;
+    // cone neighbours (apgd_common.cuh project): a normal row reads its
+    // tangents i + 1, i + 2, wrapping as jnp.roll does; a row after a
+    // normal (i - 1, i - 2; no wrap) takes that normal's tangent scale
+    n1[s] = (i + 1) % nr;
+    n2[s] = (i + 2) % nr;
+    p1[s] = i >= 1 ? i - 1 : 0;
+    p2[s] = i >= 2 ? i - 2 : 0;
+    cp1[s] = valid[s] && i >= 1 && (rowtype_g[i - 1] & kConeNormal);
+    cp2[s] = valid[s] && i >= 2 && (rowtype_g[i - 2] & kConeNormal);
+  }
+
+  // out = Ad x (rows of this lane)
+  auto matvec = [&](const float (&x)[R], float (&out)[R]) {
+    __syncwarp();  // the previous operand's readers are done
+#pragma unroll
+    for (int s = 0; s < R; ++s) ys[lane + 32 * s] = x[s];
+    __syncwarp();
+    float acc[R][4];
+#pragma unroll
+    for (int s = 0; s < R; ++s)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[s][q] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NC; j += 4) {
+      const float4 y4 = *reinterpret_cast<const float4*>(ys + j);
+#pragma unroll
+      for (int s = 0; s < R; ++s) {
+        acc[s][0] = fmaf(a[s][j], y4.x, acc[s][0]);
+        acc[s][1] = fmaf(a[s][j + 1], y4.y, acc[s][1]);
+        acc[s][2] = fmaf(a[s][j + 2], y4.z, acc[s][2]);
+        acc[s][3] = fmaf(a[s][j + 3], y4.w, acc[s][3]);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < R; ++s)
+      out[s] = (acc[s][0] + acc[s][1]) + (acc[s][2] + acc[s][3]);
+  };
+  // x' y over the env (every lane receives it)
+  auto dot = [&](const float (&x)[R], const float (&y)[R]) -> float {
+    float d = 0.f;
+#pragma unroll
+    for (int s = 0; s < R; ++s) d = fmaf(x[s], y[s], d);
+    return warp_sum(d);
+  };
+  auto power_step = [&](float (&v)[R]) {
+    float wv[R];
+    matvec(v, wv);
+    const float inv = 1.f / fmaxf(sqrtf(dot(wv, wv)), 1e-12f);
+#pragma unroll
+    for (int s = 0; s < R; ++s) v[s] = wv[s] * inv;
+  };
+  auto rayleigh = [&](const float (&v)[R]) -> float {
+    float mv[R];
+    matvec(v, mv);
+    return dot(v, mv);
+  };
+
+  // ---- step size from the preconditioned spectral radius -------------
+  const float flat = 1.f / sqrtf((float)nr);
+  float v[R], L;
+  if (cold) {
+#pragma unroll
+    for (int s = 0; s < R; ++s) v[s] = valid[s] ? flat : 0.f;
+    for (int k = 0; k < 24; ++k) power_step(v);
+    L = 1.5f * fmaxf(rayleigh(v), 1.f);
+  } else {
+#pragma unroll
+    for (int s = 0; s < R; ++s)
+      v[s] = valid[s] ? v0_g[off + lane + 32 * s] : 0.f;
+    const float nrm = sqrtf(dot(v, v));
+#pragma unroll
+    for (int s = 0; s < R; ++s)
+      v[s] = nrm > 1e-12f ? v[s] / fmaxf(nrm, 1e-12f)
+                          : (valid[s] ? flat : 0.f);
+    for (int k = 0; k < 6; ++k) power_step(v);
+    const float r6 = rayleigh(v);
+    for (int k = 0; k < 2; ++k) power_step(v);
+    const float r8 = rayleigh(v);
+    float rowabs = 0.f;
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NC; ++j) sum += fabsf(a[s][j]);
+      rowabs = fmaxf(rowabs, sum);
+    }
+    const float safe_L = fmaxf(warp_max(rowabs), 1.f);
+    const bool stale = (r8 - r6) > 0.02f * fmaxf(r8, 1e-12f);
+    L = stale ? safe_L : 1.5f * fmaxf(r8, 1.f);
+  }
+
+  // ---- projection: non-negative, then box, then friction cone, then
+  // the active mask (apgd_common.cuh project, in registers) -------------
+  auto proj = [&](float (&x)[R]) {
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      if (type[s] & kNonneg) x[s] = fmaxf(x[s], 0.f);
+      if (type[s] & kBox) x[s] = fminf(fmaxf(x[s], -bnd[s]), bnd[s]);
+    }
+    if (has_cone) {
+      float xn[R], tsc[R];
+#pragma unroll
+      for (int s = 0; s < R; ++s) {
+        const float ft1 = fetch<R>(x, n1[s]), ft2 = fetch<R>(x, n2[s]);
+        xn[s] = x[s];
+        tsc[s] = 1.f;
+        if (type[s] & kConeNormal) {
+          const float t = sqrtf(ft1 * ft1 + ft2 * ft2), m = mu[s];
+          const bool inside = t <= m * x[s];
+          const bool apex = m * t + x[s] <= 0.f;
+          const float fn = inside ? x[s]
+                           : (apex ? 0.f : (x[s] + m * t) / (1.f + m * m));
+          tsc[s] = inside ? 1.f : (apex ? 0.f : m * fn / fmaxf(t, 1e-12f));
+          xn[s] = fn;
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < R; ++s) {
+        const float s1 = fetch<R>(tsc, p1[s]), s2 = fetch<R>(tsc, p2[s]);
+        x[s] = xn[s];
+        if (cp1[s]) x[s] *= s1;
+        if (cp2[s]) x[s] *= s2;
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < R; ++s) x[s] *= act[s];
+  };
+
+  // ---- Nesterov APGD with adaptive restart, per-env exit ------------
+  float f[R], y[R];
+#pragma unroll
+  for (int s = 0; s < R; ++s)
+    f[s] = valid[s] ? f0_g[off + lane + 32 * s] : 0.f;
+  proj(f);
+#pragma unroll
+  for (int s = 0; s < R; ++s) y[s] = f[s];
+  float theta = 1.f;
+  const float inv_L = 1.f / L;
+  int n_it = 0;
+  for (int it = 0; it < iterations; ++it) {
+    float fn[R];
+    matvec(y, fn);
+#pragma unroll
+    for (int s = 0; s < R; ++s) fn[s] = y[s] - (fn[s] - rhs[s]) * inv_L;
+    proj(fn);
+    // exact Gauss-Seidel update of each equality row, in order, masked by
+    // the row's `active` entry
+    for (int q = 0; q < n_eq; ++q) {
+      const int e = eq_g[q];
+      float part = 0.f;
+#pragma unroll
+      for (int s = 0; s < R; ++s)
+        part = fmaf(As[e * LD + lane + 32 * s], fn[s], part);
+      const float r = warp_sum(part);
+#pragma unroll
+      for (int s = 0; s < R; ++s)
+        if (lane + 32 * s == e) fn[s] = fn[s] - act[s] * (r - rhs[s]);
+    }
+    const float th_new = 0.5f * (1.f + sqrtf(1.f + 4.f * theta * theta));
+    float beta = (theta - 1.f) / th_new;
+    float dir = 0.f, d2 = 0.f, n2 = 0.f;
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      const float df = fn[s] - f[s];
+      dir = fmaf(y[s] - fn[s], df, dir);
+      d2 = fmaf(df, df, d2);
+      n2 = fmaf(fn[s], fn[s], n2);
+    }
+    dir = warp_sum(dir);
+    d2 = warp_sum(d2);
+    n2 = warp_sum(n2);
+    const bool restart = dir > 0.f;
+    if (restart) beta = 0.f;
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      y[s] = fn[s] + beta * (fn[s] - f[s]);
+      f[s] = fn[s];
+    }
+    theta = restart ? 1.f : th_new;
+    ++n_it;
+    if (d2 <= tol2 * (1e-12f + n2)) break;  // warp-uniform
+  }
+#pragma unroll
+  for (int s = 0; s < R; ++s)
+    if (valid[s]) {
+      f_out[off + lane + 32 * s] = f[s];
+      v_out[off + lane + 32 * s] = v[s];
+    }
+  if (its_out != nullptr && lane == 0) its_out[b] = n_it;
+}
+
+template <int R>
+int launch_warp(const float* Ad, const float* rhs, const float* f0,
+                const float* v0, const float* active, const float* mu,
+                const float* bounds, const int* rowtype, const int* eq_rows,
+                int n_eq, int B, int nr, int iterations, int cold,
+                int has_cone, float tol2, float* f_out, float* v_out,
+                int* its_out, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * kWarpEnvs * warp_floats<R>();
+  apgd_warp_kernel<R><<<(B + kWarpEnvs - 1) / kWarpEnvs, 32 * kWarpEnvs,
+                        smem, stream>>>(
+      Ad, rhs, f0, v0, active, mu, bounds, rowtype, eq_rows, n_eq, B, nr,
+      iterations, cold, has_cone, tol2, f_out, v_out, its_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// Shared memory of a launch's block, by the kernel that takes nr.
 extern "C" size_t apgd_smem_bytes(int nr) {
+  if (nr <= 64)
+    return sizeof(float) * kWarpEnvs *
+           (nr <= 32 ? warp_floats<1>() : warp_floats<2>());
   const int ld = nr | 1;
   return sizeof(float) * ((size_t)nr * ld + 3 * nr + apgd::kRedSlots) +
          sizeof(int) * nr;
@@ -173,17 +478,27 @@ extern "C" int apgd_iterate_batched(
     const float* active, const float* mu, const float* bounds,
     const int* rowtype, const int* eq_rows, int n_eq, int B, int nr,
     int iterations, int cold, int has_cone, float tol2, float* f_out,
-    float* v_out, void* stream) {
-  const int threads = nr <= 32 ? 32 : ((nr + 31) / 32) * 32;
+    float* v_out, int* its_out, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (B <= 0) return 0;
+  if (nr <= 32)
+    return launch_warp<1>(Ad, rhs, f0, v0, active, mu, bounds, rowtype,
+                          eq_rows, n_eq, B, nr, iterations, cold, has_cone,
+                          tol2, f_out, v_out, its_out, st);
+  if (nr <= 64)
+    return launch_warp<2>(Ad, rhs, f0, v0, active, mu, bounds, rowtype,
+                          eq_rows, n_eq, B, nr, iterations, cold, has_cone,
+                          tol2, f_out, v_out, its_out, st);
+  const int threads = ((nr + 31) / 32) * 32;
   const size_t smem = apgd_smem_bytes(nr);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        apgd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        apgd_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  if (B > 0)
-    apgd_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-        Ad, rhs, f0, v0, active, mu, bounds, rowtype, eq_rows, n_eq, nr,
-        nr | 1, iterations, cold, has_cone, tol2, f_out, v_out);
+  apgd_block_kernel<<<B, threads, smem, st>>>(
+      Ad, rhs, f0, v0, active, mu, bounds, rowtype, eq_rows, n_eq, nr,
+      nr | 1, iterations, cold, has_cone, tol2, f_out, v_out, its_out);
   return (int)cudaGetLastError();
 }

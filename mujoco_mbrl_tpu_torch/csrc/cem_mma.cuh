@@ -1,5 +1,15 @@
-// Tensor-core rollout body shared by the CEM sampler kernels
-// (cem_sample_rollout.cu, cem_sample_rollout_ens.cu) for Hopper (sm_90a).
+// Tensor-core rollout body of the CEM kernels for Hopper (sm_90a):
+// rollout_tile (sample, roll, cost) is the body of the sampler kernels
+// cem_sample_rollout.cu (TPU kernels #2 _sample_kernel_multi and #3
+// _sample_kernel of mujoco_mbrl_tpu/ops/cem_rollout.py) and
+// cem_sample_rollout_ens.cu (#5 _sample_kernel_ens_grouped, #6
+// _sample_kernel_ens); model_step (the products of one step and its state
+// cost) and row_costs are shared with the given-action kernel
+// cem_rollout_costs.cu (#4 _kernel), which reads its actions instead of
+// drawing them. Bound of all of them: 3 x the rollout's 2 (in hid + hid
+// hid + hid sd) FLOP per candidate-step at the TF32 tensor rate (the
+// 3xTF32 split); their one large memory stream, the actions written (the
+// samplers) or read (#4), is below it.
 //
 // One warp rolls one tile of 16 candidates (the M dimension of
 // mma.sync.m16n8k8 TF32) through the three products of a model step,
@@ -244,6 +254,81 @@ __device__ __forceinline__ float cosh_m1(float a, float inv_aa) {
   return 0.5f * (e + __frcp_rn(e)) - 1.f;
 }
 
+// One model step of a tile, from the [s; a] columns of x (the actions
+// already written into columns sd .. sd + ad - 1): the three products,
+// the new state into the state columns of x (every other column cleared),
+// and the state cost of rows g, g + 8 added to cs0, cs1. Shared by the
+// samplers' rollout_tile and the given-action kernel (cem_rollout_costs.cu).
+template <int NI, int NH, int NSO, bool EXACT, bool SPLIT_B>
+__device__ __forceinline__ void model_step(const Layout& L, const float* W,
+                                           int sd, float as,
+                                           float (&x)[NI][4], float& cs0,
+                                           float& cs1, int lane) {
+  const int t = lane & 3;
+  const int ni = EXACT ? NI : L.ni, nh = EXACT ? NH : L.nh;
+  const int nso = EXACT ? NSO : L.nso;
+  const float4* frag = reinterpret_cast<const float4*>(W);
+  // ---- layer 1: h = relu([s; a] W1 + b1)
+  float big[NH][4], small[NH][4], h[NH][4];
+  init_acc<NH>(big, small, W + L.b1, nh, t);
+  product<NI, NH, SPLIT_B>(frag + L.l1 / 4, x, ni, nh, big, small, lane);
+#pragma unroll
+  for (int n = 0; n < NH; ++n)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) h[n][q] = fmaxf(big[n][q] + small[n][q], 0.f);
+  // ---- layer 2: h = relu(h W2 + b2)
+  init_acc<NH>(big, small, W + L.b2, nh, t);
+  product<NH, NH, SPLIT_B>(frag + L.l2 / 4, h, nh, nh, big, small, lane);
+#pragma unroll
+  for (int n = 0; n < NH; ++n)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) h[n][q] = fmaxf(big[n][q] + small[n][q], 0.f);
+  // ---- layer 3: s = h W3 + b3, into the state columns of x
+  float sbig[NSO][4], ssmall[NSO][4];
+  init_acc<NSO>(sbig, ssmall, W + L.b3, nso, t);
+  product<NH, NSO, SPLIT_B>(frag + L.l3 / 4, h, nh, nso, sbig, ssmall, lane);
+  const float* goal = W + L.goal;
+  const float* wv = W + L.wvec;
+#pragma unroll
+  for (int n = 0; n < NI; ++n) {
+    const bool st = n < NSO && n < nso;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      x[n][q] = st ? sbig[n < NSO ? n : 0][q] + ssmall[n < NSO ? n : 0][q]
+                   : 0.f;
+    if (st) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * t + e;
+        if (col < sd) {
+          const float d0 = (x[n][e] - goal[col]) * wv[col];
+          const float d1 = (x[n][2 + e] - goal[col]) * wv[col];
+          cs0 += sqrtf(d0 * d0 + as * as) - as;
+          cs1 += sqrtf(d1 * d1 + as * as) - as;
+        }
+      }
+    }
+  }
+}
+
+// The quad's partial sums (state cost cs, action cost ca = sum of
+// cosh_m1) -> the costs of rows g and g + 8, in every lane of the quad:
+//   cs + aa^2 ca / ad
+__device__ __forceinline__ void row_costs(float cs0, float cs1, float ca0,
+                                          float ca1, float alpha_a, int ad,
+                                          float* c0, float* c1) {
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    cs0 += __shfl_xor_sync(0xffffffffu, cs0, off);
+    cs1 += __shfl_xor_sync(0xffffffffu, cs1, off);
+    ca0 += __shfl_xor_sync(0xffffffffu, ca0, off);
+    ca1 += __shfl_xor_sync(0xffffffffu, ca1, off);
+  }
+  const float aa2 = alpha_a * alpha_a;
+  *c0 = cs0 + aa2 * (ca0 / (float)ad);
+  *c1 = cs1 + aa2 * (ca1 / (float)ad);
+}
+
 // (row, column) of item e = lane + 32 s of an R x cols array, stepped
 // without an integer division per item
 struct Walk {
@@ -298,9 +383,7 @@ __device__ void rollout_tile(const Cfg& c, const float* W, float* ws, int m,
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const Layout& L = c.L;
   const int sd = c.sd, ad = c.ad, H = c.H;
-  const int ni = EXACT ? NI : L.ni, nh = EXACT ? NH : L.nh;
-  const int nso = EXACT ? NSO : L.nso;
-  const float4* frag = reinterpret_cast<const float4*>(W);
+  const int ni = EXACT ? NI : L.ni;
   float* ubuf = ws;
   float* mean = ubuf + 16 * c.nu;
   float* stdv = mean + H * ad;
@@ -389,64 +472,14 @@ __device__ void rollout_tile(const Cfg& c, const float* W, float* ws, int m,
       for (int j = lane >> 4; j < ad; j += 2)
         dst[(size_t)j * c.K] = abuf[j * 16 + (lane & 15)];
     }
-    // ---- layer 1: h = relu([s; a] W1 + b1)
-    float big[NH][4], small[NH][4], h[NH][4];
-    init_acc<NH>(big, small, W + L.b1, nh, t);
-    product<NI, NH, SPLIT_B>(frag + L.l1 / 4, x, ni, nh, big, small, lane);
-#pragma unroll
-    for (int n = 0; n < NH; ++n)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) h[n][q] = fmaxf(big[n][q] + small[n][q], 0.f);
-    // ---- layer 2: h = relu(h W2 + b2)
-    init_acc<NH>(big, small, W + L.b2, nh, t);
-    product<NH, NH, SPLIT_B>(frag + L.l2 / 4, h, nh, nh, big, small, lane);
-#pragma unroll
-    for (int n = 0; n < NH; ++n)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) h[n][q] = fmaxf(big[n][q] + small[n][q], 0.f);
-    // ---- layer 3: s = h W3 + b3, into the state columns of x
-    float sbig[NSO][4], ssmall[NSO][4];
-    init_acc<NSO>(sbig, ssmall, W + L.b3, nso, t);
-    product<NH, NSO, SPLIT_B>(frag + L.l3 / 4, h, nh, nso, sbig, ssmall,
-                              lane);
-    const float* goal = W + L.goal;
-    const float* wv = W + L.wvec;
-    const float as = c.alpha_s;
-#pragma unroll
-    for (int n = 0; n < NI; ++n) {
-      const bool st = n < NSO && n < nso;
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        x[n][q] = st ? sbig[n < NSO ? n : 0][q] + ssmall[n < NSO ? n : 0][q]
-                     : 0.f;
-      if (st) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = 8 * n + 2 * t + e;
-          if (col < sd) {
-            const float d0 = (x[n][e] - goal[col]) * wv[col];
-            const float d1 = (x[n][2 + e] - goal[col]) * wv[col];
-            cs0 += sqrtf(d0 * d0 + as * as) - as;
-            cs1 += sqrtf(d1 * d1 + as * as) - as;
-          }
-        }
-      }
-    }
+    model_step<NI, NH, NSO, EXACT, SPLIT_B>(L, W, sd, c.alpha_s, x, cs0, cs1,
+                                            lane);
   }
-  // ---- the quad's partial sums -> the two rows' costs
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    cs0 += __shfl_xor_sync(0xffffffffu, cs0, off);
-    cs1 += __shfl_xor_sync(0xffffffffu, cs1, off);
-    ca0 += __shfl_xor_sync(0xffffffffu, ca0, off);
-    ca1 += __shfl_xor_sync(0xffffffffu, ca1, off);
-  }
+  float c0, c1;
+  row_costs(cs0, cs1, ca0, ca1, c.alpha_a, ad, &c0, &c1);
   if (t == 0) {
-    const float aa2 = c.alpha_a * c.alpha_a;
-    if (r0.valid)
-      costs_g[(size_t)b * c.K + r0.k] = cs0 + aa2 * (ca0 / (float)ad);
-    if (r1.valid)
-      costs_g[(size_t)b * c.K + r1.k] = cs1 + aa2 * (ca1 / (float)ad);
+    if (r0.valid) costs_g[(size_t)b * c.K + r0.k] = c0;
+    if (r1.valid) costs_g[(size_t)b * c.K + r1.k] = c1;
   }
 }
 

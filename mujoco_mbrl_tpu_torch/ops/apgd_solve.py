@@ -2,8 +2,9 @@
 
 ``apgd_iterate_batched`` replaces the TPU kernel
 mujoco_mbrl_tpu/ops/apgd_solve.py:_apgd_kernel. For CUDA tensors it
-launches ``csrc/apgd_solve.cu`` (one thread block per env, Ad resident in
-shared memory, a real per-env early exit) and raises on inputs the kernel
+launches ``csrc/apgd_solve.cu`` (one warp per env up to 64 rows with Ad
+in registers, one thread block per env past that; a real per-env early
+exit) and raises on inputs the kernel
 does not take; for CPU tensors it runs ``apgd_iterate_plain``, the batched
 PyTorch form of physics/solver.py's ``_apgd_dispatch.impl``.
 
@@ -33,7 +34,7 @@ _SIGNATURES = {
     'apgd_smem_bytes': (ctypes.c_size_t, [ctypes.c_int]),
     'apgd_iterate_batched': (ctypes.c_int, [ctypes.c_void_p] * 9
                              + [ctypes.c_int] * 6 + [ctypes.c_float]
-                             + [ctypes.c_void_p] * 3),
+                             + [ctypes.c_void_p] * 4),
 }
 _FACTORED_SIGNATURES = {
     'apgd_factored_smem_bytes': (ctypes.c_size_t, [ctypes.c_int] * 2),
@@ -170,17 +171,21 @@ def _row_tables(nr, nonneg, box_rows, con0, eq_rows, device):
 
 def apgd_iterate_batched(Ad, rhs, f0, v0, active, mu_full, bounds_full, *,
                          nonneg, box_rows, con0, iterations: int, cold: bool,
-                         tol2: float = 1e-12, eq_rows: tuple = ()):
+                         tol2: float = 1e-12, eq_rows: tuple = (),
+                         return_iterations: bool = False):
     """Batched APGD iterate (contract of the JAX ``apgd_iterate_batched``).
+    Returns (f, v), and with ``return_iterations`` also the APGD
+    iterations each env ran (B,), as the plain version does.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on
-    the current stream (no synchronisation, outputs allocated here).
+    the current stream (no synchronisation, outputs allocated here): one
+    warp per env up to 64 rows, one block per env past that.
     """
     if not Ad.is_cuda:
         return apgd_iterate_plain(
             Ad, rhs, f0, v0, active, mu_full, bounds_full, nonneg=nonneg,
             box_rows=box_rows, con0=con0, iterations=iterations, cold=cold,
-            tol2=tol2, eq_rows=eq_rows)
+            tol2=tol2, eq_rows=eq_rows, return_iterations=return_iterations)
     B, nr = rhs.shape
     tensors = (Ad, rhs, f0, v0, active, mu_full, bounds_full)
     for t in tensors:
@@ -199,16 +204,19 @@ def apgd_iterate_batched(Ad, rhs, f0, v0, active, mu_full, bounds_full, *,
                             tuple(eq_rows), Ad.device)
     f = torch.empty_like(rhs)
     v = torch.empty_like(rhs)
+    its = (torch.empty((B,), dtype=torch.int32, device=rhs.device)
+           if return_iterations else None)
     rc = lib.apgd_iterate_batched(
         Ad.data_ptr(), rhs.data_ptr(), f0.data_ptr(), v0.data_ptr(),
         active.data_ptr(), mu_full.data_ptr(), bounds_full.data_ptr(),
         types.data_ptr(), eq.data_ptr(), len(eq_rows), B, nr,
         int(iterations), int(bool(cold)), int(bool(len(con0))),
         float(tol2), f.data_ptr(), v.data_ptr(),
+        its.data_ptr() if its is not None else 0,
         torch.cuda.current_stream(Ad.device).cuda_stream)
     _build.check(rc, 'apgd_iterate_batched')
     launch_counts['apgd_solve'] += 1
-    return f, v
+    return (f, v, its) if return_iterations else (f, v)
 
 
 def apgd_iterate_factored_plain(J_s, Minv, Rs, diag_s, rhs, f0, v0, active,

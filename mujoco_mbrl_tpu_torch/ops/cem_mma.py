@@ -1,7 +1,8 @@
-"""Staging layout of the tensor-core CEM sampler kernels (csrc/cem_mma.cuh).
+"""Staging layout of the tensor-core CEM kernels (csrc/cem_mma.cuh).
 
 The sampler kernels (``csrc/cem_sample_rollout.cu``,
-``csrc/cem_sample_rollout_ens.cu``) run the three products of a model step
+``csrc/cem_sample_rollout_ens.cu``) and the given-action cost kernel
+(``csrc/cem_rollout_costs.cu``) run the three products of a model step
 on ``mma.sync.m16n8k8`` TF32 with the 3xTF32 split (hi*hi + hi*lo + lo*hi).
 This module builds what they read, and says how they map candidates to
 rows, so that the CPU tests can check both without a card:
@@ -28,7 +29,11 @@ rows, so that the CPU tests can check both without a card:
   the layer-1 product is O(1), and the 3xTF32 representation error (about
   2^-22 of each operand) is no longer amplified by the cancellation.
 - ``tile_rows`` / ``tiles_per_env``: which candidate each of the 16 rows of
-  a tile holds, with its Philox pair index and sign.
+  a sampler tile holds, with its Philox pair index and sign;
+  ``given_rows``: the same for the given-action kernel, whose tile i is
+  candidates 16 i .. 16 i + 15 of N, each from its own start state, which
+  the kernel centres as it loads it (``centred_weights`` gives the mean it
+  subtracts).
 """
 
 from __future__ import annotations
@@ -176,11 +181,24 @@ def fold_centred(params, normalizers, s0, goal):
         W3' = W3 sigma[None, :],    b3' = b3 sigma,
     the same map as ``cem_rollout._fold_normalizers`` shifted by mu on the
     way in and out (sigma = std + 1e-6)."""
+    if normalizers is None or normalizers.state_mean is None:
+        w = (params[l][k] for l in ('l1', 'l2', 'l3') for k in ('w', 'b'))
+        return (*w, s0, goal)
+    *w, mu, goal_c = centred_weights(params, normalizers, goal)
+    return (*w, s0 - mu, goal_c)
+
+
+def centred_weights(params, normalizers, goal):
+    """``fold_centred`` without the start states: (w1, b1, w2, b2, w3, b3,
+    mu, goal - mu), mu (sd,) the state mean (zeros without normalizers),
+    which the given-action kernel subtracts from each start state as it
+    loads it."""
     w1, b1 = params['l1']['w'], params['l1']['b']
     w2, b2 = params['l2']['w'], params['l2']['b']
     w3, b3 = params['l3']['w'], params['l3']['b']
     if normalizers is None or normalizers.state_mean is None:
-        return w1, b1, w2, b2, w3, b3, s0, goal
+        mu = torch.zeros_like(goal)
+        return w1, b1, w2, b2, w3, b3, mu, goal - mu
     sd = normalizers.state_mean.shape[-1]
     s_mu, s_sig = normalizers.state_mean, normalizers.state_std + 1e-6
     if normalizers.action_mean is not None:
@@ -191,8 +209,8 @@ def fold_centred(params, normalizers, s0, goal):
     else:
         sig = torch.cat([s_sig, torch.ones(w1.shape[-2] - sd,
                                            dtype=w1.dtype, device=w1.device)])
-    return (w1 / sig[:, None], b1, w2, b2, w3 * s_sig, b3 * s_sig,
-            s0 - s_mu, goal - s_mu)
+    return (w1 / sig[:, None], b1, w2, b2, w3 * s_sig, b3 * s_sig, s_mu,
+            goal - s_mu)
 
 
 def pack_weights(w1, b1, w2, b2, w3, b3, goal, wvec) -> torch.Tensor:
@@ -254,3 +272,16 @@ def tile_rows(K: int, n: int, antithetic: bool, m: int, i: int):
             rows.append(Row(k, k - Kz if second else k,
                             -1.0 if second else 1.0, q < K // n))
     return rows
+
+
+def given_tiles(N: int) -> int:
+    """Tiles of 16 candidates of the given-action kernel."""
+    return -(-N // 16)
+
+
+def given_rows(N: int, i: int):
+    """The 16 rows of the given-action kernel's tile i: row r holds
+    candidate 16 i + r (rows g and g + 8 of a quad's thread: 16 i + g and
+    16 i + g + 8), valid below N; no pairs, no sign."""
+    return [Row(16 * i + r, 16 * i + r, 1.0, 16 * i + r < N)
+            for r in range(16)]

@@ -4,8 +4,10 @@
 ``mlp_rollout_costs``) replaces the TPU kernel
 mujoco_mbrl_tpu/ops/cem_rollout.py:_kernel: the MLP rollout and cost of
 GIVEN actions, the ``rollout_costs_fn`` of ``cem_batched``'s non-fused
-branch. For CUDA tensors it launches ``csrc/cem_rollout_costs.cu``; for
-CPU tensors it runs ``mlp_rollout_costs_reference``.
+branch. For CUDA tensors it launches ``csrc/cem_rollout_costs.cu`` (the
+samplers' tensor-core body, reading the actions instead of drawing them;
+weights packed by ``given_inputs``); for CPU tensors it runs
+``mlp_rollout_costs_reference``.
 
 ``mlp_sample_rollout_costs`` replaces two TPU kernels of
 mujoco_mbrl_tpu/ops/cem_rollout.py: ``_sample_kernel_multi`` (G envs per
@@ -51,10 +53,9 @@ _SIGNATURES = {
                            + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 3),
 }
 _COSTS_SIGNATURES = {
-    'cem_rollout_costs_smem_bytes': (ctypes.c_size_t, [ctypes.c_int] * 3),
-    'cem_rollout_costs': (ctypes.c_int, [ctypes.c_void_p] * 10
-                          + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
-                          + [ctypes.c_void_p] * 2),
+    'cem_rollout_costs': (ctypes.c_int, [ctypes.c_void_p] * 4
+                          + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                          + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 2),
 }
 _ENS_SIGNATURES = {
     'cem_ens_smem_bytes': (ctypes.c_size_t, [ctypes.c_int] * 7),
@@ -118,6 +119,17 @@ def mlp_rollout_costs_reference(params, s0, actions, goal, weights,
     return acc
 
 
+def given_inputs(params, normalizers, goal, weights):
+    """What the given-action kernel reads besides s0T and the actions: the
+    packed weights (1, layout.total), folded in coordinates centred at the
+    state mean mu (``cem_mma.centred_weights``: the same buffer the sampler
+    kernels read), and mu (sd,), which the kernel subtracts from each start
+    state as it loads it."""
+    *w, mu, goal_c = (t.detach() for t in cem_mma.centred_weights(
+        params, normalizers, goal))
+    return cem_mma.pack_weights(*w, goal_c, weights), mu.contiguous()
+
+
 def mlp_rollout_costs_t(params, s0T, actionsT, goal, weights,
                         normalizers=None, alpha_state: float = 0.4,
                         alpha_action: float = 0.25,
@@ -125,37 +137,39 @@ def mlp_rollout_costs_t(params, s0T, actionsT, goal, weights,
     """Rollout + cost of given actions in the kernel's layout: s0T (sd, N),
     actionsT (H, ad, N) -> costs (N,) float32. CPU tensors run
     ``mlp_rollout_costs_reference``; CUDA tensors launch the kernel on the
-    current stream. The TPU ``tile`` and ``interpret`` knobs have no
-    counterpart."""
+    current stream (the tensor-core body of the samplers, 3xTF32) and raise
+    on inputs it does not take (sd + ad or hidden above 128). The TPU
+    ``tile`` and ``interpret`` knobs have no counterpart."""
     _check_compute_dtype(compute_dtype)
     if not s0T.is_cuda:
         return mlp_rollout_costs_reference(
             params, s0T.T, actionsT.transpose(1, 2), goal, weights,
             normalizers, alpha_state, alpha_action)
-    w = tuple(t.detach().contiguous() for t in
-              _fold_normalizers(params, normalizers))
     sd, N = s0T.shape
     H, ad = actionsT.shape[:2]
-    hid = w[2].shape[0]
-    tensors = (s0T, actionsT) + w + (goal, weights)
-    for t in tensors:
-        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError('mlp_rollout_costs_t kernel takes contiguous '
-                             'float32 CUDA tensors')
-    if (actionsT.shape != (H, ad, N) or w[0].shape != (sd + ad, hid)
-            or w[1].shape != (hid,) or w[2].shape != (hid, hid)
-            or w[4].shape != (hid, sd) or w[5].shape != (sd,)
+    w1, w2, w3 = (params[l]['w'] for l in ('l1', 'l2', 'l3'))
+    hid = w2.shape[0]
+    leaves = [v for layer in params.values() for v in layer.values()]
+    for t in (s0T, actionsT, goal, weights, *leaves):
+        if not t.is_cuda or t.dtype != torch.float32:
+            raise ValueError('mlp_rollout_costs_t kernel takes float32 CUDA '
+                             'tensors')
+    if not (s0T.is_contiguous() and actionsT.is_contiguous()):
+        raise ValueError('mlp_rollout_costs_t kernel takes contiguous s0T '
+                         'and actionsT')
+    if (actionsT.shape != (H, ad, N) or w1.shape != (sd + ad, hid)
+            or params['l1']['b'].shape != (hid,) or w2.shape != (hid, hid)
+            or w3.shape != (hid, sd) or params['l3']['b'].shape != (sd,)
             or goal.shape != (sd,) or weights.shape != (sd,)):
         raise ValueError('mlp_rollout_costs_t: inconsistent shapes')
+    cem_mma.check_shapes('mlp_rollout_costs_t', sd, ad, hid)
+    packed, mu = given_inputs(params, normalizers, goal, weights)
     lib = _build.library('cem_rollout_costs', _COSTS_SIGNATURES)
-    if lib.cem_rollout_costs_smem_bytes(sd, ad, hid) > MAX_SHARED_BYTES:
-        raise ValueError('mlp_rollout_costs_t: model too large for the '
-                         'kernel shared-memory layout')
     costs = torch.empty((N,), dtype=torch.float32, device=s0T.device)
     rc = lib.cem_rollout_costs(
-        *(t.data_ptr() for t in tensors), N, H, sd, ad, hid,
-        float(alpha_state), float(alpha_action), costs.data_ptr(),
-        torch.cuda.current_stream(s0T.device).cuda_stream)
+        s0T.data_ptr(), mu.data_ptr(), actionsT.data_ptr(), packed.data_ptr(),
+        N, H, sd, ad, hid, float(alpha_state), float(alpha_action),
+        costs.data_ptr(), torch.cuda.current_stream(s0T.device).cuda_stream)
     _build.check(rc, 'mlp_rollout_costs_t')
     launch_counts['cem_rollout_costs'] += 1
     return costs

@@ -53,6 +53,31 @@ def test_apgd_kernel_matches_plain(dev, cold, eq_rows):
     torch.testing.assert_close(v, v_p, rtol=2e-4, atol=2e-4)
 
 
+# The dense kernel's three instantiations: one warp per env with one row
+# a lane (nr <= 32) or two (33-64, the walker's 56-62 rows), and the block
+# per env past 64 rows (up to the dense regime's 96)
+@pytest.mark.parametrize('nr', [17, 32, 33, 62, 64, 80, 96])
+@pytest.mark.parametrize('cold', [True, False])
+def test_apgd_kernel_paths_match_plain(dev, nr, cold):
+    args = _problem(dev, 37, nr, seed=nr + int(cold))
+    cones = tuple(range(nr - 11, nr, 3))  # the last cone wraps to row 0
+    mu = torch.zeros(nr, device=dev)
+    mu[list(cones)] = 0.8
+    bounds = torch.zeros(nr, device=dev)
+    bounds[3] = 0.7
+    args = args[:5] + (mu, bounds)
+    kw = dict(nonneg=(0, 1, 2), box_rows=(3,), con0=cones, iterations=40,
+              cold=cold, eq_rows=(4,))
+    f, v, its = apgd_solve.apgd_iterate_batched(*args, **kw,
+                                                return_iterations=True)
+    f_p, v_p, its_p = apgd_solve.apgd_iterate_plain(*args, **kw,
+                                                    return_iterations=True)
+    torch.testing.assert_close(f, f_p, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(v, v_p, rtol=2e-4, atol=2e-4)
+    assert its.dtype == torch.int32 and its.shape == (37,)
+    assert int((its.long() - its_p).abs().max()) <= 1
+
+
 def test_apgd_kernel_rejects_float64(dev):
     args = [a.double() for a in _problem(dev, 4, 17, seed=0)]
     with pytest.raises(ValueError):
@@ -348,6 +373,39 @@ def test_rollout_costs_kernel_matches_plain(dev, normalized):
     costs2 = cem_rollout.mlp_rollout_costs(
         params, s0T.T, aT.transpose(1, 2), goal, w, normalizers=norms)
     torch.testing.assert_close(costs2, costs, rtol=0, atol=0)
+
+
+# N not a multiple of 16 (the last tile part empty) at the walker widths
+# (sd 24, the exact (4, 7, 3) instantiation) and cheetah's (sd 17, exact
+# (3, 7, 3)); fewer candidates than one tile; the guarded instantiation
+# (weights from global memory) at a shape no exact one takes
+@pytest.mark.parametrize('N,H,sd,ad,hid', [
+    (1000 + 7, 6, 24, 6, 50), (37, 9, 17, 6, 50), (5, 4, 24, 6, 50),
+    (203, 5, 40, 6, 64), (64, 3, 100, 20, 128)])
+def test_rollout_costs_kernel_shapes(dev, N, H, sd, ad, hid):
+    params = MLPDynamics(sd, ad, hidden_units=hid).init(
+        torch.Generator().manual_seed(1), device=dev)
+    g = torch.Generator(device=dev).manual_seed(N)
+    s0T = torch.randn((sd, N), generator=g, device=dev)
+    aT = torch.rand((H, ad, N), generator=g, device=dev) * 2 - 1
+    goal = torch.randn(sd, generator=g, device=dev)
+    w = torch.rand(sd, generator=g, device=dev)
+    costs = cem_rollout.mlp_rollout_costs_t(params, s0T, aT, goal, w)
+    ref = cem_rollout.mlp_rollout_costs_reference(
+        params, s0T.T, aT.transpose(1, 2), goal, w)
+    assert costs.shape == (N,) and bool(torch.isfinite(costs).all())
+    torch.testing.assert_close(costs, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_rollout_costs_kernel_raises_past_128(dev):
+    N, H, sd, ad = 20, 3, 24, 6
+    params = MLPDynamics(sd, ad, hidden_units=136).init(
+        torch.Generator().manual_seed(0), device=dev)
+    s0T = torch.zeros((sd, N), device=dev)
+    aT = torch.zeros((H, ad, N), device=dev)
+    goal, w = torch.zeros(sd, device=dev), torch.ones(sd, device=dev)
+    with pytest.raises(ValueError, match='128'):
+        cem_rollout.mlp_rollout_costs_t(params, s0T, aT, goal, w)
 
 
 def test_non_fused_cem_launches_rollout_costs_per_iteration(dev):

@@ -351,3 +351,99 @@ def test_tile_rows_cover_every_candidate_once(K, n, antithetic):
         assert T == 63 and shared
     if (K, n) == (60, 4):
         assert not shared
+
+
+# ---- the given-action kernel (csrc/cem_rollout_costs.cu) on the same body:
+# tiles of 16 consecutive candidates, each row from its own start state,
+# centred at the state mean as the kernel loads it
+
+@pytest.mark.parametrize('N', [1000, 37, 16])
+def test_given_rows_cover_every_candidate_once(N):
+    seen = []
+    for i in range(cem_mma.given_tiles(N)):
+        rows = cem_mma.given_rows(N, i)
+        assert [r.k for r in rows] == list(range(16 * i, 16 * i + 16))
+        seen += [r.k for r in rows if r.valid]
+        assert all(r.valid == (r.k < N) for r in rows)
+    assert seen == list(range(N))
+    assert cem_mma.given_tiles(N) == -(-N // 16)
+
+
+def _kernel_start_states(s0T, mu):
+    """The start states as the kernel's threads load them: tile i, row g
+    (and g + 8) of lane 4 g + t, columns 8 k + 2 t + e < sd, each
+    s0T[col, n] - mu[col]; rows past N stay zero."""
+    sd, N = s0T.shape
+    x = torch.zeros((cem_mma.given_tiles(N) * 16, sd))
+    for i in range(cem_mma.given_tiles(N)):
+        rows = cem_mma.given_rows(N, i)
+        for lane in range(32):
+            g, t = divmod(lane, 4)
+            for k in range(-(-sd // 8)):
+                for e in range(2):
+                    col = 8 * k + 2 * t + e
+                    for row in (rows[g], rows[g + 8]):
+                        if col < sd and row.valid:
+                            x[row.k, col] = s0T[col, row.k] - mu[col]
+    return x[:N]
+
+
+def _given_problem(sd, normalized, seed, N=200, horizon=5):
+    rng = np.random.RandomState(seed)
+    jparams = jax.tree_util.tree_map(np.asarray, JMLP(sd, AD, HID).init(
+        jax.random.PRNGKey(seed)))
+    jnorm = None
+    if normalized:
+        s_std = 0.1 + rng.uniform(size=sd)
+        s_std[3] = 1e-3            # a near-constant dim, as in a replay
+        jnorm = JNorm(**{k: np.asarray(v, np.float32) for k, v in dict(
+            state_mean=rng.normal(size=sd), state_std=s_std,
+            action_mean=0.1 * rng.normal(size=AD),
+            action_std=0.5 + rng.uniform(size=AD)).items()})
+    s0 = rng.normal(size=(N, sd)).astype(np.float32)
+    if jnorm is not None:
+        s0 = jnorm.state_mean + jnorm.state_std * s0
+    acts = rng.uniform(-1, 1, size=(horizon, N, AD)).astype(np.float32)
+    goal = rng.normal(size=sd).astype(np.float32)
+    wvec = rng.uniform(size=sd).astype(np.float32)
+    norm = None if jnorm is None else Normalizers(**{
+        k: torch.as_tensor(getattr(jnorm, k)) for k in (
+            'state_mean', 'state_std', 'action_mean', 'action_std')})
+    return jparams, jnorm, norm, s0, acts, goal, wvec
+
+
+@pytest.mark.parametrize('normalized', [False, True])
+def test_given_kernel_centring_is_fold_centred(normalized):
+    # the wrapper's packed buffer is the samplers' (fold_centred, packed),
+    # and the kernel's load, s0T[:, n] - mu, is fold_centred's x0
+    jparams, _, norm, s0, _, goal, wvec = _given_problem(17, normalized, 7,
+                                                         N=37)
+    params = convert.mlp_params(jparams)
+    s0, goal, wvec = (torch.as_tensor(a) for a in (s0, goal, wvec))
+    packed, mu = cem_rollout.given_inputs(params, norm, goal, wvec)
+    *w, x0, goal_c = cem_mma.fold_centred(params, norm, s0, goal)
+    assert torch.equal(packed, cem_mma.pack_weights(*w, goal_c, wvec))
+    assert mu.shape == (17,)
+    if norm is None:
+        assert float(mu.abs().max()) == 0.0
+    else:
+        assert torch.equal(mu, norm.state_mean)
+    assert torch.equal(_kernel_start_states(s0.T.contiguous(), mu), x0)
+    lay = cem_mma.layout(17, AD, HID)
+    assert torch.equal(packed[0, lay.goal:lay.goal + 17], goal_c)
+
+
+@pytest.mark.parametrize('normalized', [False, True])
+@pytest.mark.parametrize('sd', [24, 17])
+def test_emulated_given_action_costs_match_jax_reference(sd, normalized):
+    jparams, jnorm, norm, s0, acts, goal, wvec = _given_problem(
+        sd, normalized, 8 + sd)
+    params = convert.mlp_params(jparams)
+    t = torch.as_tensor
+    packed, mu = cem_rollout.given_inputs(params, norm, t(goal), t(wvec))
+    x0 = _kernel_start_states(t(s0).T.contiguous(), mu)
+    got = Emulated(packed[0], sd, AD, HID).costs(x0, t(acts))
+    ref = np.asarray(jcem.mlp_rollout_costs_reference(
+        jparams, s0, acts, goal, wvec, jnorm))
+    assert got.shape == (s0.shape[0],)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4)
