@@ -45,9 +45,13 @@ Run from the repository root:  python3 chip_smoke.py
       physics against the CPU step, a profile;
    b. the factored APGD kernel against its plain version on solves
       captured from cheetah at 1024 envs (at reset and after 20 control
-      steps of random actions, cold and warm) and on a humanoid-shaped
-      synthetic batch (303 rows, nv 27, 512 envs), with the same
-      tolerance and rounding allowance as the dense kernel;
+      steps of random actions, cold and warm; one env per warp), on a
+      synthetic batch for the warp path's guarded instantiation (120
+      rows, nv 16) and on a humanoid-shaped synthetic batch (303 rows, nv
+      27, 512 envs; one block per env), with the same tolerance and
+      rounding allowance as the dense kernel; prints the path of each
+      case, times each as the dense kernel and the latency of one APGD
+      iteration from two iteration caps;
    c. the rollout-cost kernel (given actions, the samplers' tensor-core
       body) against its plain version (rtol 1e-4) at 1024 x 1000
       candidates, H 30, sd 17; at the walker widths (sd 24) with N not a
@@ -340,7 +344,7 @@ def apgd_phase(dev, torch, walker_cases):
 
 
 def factored_problem(dev, torch, Bs, nr, nv, n_nonneg, cold, seed):
-    """A humanoid-shaped factored dual QP batch, as
+    """A synthetic factored dual QP batch, as
     tests/test_apgd_kernel.py _factored_problem builds one: limit rows,
     then friction-cone triples; scaled and active-masked J~, dense PSD
     M^-1, a quarter of the rows active."""
@@ -366,33 +370,61 @@ def factored_problem(dev, torch, Bs, nr, nv, n_nonneg, cold, seed):
 
 def factored_phase(dev, torch, cheetah_cases):
     """TPU kernel #7 against its plain version: the cheetah solves
-    captured from the main path (146 rows, nv 9) and a humanoid-shaped
-    synthetic batch (303 rows: 36 limits, 89 cone triples; nv 27;
-    B = 512), cold and warm."""
+    captured from the main path (146 rows, nv 9; the warp path's exact
+    instantiation), a synthetic batch for the warp path's guarded
+    instantiation (120 rows: 24 limits, 32 cone triples; nv 16; B = 1024)
+    and a humanoid-shaped synthetic batch (303 rows: 36 limits, 89 cone
+    triples; nv 27; B = 512; the block path), cold and warm; the path each
+    case took; and the latency of one APGD iteration on the warp path."""
     from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
 
-    humanoid = []
+    synthetic = []
+    for cold in (True, False):
+        args, kw = factored_problem(dev, torch, B, 120, 16, 24, cold,
+                                    seed=2 + int(cold))
+        synthetic.append(('guarded-synthetic', args, kw))
     for cold in (True, False):
         args, kw = factored_problem(dev, torch, 512, 303, 27, 36, cold,
                                     seed=int(cold))
-        humanoid.append(('humanoid-synthetic', args, kw))
+        synthetic.append(('humanoid-synthetic', args, kw))
+    cases = cheetah_cases + synthetic
+    routes = {}
+    for tag, args, kw in cases:
+        nr, nv = args[0].shape[1:]
+        routes[tag + ('-cold' if kw['cold'] else '-warm')] = route = \
+            A.factored_route(nr, nv)
+        print(f'apgd factored {tag} cold={kw["cold"]}: nr {nr}, nv {nv}, '
+              f'B {args[0].shape[0]}: the {route} path')
     dense = lambda a: (a[0] @ a[1]) @ a[0].transpose(1, 2) + torch.diag_embed(
         a[2])
     worst, rounding_envs = hold_apgd(
         torch, 'apgd factored',
         lambda *a, **k: A.apgd_iterate_factored(*a, **k,
                                                 return_iterations=True),
-        A.apgd_iterate_factored_plain, dense, cheetah_cases + humanoid,
+        A.apgd_iterate_factored_plain, dense, cases,
         joint_force=lambda a, f: torch.einsum('brv,br->bv', a[0], f))
     times = time_apgd(
         torch, 'apgd factored', A.apgd_iterate_factored,
-        A.apgd_iterate_factored_plain, cheetah_cases + humanoid,
+        A.apgd_iterate_factored_plain, cases,
         lambda a: 4.0 * a[0].shape[1] * a[0].shape[2] + 2.0 * a[0].shape[2]
         ** 2,
         lambda a: 4.0 * (a[0].numel() + a[1].numel() + 8 * a[4].numel()
                          + 2 * a[4].shape[1]),
         trace_bound=True)
-    return worst, rounding_envs, times
+    for tag, route in routes.items():
+        times[tag]['path'] = route
+    # the latency of one APGD iteration: the cheetah's warm solve in
+    # motion, with no exit on convergence (tol2 = 0; every env runs to
+    # the cap), at caps of 1 and 41 iterations
+    tag, args, kw = cheetah_cases[-1]
+    check(tag == 'moving' and not kw['cold'], tag)
+    cap = lambda n: device_ms(lambda: A.apgd_iterate_factored(
+        *args, **dict(kw, iterations=n, tol2=0.0)), 20)
+    t1, t41 = cap(1), cap(41)
+    iteration_ns = 1e6 * (t41 - t1) / 40
+    print(f'apgd factored {tag}-warm, tol2 = 0: {t1:.4f} ms at 1 iteration, '
+          f'{t41:.4f} ms at 41: {iteration_ns:.0f} ns per APGD iteration')
+    return worst, rounding_envs, times, iteration_ns
 
 
 def capture_solves(dev, torch, env, state, label, kernel):
@@ -1346,8 +1378,8 @@ def main() -> int:
                                     'apgd_iterate_factored')
                      + capture_solves(dev, torch, c_env, moving, 'moving',
                                       'apgd_iterate_factored'))
-    fact_err, fact_rounding, fact_t = factored_phase(dev, torch,
-                                                     cheetah_cases)
+    fact_err, fact_rounding, fact_t, fact_iter_ns = factored_phase(
+        dev, torch, cheetah_cases)
     c_obs = suite.flatten_observation(c_env._observe(
         c_env.model, c_warm.physics, ()))
     goal = torch.zeros(c_obs.shape[1], device=dev)
@@ -1449,6 +1481,12 @@ def main() -> int:
              replaces=tpu('apgd_solve.py', 236, '_apgd_factored_kernel'),
              launches=c_counts['apgd_factored'], max_abs_err=fact_err,
              library_ms=None, **pick(fact_t['moving-cold']),
+             path=fact_t['moving-cold']['path'],
+             call_ms=fact_t['moving-cold']['call_ms'],
+             max_iterations=fact_t['moving-cold']['max_iterations'],
+             us_per_dependent_step=fact_t['moving-cold'][
+                 'us_per_dependent_step'],
+             iteration_ns=fact_iter_ns,
              rounding_decided_envs=fact_rounding,
              launches_by_path=by_path('apgd_factored'), cases=fact_t),
     ]

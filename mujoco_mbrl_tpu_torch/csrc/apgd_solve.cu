@@ -27,8 +27,9 @@
 //   reciprocal taken once (y - g (1 / L), w (1 / |w|); within 1.5 ulp of
 //   the divisions): an IEEE division is a branch around a slow path, and a
 //   lane's two per step ran in turn, a third of an iteration's latency.
-//   The cone projection reads its neighbour rows (i + 1, i + 2; the
-//   tangents' normals i - 1, i - 2) with shuffles; the Gauss-Seidel polish
+//   The cone projection (apgd_common.cuh project_lanes, shared with the
+//   factored kernel's warp path) reads its neighbour rows (i + 1, i + 2;
+//   the tangents' normals i - 1, i - 2) with shuffles; the Gauss-Seidel polish
 //   of each equality row is a warp dot product of its shared-memory row.
 //   nr > 64 (apgd_block_kernel; the dense regime ends at 96 rows): one
 //   block per env, one thread per row, Ad in shared memory (row
@@ -67,8 +68,8 @@ __global__ void apgd_block_kernel(const float* __restrict__ Ad_g,
   float* xs = Ad + nr * ld;        // matvec operand
   float* ps = xs + nr;             // pre-projection values / polish buffer
   float* ts = ps + nr;             // cone tangent scales
-  float* red = ts + nr;            // kRedSlots reduction slots
-  int* types = reinterpret_cast<int*>(red + kRedSlots);   // nr row types
+  float* red = ts + nr;            // 2 * kRedSlots reduction slots
+  int* types = reinterpret_cast<int*>(red + 2 * kRedSlots);  // row types
 
   const int b = blockIdx.x;
   const int i = threadIdx.x;
@@ -85,6 +86,7 @@ __global__ void apgd_block_kernel(const float* __restrict__ Ad_g,
   const float mu_i = row ? mu_g[i] : 0.f;
   const float bnd_i = row ? bnd_g[i] : 0.f;
   const int type_i = row ? rowtype_g[i] : 0;
+  int parity = 0;
   __syncthreads();
 
   // (Ad x)_i for the block-wide vector whose row-i entry is x_i.
@@ -101,7 +103,7 @@ __global__ void apgd_block_kernel(const float* __restrict__ Ad_g,
   };
   auto power_step = [&](float v) -> float {
     const float w = matvec(v);
-    const float n2 = block_sum(w * w, red);
+    const float n2 = block_sum(w * w, red, parity);
     return w / fmaxf(sqrtf(n2), 1e-12f);
   };
 
@@ -112,18 +114,18 @@ __global__ void apgd_block_kernel(const float* __restrict__ Ad_g,
     v = flat;
     for (int k = 0; k < 24; ++k) v = power_step(v);
     const float mv = matvec(v);
-    const float r = block_sum(v * mv, red);
+    const float r = block_sum(v * mv, red, parity);
     L = 1.5f * fmaxf(r, 1.f);
   } else {
     const float v0 = row ? v0_g[off + i] : 0.f;
-    const float nrm = sqrtf(block_sum(v0 * v0, red));
+    const float nrm = sqrtf(block_sum(v0 * v0, red, parity));
     v = nrm > 1e-12f ? v0 / fmaxf(nrm, 1e-12f) : flat;
     for (int k = 0; k < 6; ++k) v = power_step(v);
     float mv = matvec(v);
-    const float r6 = block_sum(v * mv, red);
+    const float r6 = block_sum(v * mv, red, parity);
     for (int k = 0; k < 2; ++k) v = power_step(v);
     mv = matvec(v);
-    const float r8 = block_sum(v * mv, red);
+    const float r8 = block_sum(v * mv, red, parity);
     float rowabs = 0.f;
     if (row) {
       const float* a = Ad + i * ld;
@@ -168,7 +170,7 @@ __global__ void apgd_block_kernel(const float* __restrict__ Ad_g,
     const float th_new = 0.5f * (1.f + sqrtf(1.f + 4.f * theta * theta));
     float beta = (theta - 1.f) / th_new;
     float dir = (y - fn) * (fn - f), d2 = (fn - f) * (fn - f), n2 = fn * fn;
-    block_sum3(dir, d2, n2, red);
+    block_sums(dir, d2, n2, red, parity);
     const bool restart = dir > 0.f;
     if (restart) beta = 0.f;
     y = fn + beta * (fn - f);
@@ -185,25 +187,12 @@ __global__ void apgd_block_kernel(const float* __restrict__ Ad_g,
 }
 
 constexpr int kWarpEnvs = 2;  // envs (warps) per block of the warp kernel
-constexpr unsigned kFull = 0xffffffffu;
 
 // Shared floats of one warp: Ad zero-padded to NC x (NC + 1), then the
 // matvec operand (NC floats, 16-byte aligned)
 template <int R>
 __host__ __device__ constexpr int warp_floats() {
   return 32 * R * (32 * R + 1) + 32 * R;
-}
-
-// Row src's entry of a vector held as x[slot] in lane src % 32, slot
-// src / 32, for every lane (all lanes must call it)
-template <int R>
-__device__ __forceinline__ float fetch(const float (&x)[R], int src) {
-  float v = __shfl_sync(kFull, x[0], src & 31);
-  if (R == 2) {
-    const float w = __shfl_sync(kFull, x[R - 1], src & 31);
-    v = (src >> 5) ? w : v;
-  }
-  return v;
 }
 
 template <int R>
@@ -243,27 +232,15 @@ __global__ void __launch_bounds__(32 * kWarpEnvs)
 
   // ---- this lane's rows i = lane + 32 s ------------------------------
   const size_t off = (size_t)b * nr;
-  bool valid[R], cp1[R], cp2[R];
-  int type[R], n1[R], n2[R], p1[R], p2[R];
-  float rhs[R], act[R], mu[R], bnd[R];
+  bool valid[R];
+  float rhs[R];
+  LaneRows<R> rows;
+  load_lane_rows<R>(rows, lane, nr, act_g + off, mu_g, bnd_g, rowtype_g);
 #pragma unroll
   for (int s = 0; s < R; ++s) {
     const int i = lane + 32 * s;
     valid[s] = i < nr;
     rhs[s] = valid[s] ? rhs_g[off + i] : 0.f;
-    act[s] = valid[s] ? act_g[off + i] : 0.f;
-    mu[s] = valid[s] ? mu_g[i] : 0.f;
-    bnd[s] = valid[s] ? bnd_g[i] : 0.f;
-    type[s] = valid[s] ? rowtype_g[i] : 0;
-    // cone neighbours (apgd_common.cuh project): a normal row reads its
-    // tangents i + 1, i + 2, wrapping as jnp.roll does; a row after a
-    // normal (i - 1, i - 2; no wrap) takes that normal's tangent scale
-    n1[s] = (i + 1) % nr;
-    n2[s] = (i + 2) % nr;
-    p1[s] = i >= 1 ? i - 1 : 0;
-    p2[s] = i >= 2 ? i - 2 : 0;
-    cp1[s] = valid[s] && i >= 1 && (rowtype_g[i - 1] & kConeNormal);
-    cp2[s] = valid[s] && i >= 2 && (rowtype_g[i - 2] & kConeNormal);
   }
 
   // out = Ad x (rows of this lane)
@@ -347,40 +324,9 @@ __global__ void __launch_bounds__(32 * kWarpEnvs)
   }
 
   // ---- projection: non-negative, then box, then friction cone, then
-  // the active mask (apgd_common.cuh project, in registers) -------------
+  // the active mask (apgd_common.cuh project_lanes) ---------------------
   auto proj = [&](float (&x)[R]) {
-#pragma unroll
-    for (int s = 0; s < R; ++s) {
-      if (type[s] & kNonneg) x[s] = fmaxf(x[s], 0.f);
-      if (type[s] & kBox) x[s] = fminf(fmaxf(x[s], -bnd[s]), bnd[s]);
-    }
-    if (has_cone) {
-      float xn[R], tsc[R];
-#pragma unroll
-      for (int s = 0; s < R; ++s) {
-        const float ft1 = fetch<R>(x, n1[s]), ft2 = fetch<R>(x, n2[s]);
-        xn[s] = x[s];
-        tsc[s] = 1.f;
-        if (type[s] & kConeNormal) {
-          const float t = sqrtf(ft1 * ft1 + ft2 * ft2), m = mu[s];
-          const bool inside = t <= m * x[s];
-          const bool apex = m * t + x[s] <= 0.f;
-          const float fn = inside ? x[s]
-                           : (apex ? 0.f : (x[s] + m * t) / (1.f + m * m));
-          tsc[s] = inside ? 1.f : (apex ? 0.f : m * fn / fmaxf(t, 1e-12f));
-          xn[s] = fn;
-        }
-      }
-#pragma unroll
-      for (int s = 0; s < R; ++s) {
-        const float s1 = fetch<R>(tsc, p1[s]), s2 = fetch<R>(tsc, p2[s]);
-        x[s] = xn[s];
-        if (cp1[s]) x[s] *= s1;
-        if (cp2[s]) x[s] *= s2;
-      }
-    }
-#pragma unroll
-    for (int s = 0; s < R; ++s) x[s] *= act[s];
+    project_lanes<R>(x, rows, lane, nr, has_cone);
   };
 
   // ---- Nesterov APGD with adaptive restart, per-env exit ------------
@@ -411,7 +357,7 @@ __global__ void __launch_bounds__(32 * kWarpEnvs)
       const float r = warp_sum(part);
 #pragma unroll
       for (int s = 0; s < R; ++s)
-        if (lane + 32 * s == e) fn[s] = fn[s] - act[s] * (r - rhs[s]);
+        if (lane + 32 * s == e) fn[s] = fn[s] - rows.act[s] * (r - rhs[s]);
     }
     const float th_new = 0.5f * (1.f + sqrtf(1.f + 4.f * theta * theta));
     float beta = (theta - 1.f) / th_new;
@@ -469,7 +415,7 @@ extern "C" size_t apgd_smem_bytes(int nr) {
     return sizeof(float) * kWarpEnvs *
            (nr <= 32 ? warp_floats<1>() : warp_floats<2>());
   const int ld = nr | 1;
-  return sizeof(float) * ((size_t)nr * ld + 3 * nr + apgd::kRedSlots) +
+  return sizeof(float) * ((size_t)nr * ld + 3 * nr + 2 * apgd::kRedSlots) +
          sizeof(int) * nr;
 }
 

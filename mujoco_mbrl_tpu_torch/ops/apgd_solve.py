@@ -10,11 +10,17 @@ PyTorch form of physics/solver.py's ``_apgd_dispatch.impl``.
 
 ``apgd_iterate_factored`` replaces ``_apgd_factored_kernel``, the regime
 past 96 rows where Ad = J~ M^-1 J~' + diag(Rs) is never materialized. For
-CUDA tensors it launches ``csrc/apgd_factored.cu`` (one block per env, J~
-and M^-1 resident in shared memory, the matvec in three stages); for CPU
-tensors it runs ``apgd_iterate_factored_plain``, which materializes Ad and
-runs the plain iterate with the trace staleness bound. There is no
-fallback from a kernel to its plain version.
+CUDA tensors it launches ``csrc/apgd_factored.cu`` on the path that
+``factored_route`` picks: up to 160 rows and nv 16 (the cheetah's 146 x
+9) one env per warp, the lane's rows of J~ and of P = J~ M^-1 in
+registers, so a matvec is a reduce-scatter of J~' y and P t with no
+barrier; past that, up to 1024 rows (the humanoid's 303 x 27), one block
+per env with J~ and M^-1 in shared memory, two barriers a matvec. Each
+env is a chain of ~85 dependent matvecs, so the kernel is latency-bound
+far above its bytes and FP32 bound. For CPU tensors it runs
+``apgd_iterate_factored_plain``, which materializes Ad and runs the plain
+iterate with the trace staleness bound. There is no fallback from a
+kernel to its plain version.
 """
 
 from __future__ import annotations
@@ -29,6 +35,10 @@ from . import _build, launch_counts
 
 # shared memory a block may use on Hopper (bytes)
 MAX_SHARED_BYTES = 232448
+# the factored kernel's paths (csrc/apgd_factored.cu): one env per warp
+# with 5 rows a lane, then one block per env with a thread a row
+FACTORED_WARP_MAX_NR, FACTORED_WARP_MAX_NV = 160, 16
+FACTORED_MAX_NR = 1024
 _NONNEG, _BOX, _CONE = 1, 2, 4
 _SIGNATURES = {
     'apgd_smem_bytes': (ctypes.c_size_t, [ctypes.c_int]),
@@ -39,7 +49,7 @@ _SIGNATURES = {
 _FACTORED_SIGNATURES = {
     'apgd_factored_smem_bytes': (ctypes.c_size_t, [ctypes.c_int] * 2),
     'apgd_iterate_factored': (ctypes.c_int, [ctypes.c_void_p] * 11
-                              + [ctypes.c_int] * 6 + [ctypes.c_float]
+                              + [ctypes.c_int] * 7 + [ctypes.c_float]
                               + [ctypes.c_void_p] * 4),
 }
 
@@ -236,6 +246,19 @@ def apgd_iterate_factored_plain(J_s, Minv, Rs, diag_s, rhs, f0, v0, active,
         tol2=tol2, return_iterations=return_iterations, trace_safe_l=True)
 
 
+def factored_route(nr: int, nv: int) -> str:
+    """The path of the factored kernel that takes an (nr, nv) solve:
+    'warp' (one env per warp) up to 160 rows and nv 16, else 'block' (one
+    block per env) up to 1024 rows. Past 1024 rows no path takes it."""
+    if nr > FACTORED_MAX_NR:
+        raise ValueError(f'apgd_iterate_factored: nr={nr} is past the '
+                         f'{FACTORED_MAX_NR} rows a block takes (a thread '
+                         'a row, J~ in shared memory)')
+    if nr <= FACTORED_WARP_MAX_NR and nv <= FACTORED_WARP_MAX_NV:
+        return 'warp'
+    return 'block'
+
+
 def apgd_iterate_factored(J_s, Minv, Rs, diag_s, rhs, f0, v0, active,
                           mu_full, bounds_full, *, nonneg, box_rows, con0,
                           iterations: int, cold: bool, tol2: float = 1e-12,
@@ -248,8 +271,9 @@ def apgd_iterate_factored(J_s, Minv, Rs, diag_s, rhs, f0, v0, active,
     (B,), as the plain version does.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on
-    the current stream (no synchronisation, outputs allocated here). The
-    kernel has no equality polish, as the JAX kernel has none.
+    the current stream (no synchronisation, outputs allocated here), on
+    the path ``factored_route`` picks. The kernel has no equality polish,
+    as the JAX kernel has none.
     """
     if not J_s.is_cuda:
         return apgd_iterate_factored_plain(
@@ -268,8 +292,10 @@ def apgd_iterate_factored(J_s, Minv, Rs, diag_s, rhs, f0, v0, active,
             bounds_full.shape != (nr,) or any(
                 t.shape != (B, nr) for t in tensors[2:8]):
         raise ValueError('apgd_iterate_factored: inconsistent shapes')
+    route = factored_route(nr, nv)
     lib = _build.library('apgd_factored', _FACTORED_SIGNATURES)
-    if nr > 1024 or lib.apgd_factored_smem_bytes(nr, nv) > MAX_SHARED_BYTES:
+    if route == 'block' and \
+            lib.apgd_factored_smem_bytes(nr, nv) > MAX_SHARED_BYTES:
         raise ValueError(f'apgd_iterate_factored: nr={nr}, nv={nv} does not '
                          'fit in shared memory')
     types, _ = _row_tables(nr, tuple(nonneg), tuple(box_rows), tuple(con0),
@@ -280,8 +306,9 @@ def apgd_iterate_factored(J_s, Minv, Rs, diag_s, rhs, f0, v0, active,
            if return_iterations else None)
     rc = lib.apgd_iterate_factored(
         *(t.data_ptr() for t in tensors), types.data_ptr(), B, nr, nv,
-        int(iterations), int(bool(cold)), int(bool(len(con0))), float(tol2),
-        f.data_ptr(), v.data_ptr(), its.data_ptr() if its is not None else 0,
+        ('warp', 'block').index(route), int(iterations), int(bool(cold)),
+        int(bool(len(con0))), float(tol2), f.data_ptr(), v.data_ptr(),
+        its.data_ptr() if its is not None else 0,
         torch.cuda.current_stream(J_s.device).cuda_stream)
     _build.check(rc, 'apgd_iterate_factored')
     launch_counts['apgd_factored'] += 1

@@ -314,14 +314,26 @@ def _factored_problem(dev, B, nr, nv, con0, seed):
             torch.zeros(nr, device=dev))
 
 
-# (146, 9): cheetah's rows, all non-negative (pyramid facets and limits);
-# (120, 11): limit rows then friction-cone triples, as the JAX test
-@pytest.mark.parametrize('nr,nv,n_nonneg', [(146, 9, 146), (120, 11, 24)])
+# The factored kernel's two paths and the boundary on each side: one env
+# per warp up to 160 rows and nv 16 (the exact nv 9 instantiation at the
+# cheetah's 146 rows, all non-negative; the guarded one at nv 11 and 16),
+# one block per env past that (161 rows; nv 17; the humanoid's 303 x 27;
+# nv 40; 320 rows, the last of the 48-register blocks, 321 the first of
+# the 64-register ones; 1024 rows, the last any path takes). Rows from
+# `c0` on are friction-cone triples, the rows before them non-negative;
+# where (nr - c0) % 3 == 2 the last cone's tangents wrap to row 0.
+@pytest.mark.parametrize('nr,nv,c0,route', [
+    (146, 9, 146, 'warp'), (146, 9, 138, 'warp'), (160, 9, 152, 'warp'),
+    (120, 11, 24, 'warp'), (120, 16, 112, 'warp'), (161, 9, 153, 'block'),
+    (120, 17, 112, 'block'), (303, 27, 36, 'block'),
+    (120, 40, 112, 'block'), (320, 9, 312, 'block'), (321, 9, 313, 'block'),
+    (1024, 9, 1013, 'block')])
 @pytest.mark.parametrize('cold', [True, False])
-def test_apgd_factored_kernel_matches_plain(dev, cold, nr, nv, n_nonneg):
-    con0 = tuple(range(n_nonneg, nr, 3))
+def test_apgd_factored_kernel_matches_plain(dev, cold, nr, nv, c0, route):
+    assert apgd_solve.factored_route(nr, nv) == route
+    con0 = tuple(range(c0, nr, 3))
     args = _factored_problem(dev, 37, nr, nv, con0, seed=int(cold))
-    kw = dict(nonneg=tuple(range(n_nonneg)), box_rows=(), con0=con0,
+    kw = dict(nonneg=tuple(range(c0)), box_rows=(), con0=con0,
               iterations=40, cold=cold)
     before = ops.launch_counts['apgd_factored']
     f, v, its = apgd_solve.apgd_iterate_factored(*args, **kw,
@@ -336,7 +348,8 @@ def test_apgd_factored_kernel_matches_plain(dev, cold, nr, nv, n_nonneg):
     assert int((its.long() - its_p).abs().max()) <= 1
 
 
-def test_apgd_factored_kernel_rejects_what_it_does_not_take(dev):
+def test_apgd_factored_kernel_rejects_what_it_does_not_take(dev,
+                                                            monkeypatch):
     args = _factored_problem(dev, 4, 146, 9, (), seed=0)
     kw = dict(nonneg=tuple(range(146)), box_rows=(), con0=(),
               iterations=5, cold=True)
@@ -346,6 +359,12 @@ def test_apgd_factored_kernel_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError, match='shared memory'):
         apgd_solve.apgd_iterate_factored(
             *big, **dict(kw, nonneg=tuple(range(1100))))
+    # the kernel refuses a path that does not take the shape
+    wide = _factored_problem(dev, 4, 161, 9, (), seed=0)
+    monkeypatch.setattr(apgd_solve, 'factored_route', lambda nr, nv: 'warp')
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        apgd_solve.apgd_iterate_factored(
+            *wide, **dict(kw, nonneg=tuple(range(161))))
 
 
 @pytest.mark.parametrize('normalized', [False, True])
