@@ -65,9 +65,35 @@ Run from the repository root:  python3 chip_smoke.py
       rollout-cost kernel on the fitted MLP with the replay's normalizers
       folded in (candidates decided by rounding left out, at most 0.1%);
    f. the experiment CLI on cheetah_run (single MLP, 5 policy rollouts);
-7. prints one ``{"kernels": [...]}`` line (one entry per TPU kernel), a
-   ``{"paths": ...}`` line with the cheetah paths' times, the card line,
-   and last ``{"ok": true, "device": {...}}``.
+7. the contact-free domains, each path with exact launch counts:
+   a. the dense APGD kernel's one-row-a-lane instantiation (31 or 30
+      lanes of a warp without a row) on solves captured from reacher_easy
+      (its wrist-limit row, the wrist at +-2.75..2.80 rad moving outward)
+      and point_mass_easy (two slide-limit rows pushing out), cold and
+      warm, and on an all-inactive reacher batch, held and timed as in 2;
+   b. the ``reacher256`` control step (``bench.config('reacher256')``:
+      256 envs, CEM 500 x 20 x 3 through cem_batched's model / cost scan,
+      the route the JAX bench takes below obs_dim + act_dim = 16; one
+      physics substep, so 1 APGD and 0 sampler launches a step), its
+      device-busy share, and the sampler (#2) at that shape through the
+      exact (1, 7, 1) instantiation, held to its plain version and timed;
+      and #2 at a layout only the guarded (16, 16, 16) instantiation takes
+      (sd 40 + ad 6, hidden 64);
+   c. ``GoalStateAgent.train()`` on reacher_easy with the single MLP
+      (hidden 50), 1024 seed + 1024 policy rollouts of 10 control steps
+      (the Reacher wrapper's 0.04 s control step: 2 substeps, 2 APGD
+      launches a step), CEM 1000 x 30 x 3 (3 sampler launches a step),
+      then #2 on the fitted params (as for the walker agent);
+   d. the experiment CLI on reacher_easy and on point_mass_easy (single
+      MLP, default sampler, 5 policy rollouts; 5 sampler launches a
+      control step, 2 or 1 APGD launches a step), then the sampler (#3's
+      route) on each CLI's fitted params at its B = 5 shape, as for the
+      walker CLI;
+   e. pendulum_swingup: the card's step against the CPU's (no constraint
+      row, so no launch);
+8. prints one ``{"kernels": [...]}`` line (one entry per TPU kernel), a
+   ``{"paths": ...}`` line with the cheetah and contact-free paths'
+   times, the card line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the process exits non-zero. It also exits
 non-zero without a result when no CUDA card is present or when the
@@ -834,6 +860,8 @@ def profile_phase(torch, run, params, state, gen, wall_plain):
           f'of the unprofiled {1e3 * wall_plain:.1f} ms wall')
     for e in sorted(events, key=dev_time, reverse=True)[:12]:
         print(f'  {dev_time(e) / 1e3:9.3f} ms  x{e.count:<6d} {e.key[:90]}')
+    return dict(device_busy_ms=total_ms, device_ops=n_kernels,
+                device_busy_share=total_ms / (1e3 * wall_plain))
 
 
 def ens_control_step_phase(dev, torch):
@@ -1145,7 +1173,7 @@ def exact_counts(label, counts, **expected):
     check(counts == want, (label, counts, want))
 
 
-def control_step(dev, torch, run, params, state0, gen, label):
+def control_step(dev, torch, run, params, state0, gen, label, envs=B):
     """One warm-up run, then the timed run with a synchronize around each
     phase; returns (launch counts, times, final state, warm-up state)."""
     from mujoco_mbrl_tpu_torch import ops
@@ -1165,8 +1193,8 @@ def control_step(dev, torch, run, params, state0, gen, label):
     out = dict(ms_per_step=1e3 * wall / STEPS, wall_s=wall,
                plan_ms=1e3 * profile['plan'] / STEPS,
                physics_ms=1e3 * profile['physics'] / STEPS)
-    print(f'{label}: {STEPS} control steps x {B} envs in {wall:.3f} s = '
-          f'{B * STEPS / wall:.1f} env-steps/s, {out["ms_per_step"]:.2f} ms '
+    print(f'{label}: {STEPS} control steps x {envs} envs in {wall:.3f} s = '
+          f'{envs * STEPS / wall:.1f} env-steps/s, {out["ms_per_step"]:.2f} ms '
           f'per control step (plan {out["plan_ms"]:.2f} ms, physics '
           f'{out["physics_ms"]:.2f} ms); launches {counts}; mean reward per '
           f'step {rewards.tolist()}')
@@ -1276,6 +1304,322 @@ def cheetah_cli_phase(dev, torch, tmp):
     check(bool(torch.isfinite(buf.states).all()), 'non-finite states')
     print(f'experiment CLI (cheetah_run, nn, 5 rollouts of 10 steps): '
           f'{wall:.3f} s; launches {counts}')
+    return counts
+
+
+def ptxas_info(name, marker):
+    """Registers and spill bytes of the kernel instantiation of library
+    ``name`` whose mangled name contains ``marker``, from nvcc's -Xptxas -v
+    report (``_build.build_log``)."""
+    import re
+    from mujoco_mbrl_tpu_torch.ops import _build
+
+    lines = _build.build_log(name).splitlines()
+    for i, line in enumerate(lines):
+        if 'Compiling entry' in line and marker in line:
+            info = {'entry': line.split("'")[1]}
+            for nxt in lines[i + 1:i + 6]:
+                m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill '
+                              r'loads', nxt)
+                if m:
+                    info['spill_stores'] = int(m.group(1))
+                    info['spill_loads'] = int(m.group(2))
+                m = re.search(r'Used (\d+) registers', nxt)
+                if m:
+                    info['registers'] = int(m.group(1))
+                    break
+            return info
+    raise RuntimeError(f'no ptxas report for {marker} in lib{name}')
+
+
+def limit_cases(dev, torch):
+    """The dense APGD kernel's one-row-a-lane instantiation on the solves
+    of the contact-free domains, captured from the port at B envs (a cold
+    step, then a warm one): the reacher's one wrist-limit row with the
+    wrist at +-2.75..2.80 rad moving outward (the limit at 2.7925, so the
+    row turns active on the way), the point_mass's two slide-limit rows at
+    +-0.285..0.30 pushing out, and an all-inactive batch (the wrist at
+    rest mid-range)."""
+    from types import SimpleNamespace
+
+    from mujoco_mbrl_tpu_torch import suite
+    from mujoco_mbrl_tpu_torch.physics.model import State
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    u = lambda *shape: torch.rand(shape, generator=g, device=dev)
+    sign = torch.where(u(B) < 0.5, -1.0, 1.0)
+    start = lambda qpos, qvel: SimpleNamespace(physics=State(
+        qpos=qpos, qvel=qvel, time=torch.zeros(B, device=dev)))
+    shoulder = lambda: torch.stack([(2 * u(B) - 1) * 3.14159,
+                                    torch.randn(B, generator=g, device=dev)])
+    env = suite.load('reacher', 'easy', device=dev)
+    cases = []
+    for tag, wrist, wvel in (
+            ('reacher-nr1', sign * (2.75 + 0.05 * u(B)),
+             sign * (1.0 + 2.0 * u(B))),
+            ('reacher-nr1-inactive', 2.0 * u(B) - 1.0,
+             torch.zeros(B, device=dev))):
+        q0, v0 = shoulder()
+        cases += capture_solves(
+            dev, torch, env, start(torch.stack([q0, wrist], 1),
+                                   torch.stack([v0, wvel], 1)),
+            tag, 'apgd_iterate_batched')
+    env = suite.load('point_mass', 'easy', device=dev)
+    cases += capture_solves(
+        dev, torch, env, start(sign[:, None] * (0.285 + 0.015 * u(B, 2)),
+                               sign[:, None] * (0.5 + 1.5 * u(B, 2))),
+        'point_mass-nr2', 'apgd_iterate_batched')
+    for tag, args, kw in cases:
+        n_act = int(args[4].sum())
+        print(f'apgd {tag} cold={kw["cold"]}: nr {args[0].shape[1]}, '
+              f'{n_act} of {args[4].numel()} limit rows active')
+        check((n_act == 0) == tag.endswith('inactive'), (tag, n_act))
+    return cases
+
+
+def limit_apgd_phase(dev, torch):
+    """TPU kernel #1 at 1 and 2 rows (apgd_warp_kernel<1>, 31 or 30 empty
+    lanes) against its plain version, with the dense kernel's tolerance and
+    rounding allowance; device time, APGD iterations and time per
+    dependent step of each case."""
+    from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
+
+    cases = limit_cases(dev, torch)
+    worst, rounding_envs = hold_apgd(
+        torch, 'apgd', A.apgd_iterate_batched, A.apgd_iterate_plain,
+        lambda args: args[0], cases)
+    times = time_apgd(
+        torch, 'apgd', A.apgd_iterate_batched, A.apgd_iterate_plain, cases,
+        lambda a: 2.0 * a[1].shape[1] ** 2,
+        lambda a: 4.0 * (a[0].numel() + 6 * a[1].numel() + 2 * a[1].shape[1]),
+        trace_bound=False)
+    return worst, rounding_envs, times
+
+
+def reacher256_phase(dev, torch):
+    """CONFIGS['reacher256'] (reacher_easy, 256 envs, CEM 500 x 20 x 3):
+    build_bench's route rule sends the 6 + 2 dims to cem_batched's model /
+    cost scan (no sampler launch); the suite env steps once per control
+    step (timestep 0.02 = control timestep), one dense APGD launch for the
+    wrist-limit row. Then #2 at that shape (the bench's random MLP, the
+    exact (1, 7, 1) instantiation) against its plain version, timed."""
+    from mujoco_mbrl_tpu_torch import bench, suite
+    from mujoco_mbrl_tpu_torch.ops import cem_rollout as C
+
+    cfg = bench.config('reacher256')
+    Br, Kr, Hr = cfg['envs'], cfg['candidates'], cfg['horizon']
+    run, (params, state0, gen) = bench.build_bench(
+        cfg['task'], Br, Kr, Hr, ITERS, STEPS, device=dev)
+    counts, out, state, warm = control_step(
+        dev, torch, run, params, state0, gen, 'reacher256 control step',
+        envs=Br)
+    exact_counts('reacher256 control step', counts, apgd_solve=STEPS)
+    check(state.physics.qpos.shape == (Br, 2), state.physics.qpos.shape)
+    out.update(profile_phase(torch, run, params, state, gen, out['wall_s']))
+
+    env = suite.load('reacher', 'easy', device=dev)
+    obs = suite.flatten_observation(env._observe(
+        env._model_with(warm.params), warm.physics, warm.params))
+    sd, ad, hid = obs.shape[1], 2, 50
+    goal = torch.zeros(sd, device=dev)
+    goal[1] = 1.0
+    weights = torch.ones(sd, device=dev)
+    g = torch.Generator(device=dev).manual_seed(22)
+    mean = (0.3 * torch.randn((Br, Hr, ad), generator=g, device=dev)).clamp(
+        -0.9, 0.9)
+    std = 0.2 + torch.rand((Br, Hr, ad), generator=g, device=dev)
+    args = (params, 7, obs, mean, std, goal, weights, Kr)
+    with torch.no_grad():
+        costs, acts = C.mlp_sample_rollout_costs(*args)
+        ref = C.rollout_costs_of_actions(params, obs, acts, goal, weights)
+        err, pair = check_actions(torch, 'sampler reacher256', costs, ref,
+                                  acts, mean, Kr)
+        k_ms = time_ms(lambda: C.mlp_sample_rollout_costs(*args), 20)
+        p_ms = time_ms(lambda: C.mlp_sample_rollout_costs_plain(*args), 2)
+    flops, *bounds = sampler_bound(Br, Kr, Hr, sd, ad, hid)
+    print(f'sampler reacher256 (B={Br} K={Kr} H={Hr} sd={sd} ad={ad}, exact '
+          f'(1, 7, 1)): max|cost - plain(actions)| = {err:.3e}; antithetic '
+          f'max dev {pair:.2e}')
+    case = sampler_case(f'sampler reacher256 B={Br} K={Kr} H={Hr} sd={sd}',
+                        flops, bounds, k_ms, p_ms, max_abs_err=err)
+    return counts, out, case
+
+
+def guarded_sampler_case(dev, torch):
+    """#2 at a layout no exact instantiation takes (sd 40 + ad 6, hidden
+    64: 8 hidden tiles), so dispatch sends it to the guarded (16, 16, 16)
+    instantiation with the weights read from global memory; a random MLP,
+    256 envs x 500 candidates x horizon 20, held to the plain cost of its
+    own actions and timed."""
+    from mujoco_mbrl_tpu_torch.models import MLPDynamics
+    from mujoco_mbrl_tpu_torch.ops import cem_rollout as C
+
+    Bg, Kg, Hg, sd, ad, hid = 256, 500, 20, 40, 6, 64
+    params = MLPDynamics(sd, ad, hidden_units=hid).init(
+        torch.Generator().manual_seed(24), device=dev)
+    g = torch.Generator(device=dev).manual_seed(24)
+    s0 = torch.randn((Bg, sd), generator=g, device=dev)
+    goal = torch.randn(sd, generator=g, device=dev)
+    weights = torch.rand(sd, generator=g, device=dev)
+    mean = (0.3 * torch.randn((Bg, Hg, ad), generator=g, device=dev)).clamp(
+        -0.9, 0.9)
+    std = 0.2 + torch.rand((Bg, Hg, ad), generator=g, device=dev)
+    args = (params, 9, s0, mean, std, goal, weights, Kg)
+    with torch.no_grad():
+        costs, acts = C.mlp_sample_rollout_costs(*args)
+        ref = C.rollout_costs_of_actions(params, s0, acts, goal, weights)
+        err, pair = check_actions(torch, 'sampler guarded', costs, ref, acts,
+                                  mean, Kg)
+        k_ms = time_ms(lambda: C.mlp_sample_rollout_costs(*args), 20)
+        p_ms = time_ms(lambda: C.mlp_sample_rollout_costs_plain(*args), 2)
+    flops, *bounds = sampler_bound(Bg, Kg, Hg, sd, ad, hid)
+    print(f'sampler guarded (16, 16, 16) (B={Bg} K={Kg} H={Hg} sd={sd} '
+          f'ad={ad} hidden={hid}): max|cost - plain(actions)| = {err:.3e}; '
+          f'antithetic max dev {pair:.2e}')
+    return sampler_case(f'sampler guarded B={Bg} K={Kg} H={Hg} sd={sd} '
+                        f'hidden={hid}', flops, bounds, k_ms, p_ms,
+                        max_abs_err=err)
+
+
+def reacher_agent_phase(dev, torch, tmp):
+    """GoalStateAgent.train() on reacher_easy at full width: the single MLP
+    (hidden 50) over the 6-dim observation, CEM 1000 x 30 x 3, 1024 seed +
+    1024 policy rollouts cut to AGENT_T steps, one fit of AGENT_EPOCHS
+    epochs at batch 512. The Reacher wrapper's 0.04 s control step is 2
+    physics substeps (two dense APGD launches a control step); the
+    sampler's exact (1, 7, 1) instantiation plans. Then #2 on the fitted
+    params at the loop's shapes."""
+    from mujoco_mbrl_tpu_torch import agents, data, envs, models, ops
+    from mujoco_mbrl_tpu_torch import planners
+    from mujoco_mbrl_tpu_torch.models import train as Mt
+    from mujoco_mbrl_tpu_torch.utils import MetricsWriter
+
+    env = envs.load('reacher', 'easy', device=dev)
+    check(env.env._n_sub_steps == 2, env.env._n_sub_steps)
+    model = models.MLPDynamics(env.observation_dim, env.action_dim,
+                               hidden_units=50)
+    dataset = data.init_replay(2 * B, AGENT_T, env.state_dim,
+                               env.observation_dim, env.action_dim,
+                               device=dev)
+    writer = MetricsWriter(tmp)
+    agent = agents.GoalStateAgent(
+        environment=env, planner=planners.CEMPlanner, model=model,
+        horizon=H, optimizer=Mt.adam(0.01), rollout_length=AGENT_T,
+        num_rollouts_per_iteration=B, num_train_iterations=1, writer=writer,
+        base_path=tmp, dataset=dataset,
+        planner_kwargs=dict(num_candidates=K, num_elites=K // 10,
+                            num_iterations=ITERS),
+        train_epochs=AGENT_EPOCHS, train_batch_size=AGENT_BATCH,
+        num_initial_rollouts=B, seed=0)
+    check(agent.obs_only and agent.plan_dim == 6,
+          (agent.obs_only, agent.plan_dim))
+    phases = []
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            phases.append((name, time.perf_counter() - t0, out))
+            return out
+        return run
+
+    agent.add_rollouts = timed('collect', agent.add_rollouts)
+    agent.fit_model = timed('fit', agent.fit_model)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    agent.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.launch_counts)
+    writer.close()
+    check([p[0] for p in phases] == ['collect', 'fit', 'collect'],
+          [p[0] for p in phases])
+    # 3 CEM iterations per policy step; 2 physics substeps per control
+    # step of both collections, one solve each (the observation forwards
+    # stop at the velocity stage)
+    exact_counts('reacher agent loop', counts,
+                 cem_sample_rollout=ITERS * AGENT_T,
+                 apgd_solve=2 * 2 * AGENT_T)
+    buf = agent.dataset
+    check(buf.filled == 2 * B, buf.filled)
+    for name in ('states', 'observations', 'actions', 'rewards'):
+        check(bool(torch.isfinite(getattr(buf, name)).all()), name)
+    losses = phases[1][2].losses
+    n_up = losses.shape[0]
+    check(n_up == AGENT_EPOCHS * (2 * B * AGENT_T // AGENT_BATCH), n_up)
+    check(bool(torch.isfinite(losses).all()), 'non-finite training loss')
+    first, last = float(losses[:n_up // 10].mean()), float(
+        losses[-(n_up // 10):].mean())
+    check(last < first, ('training loss did not decrease', first, last))
+    times = {'seed_collect_s': phases[0][1], 'fit_s': phases[1][1],
+             'policy_collect_s': phases[2][1], 'train_s': wall}
+    print(f'reacher agent loop (reacher_easy, MLP, {B} + {B} rollouts of '
+          f'{AGENT_T} control steps, fit {AGENT_EPOCHS} epochs = {n_up} '
+          f'updates): ' + ', '.join(f'{k} {v:.3f}' for k, v in times.items())
+          + f'; loss {first:.4f} -> {last:.4f}; launches {counts}')
+    obs = phases[2][2].observations[:, -1].contiguous()
+    check(obs.shape == (B, 6), obs.shape)
+    fitted = fitted_sampler_check(dev, torch, 'reacher agent MLP sampler',
+                                  agent, obs, H, 'normal')
+    return counts, times, fitted
+
+
+def contact_free_cli_phase(dev, torch, tmp, environment, substeps):
+    """The experiment CLI on a contact-free domain: GoalStateAgent, single
+    MLP, the default sampler, CEM 1000 candidates x 5 iterations, 20 seed
+    and 5 policy rollouts of 10 control steps, 1 iteration of 2 epochs.
+    At 5 envs the JAX agent's grouped kernel runs one env per program
+    (_sample_kernel); here it is the same sampler kernel. Then that kernel
+    on the fitted params at the CLI's shapes (the 5 policy rollouts' last
+    observations), as the walker CLI phase holds it."""
+    from mujoco_mbrl_tpu_torch import experiment, ops
+
+    args = experiment.parse_args([
+        '--exp_dir', tmp, '--environment', environment, '--planner', 'cem',
+        '--model', 'nn', '--num_rollouts_per_iteration', '5',
+        '--rollout_length', '10', '--num_train_iterations', '1',
+        '--train_epochs', '2'])
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    agent = experiment.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.launch_counts)
+    # one dense solve per physics substep of the seed and the policy
+    # collections (10 control steps each); 5 CEM iterations per policy step
+    exact_counts(f'{environment} CLI', counts, apgd_solve=substeps * 2 * 10,
+                 cem_sample_rollout=5 * 10)
+    check(os.path.exists(os.path.join(tmp, 'agent_final.pt')),
+          'agent_final not written')
+    buf = agent.dataset
+    check(buf.filled == 25 and buf.cursor == 25 and agent.obs_only,
+          (buf.filled, buf.cursor, agent.obs_only))
+    check(bool(torch.isfinite(buf.observations).all()), 'non-finite obs')
+    print(f'experiment CLI ({environment}, nn, 5 rollouts of 10 steps): '
+          f'{wall:.3f} s; launches {counts}')
+    # the 5 policy rollouts follow the 20 seed rollouts in the ring
+    obs = buf.observations[20:25, -1].contiguous()
+    check(obs.shape == (5, agent.plan_dim) and agent.horizon == 20,
+          (obs.shape, agent.horizon))
+    fitted = fitted_sampler_check(dev, torch, f'{environment} CLI sampler',
+                                  agent, obs, agent.horizon, 'normal')
+    return counts, wall, fitted
+
+
+def pendulum_phase(dev, torch):
+    """pendulum_swingup, one step of random actions on the card against
+    the CPU's from the same reset states: no constraint row (contacts off,
+    no limit), so the solver returns before any kernel."""
+    from mujoco_mbrl_tpu_torch import ops, suite
+
+    env = suite.load('pendulum', 'swingup', device=dev)
+    start, _ = env.reset(B, torch.Generator().manual_seed(4))
+    ops.reset_launch_counts()
+    card_vs_cpu_step(dev, torch, 'pendulum', 'swingup', start)
+    counts = dict(ops.launch_counts)
+    exact_counts('pendulum step', counts)
     return counts
 
 
@@ -1404,12 +1748,38 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         c_cli_counts = cheetah_cli_phase(dev, torch, tmp)
 
+    # ---- slice 8: the contact-free domains -----------------------------
+    lim_err, lim_rounding, lim_t = limit_apgd_phase(dev, torch)
+    r_counts, r_out, samp_r256 = reacher256_phase(dev, torch)
+    samp_guarded = guarded_sampler_case(dev, torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        ra_counts, ra_times, ra_fit = reacher_agent_phase(dev, torch, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        rc_counts, rc_wall, rc_fit = contact_free_cli_phase(
+            dev, torch, tmp, 'reacher_easy', 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        pc_counts, pc_wall, pc_fit = contact_free_cli_phase(
+            dev, torch, tmp, 'point_mass_easy', 1)
+    pend_counts = pendulum_phase(dev, torch)
+    ptxas = {'apgd_warp_kernel<1>': ptxas_info('apgd_solve',
+                                               'apgd_warp_kernelILi1E'),
+             'cem_sample_rollout_kernel<1,7,1,true,true>': ptxas_info(
+                 'cem_sample_rollout', 'ILi1ELi7ELi1ELb1ELb1E')}
+    print(f'ptxas: {ptxas}')
+    samp_t['cases']['reacher256_b256_k500_h20_sd6'] = samp_r256
+    samp_t['cases']['reacher_agent_b1024_sd6_fitted'] = ra_fit
+    samp_t['cases']['guarded_b256_k500_h20_sd40_hid64'] = samp_guarded
+
     paths = {'walker_control_step': counts,
              'walker_ens_control_step': ens_counts,
              'walker_agent_loop': agent_counts, 'walker_cli_spline4': cli_counts,
              'cheetah_control_step': c_counts,
              'cheetah_non_fused_control_step': nf_counts,
-             'cheetah_full_loop': loop_counts, 'cheetah_cli': c_cli_counts}
+             'cheetah_full_loop': loop_counts, 'cheetah_cli': c_cli_counts,
+             'reacher256_control_step': r_counts,
+             'reacher_agent_loop': ra_counts, 'reacher_cli': rc_counts,
+             'point_mass_cli': pc_counts,
+             'pendulum_step': pend_counts}
     by_path = lambda key: {p: c[key] for p, c in paths.items() if c[key]}
     src = lambda f: f'mujoco_mbrl_tpu_torch/csrc/{f}'
     tpu = lambda f, line, fn: f'mujoco_mbrl_tpu/ops/{f}:{line} ({fn})'
@@ -1423,31 +1793,42 @@ def main() -> int:
         dict(name='apgd_iterate_batched', route='cuda',
              source=src('apgd_solve.cu'),
              replaces=tpu('apgd_solve.py', 60, '_apgd_kernel'),
-             launches=counts['apgd_solve'], max_abs_err=apgd_err,
+             launches=counts['apgd_solve'],
+             max_abs_err=max(apgd_err, lim_err),
              library_ms=None, **pick(apgd_t['contact-warm']),
              call_ms=apgd_t['contact-warm']['call_ms'],
              max_iterations=apgd_t['contact-warm']['max_iterations'],
              us_per_dependent_step=apgd_t['contact-warm'][
                  'us_per_dependent_step'],
              iteration_ns=apgd_iter_ns,
-             rounding_decided_envs=rounding_envs,
-             launches_by_path=by_path('apgd_solve'), cases=apgd_t),
+             rounding_decided_envs=rounding_envs + lim_rounding,
+             launches_by_path=by_path('apgd_solve'),
+             cases=dict(apgd_t, **lim_t),
+             ptxas_one_row=ptxas['apgd_warp_kernel<1>']),
         dict(name='mlp_sample_rollout_costs', route='cuda',
              source=src('cem_sample_rollout.cu'),
              replaces=tpu('cem_rollout.py', 364, '_sample_kernel_multi'),
              launches=c_counts['cem_sample_rollout'],
-             max_abs_err=max(samp_err, samp_cheetah['max_abs_err']),
+             max_abs_err=max(samp_err, samp_cheetah['max_abs_err'],
+                             samp_r256['max_abs_err'], ra_fit['max_abs_err'],
+                             samp_guarded['max_abs_err']),
              library_ms=None, **pick_s(samp_cheetah),
              launches_by_path=by_path('cem_sample_rollout'),
-             cases=dict(samp_t['cases'], cheetah_sd17=samp_cheetah)),
+             cases=dict(samp_t['cases'], cheetah_sd17=samp_cheetah),
+             ptxas_small_exact=ptxas[
+                 'cem_sample_rollout_kernel<1,7,1,true,true>']),
         dict(name='mlp_sample_rollout_costs[spline4]', route='cuda',
              source=src('cem_sample_rollout.cu'),
              replaces=tpu('cem_rollout.py', 258, '_sample_kernel'),
              launches=cli_counts['cem_sample_rollout'],
-             max_abs_err=cli_fit['max_abs_err'], library_ms=None,
+             max_abs_err=max(cli_fit['max_abs_err'], rc_fit['max_abs_err'],
+                             pc_fit['max_abs_err']), library_ms=None,
              **pick_s(samp_t['cases']['spline4']),
-             launches_by_path={'walker_cli_spline4': cli_counts[
-                 'cem_sample_rollout']}, cli_b5_h20=cli_fit),
+             launches_by_path={p: paths[p]['cem_sample_rollout'] for p in (
+                 'walker_cli_spline4', 'reacher_cli', 'point_mass_cli')},
+             cli_b5_h20=cli_fit,
+             cases=dict(reacher_cli_b5_h20_sd6_fitted=rc_fit,
+                        point_mass_cli_b5_h20_sd4_fitted=pc_fit)),
         dict(name='mlp_rollout_costs_t', route='cuda',
              source=src('cem_rollout_costs.cu'),
              replaces=tpu('cem_rollout.py', 70, '_kernel'),
@@ -1493,7 +1874,9 @@ def main() -> int:
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'paths': dict(
         cheetah_control_step=c_out, cheetah_non_fused_control_step=nf_out,
-        cheetah_full_loop=loop_t)}))
+        cheetah_full_loop=loop_t, reacher256_control_step=r_out,
+        reacher_agent_loop=ra_times, reacher_cli_s=rc_wall,
+        point_mass_cli_s=pc_wall)}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -62,9 +62,10 @@ class BatchedMPCPolicy:
                  plan_on_observations: bool = True):
         if sample_costs_builder is None and rollout_costs_fn is None:
             raise NotImplementedError(
-                'planning through the model / cost scan is not ported '
-                '(mujoco_mbrl_tpu.planners.shooting._rollout_costs): give a '
-                'sample_costs_builder or a rollout_costs_fn')
+                'BatchedMPCPolicy plans through a sample_costs_builder or a '
+                'rollout_costs_fn; the JAX policy\'s model / cost scan '
+                '(mujoco_mbrl_tpu.planners.shooting._rollout_costs) is not '
+                'wired into it')
         self.rollout_costs_fn = rollout_costs_fn
         cfg = {**CEMPlanner.defaults, **(planner_kwargs or {})}
         cfg.pop('action_dim', None)

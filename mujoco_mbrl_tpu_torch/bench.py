@@ -4,17 +4,21 @@ them.
 Port of ``bench.py``'s ``build_bench`` (defaults of its ``main``),
 ``full_loop_bench`` and the ``CONFIGS`` presets that the port runs.
 
-``build_bench``: envs in lockstep (walker_walk or cheetah_run), CEM with K
-candidates, horizon H and ``cem_iters`` refits over a 50-hidden MLP
-dynamics model with random weights from a seed (goal e_1, unit cost
-weights, K // 10 elites), then one batched ``env.step`` (walker: 10
-physics substeps and 10 dense APGD launches; cheetah: 1 substep and 1
-factored APGD launch). ``model_kind='ensemble'`` plans through an
-``n_ensemble``-member ensemble with TS-infinity propagation instead (the
-walker_ens configuration). ``fused=False`` takes ``cem_batched``'s
-non-fused branch: candidates drawn with ``torch.randn``, costed by the
-rollout-cost kernel (``ops.mlp_rollout_costs_t``), one launch per CEM
-iteration.
+``build_bench``: envs in lockstep (walker_walk, cheetah_run, reacher_easy,
+...), CEM with K candidates, horizon H and ``cem_iters`` refits over a
+50-hidden MLP dynamics model with random weights from a seed (goal e_1,
+unit cost weights, K // 10 elites), then one batched ``env.step``
+(walker: 10 physics substeps and 10 dense APGD launches; cheetah: 1
+substep and 1 factored APGD launch; reacher_easy: 1 substep and 1 dense
+APGD launch for its one limit row). The candidates take the JAX bench's
+route (``bench.py:78``): the fused sampler when obs_dim + act_dim >= 16
+(walker, cheetah), else ``cem_batched``'s model / cost scan in plain
+PyTorch (reacher: 6 + 2). ``fused=True`` forces the sampler;
+``fused=False`` takes ``cem_batched``'s non-fused branch instead:
+candidates drawn with ``torch.randn``, costed by the rollout-cost kernel
+(``ops.mlp_rollout_costs_t``), one launch per CEM iteration.
+``model_kind='ensemble'`` plans through an ``n_ensemble``-member ensemble
+with TS-infinity propagation (the walker_ens configuration).
 
 ``full_loop_bench``: the complete MBRL iteration, collect (MPC through
 the fused sampler) -> replay add with a stats refresh -> fit, after a
@@ -47,8 +51,13 @@ CONFIGS = {
                         horizon=30, full_loop=True),
     'walker_ens': dict(task='walker_walk', envs=1024, candidates=1000,
                        horizon=30, model='ensemble'),
+    'reacher256': dict(task='reacher_easy', envs=256, candidates=500,
+                       horizon=20),
 }
-_NOT_PORTED = ('cartpole', 'reacher256', 'humanoid')
+_NOT_PORTED = ('cartpole', 'humanoid')
+# the JAX bench's rule: the fused sampler only where the feature dims carry
+# real work (bench.py:78); smaller models plan through the scan
+FUSED_MIN_DIMS = 16
 
 
 def config(name: str) -> dict:
@@ -91,13 +100,14 @@ def _setup(task: str, B: int, dev):
 
 def _observe(env, env_state) -> torch.Tensor:
     return suite.flatten_observation(env._observe(
-        env.model, env_state.physics, env_state.params))
+        env._model_with(env_state.params), env_state.physics,
+        env_state.params))
 
 
 def build_bench(task: str, B: int, K: int, H: int, cem_iters: int,
                 steps: int, sampler: str = 'triangular', device=None,
                 model_kind: str = 'mlp', n_ensemble: int = 5,
-                fused: bool = True):
+                fused: Optional[bool] = None):
     """Returns ``(run, (params, state0, generator))``.
 
     ``run(params, env_state, generator, profile=None)`` drives ``steps``
@@ -112,9 +122,18 @@ def build_bench(task: str, B: int, K: int, H: int, cem_iters: int,
         model = models.EnsembleDynamics(model, n_ensemble)
     elif model_kind != 'mlp':
         raise ValueError(f'unknown model_kind {model_kind!r}')
-    if not fused and model_kind != 'mlp':
+    scan = fused is None and obs_dim + act_dim < FUSED_MIN_DIMS
+    if fused is None:
+        fused = not scan
+    if not fused and not scan and model_kind != 'mlp':
         raise ValueError('the non-fused path costs a single MLP')
     params = model.init(torch.Generator().manual_seed(1), device=dev)
+    forward = (model.forward_ts if model_kind == 'ensemble'
+               else model.forward)
+
+    def cost(states, actions):
+        return (models.smooth_abs_loss(states, goal, weights)
+                + models.cosh_loss(actions))
 
     def plan_batch(params, obs, seeds):
         def scf(seed, mean, std):
@@ -131,7 +150,9 @@ def build_bench(task: str, B: int, K: int, H: int, cem_iters: int,
         traj = cem_batched(seeds, obs, horizon=H, action_dim=act_dim,
                            num_candidates=K, num_elites=max(K // 10, 1),
                            sample_costs_fn=scf if fused else None,
-                           rollout_costs_fn=None if fused else rc)
+                           rollout_costs_fn=None if fused or scan else rc,
+                           model=lambda s, a: forward(params, s, a),
+                           cost=cost)
         return traj.actions[0]
 
     def run(params, env_state, generator: torch.Generator,

@@ -524,11 +524,14 @@ inline Cfg make_cfg(int B, int K, int n, int H, int sd, int ad, int hid,
   return c;
 }
 
-// exact: the walker (sd 19-24, ad 6, hidden 50) and cheetah (sd 17)
-// models' tile counts, weights in shared memory; large: any other shape
-// the guarded instantiation takes, weights read from global memory
+// exact: the tile counts of the walker (sd 19-24, ad 6, hidden 50) and
+// cheetah (sd 17) models, and of the small models of the contact-free
+// domains (sd + ad <= 8: reacher 6 + 2, point_mass 4 + 2, pendulum 3 + 1;
+// hidden 50), weights in shared memory; large: any other shape the guarded
+// instantiation takes, weights read from global memory
 inline bool is_exact(const Layout& L) {
-  return (L.ni == 4 || L.ni == 3) && L.nh == 7 && L.nso == 3;
+  return L.nh == 7 && (((L.ni == 4 || L.ni == 3) && L.nso == 3) ||
+                       (L.ni == 1 && L.nso == 1));
 }
 inline bool is_large(const Layout& L) { return L.ni <= 16 && L.nh <= 16; }
 
@@ -537,7 +540,8 @@ inline bool is_large(const Layout& L) { return L.ni <= 16 && L.nh <= 16; }
 template <typename F>
 inline int dispatch(const Layout& L, const F& f) {
   if (is_exact(L) && L.ni == 4) return f.template run<4, 7, 3, true, true>();
-  if (is_exact(L)) return f.template run<3, 7, 3, true, true>();
+  if (is_exact(L) && L.ni == 3) return f.template run<3, 7, 3, true, true>();
+  if (is_exact(L)) return f.template run<1, 7, 1, true, true>();
   return f.template run<16, 16, 16, false, false>();
 }
 

@@ -1,7 +1,7 @@
 """MBRL env wrappers: featured state, goals, batched rollout collection.
 
-Port of the EnvWrapper base and the Walker and Cheetah wrappers of
-mujoco_mbrl_tpu/envs/wrappers.py. The JAX wrapper collects under
+Port of the EnvWrapper base and the Walker, Cheetah, Reacher, PointMass
+and Pendulum wrappers of mujoco_mbrl_tpu/envs/wrappers.py. The JAX wrapper collects under
 ``vmap`` + ``lax.scan``; here the env batch is the leading dimension and
 collection is a Python loop over control steps. Collection is two steps,
 ``reset`` and ``collect_from(env_state, ...)``, so a caller can start it
@@ -21,6 +21,7 @@ observations are in task order. ``collect_from`` reproduces both.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -104,7 +105,7 @@ class EnvWrapper:
         JAX forward computes the constraint solve and XLA drops it as
         unused; run eagerly it would cost one APGD launch."""
         env = self._env
-        m = env.model
+        m = env._model_with(env_state.params)
         phys = env_state.physics
         ctrl = torch.zeros((phys.qpos.shape[0], m.nu), dtype=phys.qpos.dtype,
                            device=phys.qpos.device)
@@ -121,6 +122,22 @@ class EnvWrapper:
         u = torch.rand(tuple(batch_shape) + (self.action_dim,),
                        generator=generator, device=generator.device)
         return (lo + (hi - lo) * u).to(self.device)
+
+    def _uniform(self, generator: torch.Generator, shape, lo, hi
+                 ) -> torch.Tensor:
+        """Uniform draws in [lo, hi) (bounds broadcast over the last axis
+        of ``shape``), on the env's device."""
+        u = torch.rand(tuple(shape), generator=generator,
+                       device=generator.device)
+        lo = torch.as_tensor(lo, dtype=u.dtype, device=u.device)
+        hi = torch.as_tensor(hi, dtype=u.dtype, device=u.device)
+        return (lo + (hi - lo) * u).to(self.device)
+
+    def sample_state(self, generator: torch.Generator,
+                     batch_shape: Tuple[int, ...] = ()) -> torch.Tensor:
+        raise NotImplementedError(
+            f'{type(self).__name__}.sample_state is not ported '
+            '(mujoco_mbrl_tpu.envs.wrappers)')
 
     def set_goal(self, generator: torch.Generator) -> torch.Tensor:
         """Sample a goal; returns the goal state vector."""
@@ -264,7 +281,114 @@ class Cheetah(EnvWrapper):
         return g
 
 
-_WRAPPERS = {'Cheetah': Cheetah, 'Walker': Walker}
+class PointMass(EnvWrapper):
+    """The goal is the target xy (wrappers.py:356-383); planning runs on
+    the observation [position, velocity]."""
+    state_dim = 4
+    observation_dim = 4
+
+    def get_goal_weights(self):
+        w = torch.zeros(self.state_dim, device=self.device)
+        w[0:2] = 10 * self._state_penalty
+        w[2:] = self._state_penalty / 4.0      # velocity damping
+        return w
+
+    def set_goal(self, generator):
+        target = self._uniform(generator, (2,), -0.25, 0.25)
+        return torch.cat([target, target.new_zeros(2)])
+
+    def apply_goal(self, env_state, goal_state):
+        """The env params carry the target xy (with the tendon directions
+        on `hard`)."""
+        B = env_state.physics.qpos.shape[0]
+        target = goal_state[..., :2].expand(B, 2).to(
+            env_state.physics.qpos.dtype)
+        if isinstance(env_state.params, tuple):   # 'hard'
+            params = (target, env_state.params[1])
+        else:
+            params = target
+        return dataclasses.replace(env_state, params=params)
+
+    def sample_state(self, generator, batch_shape=()):
+        shape = tuple(batch_shape)
+        return torch.cat([self._uniform(generator, shape + (2,), -0.29, 0.29),
+                          self._uniform(generator, shape + (2,), -1.0, 1.0)],
+                         -1)
+
+
+class Reacher(EnvWrapper):
+    """wrappers.py:386-448: a 0.04 s control step (2 physics substeps); the
+    goal is a pose of the arm, and the target is put at its finger."""
+    state_dim = 4
+    observation_dim = 6
+    override_control_timestep = 0.04
+
+    def sample_state(self, generator, batch_shape=()):
+        return self._uniform(generator, tuple(batch_shape) + (4,),
+                             [-np.pi, -2.8, -3.0, -3.0],
+                             [np.pi, 2.8, 3.0, 3.0])
+
+    def get_goal_weights(self):
+        w = torch.zeros(self.observation_dim, device=self.device)
+        w[0:2] = self._state_penalty
+        w[2:4] = self._state_penalty                # vector to the goal
+        w[4:] = self._state_penalty / 20            # velocity damping
+        return w
+
+    def set_goal_state(self, generator, batch_shape=()):
+        """Goal joint angles, zero velocity: (..., 4)."""
+        angles = self._uniform(generator, tuple(batch_shape) + (2,),
+                               [-np.pi, -2.8], [np.pi, 2.8])
+        return torch.cat([angles, torch.zeros_like(angles)], -1)
+
+    def set_goal(self, generator):
+        g = torch.zeros(self.observation_dim, device=self.device)
+        g[0:2] = self.set_goal_state(generator)[0:2]
+        return g
+
+    @staticmethod
+    def goal_xy(goal_state: torch.Tensor) -> torch.Tensor:
+        """(..., 2) finger position of the two-link arm at the goal angles
+        goal_state[..., :2]."""
+        a = 0.12 * torch.cos(goal_state[..., 1])
+        b = 0.12 * torch.sin(goal_state[..., 1])
+        theta = goal_state[..., 0] + torch.atan2(b, 0.12 + a)
+        mag = torch.sqrt((0.12 + a) ** 2 + b ** 2)
+        return torch.stack([mag * torch.cos(theta), mag * torch.sin(theta)],
+                           -1)
+
+    def apply_goal(self, env_state, goal_state):
+        """The env params are the target xy: aim it at the arm pose that
+        the goal joint angles describe."""
+        B = env_state.physics.qpos.shape[0]
+        xy = self.goal_xy(goal_state).expand(B, 2)
+        return dataclasses.replace(
+            env_state, params=xy.to(env_state.physics.qpos.dtype))
+
+    def sample_rollouts_biased_rewards(self, *args, **kwargs):
+        raise NotImplementedError(
+            'teleporting the arm onto the target is not ported (mujoco_mbrl'
+            '_tpu.envs.wrappers.Reacher.sample_rollouts_biased_rewards)')
+
+
+class Pendulum(EnvWrapper):
+    """wrappers.py:475-487: the goal is the upright pole (zz = 1)."""
+    state_dim = None
+
+    def set_goal(self, generator=None):
+        g = torch.zeros(self.observation_dim, device=self.device)
+        g[0] = 1.0
+        return g
+
+    def get_goal_weights(self):
+        w = torch.zeros(self.observation_dim, device=self.device)
+        w[0:2] = self._state_penalty
+        w[2:] = self._state_penalty / 20
+        return w
+
+
+_WRAPPERS = {'Cheetah': Cheetah, 'Pendulum': Pendulum,
+             'PointMass': PointMass, 'Reacher': Reacher, 'Walker': Walker}
 
 
 def load(env_name: str, task_name: str, device=None,

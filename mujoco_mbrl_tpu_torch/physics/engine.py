@@ -58,6 +58,9 @@ def _forward(m: M.Model, state: M.State, ctrl: torch.Tensor,
                                  meta, gravity_on)
     qfrc_passive = (smooth.spring_force(m, qpos)
                     + smooth.damping_force(m, qvel))
+    if m.ntendon:
+        qfrc_passive = qfrc_passive + smooth.tendon_passive_force(
+            m, qpos, qvel)
     contact = None
     if not (m.opt.disableflags & M.DSBL_CONTACT):
         pairs = M.cached(m, 'candidate_pairs', lambda: (

@@ -1,12 +1,15 @@
 """MJCF-subset compiler: XML string -> :class:`Model` (host-side numpy).
 
 Port of the part of mujoco_mbrl_tpu/physics/mjcf.py that the planar walker
-and cheetah reach: ``<compiler angle settotalmass>``, ``<option timestep
-gravity>``, nested ``<default>`` classes with ``childclass``, bodies with
-``pos`` and orientation, hinge and slide joints with limits, plane and
-capsule geoms (placed by ``pos`` + orientation or by ``fromto``; mass from
-density), and motors. Cameras and lights are visual only and
-skipped. Every other MJCF feature raises ``NotImplementedError`` naming
+and cheetah and the contact-free reacher, point_mass and pendulum reach:
+``<compiler angle settotalmass>``, ``<option timestep gravity>`` with its
+``<flag contact gravity limit actuation>``, nested ``<default>`` classes
+with ``childclass``, bodies with ``pos`` and orientation, hinge and slide
+joints with limits, plane, sphere and capsule geoms (placed by ``pos`` +
+orientation or by ``fromto``; mass given or from density), fixed tendons,
+and motors on a joint or a fixed tendon. Cameras and lights are visual
+only and skipped. Every other MJCF feature (equality constraints, spatial
+tendons, tendon limits among them) raises ``NotImplementedError`` naming
 the JAX function that handles it.
 """
 
@@ -79,7 +82,7 @@ def _skew(p):
 
 
 _JOINT_TYPES = {'slide': M.SLIDE, 'hinge': M.HINGE}
-_GEOM_TYPES = {'plane': M.PLANE, 'capsule': M.CAPSULE}
+_GEOM_TYPES = {'plane': M.PLANE, 'sphere': M.SPHERE, 'capsule': M.CAPSULE}
 _DEFAULT_SOLREF = np.array([0.02, 1.0])
 _DEFAULT_SOLIMP = np.array([0.9, 0.95, 0.001, 0.5, 2.0])
 
@@ -140,20 +143,32 @@ def _orientation(attrs: Dict[str, str], deg: bool) -> np.ndarray:
     return np.array([1.0, 0, 0, 0])
 
 
-def _capsule_volume_inertia(size, mass=None):
-    r, h = size[0], size[1]
-    vol = math.pi * r * r * (2 * h) + 4.0 / 3.0 * math.pi * r ** 3
-    if mass is None:
-        return vol
-    height = 2 * h
-    sphere_mass = mass * 4 * r / (4 * r + 3 * height)
-    cyl_mass = mass - sphere_mass
-    ixy = cyl_mass * (3 * r * r + height * height) / 12.0
-    iz = cyl_mass * r * r / 2.0
-    sph_i = 0.4 * sphere_mass * r * r
-    ixy += sph_i + sphere_mass * height * (3 * r + 2 * height) / 8.0
-    iz += sph_i
-    return np.diag([ixy, ixy, iz])
+def _geom_volume(gtype: int, size) -> float:
+    r = size[0]
+    if gtype == M.SPHERE:
+        return 4.0 / 3.0 * math.pi * r ** 3
+    if gtype == M.CAPSULE:
+        return math.pi * r * r * (2 * size[1]) + 4.0 / 3.0 * math.pi * r ** 3
+    return 0.0                                     # plane: massless
+
+
+def _geom_inertia(gtype: int, size, mass: float) -> np.ndarray:
+    """Diagonal inertia about the geom's CoM in its frame (z = axis), as
+    MuJoCo's compiler computes it."""
+    r = size[0]
+    if gtype == M.SPHERE:
+        return np.diag([0.4 * mass * r * r] * 3)
+    if gtype == M.CAPSULE:
+        height = 2 * size[1]
+        sphere_mass = mass * 4 * r / (4 * r + 3 * height)
+        cyl_mass = mass - sphere_mass
+        ixy = cyl_mass * (3 * r * r + height * height) / 12.0
+        iz = cyl_mass * r * r / 2.0
+        sph_i = 0.4 * sphere_mass * r * r
+        ixy += sph_i + sphere_mass * height * (3 * r + 2 * height) / 8.0
+        iz += sph_i
+        return np.diag([ixy, ixy, iz])
+    return np.zeros((3, 3))
 
 
 def parse(xml_string: str, dtype=torch.float32) -> M.Model:
@@ -161,7 +176,7 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
     root = ET.fromstring(xml_string)
     if root.tag != 'mujoco':
         raise ValueError('not an MJCF document (root tag is not <mujoco>)')
-    for tag in ('tendon', 'equality', 'contact', 'sensor'):
+    for tag in ('equality', 'contact', 'sensor'):
         if root.find(tag) is not None:
             raise _unsupported(f'<{tag}>')
     asset = root.find('asset')
@@ -178,6 +193,7 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
     timestep = 0.002
     gravity = np.array([0.0, 0.0, -9.81])
     solver_iterations = 30
+    disableflags = 0
     opt_el = root.find('option')
     if opt_el is not None:
         timestep = float(opt_el.get('timestep', timestep))
@@ -191,8 +207,14 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
         for k in ('viscosity', 'density', 'wind', 'impratio'):
             if k in opt_el.attrib:
                 raise _unsupported(f'option {k} (fluid model)')
-        if opt_el.find('flag') is not None:
-            raise _unsupported('option <flag>')
+        flag = opt_el.find('flag')
+        if flag is not None:
+            for attr, bit in (('contact', M.DSBL_CONTACT),
+                              ('gravity', M.DSBL_GRAVITY),
+                              ('limit', M.DSBL_LIMIT),
+                              ('actuation', M.DSBL_ACTUATION)):
+                if flag.get(attr) == 'disable':
+                    disableflags |= bit
 
     defaults = _Defaults()
     for d in root.findall('default'):
@@ -210,6 +232,8 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
         if gname not in _GEOM_TYPES:
             raise _unsupported(f'geom type {gname!r}')
         gtype = _GEOM_TYPES[gname]
+        if 'fromto' in attrs and gtype == M.SPHERE:
+            gtype = M.CAPSULE          # fromto implies an elongated geom
         size = np.zeros(3)
         if 'size' in attrs:
             s = _floats(attrs['size'])
@@ -226,12 +250,9 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
             pos = 0.5 * (p0 + p1)
             quat = _zaxis_quat(p0 - p1)
             size[1] = 0.5 * np.linalg.norm(p1 - p0)
-        if gtype == M.CAPSULE:
-            mass = (float(attrs['mass']) if 'mass' in attrs else
-                    float(attrs.get('density', 1000.0))
-                    * _capsule_volume_inertia(size))
-        else:
-            mass = 0.0
+        mass = (float(attrs['mass']) if 'mass' in attrs else
+                float(attrs.get('density', 1000.0))
+                * _geom_volume(gtype, size))
         friction = np.array([1.0, 0.005, 0.0001])
         if 'friction' in attrs:
             f = _floats(attrs['friction'])
@@ -256,7 +277,7 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
             solmix=float(attrs.get('solmix', 1.0))))
         if mass > 0.0:
             R = _nquat_to_mat(quat)
-            inertia_com = R @ _capsule_volume_inertia(size, mass) @ R.T
+            inertia_com = R @ _geom_inertia(gtype, size, mass) @ R.T
             cx = _skew(pos)
             body_mass[body_id] += mass
             body_fm[body_id] = body_fm[body_id] + mass * pos
@@ -337,6 +358,7 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
 
     nbody, njnt = len(body_parent), len(jnts)
     jnt_qposadr = list(range(njnt))       # hinge/slide: one qpos, one dof
+    jnt_dofadr = list(range(njnt))
     nq = nv = njnt
     for j in jnts:
         if j['frictionloss'] != 0.0:
@@ -363,18 +385,46 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
             body_ipos[i] = com
             body_inertia[i] = body_io[i] - bmass[i] * (cx @ cx.T)
 
+    # fixed tendons: one moment row (d length / d qvel) each
+    tendon_names, tendons = {}, []
+    tendon_el = root.find('tendon')
+    for tel in (tendon_el if tendon_el is not None else ()):
+        if tel.tag != 'fixed':
+            raise _unsupported(f'<tendon><{tel.tag}>')
+        attrs = defaults.resolve('fixed', tel.attrib, tel.attrib.get('class'))
+        if attrs.get('limited', 'false') in ('true', '1'):
+            raise _unsupported('tendon limits')
+        row, pairs = np.zeros(nv), []
+        for jref in tel.findall('joint'):
+            ji = jnt_names[jref.get('joint')]
+            coef = float(jref.get('coef'))
+            row[jnt_dofadr[ji]] = coef
+            pairs.append((ji, coef))
+        if attrs.get('name'):
+            tendon_names[attrs['name']] = len(tendons)
+        tendons.append(dict(row=row, jnt=tuple(pairs),
+                            stiffness=float(attrs.get('stiffness', 0.0)),
+                            damping=float(attrs.get('damping', 0.0))))
+    ntendon = len(tendons)
+
     act_names, acts = {}, []
     actuator_el = root.find('actuator')
     for ael in (actuator_el if actuator_el is not None else ()):
         if ael.tag != 'motor':
             raise _unsupported(f'actuator <{ael.tag}>')
         attrs = defaults.resolve('motor', ael.attrib, ael.attrib.get('class'))
-        if 'joint' not in attrs or attrs.get('dyntype', 'none') != 'none':
-            raise _unsupported('tendon transmission / activation dynamics')
+        if attrs.get('dyntype', 'none') != 'none':
+            raise _unsupported('activation dynamics')
+        if 'joint' in attrs:
+            trntype, trnid = M.TRN_JOINT, jnt_names[attrs['joint']]
+        elif 'tendon' in attrs:
+            trntype, trnid = M.TRN_TENDON, tendon_names[attrs['tendon']]
+        else:
+            raise ValueError(f'actuator {attrs} needs joint or tendon')
         if attrs.get('name'):
             act_names[attrs['name']] = len(acts)
         acts.append(dict(
-            trnid=jnt_names[attrs['joint']],
+            trntype=trntype, trnid=trnid,
             gear=float(_floats(attrs.get('gear', '1'))[0]),
             ctrllimited=attrs.get('ctrllimited', 'false') in ('true', '1'),
             ctrlrange=(_floats(attrs['ctrlrange']) if 'ctrlrange' in attrs
@@ -395,23 +445,24 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
         opt=M.Option(timestep=arr(timestep, ()), gravity=arr(gravity, (3,)),
                      viscosity=arr(0.0, ()), density=arr(0.0, ()),
                      wind=arr(np.zeros(3), (3,)),
+                     disableflags=disableflags,
                      solver_iterations=solver_iterations),
         nq=nq, nv=nv, nu=nu, nbody=nbody, njnt=njnt, ngeom=ng, nsite=0,
-        ntendon=0,
+        ntendon=ntendon,
         body_parent=tuple(body_parent),
         jnt_type=tuple(j['type'] for j in jnts),
         jnt_body=tuple(j['body'] for j in jnts),
-        jnt_qposadr=tuple(jnt_qposadr), jnt_dofadr=tuple(jnt_qposadr),
+        jnt_qposadr=tuple(jnt_qposadr), jnt_dofadr=tuple(jnt_dofadr),
         jnt_limited=tuple(bool(j['limited']) for j in jnts),
         dof_jnt=tuple(range(njnt)),
         geom_type=tuple(g['type'] for g in geoms),
         geom_body=tuple(g['body'] for g in geoms),
         site_body=(),
-        actuator_trntype=tuple(M.TRN_JOINT for _ in acts),
+        actuator_trntype=tuple(a['trntype'] for a in acts),
         actuator_trnid=tuple(a['trnid'] for a in acts),
         actuator_ctrllimited=tuple(a['ctrllimited'] for a in acts),
         names={'body': body_names, 'joint': jnt_names, 'geom': geom_names,
-               'site': {}, 'actuator': act_names, 'tendon': {}},
+               'site': {}, 'actuator': act_names, 'tendon': tendon_names},
         body_pos=arr(body_pos, (nbody, 3)),
         body_quat=arr(body_quat, (nbody, 4)),
         body_mass=arr(bmass, (nbody,)),
@@ -450,12 +501,16 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
         actuator_biastype=tuple(M.BIAS_NONE for _ in acts),
         qpos0=arr(qpos0, (nq,)), qpos_spring=arr(qpos_spring, (nq,)),
         actuator_dyntype=tuple(M.DYN_NONE for _ in acts),
-        actuator_actadr=tuple(-1 for _ in acts))
+        actuator_actadr=tuple(-1 for _ in acts),
+        tendon_moment=arr([t['row'] for t in tendons], (ntendon, nv)),
+        tendon_stiffness=arr([t['stiffness'] for t in tendons], (ntendon,)),
+        tendon_damping=arr([t['damping'] for t in tendons], (ntendon,)),
+        tendon_jnt=tuple(t['jnt'] for t in tendons))
     return _with_invweight0(model)
 
 
 def _with_invweight0(model: M.Model) -> M.Model:
-    """dof/body invweight0 at qpos0 (mj_setConst), as the JAX
+    """dof/body/tendon invweight0 at qpos0 (mj_setConst), as the JAX
     ``_with_invweight0`` computes them."""
     from . import smooth
     from .solver import ancestor_dof_mask
@@ -502,6 +557,10 @@ def _with_invweight0(model: M.Model) -> M.Model:
         Jr = cdof_np[:, :3] * mask
         body_iw[bb] = (np.trace(Jt.T @ Minv @ Jt) / 3.0,
                        np.trace(Jr.T @ Minv @ Jr) / 3.0)
+    ten_moment = model.tendon_moment.double().numpy()
+    ten_iw = np.array([r @ Minv @ r for r in ten_moment])
     dt = model.dtype
     return model.replace(dof_invweight0=torch.as_tensor(dof_iw, dtype=dt),
-                         body_invweight0=torch.as_tensor(body_iw, dtype=dt))
+                         body_invweight0=torch.as_tensor(body_iw, dtype=dt),
+                         tendon_invweight0=torch.as_tensor(
+                             ten_iw.reshape(model.ntendon), dtype=dt))

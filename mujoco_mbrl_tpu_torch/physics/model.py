@@ -2,7 +2,8 @@
 
 Port of mujoco_mbrl_tpu/physics/model.py. ``Model`` is shared by the whole
 env batch (unbatched tensors plus static Python tuples that drive the
-unrolled tree loops); ``State`` and ``Data`` carry the env batch as their
+unrolled tree loops), except for the fields a task sets per env
+(``with_env_fields``); ``State`` and ``Data`` carry the env batch as their
 leading dimension. Enum values follow the MuJoCo ABI, as in the JAX package.
 """
 
@@ -50,8 +51,10 @@ _CONSTS: 'weakref.WeakKeyDictionary' = weakref.WeakKeyDictionary()
 
 def cached(m: 'Model', key: str, build: Callable[[], Any]) -> Any:
     """Per-model memo for static derived data (tree tables, index and mask
-    tensors on the model's device): built once, not on every forward."""
-    d = _CONSTS.setdefault(m, {})
+    tensors on the model's device): built once, not on every forward. A
+    model with per-env fields (``with_env_fields``) shares the memo of the
+    model it was made from."""
+    d = _CONSTS.setdefault(getattr(m, '_memo_owner', m), {})
     if key not in d:
         d[key] = build()
     return d[key]
@@ -143,9 +146,16 @@ class Model:
     actuator_dyntype: Tuple[int, ...] = ()
     actuator_actadr: Tuple[int, ...] = ()
     contact_excludes: Tuple[Tuple[int, int], ...] = ()
+    # fixed tendons: linear couplings over scalar joints
+    tendon_moment: Optional[torch.Tensor] = None     # (ntendon, nv)
+    tendon_stiffness: Optional[torch.Tensor] = None  # (ntendon,)
+    tendon_damping: Optional[torch.Tensor] = None    # (ntendon,)
+    # static (joint, coef) pairs per fixed tendon, for its length
+    tendon_jnt: Tuple[Tuple[Tuple[int, float], ...], ...] = ()
     # mj_setConst reference weights (constraint regularizers)
     dof_invweight0: Optional[torch.Tensor] = None   # (nv,)
     body_invweight0: Optional[torch.Tensor] = None  # (nbody, 2)
+    tendon_invweight0: Optional[torch.Tensor] = None  # (ntendon,)
 
     def name2id(self, kind: str, name: str) -> int:
         return self.names[kind][name]
@@ -163,6 +173,25 @@ class Model:
     @property
     def dtype(self) -> torch.dtype:
         return self.qpos0.dtype
+
+
+# Fields a task may set per env (JAX ``Task.apply_params`` under ``vmap``);
+# none of them is read by anything ``cached`` derives.
+ENV_FIELDS = ('geom_pos', 'tendon_moment')
+
+
+def with_env_fields(m: Model, **fields: torch.Tensor) -> Model:
+    """`m` with per-env values of some fields, each with the env batch as
+    its leading dimension (geom_pos (B, ngeom, 3), tendon_moment (B,
+    ntendon, nv)); the functions that read them broadcast over it. The
+    result shares `m`'s ``cached`` memo: one model per batch, not one per
+    env."""
+    bad = set(fields) - set(ENV_FIELDS)
+    if bad:
+        raise ValueError(f'no per-env override for {sorted(bad)}')
+    out = m.replace(**fields)
+    object.__setattr__(out, '_memo_owner', getattr(m, '_memo_owner', m))
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,8 +3,12 @@
 Port of mujoco_mbrl_tpu/physics/smooth.py for hinge and slide joints (the
 walker's joint set). Every function takes the env batch as the leading
 dimension; the loops over bodies are static Python loops over the model's
-tree, as in the JAX package. Free and ball joints, tendons and the fluid
-model raise ``NotImplementedError``.
+tree, as in the JAX package. Fixed tendons (their passive force and
+tendon-driven motors) are ported; free and ball joints, activation and
+bias actuators and the fluid model raise ``NotImplementedError``. A model
+from ``model.with_env_fields`` carries per-env ``geom_pos`` and
+``tendon_moment`` with the env batch leading; ``kinematics`` and
+``actuation`` broadcast over it.
 """
 
 from __future__ import annotations
@@ -239,20 +243,51 @@ def damping_force(m: M.Model, qvel: torch.Tensor) -> torch.Tensor:
     return -m.dof_damping * qvel
 
 
-def actuation(m: M.Model, qpos, qvel, ctrl):
-    """(actuator_force, qfrc_actuator): direct joint motors.
+def fixed_tendon_length(m: M.Model, qpos: torch.Tensor,
+                        t: int) -> torch.Tensor:
+    """(B,) length of fixed tendon t: sum of coef * qpos over its joints
+    (the static couplings of the model, as the JAX function reads them)."""
+    length = torch.zeros_like(qpos[:, 0])
+    for ji, coef in m.tendon_jnt[t]:
+        length = length + coef * qpos[:, m.jnt_qposadr[ji]]
+    return length
 
-    The JAX ``actuation`` also covers tendon transmissions, affine bias
-    and activation dynamics; the walker uses none of them.
+
+def _tendon_row(m: M.Model, t: int) -> torch.Tensor:
+    """Moment row of tendon t: (nv,), or (B, nv) when set per env."""
+    return m.tendon_moment[..., t, :]
+
+
+def tendon_passive_force(m: M.Model, qpos, qvel) -> torch.Tensor:
+    """(B, nv) fixed-tendon spring and damper forces."""
+    qfrc = torch.zeros_like(qvel)
+    springs = M.cached(m, 'tendon_springs', lambda: [
+        t for t, (k, d) in enumerate(zip(m.tendon_stiffness.tolist(),
+                                         m.tendon_damping.tolist()))
+        if k != 0.0 or d != 0.0])
+    for t in springs:
+        row = _tendon_row(m, t)
+        force = (-m.tendon_stiffness[t] * fixed_tendon_length(m, qpos, t)
+                 - m.tendon_damping[t] * (row * qvel).sum(-1))
+        qfrc = qfrc + row * force[:, None]
+    return qfrc
+
+
+def actuation(m: M.Model, qpos, qvel, ctrl):
+    """(actuator_force, qfrc_actuator): motors on joints and on fixed
+    tendons (qfrc += tendon_moment' gear force).
+
+    The JAX ``actuation`` also covers affine bias and activation
+    dynamics; no ported domain uses them. A motor's transmission length
+    and velocity feed only the affine bias, so they are not formed here.
     """
     B, dt, dev = qpos.shape[0], qpos.dtype, qpos.device
     if m.nu == 0 or (m.opt.disableflags & M.DSBL_ACTUATION):
         return (torch.zeros((B, m.nu), dtype=dt, device=dev),
                 torch.zeros((B, m.nv), dtype=dt, device=dev))
-    if (m.na or any(t != M.TRN_JOINT for t in m.actuator_trntype)
-            or any(bt != M.BIAS_NONE for bt in m.actuator_biastype)):
+    if m.na or any(bt != M.BIAS_NONE for bt in m.actuator_biastype):
         raise NotImplementedError(
-            'tendon/bias/stateful actuators are not ported '
+            'bias/stateful actuators are not ported '
             '(mujoco_mbrl_tpu.physics.smooth.actuation)')
 
     def clip_where(x, key, limited, rng):
@@ -266,8 +301,18 @@ def actuation(m: M.Model, qpos, qvel, ctrl):
                    m.actuator_ctrlrange)
     force = clip_where(m.actuator_gainprm[:, 0] * c, 'force_limited',
                        m.actuator_forcelimited, m.actuator_forcerange)
-    dadr = M.cached(m, 'actuator_dofadr', lambda: torch.as_tensor(
-        [m.jnt_dofadr[j] for j in m.actuator_trnid], device=dev))
+    joint_us = [u for u in range(m.nu)
+                if m.actuator_trntype[u] == M.TRN_JOINT]
     qfrc = torch.zeros((B, m.nv), dtype=dt, device=dev)
-    qfrc.index_add_(1, dadr, m.actuator_gear * force)
+    if joint_us:
+        uj, dadr = M.cached(m, 'actuator_dofadr', lambda: (
+            torch.as_tensor(joint_us, device=dev),
+            torch.as_tensor([m.jnt_dofadr[m.actuator_trnid[u]]
+                             for u in joint_us], device=dev)))
+        gf = m.actuator_gear * force
+        qfrc.index_add_(1, dadr, gf if len(joint_us) == m.nu else gf[:, uj])
+    for u in range(m.nu):
+        if m.actuator_trntype[u] != M.TRN_JOINT:
+            qfrc = qfrc + _tendon_row(m, m.actuator_trnid[u]) * (
+                m.actuator_gear[u] * force[:, u:u + 1])
     return force, qfrc

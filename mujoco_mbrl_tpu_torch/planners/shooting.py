@@ -1,7 +1,7 @@
 """Batched CEM planner.
 
-Port of mujoco_mbrl_tpu/planners/shooting.py:cem_batched, both of its
-candidate paths:
+Port of mujoco_mbrl_tpu/planners/shooting.py: ``rollout_actions``,
+``_rollout_costs`` and ``cem_batched`` with its three candidate paths:
 
 * fused: ``sample_costs_fn(seed, mean, std)`` samples, rolls out and costs
   the candidates (``ops.mlp_sample_rollout_costs``) and returns exact-K
@@ -9,13 +9,17 @@ candidate paths:
 * non-fused: the candidates are drawn here, a normal draw clipped to the
   action range in the (H, ad, B, K) layout, and ``rollout_costs_fn(s0T
   (sd, B K), actionsT (H, ad, B K))`` costs them
-  (``ops.mlp_rollout_costs_t``).
+  (``ops.mlp_rollout_costs_t``);
+* the model / cost scan (both functions None): the same draw, costed by
+  ``_rollout_costs``, an H-step loop of ``model(s, a)`` over all B K
+  candidates that sums ``cost(s_next, a)`` (plain PyTorch, as the JAX
+  package leaves it to XLA).
 
 The elite refit is per env. The per-iteration seeds are passed in (the
-JAX function draws them from its key); the non-fused path draws each
-iteration's normals from a generator on the states' device seeded with
-that iteration's seed. The model / cost scan (``_rollout_costs``, both
-functions None) and ``return_states`` are not ported.
+JAX function draws them from its key); the paths that draw here take each
+iteration's normals from ``_normals``: a generator on the states' device
+seeded with that iteration's seed. ``return_states`` re-rolls the final
+mean through ``model``.
 """
 
 from __future__ import annotations
@@ -30,6 +34,39 @@ class Trajectory(NamedTuple):
     actions: torch.Tensor            # (H, B, ad)
 
 
+def rollout_actions(model: Callable, initial_state: torch.Tensor,
+                    actions: torch.Tensor) -> torch.Tensor:
+    """Unroll ``model`` over a (H, ..., ad) action sequence -> (H, ...,
+    sd); leading batch axes of ``initial_state`` broadcast."""
+    states, s = [], initial_state
+    for a in actions:
+        s = model(s, a)
+        states.append(s)
+    return torch.stack(states)
+
+
+def _rollout_costs(model: Callable, cost: Callable,
+                   initial_state: torch.Tensor,
+                   actions: torch.Tensor) -> torch.Tensor:
+    """Total cost of each candidate, sum over t of cost(s_{t+1}, a_t),
+    without keeping the state trajectory. initial_state (N, sd), actions
+    (H, N, ad) -> (N,)."""
+    s = initial_state
+    acc = torch.zeros(initial_state.shape[:-1], dtype=initial_state.dtype,
+                      device=initial_state.device)
+    for a in actions:
+        s = model(s, a)
+        acc = acc + cost(s, a)
+    return acc
+
+
+def _normals(seed: int, shape, dtype, device) -> torch.Tensor:
+    """Standard normals of one CEM iteration, from a generator on
+    ``device`` seeded with the iteration's seed."""
+    g = torch.Generator(device=device).manual_seed(int(seed))
+    return torch.randn(shape, generator=g, dtype=dtype, device=device)
+
+
 def cem_batched(seeds: Sequence[int], initial_states: torch.Tensor,
                 horizon: int, action_dim: int, num_candidates: int = 1000,
                 num_elites: int = 100,
@@ -39,23 +76,29 @@ def cem_batched(seeds: Sequence[int], initial_states: torch.Tensor,
                 alpha: float = 0.1,
                 rollout_costs_fn: Optional[Callable] = None,
                 sample_costs_fn: Optional[Callable] = None,
-                return_states: bool = False) -> Trajectory:
+                return_states: bool = False,
+                model: Optional[Callable] = None,
+                cost: Optional[Callable] = None) -> Trajectory:
     """CEM for a whole env batch; one iteration per entry of ``seeds``.
 
     ``sample_costs_fn(seed, mean (B, H, ad), std) -> (costs (B, K),
-    actions (B, H, ad, K))`` takes precedence; without it
-    ``rollout_costs_fn(s0T, actionsT) -> (B K,)`` costs candidates drawn
-    here. Each iteration refits every env's proposal on its
-    ``num_elites`` lowest-cost candidates:
+    actions (B, H, ad, K))`` takes precedence; without it candidates are
+    drawn here and costed by ``rollout_costs_fn(s0T, actionsT) -> (B K,)``
+    or, without that too, by the scan of ``model(s (N, sd), a (N, ad)) ->
+    (N, sd)`` and ``cost(s, a) -> (N,)``. Each iteration refits every
+    env's proposal on its ``num_elites`` lowest-cost candidates:
     mean <- alpha mean + (1 - alpha) elite_mean,
     std <- max(alpha std + (1 - alpha) elite_std, min_std).
-    Returns the clipped final mean as actions (H, B, ad).
+    Returns the clipped final mean as actions (H, B, ad) and, with
+    ``return_states`` (which needs ``model``), its states (H+1, B, sd)
+    re-rolled through ``model``; the JAX default is True, the port's
+    False, as every batched caller asks.
     """
-    if (sample_costs_fn is None and rollout_costs_fn is None) \
-            or return_states:
-        raise NotImplementedError(
-            'the model / cost scan path (_rollout_costs) and return_states '
-            'are not ported (mujoco_mbrl_tpu.planners.shooting.cem_batched)')
+    scan = sample_costs_fn is None and rollout_costs_fn is None
+    if (scan and (model is None or cost is None)) or (
+            return_states and model is None):
+        raise ValueError('cem_batched needs sample_costs_fn, '
+                         'rollout_costs_fn or a model and a cost')
     H, ad, K = horizon, action_dim, num_candidates
     B, sd = initial_states.shape
     dt, dev = initial_states.dtype, initial_states.device
@@ -77,15 +120,17 @@ def cem_batched(seeds: Sequence[int], initial_states: torch.Tensor,
                                   .expand(B, H, ad, num_elites))
             sum1, sum2 = elites.sum(3), (elites * elites).sum(3)
         else:
-            g = torch.Generator(device=dev).manual_seed(int(seed))
-            eps = torch.randn((H, ad, B, K), generator=g, dtype=dt,
-                              device=dev)
+            eps = _normals(seed, (H, ad, B, K), dt, dev)
             actions = torch.clamp(
                 mean.permute(1, 2, 0)[..., None]
                 + std.permute(1, 2, 0)[..., None] * eps,
                 action_low, action_high)                   # (H, ad, B, K)
-            costs = rollout_costs_fn(
-                s0T, actions.reshape(H, ad, B * K)).reshape(B, K)
+            flat = actions.reshape(H, ad, B * K)
+            if scan:
+                costs = _rollout_costs(model, cost, s0T.T,
+                                       flat.transpose(1, 2)).reshape(B, K)
+            else:
+                costs = rollout_costs_fn(s0T, flat).reshape(B, K)
             elite_idx = torch.topk(-costs, num_elites, dim=1).indices
             # masked reduction over K (JAX shooting.py:271-289)
             member = torch.zeros((B, K), dtype=dt, device=dev)
@@ -97,5 +142,9 @@ def cem_batched(seeds: Sequence[int], initial_states: torch.Tensor,
         mean = alpha * mean + (1 - alpha) * new_mean
         std = torch.clamp(alpha * std + (1 - alpha) * torch.sqrt(var),
                           min=min_std)
-    final = torch.clamp(mean, action_low, action_high)
-    return Trajectory(states=None, actions=final.transpose(0, 1))
+    acts = torch.clamp(mean, action_low, action_high).transpose(0, 1)
+    if not return_states:
+        return Trajectory(states=None, actions=acts)
+    states = rollout_actions(model, initial_states, acts)
+    return Trajectory(states=torch.cat([initial_states[None], states], 0),
+                      actions=acts)

@@ -1,13 +1,20 @@
-"""Control-suite port: the walker and cheetah domains and the environment
-core."""
+"""Control-suite port: the walker, cheetah, reacher, point_mass and
+pendulum domains and the environment core.
+
+Each domain module registers its tasks in its own ``SUITE``
+(``registry.TaggedTasks``), as in mujoco_mbrl_tpu/suite/__init__.py;
+``load`` looks the task up there.
+"""
 
 from __future__ import annotations
 
 from ..device import resolve_device
-from . import cheetah, control, walker
+from . import (cheetah, control, pendulum, point_mass, reacher, registry,
+               walker)
 from .control import EnvState, Environment, TimeStep, flatten_observation
 
-_DOMAINS = {'cheetah': cheetah, 'walker': walker}
+_DOMAINS = {'cheetah': cheetah, 'pendulum': pendulum,
+            'point_mass': point_mass, 'reacher': reacher, 'walker': walker}
 
 
 def load(domain: str, task: str, device=None, **kwargs) -> Environment:
@@ -15,9 +22,13 @@ def load(domain: str, task: str, device=None, **kwargs) -> Environment:
     if domain not in _DOMAINS:
         raise NotImplementedError(
             f'domain {domain!r} is not ported (mujoco_mbrl_tpu.suite.load)')
-    return getattr(_DOMAINS[domain], task)(device=resolve_device(device),
-                                           **kwargs)
+    suite = _DOMAINS[domain].SUITE
+    if task not in suite:
+        raise ValueError(
+            f'Level {task!r} does not exist in domain {domain!r}.')
+    return suite[task](device=resolve_device(device), **kwargs)
 
 
 __all__ = ['EnvState', 'Environment', 'TimeStep', 'cheetah', 'control',
-           'flatten_observation', 'load', 'walker']
+           'flatten_observation', 'load', 'pendulum', 'point_mass',
+           'reacher', 'registry', 'walker']

@@ -13,7 +13,9 @@ import torch
 
 from ..physics import engine, make_state, mjcf
 from . import base, control, rewards, sensors
+from .registry import TaggedTasks
 
+SUITE = TaggedTasks()
 _DEFAULT_TIME_LIMIT = 10
 _RUN_SPEED = 10
 _SETTLE_STEPS = 200
@@ -127,6 +129,7 @@ class Cheetah(base.Task):
                                  sigmoid='linear')
 
 
+@SUITE.add('benchmarking')
 def run(time_limit=_DEFAULT_TIME_LIMIT, device='cuda',
         environment_kwargs=None):
     model = mjcf.parse(_XML).to(device)

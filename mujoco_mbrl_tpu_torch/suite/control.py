@@ -4,7 +4,11 @@ Port of mujoco_mbrl_tpu/suite/control.py: ``Environment.reset``,
 ``_observe``, ``step``, ``step_with_data`` and ``observation_spec``, plus
 ``flatten_observation`` and ``action_spec``. The JAX environment is one env under ``vmap``; here
 every method takes and returns the env batch as the leading dimension.
-Auto-reset and reset retries are not ported.
+A task's per-episode params (reacher's target, point_mass:hard's tendon
+directions) reach the physics through ``_model_with``, which applies the
+task's ``apply_params`` to the shared model as per-env fields
+(``physics.model.with_env_fields``). Auto-reset and reset retries are not
+ported.
 """
 
 from __future__ import annotations
@@ -107,9 +111,15 @@ class Environment:
         the task's order)."""
         phys, params = self._task.initialize_episode(
             self._model, 1, torch.Generator().manual_seed(0))
-        obs = self._observe(self._model, phys, params)
+        obs = self._observe(self._model_with(params), phys, params)
         return {k: ArraySpec(v.shape[1:], str(v.dtype).split('.')[-1], k)
                 for k, v in obs.items()}
+
+    def _model_with(self, params) -> M.Model:
+        """The model with the episodes' task params applied (per env)."""
+        if hasattr(self._task, 'apply_params'):
+            return self._task.apply_params(self._model, params)
+        return self._model
 
     def reset(self, batch: int, generator: torch.Generator
               ) -> Tuple[EnvState, TimeStep]:
@@ -120,7 +130,8 @@ class Environment:
 
     def start(self, phys: M.State, params=()) -> Tuple[EnvState, TimeStep]:
         """EnvState and FIRST TimeStep for given initial physics states."""
-        obs = _pytree_order(self._observe(self._model, phys, params))
+        obs = _pytree_order(self._observe(self._model_with(params), phys,
+                                          params))
         B, dev = phys.qpos.shape[0], phys.qpos.device
         state = EnvState(physics=phys, params=params,
                          step_count=torch.zeros((B,), dtype=torch.int32,
@@ -148,7 +159,7 @@ class Environment:
 
     def step_with_data(self, state: EnvState, action: torch.Tensor):
         """`step` that also returns the post-step forward Data."""
-        m = self._model
+        m = self._model_with(state.params)
         ctrl = self._task.before_step(action, m)
         phys = engine.substep(m, state.physics, ctrl, self._n_sub_steps)
         data = engine.forward(m, phys, ctrl, acc_stage=self._obs_acc)

@@ -8,7 +8,9 @@ from __future__ import annotations
 
 from ..physics import make_state, mjcf
 from . import base, control, randomizers, rewards, sensors
+from .registry import TaggedTasks
 
+SUITE = TaggedTasks()
 _DEFAULT_TIME_LIMIT = 25
 _CONTROL_TIMESTEP = .025
 _STAND_HEIGHT = 1.2
@@ -127,16 +129,19 @@ def _env(move_speed, time_limit, device, environment_kwargs):
                                time_limit=time_limit, **kwargs)
 
 
+@SUITE.add('benchmarking')
 def stand(time_limit=_DEFAULT_TIME_LIMIT, device='cuda',
           environment_kwargs=None):
     return _env(0, time_limit, device, environment_kwargs)
 
 
+@SUITE.add('benchmarking')
 def walk(time_limit=_DEFAULT_TIME_LIMIT, device='cuda',
          environment_kwargs=None):
     return _env(_WALK_SPEED, time_limit, device, environment_kwargs)
 
 
+@SUITE.add('benchmarking')
 def run(time_limit=_DEFAULT_TIME_LIMIT, device='cuda',
         environment_kwargs=None):
     return _env(_RUN_SPEED, time_limit, device, environment_kwargs)

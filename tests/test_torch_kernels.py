@@ -442,3 +442,91 @@ def test_non_fused_cem_launches_rollout_costs_per_iteration(dev):
     assert ops.launch_counts['cem_rollout_costs'] == 3
     assert ops.launch_counts['cem_sample_rollout'] == 0
     assert traj.actions.shape == (H, B, ad)
+
+
+# The contact-free domains' solves: the reacher's one limit row and the
+# point_mass's two, through the one-row-a-lane warp kernel with 31 or 30
+# empty lanes; limit rows active (past the limit) and inactive, cold and
+# warm. Ad is not scaled to a unit diagonal here: a unit-diagonal 2 x 2
+# block has the flat power-iteration start as an exact eigenvector, and
+# rounding then decides which eigenvalue the step size takes (the
+# reference's behaviour, which chip_smoke.py's allowance covers)
+@pytest.mark.parametrize('nr', [1, 2])
+@pytest.mark.parametrize('cold', [True, False])
+@pytest.mark.parametrize('active', [1.0, 0.0])
+def test_apgd_kernel_one_and_two_rows(dev, nr, cold, active):
+    B = 37
+    g = torch.Generator(device=dev).manual_seed(nr)
+    G = torch.randn((B, nr + 1, nr), generator=g, device=dev)
+    A = torch.einsum('bij,bik->bjk', G, G) + 0.1 * torch.eye(nr, device=dev)
+    Ad = (A * active).contiguous()
+    rhs = torch.randn((B, nr), generator=g, device=dev) * active
+    f0 = torch.rand((B, nr), generator=g, device=dev)
+    v0 = torch.randn((B, nr), generator=g, device=dev)
+    act = torch.full((B, nr), active, device=dev)
+    zero = torch.zeros(nr, device=dev)
+    kw = dict(nonneg=tuple(range(nr)), box_rows=(), con0=(), iterations=60,
+              cold=cold)
+    f, v, its = apgd_solve.apgd_iterate_batched(
+        Ad, rhs, f0, v0, act, zero, zero, **kw, return_iterations=True)
+    f_p, v_p, its_p = apgd_solve.apgd_iterate_plain(
+        Ad, rhs, f0, v0, act, zero, zero, **kw, return_iterations=True)
+    torch.testing.assert_close(f, f_p, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(v, v_p, rtol=2e-4, atol=2e-4)
+    assert int((its.long() - its_p).abs().max()) <= 1
+    if active:
+        assert float(f.abs().max()) > 1e-2
+    else:
+        assert float(f.abs().max()) == 0.0
+
+
+# The small models of the contact-free domains (reacher 6 + 2, point_mass
+# 4 + 2, pendulum 3 + 1; hidden 50) take the exact (1, 7, 1)
+# instantiation of every tensor-core kernel
+@pytest.mark.parametrize('sd,ad', [(6, 2), (4, 2), (3, 1)])
+@pytest.mark.parametrize('sampler', ['normal', 'spline4'])
+def test_small_model_exact_instantiation(dev, sd, ad, sampler):
+    B, K, H, n = 6, 101, 9, 5
+    params = MLPDynamics(sd, ad).init(torch.Generator().manual_seed(2),
+                                      device=dev)
+    g, mean, std = _proposal(dev, B, H, ad, 9)
+    s0 = torch.randn((B, sd), generator=g, device=dev)
+    goal = torch.randn(sd, generator=g, device=dev)
+    w = torch.rand(sd, generator=g, device=dev)
+    costs, acts = cem_rollout.mlp_sample_rollout_costs(
+        params, 17, s0, mean, std, goal, w, K, sampler=sampler)
+    ref = cem_rollout.rollout_costs_of_actions(params, s0, acts, goal, w)
+    torch.testing.assert_close(costs, ref, rtol=1e-4, atol=1e-4)
+    # the given-action kernel (#4) on the same actions
+    flat = acts.permute(1, 2, 0, 3).reshape(H, ad, B * K).contiguous()
+    s0T = s0.T[:, :, None].expand(sd, B, K).reshape(sd, B * K).contiguous()
+    given = cem_rollout.mlp_rollout_costs_t(params, s0T, flat, goal, w)
+    torch.testing.assert_close(given.reshape(B, K), ref, rtol=1e-4,
+                               atol=1e-4)
+    # the ensemble sampler (#5 / #6)
+    ens = EnsembleDynamics(MLPDynamics(sd, ad), n).init(
+        torch.Generator().manual_seed(3), device=dev)
+    c_e, a_e = cem_rollout.mlp_sample_rollout_costs_ensemble(
+        ens, 19, s0, mean, std, goal, w, 100, n)
+    r_e = cem_rollout.rollout_costs_of_actions_ensemble(ens, s0, a_e, goal,
+                                                        w)
+    torch.testing.assert_close(c_e, r_e, rtol=1e-4, atol=1e-4)
+
+
+# A layout no exact instantiation takes (sd 40 + ad 6, hidden 64: 8
+# hidden tiles) goes to the guarded (16, 16, 16) instantiation, weights
+# read from global memory
+@pytest.mark.parametrize('sampler', ['normal', 'spline4'])
+def test_sampler_guarded_instantiation(dev, sampler):
+    B, K, H, sd, ad = 4, 101, 9, 40, 6
+    params = MLPDynamics(sd, ad, hidden_units=64).init(
+        torch.Generator().manual_seed(4), device=dev)
+    g, mean, std = _proposal(dev, B, H, ad, 10)
+    s0 = torch.randn((B, sd), generator=g, device=dev)
+    goal = torch.randn(sd, generator=g, device=dev)
+    w = torch.rand(sd, generator=g, device=dev)
+    costs, acts = cem_rollout.mlp_sample_rollout_costs(
+        params, 23, s0, mean, std, goal, w, K, sampler=sampler)
+    ref = cem_rollout.rollout_costs_of_actions(params, s0, acts, goal, w)
+    torch.testing.assert_close(costs, ref, rtol=1e-4, atol=1e-4)
+    assert float(acts.abs().max()) <= 1.0
