@@ -91,9 +91,33 @@ Run from the repository root:  python3 chip_smoke.py
       walker CLI;
    e. pendulum_swingup: the card's step against the CPU's (no constraint
       row, so no launch);
-8. prints one ``{"kernels": [...]}`` line (one entry per TPU kernel), a
-   ``{"paths": ...}`` line with the cheetah and contact-free paths'
-   times, the card line, and last ``{"ok": true, "device": {...}}``.
+8. the humanoid (free root, sphere contacts, condim-1 rows; 303
+   constraint rows over nv 27), each path with exact launch counts:
+   a. the ``humanoid`` preset's control step (``bench.config('humanoid')``:
+      humanoid_walk, 512 envs, CEM 1000 x 30 x 3 through the sampler's
+      (11, 7, 9) instantiation; 5 physics substeps, so 3 sampler +
+      5 factored APGD launches a step, each on #7's block path), its
+      physics against the CPU step, a profile (device-busy share), plan
+      and physics ms;
+   b. #7's block path on solves captured from humanoid_walk at 512 envs
+      (at the reset states and after 20 control steps of random actions,
+      landed; cold and warm), held and timed as in 6b, with the latency of
+      one APGD iteration; the synthetic humanoid-shaped batch of 6b stays;
+   c. #2 at the preset's shape (sd 67, ad 21), held to the plain cost of
+      its actions (rtol 1e-4) and timed beside both bounds, with the
+      instantiation dispatch took (run-time loop bounds over the sized
+      (11, 7, 9) tiles, weights in shared memory), as each sampler case
+      of 7 and 8 prints and checks its own;
+   d. the experiment CLI on humanoid_walk (single MLP over the 60-dim
+      featured state, 5 policy rollouts of 10 steps; 5 sampler + 5
+      factored APGD launches a control step), then the sampler on its
+      fitted params at B = 5 (the (11, 7, 8) instantiation);
+   ptxas registers and spills of the two humanoid instantiations and of
+   the guarded one go into the kernel line;
+9. prints one ``{"kernels": [...]}`` line (one entry per TPU kernel), a
+   ``{"paths": ...}`` line with the cheetah, contact-free and humanoid
+   paths' times, the card line, and last ``{"ok": true, "device":
+   {...}}``.
 
 Any failed check raises, so the process exits non-zero. It also exits
 non-zero without a result when no CUDA card is present or when the
@@ -413,14 +437,28 @@ def factored_phase(dev, torch, cheetah_cases):
         args, kw = factored_problem(dev, torch, 512, 303, 27, 36, cold,
                                     seed=int(cold))
         synthetic.append(('humanoid-synthetic', args, kw))
-    cases = cheetah_cases + synthetic
+    worst, rounding_envs, times = hold_time_factored(
+        torch, cheetah_cases + synthetic)
+    tag, args, kw = cheetah_cases[-1]
+    check(tag == 'moving' and not kw['cold'], tag)
+    return worst, rounding_envs, times, factored_iteration_ns(
+        torch, tag, args, kw)
+
+
+def hold_time_factored(torch, cases):
+    """#7 on each case against its plain version (hold_apgd, with the
+    flat-valley test on J~' f) and timed (time_apgd), with the path each
+    case takes."""
+    from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
+
     routes = {}
     for tag, args, kw in cases:
         nr, nv = args[0].shape[1:]
         routes[tag + ('-cold' if kw['cold'] else '-warm')] = route = \
             A.factored_route(nr, nv)
         print(f'apgd factored {tag} cold={kw["cold"]}: nr {nr}, nv {nv}, '
-              f'B {args[0].shape[0]}: the {route} path')
+              f'B {args[0].shape[0]}, {int(args[7].sum())} rows active: '
+              f'the {route} path')
     dense = lambda a: (a[0] @ a[1]) @ a[0].transpose(1, 2) + torch.diag_embed(
         a[2])
     worst, rounding_envs = hold_apgd(
@@ -439,18 +477,22 @@ def factored_phase(dev, torch, cheetah_cases):
         trace_bound=True)
     for tag, route in routes.items():
         times[tag]['path'] = route
-    # the latency of one APGD iteration: the cheetah's warm solve in
-    # motion, with no exit on convergence (tol2 = 0; every env runs to
-    # the cap), at caps of 1 and 41 iterations
-    tag, args, kw = cheetah_cases[-1]
-    check(tag == 'moving' and not kw['cold'], tag)
+    return worst, rounding_envs, times
+
+
+def factored_iteration_ns(torch, tag, args, kw):
+    """The latency of one APGD iteration of #7 on a warm solve in motion,
+    with no exit on convergence (tol2 = 0; every env runs to the cap), from
+    caps of 1 and 41 iterations."""
+    from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
+
     cap = lambda n: device_ms(lambda: A.apgd_iterate_factored(
         *args, **dict(kw, iterations=n, tol2=0.0)), 20)
     t1, t41 = cap(1), cap(41)
     iteration_ns = 1e6 * (t41 - t1) / 40
     print(f'apgd factored {tag}-warm, tol2 = 0: {t1:.4f} ms at 1 iteration, '
           f'{t41:.4f} ms at 41: {iteration_ns:.0f} ns per APGD iteration')
-    return worst, rounding_envs, times, iteration_ns
+    return iteration_ns
 
 
 def capture_solves(dev, torch, env, state, label, kernel):
@@ -460,7 +502,7 @@ def capture_solves(dev, torch, env, state, label, kernel):
     cheetah's 1-substep control step solves cold only, so its warm case
     comes from this warm step). `kernel` names the wrapper to capture:
     apgd_iterate_batched (walker, 62 rows) or apgd_iterate_factored
-    (cheetah, 146 rows)."""
+    (cheetah, 146 rows; humanoid, 303)."""
     from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
     from mujoco_mbrl_tpu_torch.physics import engine
 
@@ -472,7 +514,7 @@ def capture_solves(dev, torch, env, state, label, kernel):
         return real(*args, **kw)
 
     m = env.model
-    zero = torch.zeros((B, m.nu), device=dev)
+    zero = torch.zeros((state.physics.qpos.shape[0], m.nu), device=dev)
     setattr(A, kernel, capture)
     try:
         s1, f, v = engine.step_warm(m, state.physics, zero)
@@ -1208,8 +1250,8 @@ def card_vs_cpu_step(dev, torch, domain, task, start):
 
     env = suite.load(domain, task, device=dev)
     env_cpu = suite.load(domain, task, device='cpu')
-    nu = env.model.nu
-    acts = 2 * torch.rand((B, nu), generator=torch.Generator().manual_seed(
+    nu, n = env.model.nu, start.physics.qpos.shape[0]
+    acts = 2 * torch.rand((n, nu), generator=torch.Generator().manual_seed(
         5)) - 1
     to_cpu = lambda s: type(s)(physics=type(s.physics)(
         qpos=s.physics.qpos.cpu(), qvel=s.physics.qvel.cpu(),
@@ -1219,9 +1261,10 @@ def card_vs_cpu_step(dev, torch, domain, task, start):
     s_cpu, ts_cpu = env_cpu.step(to_cpu(start), acts)
     dq = float((s_gpu.physics.qpos.cpu() - s_cpu.physics.qpos).abs().max())
     dr = float((ts_gpu.reward.cpu() - ts_cpu.reward).abs().max())
-    print(f'{domain}_{task} physics step, card vs plain CPU at {B} envs: '
+    print(f'{domain}_{task} physics step, card vs plain CPU at {n} envs: '
           f'max|dqpos| {dq:.2e}, max|dreward| {dr:.2e}')
     check(dq < 1e-3 and dr < 1e-3, (domain, dq, dr))
+    return dict(max_dqpos=dq, max_dreward=dr)
 
 
 FULL_T, FULL_EPOCHS, FULL_BATCH = 10, 50, 512
@@ -1404,7 +1447,6 @@ def reacher256_phase(dev, torch):
     wrist-limit row. Then #2 at that shape (the bench's random MLP, the
     exact (1, 7, 1) instantiation) against its plain version, timed."""
     from mujoco_mbrl_tpu_torch import bench, suite
-    from mujoco_mbrl_tpu_torch.ops import cem_rollout as C
 
     cfg = bench.config('reacher256')
     Br, Kr, Hr = cfg['envs'], cfg['candidates'], cfg['horizon']
@@ -1420,65 +1462,66 @@ def reacher256_phase(dev, torch):
     env = suite.load('reacher', 'easy', device=dev)
     obs = suite.flatten_observation(env._observe(
         env._model_with(warm.params), warm.physics, warm.params))
-    sd, ad, hid = obs.shape[1], 2, 50
-    goal = torch.zeros(sd, device=dev)
+    goal = torch.zeros(obs.shape[1], device=dev)
     goal[1] = 1.0
-    weights = torch.ones(sd, device=dev)
-    g = torch.Generator(device=dev).manual_seed(22)
-    mean = (0.3 * torch.randn((Br, Hr, ad), generator=g, device=dev)).clamp(
+    case = sampler_shape_case(
+        dev, torch, 'sampler reacher256', params, obs, goal,
+        torch.ones(obs.shape[1], device=dev), Kr, Hr,
+        torch.Generator(device=dev).manual_seed(22), 7, (1, 7, 1, True, True),
+        reps=20)
+    return counts, out, case
+
+
+def sampler_shape_case(dev, torch, label, params, s0, goal, weights, Kc,
+                       Hc, g, seed, instantiation, reps=5):
+    """#2 at one shape: start states s0 (B, sd), a random CEM proposal
+    (B, Hc, ad) drawn from the generator ``g``, the sampler's noise from
+    ``seed``; the instantiation dispatch takes checked against
+    ``instantiation`` (C.sampler_instantiation); the costs held to the
+    plain cost of the kernel's own actions (rtol 1e-4) with the action
+    checks, and the kernel timed beside both bounds."""
+    from mujoco_mbrl_tpu_torch.ops import cem_rollout as C
+
+    (Bs, sd), hid = s0.shape, params['l2']['w'].shape[0]
+    ad = params['l1']['w'].shape[0] - sd
+    taken = C.sampler_instantiation(Kc, Hc, sd, ad, hid)
+    check(taken == instantiation, (label, taken, instantiation))
+    mean = (0.3 * torch.randn((Bs, Hc, ad), generator=g, device=dev)).clamp(
         -0.9, 0.9)
-    std = 0.2 + torch.rand((Br, Hr, ad), generator=g, device=dev)
-    args = (params, 7, obs, mean, std, goal, weights, Kr)
+    std = 0.2 + torch.rand((Bs, Hc, ad), generator=g, device=dev)
+    args = (params, seed, s0, mean, std, goal, weights, Kc)
     with torch.no_grad():
         costs, acts = C.mlp_sample_rollout_costs(*args)
-        ref = C.rollout_costs_of_actions(params, obs, acts, goal, weights)
-        err, pair = check_actions(torch, 'sampler reacher256', costs, ref,
-                                  acts, mean, Kr)
-        k_ms = time_ms(lambda: C.mlp_sample_rollout_costs(*args), 20)
+        ref = C.rollout_costs_of_actions(params, s0, acts, goal, weights)
+        err, pair = check_actions(torch, label, costs, ref, acts, mean, Kc)
+        k_ms = time_ms(lambda: C.mlp_sample_rollout_costs(*args), reps)
         p_ms = time_ms(lambda: C.mlp_sample_rollout_costs_plain(*args), 2)
-    flops, *bounds = sampler_bound(Br, Kr, Hr, sd, ad, hid)
-    print(f'sampler reacher256 (B={Br} K={Kr} H={Hr} sd={sd} ad={ad}, exact '
-          f'(1, 7, 1)): max|cost - plain(actions)| = {err:.3e}; antithetic '
-          f'max dev {pair:.2e}')
-    case = sampler_case(f'sampler reacher256 B={Br} K={Kr} H={Hr} sd={sd}',
-                        flops, bounds, k_ms, p_ms, max_abs_err=err)
-    return counts, out, case
+    flops, *bounds = sampler_bound(Bs, Kc, Hc, sd, ad, hid)
+    print(f'{label} (B={Bs} K={Kc} H={Hc} sd={sd} ad={ad} hidden={hid}; '
+          f'instantiation {taken}): max|cost - plain(actions)| = '
+          f'{err:.3e}; antithetic max dev {pair:.2e}')
+    return sampler_case(f'{label} B={Bs} K={Kc} H={Hc} sd={sd}', flops,
+                        bounds, k_ms, p_ms, max_abs_err=err,
+                        instantiation=list(taken))
 
 
 def guarded_sampler_case(dev, torch):
     """#2 at a layout no exact instantiation takes (sd 40 + ad 6, hidden
     64: 8 hidden tiles), so dispatch sends it to the guarded (16, 16, 16)
     instantiation with the weights read from global memory; a random MLP,
-    256 envs x 500 candidates x horizon 20, held to the plain cost of its
-    own actions and timed."""
+    256 envs x 500 candidates x horizon 20."""
     from mujoco_mbrl_tpu_torch.models import MLPDynamics
-    from mujoco_mbrl_tpu_torch.ops import cem_rollout as C
 
-    Bg, Kg, Hg, sd, ad, hid = 256, 500, 20, 40, 6, 64
-    params = MLPDynamics(sd, ad, hidden_units=hid).init(
+    Bg, sd, ad = 256, 40, 6
+    params = MLPDynamics(sd, ad, hidden_units=64).init(
         torch.Generator().manual_seed(24), device=dev)
     g = torch.Generator(device=dev).manual_seed(24)
     s0 = torch.randn((Bg, sd), generator=g, device=dev)
     goal = torch.randn(sd, generator=g, device=dev)
     weights = torch.rand(sd, generator=g, device=dev)
-    mean = (0.3 * torch.randn((Bg, Hg, ad), generator=g, device=dev)).clamp(
-        -0.9, 0.9)
-    std = 0.2 + torch.rand((Bg, Hg, ad), generator=g, device=dev)
-    args = (params, 9, s0, mean, std, goal, weights, Kg)
-    with torch.no_grad():
-        costs, acts = C.mlp_sample_rollout_costs(*args)
-        ref = C.rollout_costs_of_actions(params, s0, acts, goal, weights)
-        err, pair = check_actions(torch, 'sampler guarded', costs, ref, acts,
-                                  mean, Kg)
-        k_ms = time_ms(lambda: C.mlp_sample_rollout_costs(*args), 20)
-        p_ms = time_ms(lambda: C.mlp_sample_rollout_costs_plain(*args), 2)
-    flops, *bounds = sampler_bound(Bg, Kg, Hg, sd, ad, hid)
-    print(f'sampler guarded (16, 16, 16) (B={Bg} K={Kg} H={Hg} sd={sd} '
-          f'ad={ad} hidden={hid}): max|cost - plain(actions)| = {err:.3e}; '
-          f'antithetic max dev {pair:.2e}')
-    return sampler_case(f'sampler guarded B={Bg} K={Kg} H={Hg} sd={sd} '
-                        f'hidden={hid}', flops, bounds, k_ms, p_ms,
-                        max_abs_err=err)
+    return sampler_shape_case(dev, torch, 'sampler guarded (16, 16, 16)',
+                              params, s0, goal, weights, 500, 20, g, 9,
+                              (16, 16, 16, False, False), reps=20)
 
 
 def reacher_agent_phase(dev, torch, tmp):
@@ -1566,15 +1609,22 @@ def reacher_agent_phase(dev, torch, tmp):
     return counts, times, fitted
 
 
-def contact_free_cli_phase(dev, torch, tmp, environment, substeps):
-    """The experiment CLI on a contact-free domain: GoalStateAgent, single
-    MLP, the default sampler, CEM 1000 candidates x 5 iterations, 20 seed
-    and 5 policy rollouts of 10 control steps, 1 iteration of 2 epochs.
-    At 5 envs the JAX agent's grouped kernel runs one env per program
-    (_sample_kernel); here it is the same sampler kernel. Then that kernel
-    on the fitted params at the CLI's shapes (the 5 policy rollouts' last
-    observations), as the walker CLI phase holds it."""
+def cli_fitted_phase(dev, torch, tmp, environment, obs_only, instantiation,
+                     **solves):
+    """The experiment CLI on `environment` (the contact-free domains, the
+    humanoid): GoalStateAgent, single MLP, the default sampler, CEM 1000
+    candidates x 5 iterations, 20 seed and 5 policy rollouts of 10 control
+    steps, 1 iteration of 2 epochs; `obs_only` whether the agent must plan
+    in the observation (else in the featured state), `instantiation` the
+    sampler instantiation its plan takes (as sampler_shape_case checks it),
+    `solves` the APGD launches expected of the two collections. At 5 envs the JAX agent's grouped kernel runs one
+    env per program (_sample_kernel); here it is the same sampler kernel.
+    Then that kernel on the fitted params at the CLI's shapes (the 5
+    policy rollouts' last states in the plan space: the observation, or
+    the featured state where the agent plans in it), as the walker CLI
+    phase holds it."""
     from mujoco_mbrl_tpu_torch import experiment, ops
+    from mujoco_mbrl_tpu_torch.ops import cem_rollout as C
 
     args = experiment.parse_args([
         '--exp_dir', tmp, '--environment', environment, '--planner', 'cem',
@@ -1587,24 +1637,32 @@ def contact_free_cli_phase(dev, torch, tmp, environment, substeps):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(ops.launch_counts)
-    # one dense solve per physics substep of the seed and the policy
+    # one APGD solve per physics substep of the seed and the policy
     # collections (10 control steps each); 5 CEM iterations per policy step
-    exact_counts(f'{environment} CLI', counts, apgd_solve=substeps * 2 * 10,
-                 cem_sample_rollout=5 * 10)
+    exact_counts(f'{environment} CLI', counts, cem_sample_rollout=5 * 10,
+                 **solves)
     check(os.path.exists(os.path.join(tmp, 'agent_final.pt')),
           'agent_final not written')
     buf = agent.dataset
-    check(buf.filled == 25 and buf.cursor == 25 and agent.obs_only,
+    check(buf.filled == 25 and buf.cursor == 25
+          and agent.obs_only == obs_only,
           (buf.filled, buf.cursor, agent.obs_only))
-    check(bool(torch.isfinite(buf.observations).all()), 'non-finite obs')
+    plan = buf.observations if obs_only else buf.states
+    check(bool(torch.isfinite(plan).all()), 'non-finite plan-space states')
     print(f'experiment CLI ({environment}, nn, 5 rollouts of 10 steps): '
           f'{wall:.3f} s; launches {counts}')
     # the 5 policy rollouts follow the 20 seed rollouts in the ring
-    obs = buf.observations[20:25, -1].contiguous()
+    obs = plan[20:25, -1].contiguous()
     check(obs.shape == (5, agent.plan_dim) and agent.horizon == 20,
           (obs.shape, agent.horizon))
+    taken = C.sampler_instantiation(
+        K, agent.horizon, agent.plan_dim, agent.environment.action_dim,
+        agent.params['l2']['w'].shape[-1])
+    check(taken == instantiation, (environment, taken, instantiation))
+    print(f'{environment} CLI sampler: instantiation {taken}')
     fitted = fitted_sampler_check(dev, torch, f'{environment} CLI sampler',
                                   agent, obs, agent.horizon, 'normal')
+    fitted['instantiation'] = list(taken)
     return counts, wall, fitted
 
 
@@ -1621,6 +1679,81 @@ def pendulum_phase(dev, torch):
     counts = dict(ops.launch_counts)
     exact_counts('pendulum step', counts)
     return counts
+
+
+HUMANOID_SUBSTEPS = 5        # 0.025 s control step over 0.005 s physics
+
+
+def humanoid_control_step_phase(dev, torch):
+    """(a) CONFIGS['humanoid']: humanoid_walk, 512 envs, CEM 1000 x 30 x 3
+    through the fused sampler (67 + 21 dims: the (11, 7, 9)
+    instantiation), 5 physics substeps a control step, each one factored
+    APGD launch on the block path (303 rows, nv 27); the physics of a
+    control step against the CPU's; a profile (device-busy share)."""
+    from mujoco_mbrl_tpu_torch import bench
+
+    cfg = bench.config('humanoid')
+    Bh, Kh, Hh = cfg['envs'], cfg['candidates'], cfg['horizon']
+    run, (params, state0, gen) = bench.build_bench(
+        cfg['task'], Bh, Kh, Hh, ITERS, STEPS, device=dev)
+    counts, out, state, warm = control_step(
+        dev, torch, run, params, state0, gen, 'humanoid control step',
+        envs=Bh)
+    exact_counts('humanoid control step', counts,
+                 cem_sample_rollout=ITERS * STEPS,
+                 apgd_factored=HUMANOID_SUBSTEPS * STEPS)
+    check(state.physics.qpos.shape == (Bh, 28), state.physics.qpos.shape)
+    out['card_vs_cpu'] = card_vs_cpu_step(dev, torch, 'humanoid', 'walk',
+                                          warm)
+    out.update(profile_phase(torch, run, params, state, gen, out['wall_s']))
+    return counts, out, params, state0, warm
+
+
+def humanoid_factored_phase(dev, torch, state0):
+    """(b) #7's block path against its plain version on solves captured
+    from humanoid_walk at the preset's 512 envs: at the reset states
+    (rejection-sampled, in the air) and after 20 control steps of random
+    actions (landed, limbs in floor contact), cold and warm, with the
+    dense kernel's tolerance and rounding allowance; timed, with its
+    largest iteration count, time per dependent step and the latency of
+    one APGD iteration."""
+    from mujoco_mbrl_tpu_torch import suite
+
+    env = suite.load('humanoid', 'walk', device=dev)
+    n = state0.physics.qpos.shape[0]
+    moving, g_act = state0, torch.Generator(device=dev).manual_seed(8)
+    for _ in range(20):
+        moving, _ = env.step(moving, 2 * torch.rand(
+            (n, env.model.nu), generator=g_act, device=dev) - 1)
+    cases = (capture_solves(dev, torch, env, state0, 'humanoid-reset',
+                            'apgd_iterate_factored')
+             + capture_solves(dev, torch, env, moving, 'humanoid-moving',
+                              'apgd_iterate_factored'))
+    worst, rounding_envs, times = hold_time_factored(torch, cases)
+    tag, args, kw = cases[-1]
+    check(tag == 'humanoid-moving' and not kw['cold'], tag)
+    return worst, rounding_envs, times, factored_iteration_ns(
+        torch, tag, args, kw)
+
+
+def humanoid_sampler_case(dev, torch, params, warm):
+    """(c) #2 at the preset's shape: the bench's random MLP (67-50-50-67)
+    over the observations of the control step's warm-up states, 512 envs
+    x 1000 candidates x horizon 30, ad 21 (the (11, 7, 9) instantiation,
+    run-time loop bounds, weights in shared memory)."""
+    from mujoco_mbrl_tpu_torch import suite
+
+    env = suite.load('humanoid', 'walk', device=dev)
+    obs = suite.flatten_observation(env._observe(env.model, warm.physics,
+                                                 ()))
+    check((obs.shape[1], env.model.nu) == (67, 21), obs.shape)
+    goal = torch.zeros(obs.shape[1], device=dev)
+    goal[1] = 1.0
+    return sampler_shape_case(
+        dev, torch, 'sampler humanoid', params, obs, goal,
+        torch.ones(obs.shape[1], device=dev), K, H,
+        torch.Generator(device=dev).manual_seed(25), 7,
+        (11, 7, 9, False, True))
 
 
 def main() -> int:
@@ -1755,20 +1888,46 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ra_counts, ra_times, ra_fit = reacher_agent_phase(dev, torch, tmp)
     with tempfile.TemporaryDirectory() as tmp:
-        rc_counts, rc_wall, rc_fit = contact_free_cli_phase(
-            dev, torch, tmp, 'reacher_easy', 2)
+        rc_counts, rc_wall, rc_fit = cli_fitted_phase(
+            dev, torch, tmp, 'reacher_easy', True, (1, 7, 1, True, True),
+            apgd_solve=2 * 2 * 10)
     with tempfile.TemporaryDirectory() as tmp:
-        pc_counts, pc_wall, pc_fit = contact_free_cli_phase(
-            dev, torch, tmp, 'point_mass_easy', 1)
+        pc_counts, pc_wall, pc_fit = cli_fitted_phase(
+            dev, torch, tmp, 'point_mass_easy', True, (1, 7, 1, True, True),
+            apgd_solve=1 * 2 * 10)
     pend_counts = pendulum_phase(dev, torch)
+
+    # ---- slice 9: the humanoid ------------------------------------------
+    h_counts, h_out, h_params, h_state0, h_warm = humanoid_control_step_phase(
+        dev, torch)
+    h_err, h_rounding, h_fact_t, h_iter_ns = humanoid_factored_phase(
+        dev, torch, h_state0)
+    samp_h = humanoid_sampler_case(dev, torch, h_params, h_warm)
+    with tempfile.TemporaryDirectory() as tmp:
+        hc_counts, hc_wall, hc_fit = cli_fitted_phase(
+            dev, torch, tmp, 'humanoid_walk', False,
+            (11, 7, 8, False, True),
+            apgd_factored=HUMANOID_SUBSTEPS * 2 * 10)
+
+    sampler_entry = lambda tiles: ptxas_info(
+        'cem_sample_rollout', 'cem_sample_rollout_kernelI' + ''.join(
+            f'Li{t}E' for t in tiles[:3]) + ''.join(
+                f'Lb{int(b)}E' for b in tiles[3:]))
     ptxas = {'apgd_warp_kernel<1>': ptxas_info('apgd_solve',
                                                'apgd_warp_kernelILi1E'),
-             'cem_sample_rollout_kernel<1,7,1,true,true>': ptxas_info(
-                 'cem_sample_rollout', 'ILi1ELi7ELi1ELb1ELb1E')}
+             'cem_sample_rollout_kernel<1,7,1,true,true>': sampler_entry(
+                 (1, 7, 1, True, True)),
+             'cem_sample_rollout_kernel<11,7,9,false,true>': sampler_entry(
+                 (11, 7, 9, False, True)),
+             'cem_sample_rollout_kernel<11,7,8,false,true>': sampler_entry(
+                 (11, 7, 8, False, True)),
+             'cem_sample_rollout_kernel<16,16,16,false,false>':
+                 sampler_entry((16, 16, 16, False, False))}
     print(f'ptxas: {ptxas}')
     samp_t['cases']['reacher256_b256_k500_h20_sd6'] = samp_r256
     samp_t['cases']['reacher_agent_b1024_sd6_fitted'] = ra_fit
     samp_t['cases']['guarded_b256_k500_h20_sd40_hid64'] = samp_guarded
+    samp_t['cases']['humanoid_b512_k1000_h30_sd67'] = samp_h
 
     paths = {'walker_control_step': counts,
              'walker_ens_control_step': ens_counts,
@@ -1779,7 +1938,8 @@ def main() -> int:
              'reacher256_control_step': r_counts,
              'reacher_agent_loop': ra_counts, 'reacher_cli': rc_counts,
              'point_mass_cli': pc_counts,
-             'pendulum_step': pend_counts}
+             'pendulum_step': pend_counts,
+             'humanoid_control_step': h_counts, 'humanoid_cli': hc_counts}
     by_path = lambda key: {p: c[key] for p, c in paths.items() if c[key]}
     src = lambda f: f'mujoco_mbrl_tpu_torch/csrc/{f}'
     tpu = lambda f, line, fn: f'mujoco_mbrl_tpu/ops/{f}:{line} ({fn})'
@@ -1811,24 +1971,32 @@ def main() -> int:
              launches=c_counts['cem_sample_rollout'],
              max_abs_err=max(samp_err, samp_cheetah['max_abs_err'],
                              samp_r256['max_abs_err'], ra_fit['max_abs_err'],
-                             samp_guarded['max_abs_err']),
+                             samp_guarded['max_abs_err'],
+                             samp_h['max_abs_err']),
              library_ms=None, **pick_s(samp_cheetah),
              launches_by_path=by_path('cem_sample_rollout'),
              cases=dict(samp_t['cases'], cheetah_sd17=samp_cheetah),
              ptxas_small_exact=ptxas[
-                 'cem_sample_rollout_kernel<1,7,1,true,true>']),
+                 'cem_sample_rollout_kernel<1,7,1,true,true>'],
+             ptxas_humanoid={k: ptxas[
+                 f'cem_sample_rollout_kernel<{k},false,true>']
+                 for k in ('11,7,9', '11,7,8')},
+             ptxas_guarded=ptxas[
+                 'cem_sample_rollout_kernel<16,16,16,false,false>']),
         dict(name='mlp_sample_rollout_costs[spline4]', route='cuda',
              source=src('cem_sample_rollout.cu'),
              replaces=tpu('cem_rollout.py', 258, '_sample_kernel'),
              launches=cli_counts['cem_sample_rollout'],
              max_abs_err=max(cli_fit['max_abs_err'], rc_fit['max_abs_err'],
-                             pc_fit['max_abs_err']), library_ms=None,
-             **pick_s(samp_t['cases']['spline4']),
+                             pc_fit['max_abs_err'], hc_fit['max_abs_err']),
+             library_ms=None, **pick_s(samp_t['cases']['spline4']),
              launches_by_path={p: paths[p]['cem_sample_rollout'] for p in (
-                 'walker_cli_spline4', 'reacher_cli', 'point_mass_cli')},
+                 'walker_cli_spline4', 'reacher_cli', 'point_mass_cli',
+                 'humanoid_cli')},
              cli_b5_h20=cli_fit,
              cases=dict(reacher_cli_b5_h20_sd6_fitted=rc_fit,
-                        point_mass_cli_b5_h20_sd4_fitted=pc_fit)),
+                        point_mass_cli_b5_h20_sd4_fitted=pc_fit,
+                        humanoid_cli_b5_h20_sd60_fitted=hc_fit)),
         dict(name='mlp_rollout_costs_t', route='cuda',
              source=src('cem_rollout_costs.cu'),
              replaces=tpu('cem_rollout.py', 70, '_kernel'),
@@ -1860,7 +2028,8 @@ def main() -> int:
         dict(name='apgd_iterate_factored', route='cuda',
              source=src('apgd_factored.cu'),
              replaces=tpu('apgd_solve.py', 236, '_apgd_factored_kernel'),
-             launches=c_counts['apgd_factored'], max_abs_err=fact_err,
+             launches=c_counts['apgd_factored'],
+             max_abs_err=max(fact_err, h_err),
              library_ms=None, **pick(fact_t['moving-cold']),
              path=fact_t['moving-cold']['path'],
              call_ms=fact_t['moving-cold']['call_ms'],
@@ -1868,15 +2037,20 @@ def main() -> int:
              us_per_dependent_step=fact_t['moving-cold'][
                  'us_per_dependent_step'],
              iteration_ns=fact_iter_ns,
-             rounding_decided_envs=fact_rounding,
-             launches_by_path=by_path('apgd_factored'), cases=fact_t),
+             rounding_decided_envs=fact_rounding + h_rounding,
+             launches_by_path=by_path('apgd_factored'),
+             cases=dict(fact_t, **h_fact_t),
+             humanoid=dict(h_fact_t['humanoid-moving-warm'],
+                           iteration_ns=h_iter_ns,
+                           rounding_decided_envs=h_rounding)),
     ]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'paths': dict(
         cheetah_control_step=c_out, cheetah_non_fused_control_step=nf_out,
         cheetah_full_loop=loop_t, reacher256_control_step=r_out,
         reacher_agent_loop=ra_times, reacher_cli_s=rc_wall,
-        point_mass_cli_s=pc_wall)}))
+        point_mass_cli_s=pc_wall, humanoid_control_step=h_out,
+        humanoid_cli_s=hc_wall)}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

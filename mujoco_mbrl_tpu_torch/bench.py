@@ -9,10 +9,12 @@ Port of ``bench.py``'s ``build_bench`` (defaults of its ``main``),
 50-hidden MLP dynamics model with random weights from a seed (goal e_1,
 unit cost weights, K // 10 elites), then one batched ``env.step``
 (walker: 10 physics substeps and 10 dense APGD launches; cheetah: 1
-substep and 1 factored APGD launch; reacher_easy: 1 substep and 1 dense
-APGD launch for its one limit row). The candidates take the JAX bench's
-route (``bench.py:78``): the fused sampler when obs_dim + act_dim >= 16
-(walker, cheetah), else ``cem_batched``'s model / cost scan in plain
+substep and 1 factored APGD launch; humanoid_walk: 5 substeps and 5
+factored APGD launches on the block path, 303 rows; reacher_easy: 1
+substep and 1 dense APGD launch for its one limit row). The candidates
+take the JAX bench's route (``bench.py:78``): the fused sampler when
+obs_dim + act_dim >= 16 (walker, cheetah, humanoid's 67 + 21), else
+``cem_batched``'s model / cost scan in plain
 PyTorch (reacher: 6 + 2). ``fused=True`` forces the sampler;
 ``fused=False`` takes ``cem_batched``'s non-fused branch instead:
 candidates drawn with ``torch.randn``, costed by the rollout-cost kernel
@@ -53,8 +55,10 @@ CONFIGS = {
                        horizon=30, model='ensemble'),
     'reacher256': dict(task='reacher_easy', envs=256, candidates=500,
                        horizon=20),
+    'humanoid': dict(task='humanoid_walk', envs=512, candidates=1000,
+                     horizon=30),
 }
-_NOT_PORTED = ('cartpole', 'humanoid')
+_NOT_PORTED = ('cartpole',)
 # the JAX bench's rule: the fused sampler only where the feature dims carry
 # real work (bench.py:78); smaller models plan through the scan
 FUSED_MIN_DIMS = 16

@@ -68,6 +68,7 @@ namespace cem_mma {
 constexpr int kTileFloats = 128;          // floats per fragment tile
 constexpr int kWarps = 8;                 // warps per block
 constexpr int kMinBlocks = 2;             // per SM: 128 registers a thread
+                                          // (the narrow exact tiles)
 constexpr int kBlock = 32 * kWarps;
 constexpr int kMaxSharedBytes = 232448;
 
@@ -524,30 +525,72 @@ inline Cfg make_cfg(int B, int K, int n, int H, int sd, int ad, int hid,
   return c;
 }
 
-// exact: the tile counts of the walker (sd 19-24, ad 6, hidden 50) and
-// cheetah (sd 17) models, and of the small models of the contact-free
-// domains (sd + ad <= 8: reacher 6 + 2, point_mass 4 + 2, pendulum 3 + 1;
-// hidden 50), weights in shared memory; large: any other shape the guarded
-// instantiation takes, weights read from global memory
-inline bool is_exact(const Layout& L) {
+// Instantiations sized to a model's tile counts, the weights staged in
+// shared memory beside the warps' scratch where they fit: with exact tile
+// counts (no run-time guard in the unrolled loops) for the walker (sd
+// 19-24, ad 6) and cheetah (sd 17) models and the small models of the
+// contact-free domains (sd + ad <= 8: reacher 6 + 2, point_mass 4 + 2,
+// pendulum 3 + 1); with run-time loop bounds for the humanoid's (sd + ad
+// 81..88: the bench's 67-dim observation, 9 state tiles; the CLI's 60-dim
+// featured state, 8), whose exact unrolled loops spill at 255 registers
+// where these take 168-176 and spill none; hidden 50 in all. Any other
+// shape: the guarded instantiation (up to 16 / 16 tiles), weights read
+// from global memory.
+inline bool sized_tiles(const Layout& L) {
   return L.nh == 7 && (((L.ni == 4 || L.ni == 3) && L.nso == 3) ||
-                       (L.ni == 1 && L.nso == 1));
+                       (L.ni == 1 && L.nso == 1) ||
+                       (L.ni == 11 && (L.nso == 9 || L.nso == 8)));
+}
+inline bool is_staged(const Layout& L, size_t scratch) {
+  return sized_tiles(L) &&
+         sizeof(float) * (L.total + scratch) <= (size_t)kMaxSharedBytes;
 }
 inline bool is_large(const Layout& L) { return L.ni <= 16 && L.nh <= 16; }
 
-// The instantiation that takes layout L: exact tile counts (no run-time
-// guard in the unrolled loops), or guarded loops up to 16 / 16 tiles.
+// Blocks an SM must hold (__launch_bounds__): two for the narrow exact
+// tiles (128 registers a thread); one for the humanoid's wide tiles, whose
+// weights and scratch fill an SM's shared memory, and for the guarded
+// instantiation (up to 255 registers).
+constexpr int min_blocks(int ni, bool smem) {
+  return smem && ni <= 4 ? kMinBlocks : 1;
+}
+
+// The instantiation that takes layout L with `scratch` floats of per-warp
+// scratch
 template <typename F>
-inline int dispatch(const Layout& L, const F& f) {
-  if (is_exact(L) && L.ni == 4) return f.template run<4, 7, 3, true, true>();
-  if (is_exact(L) && L.ni == 3) return f.template run<3, 7, 3, true, true>();
-  if (is_exact(L)) return f.template run<1, 7, 1, true, true>();
-  return f.template run<16, 16, 16, false, false>();
+inline int dispatch(const Layout& L, size_t scratch, const F& f) {
+  if (!is_staged(L, scratch))
+    return f.template run<16, 16, 16, false, false>();
+  if (L.ni == 4) return f.template run<4, 7, 3, true, true>();
+  if (L.ni == 3) return f.template run<3, 7, 3, true, true>();
+  if (L.ni == 1) return f.template run<1, 7, 1, true, true>();
+  if (L.nso == 9) return f.template run<11, 7, 9, false, true>();
+  return f.template run<11, 7, 8, false, true>();
+}
+
+// dispatch's choice, launching nothing: NI, NH, NSO, EXACT, SMEM of the
+// instantiation into out[0..4]
+struct Which {
+  int* out;
+  template <int NI, int NH, int NSO, bool EXACT, bool SMEM>
+  int run() const {
+    out[0] = NI;
+    out[1] = NH;
+    out[2] = NSO;
+    out[3] = EXACT;
+    out[4] = SMEM;
+    return 0;
+  }
+};
+
+inline size_t scratch_floats(const Cfg& c) {
+  return (size_t)kWarps * warp_floats(c.H, c.ad, c.nu);
 }
 
 inline size_t smem_bytes(const Cfg& c) {
-  const size_t scratch = (size_t)kWarps * warp_floats(c.H, c.ad, c.nu);
-  return sizeof(float) * ((is_exact(c.L) ? c.L.total : 0) + scratch);
+  const size_t scratch = scratch_floats(c);
+  return sizeof(float) *
+         ((is_staged(c.L, scratch) ? c.L.total : 0) + scratch);
 }
 
 // grid: every SM filled at the kernel's occupancy, no more blocks than

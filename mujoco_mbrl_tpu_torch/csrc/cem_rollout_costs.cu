@@ -143,7 +143,7 @@ __device__ void given_tile(const Given& c, const float* W, float* ws,
 }
 
 template <int NI, int NH, int NSO, bool EXACT, bool SMEM>
-__global__ void __launch_bounds__(kBlock, SMEM ? kMinBlocks : 1)
+__global__ void __launch_bounds__(kBlock, min_blocks(NI, SMEM))
     cem_rollout_costs_kernel(Given c, const float* __restrict__ packed,
                              const float* __restrict__ s0_g,
                              const float* __restrict__ mu_g,
@@ -166,9 +166,14 @@ __global__ void __launch_bounds__(kBlock, SMEM ? kMinBlocks : 1)
                                           act_g, costs_g);
 }
 
+inline size_t given_scratch_floats(const Given& c) {
+  return (size_t)kWarps * 2 * c.ad * kAS;
+}
+
 inline size_t given_smem_bytes(const Given& c) {
-  return sizeof(float) * ((is_exact(c.L) ? c.L.total : 0) +
-                          (size_t)kWarps * 2 * c.ad * kAS);
+  const size_t scratch = given_scratch_floats(c);
+  return sizeof(float) * ((is_staged(c.L, scratch) ? c.L.total : 0) +
+                          scratch);
 }
 
 struct Launch {
@@ -212,5 +217,5 @@ extern "C" int cem_rollout_costs(const float* s0T, const float* mu,
     return (int)cudaErrorInvalidValue;
   if (N <= 0) return 0;
   const Launch l{c, packed, s0T, mu, actionsT, costs, (cudaStream_t)stream};
-  return dispatch(c.L, l);
+  return dispatch(c.L, given_scratch_floats(c), l);
 }

@@ -42,7 +42,7 @@ namespace {
 using namespace cem_mma;
 
 template <int NI, int NH, int NSO, bool EXACT, bool SMEM>
-__global__ void __launch_bounds__(kBlock, SMEM ? kMinBlocks : 1)
+__global__ void __launch_bounds__(kBlock, min_blocks(NI, SMEM))
     cem_sample_rollout_kernel(Cfg c, const float* __restrict__ packed,
                               const float* __restrict__ s0_g,
                               const float* __restrict__ mean_g,
@@ -97,6 +97,17 @@ extern "C" size_t cem_sample_smem_bytes(int K, int H, int sd, int ad,
   return is_large(c.L) ? smem_bytes(c) : 0;
 }
 
+// The instantiation a launch of these sizes takes: NI, NH, NSO, EXACT and
+// SMEM into out[0..4] (dispatch, nothing launched); non-zero when the
+// shapes are not taken.
+extern "C" int cem_sample_instantiation(int K, int H, int sd, int ad,
+                                        int hid, int antithetic, int* out) {
+  const Cfg c = make_cfg(1, K, 1, H, sd, ad, hid, 0, antithetic, 0.f, 0.f,
+                         0.f, 1.f, 0ull);
+  if (!is_large(c.L)) return (int)cudaErrorInvalidValue;
+  return dispatch(c.L, scratch_floats(c), Which{out});
+}
+
 extern "C" int cem_sample_rollout(
     const float* s0, const float* mean, const float* stdv,
     const float* packed, unsigned long long seed, int B, int K, int H, int sd,
@@ -110,5 +121,5 @@ extern "C" int cem_sample_rollout(
   if (B <= 0 || K <= 0) return 0;
   const Launch l{c, packed, s0, mean, stdv, costs, actions,
                  (cudaStream_t)stream};
-  return dispatch(c.L, l);
+  return dispatch(c.L, scratch_floats(c), l);
 }

@@ -44,7 +44,7 @@ namespace {
 using namespace cem_mma;
 
 template <int NI, int NH, int NSO, bool EXACT, bool SMEM>
-__global__ void __launch_bounds__(kBlock, SMEM ? kMinBlocks : 1)
+__global__ void __launch_bounds__(kBlock, min_blocks(NI, SMEM))
     cem_sample_rollout_ens_kernel(Cfg c, const float* __restrict__ packed,
                                   const float* __restrict__ s0_g,
                                   const float* __restrict__ mean_g,
@@ -120,5 +120,5 @@ extern "C" int cem_sample_rollout_ens(
   if (B <= 0 || K <= 0) return 0;
   const Launch l{c, packed, s0, mean, stdv, costs, actions,
                  (cudaStream_t)stream};
-  return dispatch(c.L, l);
+  return dispatch(c.L, scratch_floats(c), l);
 }

@@ -1,7 +1,9 @@
 """MBRL env wrappers: featured state, goals, batched rollout collection.
 
-Port of the EnvWrapper base and the Walker, Cheetah, Reacher, PointMass
-and Pendulum wrappers of mujoco_mbrl_tpu/envs/wrappers.py. The JAX wrapper collects under
+Port of the EnvWrapper base and the Walker, Cheetah, Reacher, PointMass,
+Pendulum and Humanoid wrappers of mujoco_mbrl_tpu/envs/wrappers.py. The
+featured state's [qpos, qvel] part is nq + nv wide (the humanoid's free
+root gives nq 28, nv 27). The JAX wrapper collects under
 ``vmap`` + ``lax.scan``; here the env batch is the leading dimension and
 collection is a Python loop over control steps. Collection is two steps,
 ``reset`` and ``collect_from(env_state, ...)``, so a caller can start it
@@ -387,7 +389,76 @@ class Pendulum(EnvWrapper):
         return w
 
 
-_WRAPPERS = {'Cheetah': Cheetah, 'Pendulum': Pendulum,
+class Humanoid(EnvWrapper):
+    """wrappers.py:668-727: [qpos, qvel] and five Tassa-style features
+    (feet-to-CoM, torso-to-CoM and torso-over-feet distances, CoM xy
+    velocity), which the goal weights alone weigh."""
+    state_dim = 55 + 5
+    observation_dim = 67
+    # the qpos0 the JAX sample_state draws around: height 1.3, the joint
+    # ranges of the 21 hinges (radians, rounded as the JAX wrapper has
+    # them); its root quaternion stays zero, as there
+    _SAMPLE_RANGES = (
+        (-0.7854, 0.7854), (-1.3089, 0.5236), (-0.6109, 0.6109),
+        (-0.4363, 0.0873), (-1.0472, 0.6109), (-1.9199, 0.3491),
+        (-2.7925, 0.0349), (-0.8727, 0.8727), (-0.8727, 0.8727),
+        (-0.4363, 0.0873), (-1.0472, 0.6109), (-1.9199, 0.3491),
+        (-2.7925, 0.0349), (-0.8727, 0.8727), (-0.8727, 0.8727),
+        (-1.4835, 1.0472), (-1.4835, 1.0472), (-1.5708, 0.8727),
+        (-1.0472, 1.4835), (-1.0472, 1.4835), (-1.5708, 0.8727))
+
+    def get_state(self, env_state, data=None):
+        m = self._env.model
+        phys = env_state.physics
+        base = torch.cat([phys.qpos, phys.qvel], 1)
+        if data is None:
+            return torch.cat([base, base.new_zeros((base.shape[0], 5))], 1)
+        torso = m.name2id('body', 'torso')
+        rfoot = data.xpos[:, m.name2id('body', 'right_foot')]
+        lfoot = data.xpos[:, m.name2id('body', 'left_foot')]
+        com = sensors.subtree_com(m, data, torso)
+        ave_foot = (rfoot + lfoot) / 2.0
+        torso_pos = data.xpos[:, torso]
+        above_feet = ave_foot[:, 1:] + torch.tensor(
+            [0.0, 1.3], dtype=base.dtype, device=base.device)
+        norm = lambda x: torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+        p1 = norm(com[:, :2] - ave_foot[:, :2])
+        p2 = norm(com[:, :2] - torso_pos[:, :2])
+        p3 = norm(torso_pos[:, 1:] - above_feet)
+        com_vel = sensors.subtree_linvel(m, data, torso)[:, :2]
+        return torch.cat([base, p1, p2, p3, com_vel], 1)
+
+    def sample_action(self, generator, batch_shape=()):
+        """Normal torques (std 0.4) on the legs only: the abdomen's three
+        and the arms' six motors get zero (wrappers.py:694-699)."""
+        a = 0.4 * torch.randn(tuple(batch_shape) + (self.action_dim,),
+                              generator=generator, device=generator.device)
+        a[..., 3:-6] = 0.0
+        return a.to(self.device)
+
+    def sample_state(self, generator, batch_shape=()):
+        shape = tuple(batch_shape)
+        lo, hi = zip(*self._SAMPLE_RANGES)
+        st = torch.zeros(shape + (55,), device=self.device)
+        st[..., 2] = 1.3
+        st[..., 7:28] = self._uniform(generator, shape + (21,), lo, hi)
+        return st
+
+    def state_to_physics(self, state):
+        """(qpos, qvel) of a featured state: nq then nv wide."""
+        m = self._env.model
+        return state[..., :m.nq], state[..., m.nq:m.nq + m.nv]
+
+    def get_goal_weights(self):
+        w = torch.zeros(self.state_dim, device=self.device)
+        w[-5:] = 10 * self._state_penalty
+        return w
+
+    def set_goal(self, generator=None):
+        return torch.zeros(self.state_dim, device=self.device)
+
+
+_WRAPPERS = {'Cheetah': Cheetah, 'Humanoid': Humanoid, 'Pendulum': Pendulum,
              'PointMass': PointMass, 'Reacher': Reacher, 'Walker': Walker}
 
 

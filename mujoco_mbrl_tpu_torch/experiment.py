@@ -6,8 +6,11 @@ Port of mujoco_mbrl_tpu/experiment.py with the same CONFIG_DEF and enums:
         --environment walker_walk --planner cem --model ens
 
 plus ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch
-versions of the kernels). Choices whose classes are not ported (planners
-rs / grad / ilqr, models lin / rw / rnn, agent rw) raise
+versions of the kernels). ``--environment`` takes the ported domains'
+tasks: walker, cheetah, reacher, point_mass, pendulum and humanoid
+(``humanoid_stand``, ``humanoid_walk``, ``humanoid_run``). Choices
+whose classes are not ported (planners rs / grad / ilqr, models lin / rw
+/ rnn, agent rw) raise
 ``NotImplementedError`` when constructed. Defaults follow the JAX CLI:
 horizon 20, rollout_length 200, 5 rollouts per iteration, 10 iterations,
 Adam lr=0.01.

@@ -18,9 +18,9 @@ barrier; past that, up to 1024 rows (the humanoid's 303 x 27), one block
 per env with J~ and M^-1 in shared memory, two barriers a matvec. Each
 env is a chain of ~85 dependent matvecs, so the kernel is latency-bound
 far above its bytes and FP32 bound. For CPU tensors it runs
-``apgd_iterate_factored_plain``, which materializes Ad and runs the plain
-iterate with the trace staleness bound. There is no fallback from a
-kernel to its plain version.
+``apgd_iterate_factored_plain``, the plain iterate with the trace
+staleness bound on Ad applied in its factors and in float64. There is no
+fallback from a kernel to its plain version.
 """
 
 from __future__ import annotations
@@ -65,22 +65,31 @@ def _masks(nr: int, nonneg, box_rows, con0, device):
 def apgd_iterate_plain(Ad, rhs, f0, v0, active, mu_full, bounds_full, *,
                        nonneg, box_rows, con0, iterations: int, cold: bool,
                        tol2: float = 1e-12, eq_rows: tuple = (),
-                       return_iterations: bool = False,
-                       trace_safe_l: bool = False):
+                       return_iterations: bool = False):
     """Plain PyTorch iterate over the env batch (leading dim B).
 
     Same contract as the JAX ``apgd_iterate_batched``: Ad (B, nr, nr),
     rhs / f0 (scaled warm start) / v0 (power vector) / active (B, nr),
     mu_full / bounds_full (nr,). Returns (f, v), each (B, nr), and with
     ``return_iterations`` also the APGD iterations each env ran (B,).
-    ``trace_safe_l`` takes the trace of Ad, not its largest absolute row
-    sum, as the warm staleness fallback (the factored regime's bound).
+    The warm staleness fallback is Ad's largest absolute row sum.
     """
+    return _iterate(lambda x: (Ad @ x[..., None])[..., 0],
+                    lambda: Ad.abs().sum(2).max(1).values, Ad, rhs,
+                    f0, v0, active, mu_full, bounds_full, nonneg=nonneg,
+                    box_rows=box_rows, con0=con0, iterations=iterations,
+                    cold=cold, tol2=tol2, eq_rows=eq_rows,
+                    return_iterations=return_iterations)
+
+
+def _iterate(matvec, safe_l, Ad, rhs, f0, v0, active, mu_full, bounds_full,
+             *, nonneg, box_rows, con0, iterations, cold, tol2, eq_rows,
+             return_iterations):
+    """The plain iterate on the operator ``matvec`` (x (B, nr) -> Ad x),
+    with ``safe_l()`` (B,) the warm staleness fallback before its clamp at
+    1; ``Ad`` is read only by the equality polish of ``eq_rows``."""
     B, nr = rhs.shape
     dt = rhs.dtype
-
-    def matvec(x):
-        return (Ad @ x[..., None])[..., 0]
 
     def power(v):
         w = matvec(v)
@@ -102,11 +111,7 @@ def apgd_iterate_plain(Ad, rhs, f0, v0, active, mu_full, bounds_full, *,
         for _ in range(2):
             v = power(v)
         r8 = (v * matvec(v)).sum(1)
-        if trace_safe_l:
-            safe_L = torch.clamp(torch.diagonal(Ad, dim1=1, dim2=2).sum(1),
-                                 min=1.0)
-        else:
-            safe_L = torch.clamp(Ad.abs().sum(2).max(1).values, min=1.0)
+        safe_L = torch.clamp(safe_l(), min=1.0)
         stale = (r8 - r6) > 0.02 * torch.clamp(r8, min=1e-12)
         L = torch.where(stale, safe_L, 1.5 * torch.clamp(r8, min=1.0))
     L = L[:, None]
@@ -235,15 +240,29 @@ def apgd_iterate_factored_plain(J_s, Minv, Rs, diag_s, rhs, f0, v0, active,
                                 tol2: float = 1e-12,
                                 return_iterations: bool = False):
     """Plain factored iterate: the batched form of physics/solver.py's
-    ``_apgd_dispatch_factored.impl_f``. Materializes
-    Ad = (J~ M^-1) J~' + diag(Rs) and runs ``apgd_iterate_plain`` with the
-    trace staleness bound; ``diag_s`` (the kernel's trace input) is not
-    read, as ``impl_f`` does not read it."""
-    Ad = (J_s @ Minv) @ J_s.transpose(1, 2) + torch.diag_embed(Rs)
-    return apgd_iterate_plain(
-        Ad, rhs, f0, v0, active, mu_full, bounds_full, nonneg=nonneg,
-        box_rows=box_rows, con0=con0, iterations=iterations, cold=cold,
-        tol2=tol2, return_iterations=return_iterations, trace_safe_l=True)
+    ``_apgd_dispatch_factored.impl_f`` (``apgd_iterate_plain`` with the
+    trace staleness bound), the operator Ad = J~ M^-1 J~' + diag(Rs)
+    applied in its factors and in float64, its result rounded to the
+    iterate's dtype. In float32 that operator's rounding, with Ad formed
+    as ``impl_f`` forms it or factored, takes some of the humanoid's
+    unconverged envs (303 rows over 27 dofs, forces up to 1e4) beyond
+    rtol = atol = 2e-4 of the float64 iterate, where the kernel's float32
+    tree sums keep them within it. The trace is that of the factors;
+    ``diag_s`` (the kernel's trace input) is not read, as ``impl_f`` does
+    not read it."""
+    J64 = J_s.double()
+    JMinv = J64 @ Minv.double()
+    R64 = Rs.double()
+
+    def matvec(x):
+        ax = (JMinv @ (J64.transpose(1, 2) @ x.double()[..., None]))[..., 0]
+        return (ax + R64 * x).to(x.dtype)
+
+    trace = lambda: ((JMinv * J64).sum((1, 2)) + R64.sum(1)).to(rhs.dtype)
+    return _iterate(matvec, trace, None, rhs, f0, v0, active, mu_full,
+                    bounds_full, nonneg=nonneg, box_rows=box_rows, con0=con0,
+                    iterations=iterations, cold=cold, tol2=tol2, eq_rows=(),
+                    return_iterations=return_iterations)
 
 
 def factored_route(nr: int, nv: int) -> str:

@@ -48,6 +48,8 @@ _SAMPLERS = {'triangular': 0, 'normal': 1, 'spline4': 2}
 MAX_SHARED_BYTES = 232448
 _SIGNATURES = {
     'cem_sample_smem_bytes': (ctypes.c_size_t, [ctypes.c_int] * 6),
+    'cem_sample_instantiation': (ctypes.c_int, [ctypes.c_int] * 6
+                                 + [ctypes.c_void_p]),
     'cem_sample_rollout': (ctypes.c_int, [ctypes.c_void_p] * 4
                            + [ctypes.c_ulonglong] + [ctypes.c_int] * 8
                            + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 3),
@@ -392,6 +394,23 @@ def mlp_sample_rollout_costs(params, seed, s0, mean, std, goal, weights,
     _build.check(rc, 'mlp_sample_rollout_costs')
     launch_counts['cem_sample_rollout'] += 1
     return costs, actions
+
+
+def sampler_instantiation(K: int, H: int, sd: int, ad: int, hid: int,
+                          antithetic: bool = True):
+    """The kernel instantiation that ``mlp_sample_rollout_costs`` launches
+    at these sizes, as (NI, NH, NSO, exact, weights in shared memory): the
+    tile bounds of [s; a], hidden and state, whether the loops run to the
+    exact tile counts, whether the weights are staged in shared memory
+    ((16, 16, 16, False, False) is the guarded instantiation). Builds the
+    kernel library; launches nothing."""
+    lib = _build.library('cem_sample_rollout', _SIGNATURES)
+    out = (ctypes.c_int * 5)()
+    rc = lib.cem_sample_instantiation(int(K), int(H), int(sd), int(ad),
+                                      int(hid), int(bool(antithetic)),
+                                      ctypes.addressof(out))
+    _build.check(rc, 'sampler_instantiation')
+    return tuple(out[:3]) + (bool(out[3]), bool(out[4]))
 
 
 def _ensemble_sampler(sampler: str) -> str:

@@ -1,11 +1,13 @@
 """Collision detection: static candidate pairs -> fixed-size contact set.
 
 Port of mujoco_mbrl_tpu/physics/collision.py for plane-capsule pairs (2
-points each) and capsule-capsule pairs (1 point each): the walker's 7
-plane-capsule pairs (14 contacts) and the cheetah's 8 plane-capsule and 19
-capsule-capsule pairs (35 contacts). The candidate list is static per
-model; inactive contacts are masked by distance downstream. Any other
-geom pair type raises ``NotImplementedError``.
+points each) and plane-sphere, sphere-sphere, sphere-capsule and
+capsule-capsule pairs (1 point each): the walker's 7 plane-capsule pairs
+(14 contacts), the cheetah's 8 plane-capsule and 19 capsule-capsule pairs
+(35 contacts) and the humanoid's 161 pairs of all five kinds (177
+contacts). The candidate list is static per model; inactive contacts are
+masked by distance downstream. Any other geom pair type raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -140,6 +142,45 @@ def _closest_segment_segment(a0, a1, b0, b1):
     return a0 + d1 * s[..., None], b0 + d2 * t[..., None]
 
 
+def _sphere_pair(c1, r1, c2, r2):
+    """Contact of spheres (c1, r1) and (c2, r2), shapes (B, P, 3) and
+    (P,): the normal points from the first to the second, the point lies
+    halfway through the overlap. Returns (dist, pos, normal), (B, P, 1,
+    ...)."""
+    dvec = c2 - c1
+    dist = torch.linalg.vector_norm(dvec, dim=-1)        # (B, P)
+    n = dvec / torch.clamp(dist, min=1e-12)[..., None]
+    d = dist - (r1 + r2)
+    pos = c1 + n * (r1 + 0.5 * d)[..., None]
+    return d[..., None], pos[:, :, None], n[:, :, None]
+
+
+def _k_plane_sphere(p1, R1, s1, p2, R2, s2):
+    """Plane normal vs the sphere (JAX ``_k_plane_sphere``): dist =
+    n.(centre - plane_pos) - r. Returns (dist, pos, normal), (B, P, 1,
+    ...)."""
+    n = R1[..., :, 2]                                    # (B, P, 3)
+    r = s2[:, 0]                                         # (P,)
+    dist = ((p2 - p1) * n).sum(-1) - r                   # (B, P)
+    pos = p2 - (r + 0.5 * dist)[..., None] * n
+    return dist[..., None], pos[:, :, None], n[:, :, None]
+
+
+def _k_sphere_sphere(p1, R1, s1, p2, R2, s2):
+    """JAX ``_k_sphere_sphere``: one contact between the centres."""
+    return _sphere_pair(p1, s1[:, 0], p2, s2[:, 0])
+
+
+def _k_sphere_capsule(p1, R1, s1, p2, R2, s2):
+    """JAX ``_k_sphere_capsule``: the sphere against the closest point of
+    the capsule's axis (clamped projection onto the segment)."""
+    e0, e1 = _segment(p2, R2, s2[:, 1:2])
+    d = e1 - e0
+    t = torch.clamp(_dot(p1 - e0, d) / torch.clamp(_dot(d, d), min=1e-12),
+                    0.0, 1.0)
+    return _sphere_pair(p1, s1[:, 0], e0 + t[..., None] * d, s2[:, 0])
+
+
 def _k_plane_capsule(p1, R1, s1, p2, R2, s2):
     """Plane normal vs the capsule's two end caps as spheres:
     dist = n.(end - plane_pos) - r. Returns (dist, pos, normal), each
@@ -156,18 +197,15 @@ def _k_plane_capsule(p1, R1, s1, p2, R2, s2):
 def _k_capsule_capsule(p1, R1, s1, p2, R2, s2):
     """One contact between the axes' closest points (JAX
     ``_k_capsule_capsule``). Returns (dist, pos, normal), (B, P, 1, ...)."""
-    r1, r2 = s1[:, 0], s2[:, 0]                          # (P,)
     c1, c2 = _closest_segment_segment(*_segment(p1, R1, s1[:, 1:2]),
                                       *_segment(p2, R2, s2[:, 1:2]))
-    dvec = c2 - c1
-    dist = torch.linalg.vector_norm(dvec, dim=-1)        # (B, P)
-    n = dvec / torch.clamp(dist, min=1e-12)[..., None]
-    d = dist - (r1 + r2)
-    pos = c1 + n * (r1 + 0.5 * d)[..., None]
-    return d[..., None], pos[:, :, None], n[:, :, None]
+    return _sphere_pair(c1, s1[:, 0], c2, s2[:, 0])
 
 
-_KERNELS = {(M.PLANE, M.CAPSULE): _k_plane_capsule,
+_KERNELS = {(M.PLANE, M.SPHERE): _k_plane_sphere,
+            (M.PLANE, M.CAPSULE): _k_plane_capsule,
+            (M.SPHERE, M.SPHERE): _k_sphere_sphere,
+            (M.SPHERE, M.CAPSULE): _k_sphere_capsule,
             (M.CAPSULE, M.CAPSULE): _k_capsule_capsule}
 
 
@@ -182,7 +220,8 @@ def detect(m: M.Model, geom_xpos, geom_xmat,
     for key in keys:
         if key not in _KERNELS:
             raise NotImplementedError(
-                'only plane-capsule and capsule-capsule contacts are ported '
+                'only plane-sphere, plane-capsule, sphere-sphere, '
+                'sphere-capsule and capsule-capsule contacts are ported '
                 '(mujoco_mbrl_tpu.physics.collision.detect)')
 
     def build():

@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import collision
+from . import math as pm
 from . import model as M
 from . import smooth
 from . import solver as solver_mod
@@ -108,13 +109,24 @@ def _forward(m: M.Model, state: M.State, ctrl: torch.Tensor,
 
 def integrate_pos(m: M.Model, qpos: torch.Tensor, qvel: torch.Tensor,
                   dt) -> torch.Tensor:
-    """qpos += dt * qvel (hinge and slide joints only)."""
-    smooth._scalar_joints_only(m, 'integrate_pos')
+    """qpos += dt * qvel on hinge and slide joints; a free joint's
+    position adds dt times its linear velocity and its quaternion turns by
+    its local angular velocity (``math.quat_integrate``)."""
+    smooth.check_joints(m, 'integrate_pos')
+    free = [j for j in range(m.njnt) if m.jnt_type[j] == M.FREE]
     qadr, dadr = list(m.jnt_qposadr), list(m.jnt_dofadr)
-    if qadr == list(range(m.nq)) and dadr == list(range(m.nv)):
+    if not free and qadr == list(range(m.nq)) and dadr == list(range(m.nv)):
         return qpos + dt * qvel
     out = qpos.clone()
-    out[:, qadr] = out[:, qadr] + dt * qvel[:, dadr]
+    sq = [m.jnt_qposadr[j] for j in range(m.njnt) if j not in free]
+    sd = [m.jnt_dofadr[j] for j in range(m.njnt) if j not in free]
+    if sq:
+        out[:, sq] = out[:, sq] + dt * qvel[:, sd]
+    for j in free:
+        qa, da = m.jnt_qposadr[j], m.jnt_dofadr[j]
+        out[:, qa:qa + 3] = qpos[:, qa:qa + 3] + dt * qvel[:, da:da + 3]
+        out[:, qa + 3:qa + 7] = pm.quat_integrate(
+            qpos[:, qa + 3:qa + 7], qvel[:, da + 3:da + 6], dt)
     return out
 
 

@@ -25,6 +25,11 @@ def quat_mul(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     ], dim=-1)
 
 
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    """Conjugate (inverse of a unit quaternion) of wxyz quaternions."""
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
 def quat_rot(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Rotate 3-vectors v by quaternions q (local -> world)."""
     u = q[..., 1:]
@@ -32,6 +37,37 @@ def quat_rot(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     u, v = torch.broadcast_tensors(u, v)
     uv = torch.linalg.cross(u, v)
     return v + 2.0 * torch.linalg.cross(u, uv + w * v)
+
+
+def quat_rot_inv(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate 3-vectors v by q^-1 (world -> local)."""
+    return quat_rot(quat_conj(q), v)
+
+
+def quat_normalize(q: torch.Tensor) -> torch.Tensor:
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def axis_angle_quat(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Quaternions (..., 4) rotating by `angle` (...) about unit `axis`
+    (..., 3)."""
+    half = 0.5 * angle
+    return torch.cat([torch.cos(half)[..., None],
+                      axis * torch.sin(half)[..., None]], dim=-1)
+
+
+def quat_integrate(q: torch.Tensor, omega_local: torch.Tensor,
+                   dt) -> torch.Tensor:
+    """Rotate q (..., 4) by the local angular velocity (..., 3) over dt,
+    then renormalize (``mju_quatIntegrate``); a zero velocity takes the x
+    axis, as the JAX function does."""
+    norm = torch.linalg.vector_norm(omega_local, dim=-1)
+    ex = torch.tensor([1.0, 0.0, 0.0], dtype=q.dtype, device=q.device)
+    moving = (norm > 1e-12)[..., None]
+    axis = torch.where(moving, omega_local / torch.where(
+        moving, norm[..., None], 1.0), ex)
+    out = quat_mul(q, axis_angle_quat(axis, norm * dt))
+    return quat_normalize(out)
 
 
 def quat_to_mat(q: torch.Tensor) -> torch.Tensor:

@@ -1,16 +1,17 @@
 """MJCF-subset compiler: XML string -> :class:`Model` (host-side numpy).
 
 Port of the part of mujoco_mbrl_tpu/physics/mjcf.py that the planar walker
-and cheetah and the contact-free reacher, point_mass and pendulum reach:
-``<compiler angle settotalmass>``, ``<option timestep gravity>`` with its
-``<flag contact gravity limit actuation>``, nested ``<default>`` classes
-with ``childclass``, bodies with ``pos`` and orientation, hinge and slide
-joints with limits, plane, sphere and capsule geoms (placed by ``pos`` +
-orientation or by ``fromto``; mass given or from density), fixed tendons,
-and motors on a joint or a fixed tendon. Cameras and lights are visual
-only and skipped. Every other MJCF feature (equality constraints, spatial
-tendons, tendon limits among them) raises ``NotImplementedError`` naming
-the JAX function that handles it.
+and cheetah, the contact-free reacher, point_mass and pendulum and the
+humanoid reach: ``<compiler angle settotalmass>``, ``<option timestep
+gravity>`` with its ``<flag contact gravity limit actuation>``, nested
+``<default>`` classes with ``childclass``, bodies with ``pos`` and
+orientation, hinge and slide joints with limits, ``<freejoint>`` (which
+takes no default but its name), plane, sphere and capsule geoms (placed
+by ``pos`` + orientation or by ``fromto``; mass given or from density),
+fixed tendons, and motors on a joint or a fixed tendon. Cameras and
+lights are visual only and skipped. Every other MJCF feature (ball
+joints, equality constraints, spatial tendons, tendon limits among them)
+raises ``NotImplementedError`` naming the JAX function that handles it.
 """
 
 from __future__ import annotations
@@ -81,7 +82,9 @@ def _skew(p):
     return np.array([[0, -p[2], p[1]], [p[2], 0, -p[0]], [-p[1], p[0], 0]])
 
 
-_JOINT_TYPES = {'slide': M.SLIDE, 'hinge': M.HINGE}
+_JOINT_TYPES = {'free': M.FREE, 'slide': M.SLIDE, 'hinge': M.HINGE}
+_QPOS_WIDTH = {M.FREE: 7, M.SLIDE: 1, M.HINGE: 1}
+_DOF_WIDTH = {M.FREE: 6, M.SLIDE: 1, M.HINGE: 1}
 _GEOM_TYPES = {'plane': M.PLANE, 'sphere': M.SPHERE, 'capsule': M.CAPSULE}
 _DEFAULT_SOLREF = np.array([0.02, 1.0])
 _DEFAULT_SOLIMP = np.array([0.9, 0.95, 0.001, 0.5, 2.0])
@@ -326,6 +329,10 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
                                   child.attrib.get('class', cls))
         if tag == 'joint':
             add_joint(cattrs, body_id)
+        elif tag == 'freejoint':
+            # a free joint ignores every default but its name
+            add_joint({'type': 'free', 'name': cattrs.get('name', '')},
+                      body_id)
         elif tag == 'geom':
             add_geom(cattrs, body_id)
         elif tag == 'body':
@@ -357,14 +364,27 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
             add_child(child, 0, None)
 
     nbody, njnt = len(body_parent), len(jnts)
-    jnt_qposadr = list(range(njnt))       # hinge/slide: one qpos, one dof
-    jnt_dofadr = list(range(njnt))
-    nq = nv = njnt
-    for j in jnts:
+    jnt_qposadr, jnt_dofadr, dof_jnt = [], [], []
+    nq = nv = 0
+    for ji, j in enumerate(jnts):
         if j['frictionloss'] != 0.0:
             raise _unsupported('dof frictionloss rows')
-    qpos0 = np.array([j['ref'] for j in jnts])
-    qpos_spring = np.array([j['springref'] for j in jnts])
+        jnt_qposadr.append(nq)
+        jnt_dofadr.append(nv)
+        nq += _QPOS_WIDTH[j['type']]
+        nv += _DOF_WIDTH[j['type']]
+        dof_jnt += [ji] * _DOF_WIDTH[j['type']]
+    dof = lambda key: [jnts[ji][key] for ji in dof_jnt]
+    # a free joint's qpos0 is its body's frame (position, unit quaternion)
+    qpos0, qpos_spring = np.zeros(nq), np.zeros(nq)
+    for ji, j in enumerate(jnts):
+        adr = jnt_qposadr[ji]
+        if j['type'] == M.FREE:
+            qpos0[adr:adr + 7] = np.concatenate([body_pos[j['body']],
+                                                 body_quat[j['body']]])
+            qpos_spring[adr:adr + 7] = qpos0[adr:adr + 7]
+        else:
+            qpos0[adr], qpos_spring[adr] = j['ref'], j['springref']
 
     # the world body stays massless (mjModel semantics)
     body_mass[0], body_fm[0], body_io[0] = 0.0, np.zeros(3), np.zeros((3, 3))
@@ -454,7 +474,7 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
         jnt_body=tuple(j['body'] for j in jnts),
         jnt_qposadr=tuple(jnt_qposadr), jnt_dofadr=tuple(jnt_dofadr),
         jnt_limited=tuple(bool(j['limited']) for j in jnts),
-        dof_jnt=tuple(range(njnt)),
+        dof_jnt=tuple(dof_jnt),
         geom_type=tuple(g['type'] for g in geoms),
         geom_body=tuple(g['body'] for g in geoms),
         site_body=(),
@@ -476,9 +496,9 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
         jnt_solimp=arr([j['solimp'] for j in jnts], (njnt, 5)),
         jnt_stiffness=arr([j['stiffness'] for j in jnts], (njnt,)),
         jnt_margin=arr([j['margin'] for j in jnts], (njnt,)),
-        dof_damping=arr([j['damping'] for j in jnts], (nv,)),
-        dof_armature=arr([j['armature'] for j in jnts], (nv,)),
-        dof_frictionloss=arr([j['frictionloss'] for j in jnts], (nv,)),
+        dof_damping=arr(dof('damping'), (nv,)),
+        dof_armature=arr(dof('armature'), (nv,)),
+        dof_frictionloss=arr(dof('frictionloss'), (nv,)),
         geom_pos=arr([g['pos'] for g in geoms], (ng, 3)),
         geom_quat=arr([g['quat'] for g in geoms], (ng, 4)),
         geom_size=arr([g['size'] for g in geoms], (ng, 3)),
@@ -525,6 +545,13 @@ def _with_invweight0(model: M.Model) -> M.Model:
     qM = smooth.crba(model, cdof, cinert, meta)
     Minv = np.linalg.inv(qM[0].double().numpy())
     dof_iw = np.diag(Minv).copy()
+    # a free joint's translation and rotation triples each take their
+    # group's mean of diag(M^-1)
+    for j in range(model.njnt):
+        if model.jnt_type[j] == M.FREE:
+            adr = model.jnt_dofadr[j]
+            dof_iw[adr:adr + 3] = dof_iw[adr:adr + 3].mean()
+            dof_iw[adr + 3:adr + 6] = dof_iw[adr + 3:adr + 6].mean()
 
     amask = ancestor_dof_mask(model, meta).astype(np.float64)
     cdof_np = cdof[0].double().numpy()
@@ -546,6 +573,8 @@ def _with_invweight0(model: M.Model) -> M.Model:
                 return False
         return bool(np.all(np.abs(body_ipos_np[bb]) < 1e-12))
 
+    has_free = {model.jnt_body[j] for j in range(model.njnt)
+                if model.jnt_type[j] == M.FREE}
     body_iw = np.zeros((model.nbody, 2))
     for bb in range(1, model.nbody):
         if _simple2(bb) and body_mass_np[bb] > 0:
@@ -555,8 +584,12 @@ def _with_invweight0(model: M.Model) -> M.Model:
         Jt = (cdof_np[:, 3:]
               + np.cross(cdof_np[:, :3], xipos_np[bb][None, :])) * mask
         Jr = cdof_np[:, :3] * mask
-        body_iw[bb] = (np.trace(Jt.T @ Minv @ Jt) / 3.0,
-                       np.trace(Jr.T @ Minv @ Jr) / 3.0)
+        iw_t = np.trace(Jt.T @ Minv @ Jt) / 3.0
+        # a free leaf body takes 1/mass (a free body with children keeps
+        # the trace form), as mjModel and the JAX compiler give it
+        if bb in has_free and bb not in has_child and body_mass_np[bb] > 0:
+            iw_t = 1.0 / body_mass_np[bb]
+        body_iw[bb] = (iw_t, np.trace(Jr.T @ Minv @ Jr) / 3.0)
     ten_moment = model.tendon_moment.double().numpy()
     ten_iw = np.array([r @ Minv @ r for r in ten_moment])
     dt = model.dtype

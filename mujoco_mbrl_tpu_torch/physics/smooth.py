@@ -1,11 +1,12 @@
 """Smooth articulated-body dynamics in world-frame spatial algebra.
 
-Port of mujoco_mbrl_tpu/physics/smooth.py for hinge and slide joints (the
-walker's joint set). Every function takes the env batch as the leading
-dimension; the loops over bodies are static Python loops over the model's
-tree, as in the JAX package. Fixed tendons (their passive force and
-tendon-driven motors) are ported; free and ball joints, activation and
-bias actuators and the fluid model raise ``NotImplementedError``. A model
+Port of mujoco_mbrl_tpu/physics/smooth.py for hinge, slide and free joints
+(the humanoid's root is a free joint: 7 qpos, 6 dofs, world translations
+then body-local rotations). Every function takes the env batch as the
+leading dimension; the loops over bodies are static Python loops over the
+model's tree, as in the JAX package. Fixed tendons (their passive force
+and tendon-driven motors) are ported; ball joints, activation and bias
+actuators and the fluid model raise ``NotImplementedError``. A model
 from ``model.with_env_fields`` carries per-env ``geom_pos`` and
 ``tendon_moment`` with the env batch leading; ``kinematics`` and
 ``actuation`` broadcast over it.
@@ -33,11 +34,15 @@ class TreeMeta(NamedTuple):
     zero_jnt_pos: Tuple[bool, ...]
 
 
-def _scalar_joints_only(m: M.Model, fn: str):
+DOF_WIDTH = {M.FREE: 6, M.SLIDE: 1, M.HINGE: 1}
+
+
+def check_joints(m: M.Model, fn: str):
+    """Refuse ball joints (not ported); free, slide and hinge pass."""
     for t in m.jnt_type:
-        if t not in (M.SLIDE, M.HINGE):
+        if t not in DOF_WIDTH:
             raise NotImplementedError(
-                f'free/ball joints are not ported '
+                f'ball joints are not ported '
                 f'(mujoco_mbrl_tpu.physics.smooth.{fn})')
 
 
@@ -47,11 +52,13 @@ def tree_meta(m: M.Model) -> TreeMeta:
 
 
 def _tree_meta(m: M.Model) -> TreeMeta:
-    _scalar_joints_only(m, 'tree_meta')
+    check_joints(m, 'tree_meta')
     body_joints: List[List[int]] = [[] for _ in range(m.nbody)]
     for j in range(m.njnt):
         body_joints[m.jnt_body[j]].append(j)
-    body_dofs = [[m.jnt_dofadr[j] for j in js] for js in body_joints]
+    body_dofs = [[m.jnt_dofadr[j] + k for j in js
+                  for k in range(DOF_WIDTH[m.jnt_type[j]])]
+                 for js in body_joints]
     ancestor_dofs: List[List[int]] = [[] for _ in range(m.nbody)]
     for b in range(1, m.nbody):
         ancestor_dofs[b] = list(ancestor_dofs[m.body_parent[b]]) + body_dofs[b]
@@ -74,9 +81,10 @@ def kinematics(m: M.Model, qpos: torch.Tensor, meta: TreeMeta):
     """Body/geom/site poses and world joint anchors/axes, batched (B, ...).
 
     mj_kinematics semantics: joints apply in declaration order within a
-    body, displacing relative to qpos0.
+    body, displacing relative to qpos0; a body with a free joint takes its
+    world pose from qpos (position, normalized quaternion) directly.
     """
-    _scalar_joints_only(m, 'kinematics')
+    check_joints(m, 'kinematics')
     B = qpos.shape[0]
     dev, dt = qpos.device, qpos.dtype
 
@@ -96,6 +104,16 @@ def kinematics(m: M.Model, qpos: torch.Tensor, meta: TreeMeta):
     xaxis = [None] * m.njnt
     for b in range(1, m.nbody):
         p = m.body_parent[b]
+        joints = meta.body_joints[b]
+        if joints and m.jnt_type[joints[0]] == M.FREE:
+            j, adr = joints[0], m.jnt_qposadr[joints[0]]
+            pos = qpos[:, adr:adr + 3]
+            quat = pm.quat_normalize(qpos[:, adr + 3:adr + 7])
+            xanchor[j] = pos
+            xaxis[j] = pm.quat_rot(quat, m.jnt_axis[j])
+            xpos.append(pos)
+            xquat.append(quat)
+            continue
         quat = (xquat[p] if meta.identity_body_quat[b]
                 else pm.quat_mul(xquat[p], m.body_quat[b]))
         pos = (xpos[p] if meta.zero_body_pos[b]
@@ -143,13 +161,25 @@ def com_positions(m: M.Model, xpos, xquat):
 
 
 def motion_subspace(m: M.Model, xquat, xanchor, xaxis, meta: TreeMeta):
-    """cdof (B, nv, 6): per-dof spatial motion vectors (world, origin)."""
-    _scalar_joints_only(m, 'motion_subspace')
+    """cdof (B, nv, 6): per-dof spatial motion vectors (world, origin).
+    A free joint's dofs are translations along the world axes, then
+    rotations about the body's local axes through its anchor."""
+    check_joints(m, 'motion_subspace')
     cdof = [None] * m.nv
     for j in range(m.njnt):
         adr = m.jnt_dofadr[j]
         ax = xaxis[:, j]
-        if m.jnt_type[j] == M.SLIDE:
+        if m.jnt_type[j] == M.FREE:
+            eye = torch.eye(3, dtype=ax.dtype, device=ax.device)
+            for k in range(3):
+                cdof[adr + k] = torch.cat([torch.zeros_like(ax),
+                                           eye[k].expand_as(ax)], -1)
+            R = pm.quat_to_mat(xquat[:, m.jnt_body[j]])
+            for k in range(3):
+                axk = R[..., :, k]
+                cdof[adr + 3 + k] = torch.cat(
+                    [axk, torch.linalg.cross(xanchor[:, j], axk)], -1)
+        elif m.jnt_type[j] == M.SLIDE:
             cdof[adr] = torch.cat([torch.zeros_like(ax), ax], -1)
         else:
             cdof[adr] = torch.cat([ax, torch.linalg.cross(xanchor[:, j], ax)],
@@ -191,14 +221,29 @@ def crba(m: M.Model, cdof, cinert, meta: TreeMeta) -> torch.Tensor:
 
 
 def velocities(m: M.Model, qvel, cdof, meta: TreeMeta):
-    """Body spatial velocities cvel (B, nbody, 6) and cdof_dot (B, nv, 6)."""
-    _scalar_joints_only(m, 'velocities')
+    """Body spatial velocities cvel (B, nbody, 6) and cdof_dot (B, nv, 6).
+
+    mj_comVel's order: a free joint's translations add to the velocity
+    first (their cdof_dot is zero), then its three rotation dofs take
+    cdof_dot from the velocity before any of them is added; a hinge or
+    slide uses the velocity before its own dof."""
+    check_joints(m, 'velocities')
     cvel = [torch.zeros_like(cdof[:, 0])]
     cdof_dot = [None] * m.nv
     for b in range(1, m.nbody):
         v = cvel[m.body_parent[b]]
         for j in meta.body_joints[b]:
             adr = m.jnt_dofadr[j]
+            if m.jnt_type[j] == M.FREE:
+                for k in range(adr, adr + 3):
+                    cdof_dot[k] = torch.zeros_like(v)
+                v = v + (cdof[:, adr:adr + 3]
+                         * qvel[:, adr:adr + 3, None]).sum(1)
+                rot = cdof[:, adr + 3:adr + 6]
+                for k in range(3):
+                    cdof_dot[adr + 3 + k] = pm.motion_cross(v, rot[:, k])
+                v = v + (rot * qvel[:, adr + 3:adr + 6, None]).sum(1)
+                continue
             cdof_dot[adr] = pm.motion_cross(v, cdof[:, adr])
             v = v + cdof[:, adr] * qvel[:, adr:adr + 1]
         cvel.append(v)
@@ -229,13 +274,24 @@ def rnea_bias(m: M.Model, qvel, cdof, cdof_dot, cvel, cinert,
 
 
 def spring_force(m: M.Model, qpos: torch.Tensor) -> torch.Tensor:
-    """Joint springs: -stiffness * (qpos - qpos_spring) (scalar joints)."""
-    _scalar_joints_only(m, 'spring_force')
-    qadr = list(m.jnt_qposadr)
+    """Joint springs: -stiffness * (qpos - qpos_spring) on scalar joints
+    and on a free joint's translation (its rotation has no spring, as in
+    the JAX function)."""
+    check_joints(m, 'spring_force')
     qfrc = torch.zeros((qpos.shape[0], m.nv), dtype=qpos.dtype,
                        device=qpos.device)
-    qfrc[:, list(m.jnt_dofadr)] = -m.jnt_stiffness * (
-        qpos[:, qadr] - m.qpos_spring[qadr])
+    free = [j for j in range(m.njnt) if m.jnt_type[j] == M.FREE]
+    sj = [j for j in range(m.njnt) if m.jnt_type[j] != M.FREE]
+    stiff = (m.jnt_stiffness if not free else M.cached(
+        m, 'scalar_stiffness', lambda: m.jnt_stiffness[sj]))
+    if sj:
+        qadr = [m.jnt_qposadr[j] for j in sj]
+        qfrc[:, [m.jnt_dofadr[j] for j in sj]] = -stiff * (
+            qpos[:, qadr] - m.qpos_spring[qadr])
+    for j in free:
+        qadr, dadr = m.jnt_qposadr[j], m.jnt_dofadr[j]
+        qfrc[:, dadr:dadr + 3] = -m.jnt_stiffness[j] * (
+            qpos[:, qadr:qadr + 3] - m.qpos_spring[qadr:qadr + 3])
     return qfrc
 
 

@@ -1,15 +1,17 @@
 """Soft-constraint assembly and the APGD dual solve (batched over envs).
 
 Port of mujoco_mbrl_tpu/physics/solver.py for joint limits and pyramidal
-frictional contacts (condim 1 or 3) — the walker's row set. Each row has
+frictional contacts of condim 1 (one non-negative row a point, the
+humanoid's geom-geom pairs) or 3 (four facet rows), in JAX's row order:
+limits, then the contacts grouped by condim. Each row has
 impedance d(pos) from solimp, reference acceleration aref = -b*vel - k*pos
 from solref, and regularizer R = (1-d)/d * invweight0; the dual
 min 1/2 f'(A+R)f - f'rhs is solved by ``solve_apgd`` through the batched
 iterate of ``ops.apgd_solve`` (CUDA kernel on the card, plain PyTorch on
 the CPU): the dense iterate up to 96 rows (walker: 62), the factored one
-past it (cheetah: 146), as the JAX solver selects them. The PGS ``solve``,
-dof friction loss, tendon rows and elliptic cones raise
-``NotImplementedError``.
+past it (cheetah: 146; humanoid: 303), as the JAX solver selects them.
+The PGS ``solve``, dof friction loss, tendon rows and elliptic cones
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Control-suite port: the walker, cheetah, reacher, point_mass and
-pendulum domains and the environment core.
+"""Control-suite port: the walker, cheetah, reacher, point_mass,
+pendulum and humanoid domains and the environment core.
 
 Each domain module registers its tasks in its own ``SUITE``
 (``registry.TaggedTasks``), as in mujoco_mbrl_tpu/suite/__init__.py;
@@ -9,12 +9,13 @@ Each domain module registers its tasks in its own ``SUITE``
 from __future__ import annotations
 
 from ..device import resolve_device
-from . import (cheetah, control, pendulum, point_mass, reacher, registry,
-               walker)
+from . import (cheetah, control, humanoid, pendulum, point_mass, reacher,
+               registry, walker)
 from .control import EnvState, Environment, TimeStep, flatten_observation
 
-_DOMAINS = {'cheetah': cheetah, 'pendulum': pendulum,
-            'point_mass': point_mass, 'reacher': reacher, 'walker': walker}
+_DOMAINS = {'cheetah': cheetah, 'humanoid': humanoid,
+            'pendulum': pendulum, 'point_mass': point_mass,
+            'reacher': reacher, 'walker': walker}
 
 
 def load(domain: str, task: str, device=None, **kwargs) -> Environment:
@@ -30,5 +31,5 @@ def load(domain: str, task: str, device=None, **kwargs) -> Environment:
 
 
 __all__ = ['EnvState', 'Environment', 'TimeStep', 'cheetah', 'control',
-           'flatten_observation', 'load', 'pendulum', 'point_mass',
-           'reacher', 'registry', 'walker']
+           'flatten_observation', 'humanoid', 'load', 'pendulum',
+           'point_mass', 'reacher', 'registry', 'walker']

@@ -1,9 +1,10 @@
 """Episode-initialization randomizers on ``torch.Generator``s.
 
-Port of mujoco_mbrl_tpu/suite/randomizers.py for hinge and slide joints:
-limited joints ~ Uniform(range), unlimited hinges ~ Uniform(-pi, pi),
-unlimited slides untouched. The draws differ from ``jax.random``'s; the
-distribution is the same.
+Port of mujoco_mbrl_tpu/suite/randomizers.py for hinge, slide and free
+joints: limited joints ~ Uniform(range), unlimited hinges ~ Uniform(-pi,
+pi), unlimited slides untouched, an unlimited free joint's quaternion
+uniform on S^3 (a normalized 4-d normal draw; its position untouched).
+The draws differ from ``jax.random``'s; the distribution is the same.
 """
 
 from __future__ import annotations
@@ -23,10 +24,18 @@ def randomize_limited_and_rotational_joints(
     rng = model.jnt_range.cpu().numpy()
     for j in range(model.njnt):
         jtype, adr = model.jnt_type[j], model.jnt_qposadr[j]
-        if jtype not in (M.HINGE, M.SLIDE):
+        if jtype not in (M.HINGE, M.SLIDE, M.FREE):
             raise NotImplementedError(
-                'ball/free joint randomization is not ported (mujoco_mbrl_tpu'
+                'ball joint randomization is not ported (mujoco_mbrl_tpu'
                 '.suite.randomizers.randomize_limited_and_rotational_joints)')
+        if jtype == M.FREE:
+            if not model.jnt_limited[j]:
+                q = torch.randn((B, 4), generator=generator,
+                                dtype=qpos.dtype, device=generator.device)
+                q = q / torch.clamp(torch.linalg.vector_norm(
+                    q, dim=-1, keepdim=True), min=1e-12)
+                out[:, adr + 3:adr + 7] = q.to(qpos.device)
+            continue
         if model.jnt_limited[j]:
             lo, hi = float(rng[j, 0]), float(rng[j, 1])
         elif jtype == M.HINGE:

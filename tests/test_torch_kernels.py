@@ -530,3 +530,94 @@ def test_sampler_guarded_instantiation(dev, sampler):
     ref = cem_rollout.rollout_costs_of_actions(params, s0, acts, goal, w)
     torch.testing.assert_close(costs, ref, rtol=1e-4, atol=1e-4)
     assert float(acts.abs().max()) <= 1.0
+
+
+# The humanoid's widths (ad 21, hidden 50): the bench's 67-dim observation
+# (tiles (11, 7, 9)) and the CLI's 60-dim featured state (11, 7, 8) take
+# the sized wide instantiations of every tensor-core kernel (run-time loop
+# bounds, weights in shared memory beside the warps' scratch), not the
+# guarded one
+@pytest.mark.parametrize('sd,ad', [(67, 21), (60, 21)])
+@pytest.mark.parametrize('sampler', ['normal', 'spline4'])
+def test_humanoid_instantiations(dev, sd, ad, sampler):
+    B, K, H, n = 6, 101, 9, 5
+    assert cem_rollout.sampler_instantiation(K, H, sd, ad, 50) == (
+        11, 7, (sd + 7) // 8, False, True)
+    params = MLPDynamics(sd, ad).init(torch.Generator().manual_seed(5),
+                                      device=dev)
+    g, mean, std = _proposal(dev, B, H, ad, 11)
+    s0 = torch.randn((B, sd), generator=g, device=dev)
+    goal = torch.randn(sd, generator=g, device=dev)
+    w = torch.rand(sd, generator=g, device=dev)
+    costs, acts = cem_rollout.mlp_sample_rollout_costs(
+        params, 29, s0, mean, std, goal, w, K, sampler=sampler)
+    ref = cem_rollout.rollout_costs_of_actions(params, s0, acts, goal, w)
+    torch.testing.assert_close(costs, ref, rtol=1e-4, atol=1e-4)
+    assert float(acts.abs().max()) <= 1.0
+    # the given-action kernel (#4) on the same actions
+    flat = acts.permute(1, 2, 0, 3).reshape(H, ad, B * K).contiguous()
+    s0T = s0.T[:, :, None].expand(sd, B, K).reshape(sd, B * K).contiguous()
+    given = cem_rollout.mlp_rollout_costs_t(params, s0T, flat, goal, w)
+    torch.testing.assert_close(given.reshape(B, K), ref, rtol=1e-4,
+                               atol=1e-4)
+    # the ensemble sampler (#5 / #6)
+    ens = EnsembleDynamics(MLPDynamics(sd, ad), n).init(
+        torch.Generator().manual_seed(6), device=dev)
+    c_e, a_e = cem_rollout.mlp_sample_rollout_costs_ensemble(
+        ens, 31, s0, mean, std, goal, w, 100, n)
+    r_e = cem_rollout.rollout_costs_of_actions_ensemble(ens, s0, a_e, goal,
+                                                        w)
+    torch.testing.assert_close(c_e, r_e, rtol=1e-4, atol=1e-4)
+
+
+# #7's block path on the solves the port's humanoid step builds (303 rows,
+# nv 27): 64 poses in floor contact with random root orientations and
+# joints, a cold substep, then a warm one from its forces. f and v of every
+# env agree with the plain version within rtol = atol = 2e-4, but for an
+# env that rounding decides: the plain version run in float64 on the same
+# inputs moves it beyond that tolerance of the float32 plain too (a small
+# active block with a unit diagonal has the flat start as an exact
+# eigenvector, ROADMAP Queue 3).
+def test_apgd_factored_block_path_on_humanoid_solves(dev, monkeypatch):
+    from mujoco_mbrl_tpu_torch import suite
+    from mujoco_mbrl_tpu_torch.physics import engine
+    from mujoco_mbrl_tpu_torch.physics.model import State
+
+    m = suite.load('humanoid', 'walk', device=dev).model
+    B = 64
+    g = torch.Generator(device=dev).manual_seed(31)
+    u = lambda *shape: torch.rand(shape, generator=g, device=dev)
+    qpos = m.qpos0.expand(B, m.nq).clone()
+    qpos[:, 2] = 0.5 + 0.7 * u(B)
+    quat = torch.randn((B, 4), generator=g, device=dev)
+    qpos[:, 3:7] = quat / torch.linalg.vector_norm(quat, dim=1,
+                                                   keepdim=True)
+    lo, hi = m.jnt_range[1:, 0], m.jnt_range[1:, 1]
+    qpos[:, 7:] = lo + u(B, 21) * (hi - lo)
+    qvel = torch.randn((B, m.nv), generator=g, device=dev)
+    captured = []
+    real = apgd_solve.apgd_iterate_factored
+    monkeypatch.setattr(apgd_solve, 'apgd_iterate_factored', lambda *a, **k: (
+        captured.append((tuple(x.clone() for x in a), dict(k))),
+        real(*a, **k))[1])
+    zero = torch.zeros((B, m.nu), device=dev)
+    s1, f, v = engine.step_warm(
+        m, State(qpos=qpos, qvel=qvel, time=torch.zeros(B, device=dev)),
+        zero)
+    engine.step_warm(m, s1, zero, warm_f=f, warm_v=v)
+    assert [kw['cold'] for _, kw in captured] == [True, False]
+    assert apgd_solve.factored_route(303, 27) == 'block'
+    for args, kw in captured:
+        assert args[0].shape == (B, 303, 27) and int(args[7].sum()) > B
+        f_k, v_k = real(*args, **kw)
+        f_p, v_p = apgd_solve.apgd_iterate_factored_plain(*args, **kw)
+        close = lambda a, b: torch.isclose(a, b, rtol=2e-4,
+                                           atol=2e-4).all(1)
+        odd = ~close(f_k, f_p) | ~close(v_k, v_p)
+        if bool(odd.any()):
+            f64, v64 = apgd_solve.apgd_iterate_factored_plain(
+                *[a[odd].double() for a in args[:8]],
+                *[a.double() for a in args[8:]], **kw)
+            moved = (~close(f64, f_p[odd].double())
+                     | ~close(v64, v_p[odd].double()))
+            assert bool(moved.all()), odd.nonzero()[:, 0].tolist()
