@@ -114,10 +114,38 @@ Run from the repository root:  python3 chip_smoke.py
       fitted params at B = 5 (the (11, 7, 8) instantiation);
    ptxas registers and spills of the two humanoid instantiations and of
    the guarded one go into the kernel line;
-9. prints one ``{"kernels": [...]}`` line (one entry per TPU kernel), a
-   ``{"paths": ...}`` line with the cheetah, contact-free and humanoid
-   paths' times, the card line, and last ``{"ok": true, "device":
-   {...}}``.
+9. cartpole, hopper, swimmer and acrobot (RK4, box geoms, sites, touch,
+   the fluid force), each path with exact launch counts:
+   a. the ``cartpole`` preset's control step (``bench.config('cartpole')``:
+      cartpole_swingup, 128 envs, CEM 1000 x 30 x 3 through the model /
+      cost scan, no sampler launch; one RK4 step a control step, so 4
+      one-row #1 launches), its physics against the CPU step, a profile;
+   b. the experiment CLI on cartpole_swingup (5 + 1 observation dims: the
+      (1, 7, 1) sampler, held on its fitted params at B = 5);
+   c. #1's one-row-a-lane instantiation on solves captured from cartpole
+      (1 row, eight cold RK4 stage solves) and swimmer6 (5 joint-limit
+      rows, cold and warm) at 1024 envs, held and timed as in 2;
+   d. hopper_hop's control step at the JAX bench's defaults
+      (``build_bench('hopper_hop', 1024, 1000, 30, 3, steps)``: #2 at the
+      15-dim observation and 4 actions, the sized (3, 7, 2) tiles; 4
+      substeps and the observation's forward, each an 88-row solve on
+      #1's block path), its physics against the CPU step, a profile;
+   e. #1's block path (apgd_block_kernel) on solves captured from
+      hopper_hop at 1024 envs (at the reset states and after 20 control
+      steps of random actions, fallen and in contact; cold and warm) under
+      the one APGD rule, timed as in 2 with the latency of one APGD
+      iteration; and #2 at the hopper bench's shape;
+   f. the experiment CLI on hopper_hop (17-dim featured state) and on
+      swimmer_swimmer6 (18-dim; 15 substeps a control step), each with #3
+      on its fitted params at B = 5 (the (3, 7, 3) tiles);
+   g. acrobot_swingup: the card's step against the CPU's (no constraint
+      row, so no launch);
+   ptxas registers and spills of the (3, 7, 2) instantiation and of #1's
+   block kernel go into the kernel line;
+10. prints one ``{"kernels": [...]}`` line (one entry per TPU kernel), a
+   ``{"paths": ...}`` line with the cheetah, contact-free, humanoid and
+   slice-10 paths' times, the card line, and last ``{"ok": true,
+   "device": {...}}``.
 
 Any failed check raises, so the process exits non-zero. It also exits
 non-zero without a result when no CUDA card is present or when the
@@ -500,11 +528,13 @@ def capture_solves(dev, torch, env, state, label, kernel):
     actions: a cold physics step, then a warm one from its row forces and
     power vector (what the walker's 10-substep control step runs first;
     cheetah's 1-substep control step solves cold only, so its warm case
-    comes from this warm step). `kernel` names the wrapper to capture:
-    apgd_iterate_batched (walker, 62 rows) or apgd_iterate_factored
-    (cheetah, 146 rows; humanoid, 303)."""
+    comes from this warm step; an RK4 model's two steps are eight cold
+    stage solves). `kernel` names the wrapper to capture:
+    apgd_iterate_batched (walker, 62 rows; hopper, 88) or
+    apgd_iterate_factored (cheetah, 146 rows; humanoid, 303)."""
     from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
     from mujoco_mbrl_tpu_torch.physics import engine
+    from mujoco_mbrl_tpu_torch.physics.model import RK4
 
     captured = []
     real = getattr(A, kernel)
@@ -522,7 +552,8 @@ def capture_solves(dev, torch, env, state, label, kernel):
     finally:
         setattr(A, kernel, real)
     torch.cuda.synchronize()
-    check([c[2]['cold'] for c in captured] == [True, False], label)
+    check([c[2]['cold'] for c in captured] == (
+        [True] * 8 if m.opt.integrator == RK4 else [True, False]), label)
     return captured
 
 
@@ -1243,9 +1274,16 @@ def control_step(dev, torch, run, params, state0, gen, label, envs=B):
     return counts, out, state, warm_state
 
 
-def card_vs_cpu_step(dev, torch, domain, task, start):
+def card_vs_cpu_step(dev, torch, domain, task, start, by_rounding=False):
     """One env.step of random actions from `start`, on the card and with
-    the plain versions on the CPU: qpos and reward within 1e-3."""
+    the plain versions on the CPU: qpos and reward within 1e-3. With
+    ``by_rounding`` (the hopper, whose contact solves run to the iteration
+    cap in some envs), an env beyond that is admitted when rounding
+    decides it: the CPU's float32 step itself moves by more than 1e-3
+    from the same step in float64 there; at most 1% of the envs may be
+    such, and every other env must agree."""
+    import dataclasses
+
     from mujoco_mbrl_tpu_torch import suite
 
     env = suite.load(domain, task, device=dev)
@@ -1255,16 +1293,41 @@ def card_vs_cpu_step(dev, torch, domain, task, start):
         5)) - 1
     to_cpu = lambda s: type(s)(physics=type(s.physics)(
         qpos=s.physics.qpos.cpu(), qvel=s.physics.qvel.cpu(),
-        time=s.physics.time.cpu()), params=(), step_count=s.step_count.cpu(),
-        last=s.last.cpu())
+        time=s.physics.time.cpu()), params=(
+            s.params.cpu() if isinstance(s.params, torch.Tensor) else ()),
+        step_count=s.step_count.cpu(), last=s.last.cpu())
     s_gpu, ts_gpu = env.step(start, acts.to(dev))
     s_cpu, ts_cpu = env_cpu.step(to_cpu(start), acts)
-    dq = float((s_gpu.physics.qpos.cpu() - s_cpu.physics.qpos).abs().max())
-    dr = float((ts_gpu.reward.cpu() - ts_cpu.reward).abs().max())
+    apart = lambda s, ts, s_ref, ts_ref: torch.maximum(
+        (s.physics.qpos.cpu().double() - s_ref.physics.qpos).abs().amax(1),
+        (ts.reward.cpu().double() - ts_ref.reward).abs())
+    off = apart(s_gpu, ts_gpu, s_cpu, ts_cpu) >= 1e-3
+    decided = torch.zeros_like(off)
+    if by_rounding and bool(off.any()):
+        m = env_cpu.model
+        f64 = lambda o: dataclasses.replace(o, **{
+            f.name: getattr(o, f.name).double() for f in dataclasses.fields(o)
+            if isinstance(getattr(o, f.name), torch.Tensor)})
+        env_cpu._model = f64(m).replace(opt=f64(m.opt))
+        start64 = to_cpu(start)
+        start64 = type(start64)(physics=type(start64.physics)(
+            qpos=start64.physics.qpos.double(),
+            qvel=start64.physics.qvel.double(),
+            time=start64.physics.time.double()), params=start64.params,
+            step_count=start64.step_count, last=start64.last)
+        s64, ts64 = env_cpu.step(start64, acts.double())
+        decided = apart(s_cpu, ts_cpu, s64, ts64) >= 1e-3
+    keep, n_dec = ~decided, int(decided.sum())
+    dq = float((s_gpu.physics.qpos.cpu() - s_cpu.physics.qpos)[keep].abs()
+               .max())
+    dr = float((ts_gpu.reward.cpu() - ts_cpu.reward)[keep].abs().max())
     print(f'{domain}_{task} physics step, card vs plain CPU at {n} envs: '
-          f'max|dqpos| {dq:.2e}, max|dreward| {dr:.2e}')
+          f'max|dqpos| {dq:.2e}, max|dreward| {dr:.2e} over {n - n_dec} '
+          f'envs; {n_dec} decided by rounding (the float32 CPU step beyond '
+          f'1e-3 of the float64 one there)')
     check(dq < 1e-3 and dr < 1e-3, (domain, dq, dr))
-    return dict(max_dqpos=dq, max_dreward=dr)
+    check(n_dec <= n // 100, (domain, n_dec))
+    return dict(max_dqpos=dq, max_dreward=dr, rounding_decided_envs=n_dec)
 
 
 FULL_T, FULL_EPOCHS, FULL_BATCH = 10, 50, 512
@@ -1612,7 +1675,8 @@ def reacher_agent_phase(dev, torch, tmp):
 def cli_fitted_phase(dev, torch, tmp, environment, obs_only, instantiation,
                      **solves):
     """The experiment CLI on `environment` (the contact-free domains, the
-    humanoid): GoalStateAgent, single MLP, the default sampler, CEM 1000
+    humanoid, cartpole, hopper, swimmer): GoalStateAgent, single MLP, the
+    default sampler, CEM 1000
     candidates x 5 iterations, 20 seed and 5 policy rollouts of 10 control
     steps, 1 iteration of 2 epochs; `obs_only` whether the agent must plan
     in the observation (else in the featured state), `instantiation` the
@@ -1754,6 +1818,200 @@ def humanoid_sampler_case(dev, torch, params, warm):
         torch.ones(obs.shape[1], device=dev), K, H,
         torch.Generator(device=dev).manual_seed(25), 7,
         (11, 7, 9, False, True))
+
+
+HOPPER_SOLVES = 5            # 4 substeps + the observation's forward
+RK4_SOLVES = 4               # cartpole: one RK4 step a control step
+
+
+def cartpole_control_step_phase(dev, torch):
+    """(16) CONFIGS['cartpole']: cartpole_swingup, 128 envs, CEM 1000 x 30
+    x 3 through cem_batched's model / cost scan (5 + 1 dims: no sampler
+    launch); one RK4 step a control step, four cold one-row solves (#1's
+    apgd_warp_kernel<1>); the physics against the CPU's; a profile."""
+    from mujoco_mbrl_tpu_torch import bench
+
+    cfg = bench.config('cartpole')
+    Bc, Kc, Hc = cfg['envs'], cfg['candidates'], cfg['horizon']
+    run, (params, state0, gen) = bench.build_bench(
+        cfg['task'], Bc, Kc, Hc, ITERS, STEPS, device=dev)
+    counts, out, state, warm = control_step(
+        dev, torch, run, params, state0, gen, 'cartpole control step',
+        envs=Bc)
+    exact_counts('cartpole control step', counts,
+                 apgd_solve=RK4_SOLVES * STEPS)
+    check(state.physics.qpos.shape == (Bc, 2), state.physics.qpos.shape)
+    out['card_vs_cpu'] = card_vs_cpu_step(dev, torch, 'cartpole', 'swingup',
+                                          warm)
+    out.update(profile_phase(torch, run, params, state, gen, out['wall_s']))
+    return counts, out
+
+
+def small_row_cases(dev, torch):
+    """#1's one-row-a-lane instantiation on solves captured from the
+    port at B envs: cartpole's slider-limit row (the cart at +-1.79..1.83
+    moving outward, the limit at 1.8: eight cold RK4 stage solves, one
+    kept for timing), and swimmer6's five joint-limit rows (the joints at
+    +-1.03..1.08 rad moving outward, the limit at 60 degrees; a cold
+    substep, then a warm one)."""
+    from types import SimpleNamespace
+
+    from mujoco_mbrl_tpu_torch import suite
+    from mujoco_mbrl_tpu_torch.physics.model import State
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    u = lambda *shape: torch.rand(shape, generator=g, device=dev)
+    sign = lambda *shape: torch.where(u(*shape) < 0.5, -1.0, 1.0)
+    start = lambda qpos, qvel: SimpleNamespace(physics=State(
+        qpos=qpos, qvel=qvel, time=torch.zeros(B, device=dev)))
+    sc = sign(B)
+    cart = capture_solves(dev, torch, suite.load('cartpole', 'swingup',
+                                                 device=dev),
+                          start(torch.stack([sc * (1.79 + 0.04 * u(B)),
+                                             6.3 * u(B) - 3.15], 1),
+                                torch.stack([sc * (0.5 + 1.5 * u(B)),
+                                             torch.randn(B, generator=g,
+                                                         device=dev)], 1)),
+                          'cartpole-nr1', 'apgd_iterate_batched')
+    ss = sign(B, 5)
+    qpos = torch.zeros((B, 8), device=dev)
+    qvel = torch.zeros((B, 8), device=dev)
+    qpos[:, 3:] = ss * (1.03 + 0.05 * u(B, 5))
+    qvel[:, 3:] = ss * (0.5 + 1.5 * u(B, 5))
+    swim = capture_solves(dev, torch, suite.load('swimmer', 'swimmer6',
+                                                 device=dev),
+                          start(qpos, qvel), 'swimmer6-nr5',
+                          'apgd_iterate_batched')
+    for tag, args, kw in cart + swim:
+        n_act = int(args[4].sum())
+        check(n_act > 0, (tag, n_act))
+    print(f'apgd cartpole-nr1: {len(cart)} cold RK4 stage solves, '
+          f'{int(cart[0][1][4].sum())} of {B} rows active in the first; '
+          f'swimmer6-nr5: {int(swim[0][1][4].sum())} of {5 * B} rows '
+          f'active (cold)')
+    return cart, swim
+
+
+def small_row_apgd_phase(dev, torch):
+    """#1 at cartpole's 1 row and swimmer6's 5 (apgd_warp_kernel<1>)
+    against its plain version under the one APGD rule, and timed as the
+    dense kernel (cartpole: its first stage solve)."""
+    from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
+
+    cart, swim = small_row_cases(dev, torch)
+    worst, rounding_envs = hold_apgd(
+        torch, 'apgd', A.apgd_iterate_batched, A.apgd_iterate_plain,
+        lambda args: args[0], cart + swim)
+    times = time_apgd(
+        torch, 'apgd', A.apgd_iterate_batched, A.apgd_iterate_plain,
+        cart[:1] + swim, lambda a: 2.0 * a[1].shape[1] ** 2,
+        lambda a: 4.0 * (a[0].numel() + 6 * a[1].numel() + 2 * a[1].shape[1]),
+        trace_bound=False)
+    return worst, rounding_envs, times
+
+
+def hopper_control_step_phase(dev, torch):
+    """(18) the JAX bench's --task hopper_hop at its defaults: 1024 envs,
+    CEM 1000 x 30 x 3 through the fused sampler at the 15-dim observation
+    and 4 actions (the (3, 7, 2) tiles); a control step is 4 substeps and
+    the observation's forward (the touch sensors read its contact
+    forces), each one 88-row dense solve on #1's block path; the first
+    observation of a run solves once more. The physics against the CPU's;
+    a profile."""
+    from mujoco_mbrl_tpu_torch import bench
+
+    run, (params, state0, gen) = bench.build_bench(
+        'hopper_hop', B, K, H, ITERS, STEPS, device=dev)
+    counts, out, state, warm = control_step(
+        dev, torch, run, params, state0, gen, 'hopper control step')
+    exact_counts('hopper control step', counts,
+                 cem_sample_rollout=ITERS * STEPS,
+                 apgd_solve=1 + HOPPER_SOLVES * STEPS)
+    check(state.physics.qpos.shape == (B, 7), state.physics.qpos.shape)
+    out['card_vs_cpu'] = card_vs_cpu_step(dev, torch, 'hopper', 'hop', warm,
+                                          by_rounding=True)
+    out.update(profile_phase(torch, run, params, state, gen, out['wall_s']))
+    return counts, out, params, state0, warm
+
+
+def hopper_block_phase(dev, torch, state0):
+    """(19) #1's block path (apgd_block_kernel, 88 rows) against its plain
+    version on solves captured from hopper_hop at 1024 envs: at the reset
+    states (random pitch, falling) and after 20 control steps of random
+    actions (fallen, in floor contact), cold and warm, under the one APGD
+    rule (rtol = atol = 2e-4, at most 1% of envs decided by rounding);
+    device time from a CUDA graph, the largest iteration count, us per
+    dependent step and ns per APGD iteration beside the FP32 bound."""
+    from mujoco_mbrl_tpu_torch import suite
+    from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
+
+    env = suite.load('hopper', 'hop', device=dev)
+    moving, g_act = state0, torch.Generator(device=dev).manual_seed(9)
+    for _ in range(20):
+        moving, _ = env.step(moving, 2 * torch.rand(
+            (B, env.model.nu), generator=g_act, device=dev) - 1)
+    cases = (capture_solves(dev, torch, env, state0, 'hopper-reset',
+                            'apgd_iterate_batched')
+             + capture_solves(dev, torch, env, moving, 'hopper-contact',
+                              'apgd_iterate_batched'))
+    for tag, args, kw in cases:
+        check(args[0].shape[1:] == (88, 88), (tag, args[0].shape))
+        print(f'apgd {tag} cold={kw["cold"]}: nr 88, '
+              f'{int(args[4].sum())} of {args[4].numel()} rows active, '
+              f'{int((args[4][:, 4:].sum(1) > 0).sum())} of {B} envs in '
+              f'contact')
+    worst, rounding_envs = hold_apgd(
+        torch, 'apgd block', A.apgd_iterate_batched, A.apgd_iterate_plain,
+        lambda args: args[0], cases)
+    times = time_apgd(
+        torch, 'apgd block', A.apgd_iterate_batched, A.apgd_iterate_plain,
+        cases, lambda a: 2.0 * a[1].shape[1] ** 2,
+        lambda a: 4.0 * (a[0].numel() + 6 * a[1].numel() + 2 * a[1].shape[1]),
+        trace_bound=False)
+    tag, args, kw = cases[-1]
+    check(tag == 'hopper-contact' and not kw['cold'], tag)
+    cap = lambda n: device_ms(lambda: A.apgd_iterate_batched(
+        *args, **dict(kw, iterations=n, tol2=0.0)), 20)
+    t1, t41 = cap(1), cap(41)
+    iteration_ns = 1e6 * (t41 - t1) / 40
+    print(f'apgd block {tag}-warm, tol2 = 0: {t1:.4f} ms at 1 iteration, '
+          f'{t41:.4f} ms at 41: {iteration_ns:.0f} ns per APGD iteration')
+    return worst, rounding_envs, times, iteration_ns
+
+
+def hopper_sampler_case(dev, torch, params, warm):
+    """#2 at the hopper bench's shape: its random MLP (15-50-50-15) over
+    the observations of the control step's warm-up states, 1024 envs x
+    1000 candidates x horizon 30, ad 4: the sized (3, 7, 2) instantiation,
+    held to one block an SM (no spill)."""
+    from mujoco_mbrl_tpu_torch import suite
+
+    env = suite.load('hopper', 'hop', device=dev)
+    obs = suite.flatten_observation(env._observe(env.model, warm.physics,
+                                                 ()))
+    check((obs.shape[1], env.model.nu) == (15, 4), obs.shape)
+    goal = torch.zeros(obs.shape[1], device=dev)
+    goal[1] = 1.0
+    return sampler_shape_case(
+        dev, torch, 'sampler hopper', params, obs, goal,
+        torch.ones(obs.shape[1], device=dev), K, H,
+        torch.Generator(device=dev).manual_seed(26), 7,
+        (3, 7, 2, True, True))
+
+
+def acrobot_phase(dev, torch):
+    """(22) acrobot_swingup, one step of random actions on the card
+    against the CPU's from the same reset states: RK4, contacts and limits
+    off, so no constraint row and no launch."""
+    from mujoco_mbrl_tpu_torch import ops, suite
+
+    env = suite.load('acrobot', 'swingup', device=dev)
+    start, _ = env.reset(B, torch.Generator().manual_seed(6))
+    ops.reset_launch_counts()
+    out = card_vs_cpu_step(dev, torch, 'acrobot', 'swingup', start)
+    counts = dict(ops.launch_counts)
+    exact_counts('acrobot step', counts)
+    return counts, out
 
 
 def main() -> int:
@@ -1909,6 +2167,32 @@ def main() -> int:
             (11, 7, 8, False, True),
             apgd_factored=HUMANOID_SUBSTEPS * 2 * 10)
 
+    # ---- slice 10: cartpole, hopper, swimmer, acrobot --------------------
+    cp_counts, cp_out = cartpole_control_step_phase(dev, torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        cpc_counts, cpc_wall, cpc_fit = cli_fitted_phase(
+            dev, torch, tmp, 'cartpole_swingup', True, (1, 7, 1, True, True),
+            apgd_solve=RK4_SOLVES * 2 * 10)
+    sr_err, sr_rounding, sr_t = small_row_apgd_phase(dev, torch)
+    hp_counts, hp_out, hp_params, hp_state0, hp_warm = (
+        hopper_control_step_phase(dev, torch))
+    hb_err, hb_rounding, hb_t, hb_iter_ns = hopper_block_phase(
+        dev, torch, hp_state0)
+    samp_hp = hopper_sampler_case(dev, torch, hp_params, hp_warm)
+    # the hopper's solves: the observation spec's forward (one env), then
+    # per collection the reset's and the first featured state's forwards
+    # and 10 control steps of 4 substeps and an observation forward
+    with tempfile.TemporaryDirectory() as tmp:
+        hpc_counts, hpc_wall, hpc_fit = cli_fitted_phase(
+            dev, torch, tmp, 'hopper_hop', False, (3, 7, 3, True, True),
+            apgd_solve=1 + 2 * (2 + HOPPER_SOLVES * 10))
+    # swimmer6: a 0.03 s control step over 0.002 s physics, 15 substeps
+    with tempfile.TemporaryDirectory() as tmp:
+        swc_counts, swc_wall, swc_fit = cli_fitted_phase(
+            dev, torch, tmp, 'swimmer_swimmer6', False, (3, 7, 3, True, True),
+            apgd_solve=15 * 2 * 10)
+    ac_counts, ac_out = acrobot_phase(dev, torch)
+
     sampler_entry = lambda tiles: ptxas_info(
         'cem_sample_rollout', 'cem_sample_rollout_kernelI' + ''.join(
             f'Li{t}E' for t in tiles[:3]) + ''.join(
@@ -1922,12 +2206,17 @@ def main() -> int:
              'cem_sample_rollout_kernel<11,7,8,false,true>': sampler_entry(
                  (11, 7, 8, False, True)),
              'cem_sample_rollout_kernel<16,16,16,false,false>':
-                 sampler_entry((16, 16, 16, False, False))}
+                 sampler_entry((16, 16, 16, False, False)),
+             'cem_sample_rollout_kernel<3,7,2,true,true>': sampler_entry(
+                 (3, 7, 2, True, True)),
+             'apgd_block_kernel': ptxas_info('apgd_solve',
+                                             '17apgd_block_kernel')}
     print(f'ptxas: {ptxas}')
     samp_t['cases']['reacher256_b256_k500_h20_sd6'] = samp_r256
     samp_t['cases']['reacher_agent_b1024_sd6_fitted'] = ra_fit
     samp_t['cases']['guarded_b256_k500_h20_sd40_hid64'] = samp_guarded
     samp_t['cases']['humanoid_b512_k1000_h30_sd67'] = samp_h
+    samp_t['cases']['hopper_b1024_k1000_h30_sd15'] = samp_hp
 
     paths = {'walker_control_step': counts,
              'walker_ens_control_step': ens_counts,
@@ -1939,7 +2228,10 @@ def main() -> int:
              'reacher_agent_loop': ra_counts, 'reacher_cli': rc_counts,
              'point_mass_cli': pc_counts,
              'pendulum_step': pend_counts,
-             'humanoid_control_step': h_counts, 'humanoid_cli': hc_counts}
+             'humanoid_control_step': h_counts, 'humanoid_cli': hc_counts,
+             'cartpole_control_step': cp_counts, 'cartpole_cli': cpc_counts,
+             'hopper_control_step': hp_counts, 'hopper_cli': hpc_counts,
+             'swimmer_cli': swc_counts, 'acrobot_step': ac_counts}
     by_path = lambda key: {p: c[key] for p, c in paths.items() if c[key]}
     src = lambda f: f'mujoco_mbrl_tpu_torch/csrc/{f}'
     tpu = lambda f, line, fn: f'mujoco_mbrl_tpu/ops/{f}:{line} ({fn})'
@@ -1954,17 +2246,23 @@ def main() -> int:
              source=src('apgd_solve.cu'),
              replaces=tpu('apgd_solve.py', 60, '_apgd_kernel'),
              launches=counts['apgd_solve'],
-             max_abs_err=max(apgd_err, lim_err),
+             max_abs_err=max(apgd_err, lim_err, sr_err, hb_err),
              library_ms=None, **pick(apgd_t['contact-warm']),
              call_ms=apgd_t['contact-warm']['call_ms'],
              max_iterations=apgd_t['contact-warm']['max_iterations'],
              us_per_dependent_step=apgd_t['contact-warm'][
                  'us_per_dependent_step'],
              iteration_ns=apgd_iter_ns,
-             rounding_decided_envs=rounding_envs + lim_rounding,
+             rounding_decided_envs=(rounding_envs + lim_rounding
+                                    + sr_rounding + hb_rounding),
              launches_by_path=by_path('apgd_solve'),
-             cases=dict(apgd_t, **lim_t),
-             ptxas_one_row=ptxas['apgd_warp_kernel<1>']),
+             cases=dict(apgd_t, **lim_t, **sr_t, **hb_t),
+             hopper_block=dict(hb_t['hopper-contact-warm'],
+                               iteration_ns=hb_iter_ns,
+                               rounding_decided_envs=hb_rounding,
+                               launches_per_control_step=HOPPER_SOLVES),
+             ptxas_one_row=ptxas['apgd_warp_kernel<1>'],
+             ptxas_block=ptxas['apgd_block_kernel']),
         dict(name='mlp_sample_rollout_costs', route='cuda',
              source=src('cem_sample_rollout.cu'),
              replaces=tpu('cem_rollout.py', 364, '_sample_kernel_multi'),
@@ -1972,7 +2270,7 @@ def main() -> int:
              max_abs_err=max(samp_err, samp_cheetah['max_abs_err'],
                              samp_r256['max_abs_err'], ra_fit['max_abs_err'],
                              samp_guarded['max_abs_err'],
-                             samp_h['max_abs_err']),
+                             samp_h['max_abs_err'], samp_hp['max_abs_err']),
              library_ms=None, **pick_s(samp_cheetah),
              launches_by_path=by_path('cem_sample_rollout'),
              cases=dict(samp_t['cases'], cheetah_sd17=samp_cheetah),
@@ -1982,21 +2280,29 @@ def main() -> int:
                  f'cem_sample_rollout_kernel<{k},false,true>']
                  for k in ('11,7,9', '11,7,8')},
              ptxas_guarded=ptxas[
-                 'cem_sample_rollout_kernel<16,16,16,false,false>']),
+                 'cem_sample_rollout_kernel<16,16,16,false,false>'],
+             ptxas_hopper_observation=ptxas[
+                 'cem_sample_rollout_kernel<3,7,2,true,true>']),
         dict(name='mlp_sample_rollout_costs[spline4]', route='cuda',
              source=src('cem_sample_rollout.cu'),
              replaces=tpu('cem_rollout.py', 258, '_sample_kernel'),
              launches=cli_counts['cem_sample_rollout'],
              max_abs_err=max(cli_fit['max_abs_err'], rc_fit['max_abs_err'],
-                             pc_fit['max_abs_err'], hc_fit['max_abs_err']),
+                             pc_fit['max_abs_err'], hc_fit['max_abs_err'],
+                             cpc_fit['max_abs_err'], hpc_fit['max_abs_err'],
+                             swc_fit['max_abs_err']),
              library_ms=None, **pick_s(samp_t['cases']['spline4']),
              launches_by_path={p: paths[p]['cem_sample_rollout'] for p in (
                  'walker_cli_spline4', 'reacher_cli', 'point_mass_cli',
-                 'humanoid_cli')},
+                 'humanoid_cli', 'cartpole_cli', 'hopper_cli',
+                 'swimmer_cli')},
              cli_b5_h20=cli_fit,
              cases=dict(reacher_cli_b5_h20_sd6_fitted=rc_fit,
                         point_mass_cli_b5_h20_sd4_fitted=pc_fit,
-                        humanoid_cli_b5_h20_sd60_fitted=hc_fit)),
+                        humanoid_cli_b5_h20_sd60_fitted=hc_fit,
+                        cartpole_cli_b5_h20_sd5_fitted=cpc_fit,
+                        hopper_cli_b5_h20_sd17_fitted=hpc_fit,
+                        swimmer_cli_b5_h20_sd18_fitted=swc_fit)),
         dict(name='mlp_rollout_costs_t', route='cuda',
              source=src('cem_rollout_costs.cu'),
              replaces=tpu('cem_rollout.py', 70, '_kernel'),
@@ -2050,7 +2356,10 @@ def main() -> int:
         cheetah_full_loop=loop_t, reacher256_control_step=r_out,
         reacher_agent_loop=ra_times, reacher_cli_s=rc_wall,
         point_mass_cli_s=pc_wall, humanoid_control_step=h_out,
-        humanoid_cli_s=hc_wall)}))
+        humanoid_cli_s=hc_wall, cartpole_control_step=cp_out,
+        cartpole_cli_s=cpc_wall, hopper_control_step=hp_out,
+        hopper_cli_s=hpc_wall, swimmer_cli_s=swc_wall,
+        acrobot_step=ac_out)}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -4,18 +4,22 @@ them.
 Port of ``bench.py``'s ``build_bench`` (defaults of its ``main``),
 ``full_loop_bench`` and the ``CONFIGS`` presets that the port runs.
 
-``build_bench``: envs in lockstep (walker_walk, cheetah_run, reacher_easy,
-...), CEM with K candidates, horizon H and ``cem_iters`` refits over a
+``build_bench``: envs in lockstep (walker_walk, cheetah_run, hopper_hop,
+reacher_easy, cartpole_swingup, ...), CEM with K candidates, horizon H and
+``cem_iters`` refits over a
 50-hidden MLP dynamics model with random weights from a seed (goal e_1,
 unit cost weights, K // 10 elites), then one batched ``env.step``
 (walker: 10 physics substeps and 10 dense APGD launches; cheetah: 1
 substep and 1 factored APGD launch; humanoid_walk: 5 substeps and 5
-factored APGD launches on the block path, 303 rows; reacher_easy: 1
-substep and 1 dense APGD launch for its one limit row). The candidates
-take the JAX bench's route (``bench.py:78``): the fused sampler when
-obs_dim + act_dim >= 16 (walker, cheetah, humanoid's 67 + 21), else
-``cem_batched``'s model / cost scan in plain
-PyTorch (reacher: 6 + 2). ``fused=True`` forces the sampler;
+factored APGD launches on the block path, 303 rows; hopper_hop: 4
+substeps and the observation's forward, each a dense APGD launch on the
+block path, 88 rows; reacher_easy: 1 substep and 1 dense APGD launch for
+its one limit row; cartpole_swingup: 1 RK4 step, 4 one-row APGD
+launches). The candidates take the JAX bench's route (``bench.py:78``):
+the fused sampler when obs_dim + act_dim >= 16 (walker, cheetah, hopper's
+15 + 4, humanoid's 67 + 21), else ``cem_batched``'s model / cost scan in
+plain PyTorch (reacher: 6 + 2, cartpole: 5 + 1). ``fused=True`` forces
+the sampler;
 ``fused=False`` takes ``cem_batched``'s non-fused branch instead:
 candidates drawn with ``torch.randn``, costed by the rollout-cost kernel
 (``ops.mlp_rollout_costs_t``), one launch per CEM iteration.
@@ -44,11 +48,12 @@ from .ops.cem_rollout import (mlp_rollout_costs_t, mlp_sample_rollout_costs,
                               mlp_sample_rollout_costs_ensemble)
 from .planners import cem_batched
 
-# the JAX bench's milestone presets (BASELINE.json configs) that the port
-# runs; the JAX ones not listed here need domains the port lacks
+# the JAX bench's milestone presets (BASELINE.json configs), all ported
 CONFIGS = {
     'northstar': dict(task='walker_walk', envs=1024, candidates=1000,
                       horizon=30),
+    'cartpole': dict(task='cartpole_swingup', envs=128, candidates=1000,
+                     horizon=30),
     'cheetah1024': dict(task='cheetah_run', envs=1024, candidates=1000,
                         horizon=30, full_loop=True),
     'walker_ens': dict(task='walker_walk', envs=1024, candidates=1000,
@@ -58,7 +63,6 @@ CONFIGS = {
     'humanoid': dict(task='humanoid_walk', envs=512, candidates=1000,
                      horizon=30),
 }
-_NOT_PORTED = ('cartpole',)
 # the JAX bench's rule: the fused sampler only where the feature dims carry
 # real work (bench.py:78); smaller models plan through the scan
 FUSED_MIN_DIMS = 16
@@ -66,10 +70,6 @@ FUSED_MIN_DIMS = 16
 
 def config(name: str) -> dict:
     """The preset ``name`` of the JAX bench (``bench.py`` CONFIGS)."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f'preset {name!r} needs a domain that is not ported '
-            '(bench.py CONFIGS)')
     return dict(CONFIGS[name])
 
 

@@ -528,16 +528,19 @@ inline Cfg make_cfg(int B, int K, int n, int H, int sd, int ad, int hid,
 // Instantiations sized to a model's tile counts, the weights staged in
 // shared memory beside the warps' scratch where they fit: with exact tile
 // counts (no run-time guard in the unrolled loops) for the walker (sd
-// 19-24, ad 6) and cheetah (sd 17) models and the small models of the
-// contact-free domains (sd + ad <= 8: reacher 6 + 2, point_mass 4 + 2,
-// pendulum 3 + 1); with run-time loop bounds for the humanoid's (sd + ad
-// 81..88: the bench's 67-dim observation, 9 state tiles; the CLI's 60-dim
-// featured state, 8), whose exact unrolled loops spill at 255 registers
+// 19-24, ad 6), cheetah (sd 17), hopper (the featured state's 17 + 4, the
+// observation's 15 + 4: two state tiles) and swimmer (18 + 5) models and
+// the small models of the contact-free domains (sd + ad <= 8: reacher
+// 6 + 2, point_mass 4 + 2, pendulum 3 + 1, cartpole 5 + 1); with run-time
+// loop bounds for the humanoid's (sd + ad 81..88: the bench's 67-dim
+// observation, 9 state tiles; the CLI's 60-dim featured state, 8), whose
+// exact unrolled loops spill at 255 registers
 // where these take 168-176 and spill none; hidden 50 in all. Any other
 // shape: the guarded instantiation (up to 16 / 16 tiles), weights read
 // from global memory.
 inline bool sized_tiles(const Layout& L) {
   return L.nh == 7 && (((L.ni == 4 || L.ni == 3) && L.nso == 3) ||
+                       (L.ni == 3 && L.nso == 2) ||
                        (L.ni == 1 && L.nso == 1) ||
                        (L.ni == 11 && (L.nso == 9 || L.nso == 8)));
 }
@@ -548,11 +551,13 @@ inline bool is_staged(const Layout& L, size_t scratch) {
 inline bool is_large(const Layout& L) { return L.ni <= 16 && L.nh <= 16; }
 
 // Blocks an SM must hold (__launch_bounds__): two for the narrow exact
-// tiles (128 registers a thread); one for the humanoid's wide tiles, whose
-// weights and scratch fill an SM's shared memory, and for the guarded
-// instantiation (up to 255 registers).
-constexpr int min_blocks(int ni, bool smem) {
-  return smem && ni <= 4 ? kMinBlocks : 1;
+// tiles (128 registers a thread); one for the hopper observation's
+// (3, 7, 2) tiles, which spill at 128 registers and take none at one block
+// an SM; one for the humanoid's wide tiles, whose weights and scratch fill
+// an SM's shared memory, and for the guarded instantiation (up to 255
+// registers).
+constexpr int min_blocks(int ni, int nso, bool smem) {
+  return smem && ni <= 4 && !(ni == 3 && nso == 2) ? kMinBlocks : 1;
 }
 
 // The instantiation that takes layout L with `scratch` floats of per-warp
@@ -562,6 +567,7 @@ inline int dispatch(const Layout& L, size_t scratch, const F& f) {
   if (!is_staged(L, scratch))
     return f.template run<16, 16, 16, false, false>();
   if (L.ni == 4) return f.template run<4, 7, 3, true, true>();
+  if (L.ni == 3 && L.nso == 2) return f.template run<3, 7, 2, true, true>();
   if (L.ni == 3) return f.template run<3, 7, 3, true, true>();
   if (L.ni == 1) return f.template run<1, 7, 1, true, true>();
   if (L.nso == 9) return f.template run<11, 7, 9, false, true>();

@@ -143,7 +143,7 @@ __device__ void given_tile(const Given& c, const float* W, float* ws,
 }
 
 template <int NI, int NH, int NSO, bool EXACT, bool SMEM>
-__global__ void __launch_bounds__(kBlock, min_blocks(NI, SMEM))
+__global__ void __launch_bounds__(kBlock, min_blocks(NI, NSO, SMEM))
     cem_rollout_costs_kernel(Given c, const float* __restrict__ packed,
                              const float* __restrict__ s0_g,
                              const float* __restrict__ mu_g,

@@ -44,7 +44,7 @@ namespace {
 using namespace cem_mma;
 
 template <int NI, int NH, int NSO, bool EXACT, bool SMEM>
-__global__ void __launch_bounds__(kBlock, min_blocks(NI, SMEM))
+__global__ void __launch_bounds__(kBlock, min_blocks(NI, NSO, SMEM))
     cem_sample_rollout_ens_kernel(Cfg c, const float* __restrict__ packed,
                                   const float* __restrict__ s0_g,
                                   const float* __restrict__ mean_g,

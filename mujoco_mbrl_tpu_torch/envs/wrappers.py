@@ -1,7 +1,8 @@
 """MBRL env wrappers: featured state, goals, batched rollout collection.
 
-Port of the EnvWrapper base and the Walker, Cheetah, Reacher, PointMass,
-Pendulum and Humanoid wrappers of mujoco_mbrl_tpu/envs/wrappers.py. The
+Port of the EnvWrapper base and the Walker, Cheetah, Hopper, Reacher,
+PointMass, Pendulum, Cartpole, Swimmer and Humanoid wrappers of
+mujoco_mbrl_tpu/envs/wrappers.py. The
 featured state's [qpos, qvel] part is nq + nv wide (the humanoid's free
 root gives nq 28, nv 27). The JAX wrapper collects under
 ``vmap`` + ``lax.scan``; here the env batch is the leading dimension and
@@ -32,6 +33,7 @@ import torch
 from .. import suite as _suite
 from ..data import Rollouts
 from ..physics import engine
+from ..suite import hopper as _hopper
 from ..suite import sensors
 from ..suite.control import EnvState, flatten_observation
 
@@ -389,6 +391,110 @@ class Pendulum(EnvWrapper):
         return w
 
 
+class Cartpole(EnvWrapper):
+    """wrappers.py:450-472: [qpos, qvel]; the goal is the upright pole at
+    the centre, on the observation [x, zz, xz, velocities]."""
+    state_dim = None
+
+    def sample_state(self, generator, batch_shape=()):
+        m, shape = self._env.model, tuple(batch_shape)
+        return torch.cat([self._uniform(generator, shape + (m.nq,), -.5, .5),
+                          self._uniform(generator, shape + (m.nv,), -1., 1.)],
+                         -1)
+
+    def set_goal(self, generator=None):
+        g = torch.zeros(self.observation_dim, device=self.device)
+        g[1] = 1.0
+        return g
+
+    def get_goal_weights(self):
+        w = torch.zeros(self.observation_dim, device=self.device)
+        w[0] = self._state_penalty / 2
+        w[1:3] = self._state_penalty
+        w[3:] = self._state_penalty / 20
+        return w
+
+
+class Hopper(EnvWrapper):
+    """wrappers.py:586-630: drop x, append the log1p toe and heel touch,
+    the torso's height over the foot and the torso subtree's speed."""
+    state_dim = 14 - 1 + 4
+    observation_dim = 15
+    # sample_state's uniform ranges of state[2:7]
+    _SAMPLE_RANGES = ((-.01, .01), (-.01, .01), (-.01, .01), (.1, .12),
+                      (-.01, .01))
+
+    def get_state(self, env_state, data=None):
+        m = self._env.model
+        phys = env_state.physics
+        base = torch.cat([phys.qpos[:, 1:], phys.qvel], 1)
+        if data is None:
+            return torch.cat([base, base.new_zeros((base.shape[0], 4))], 1)
+        torso = m.name2id('body', 'torso')
+        speed = sensors.subtree_linvel(m, data, torso)[:, 0]
+        return torch.cat([base, _hopper.touch(m, data),
+                          _hopper.height(m, data)[:, None], speed[:, None]],
+                         1)
+
+    def sample_state(self, generator, batch_shape=()):
+        shape = tuple(batch_shape)
+        lo, hi = zip(*self._SAMPLE_RANGES)
+        st = torch.zeros(shape + (14,), device=self.device)
+        st[..., 1] = -0.078789
+        st[..., 2:7] = self._uniform(generator, shape + (5,), lo, hi)
+        st[..., 7:] = self._uniform(generator, shape + (7,), -.01, .01)
+        return st
+
+    def get_goal_weights(self):
+        w = torch.zeros(self.state_dim, device=self.device)
+        w[-2] = self._state_penalty / 2.0
+        w[-1] = self._state_penalty
+        return w
+
+    def set_goal(self, generator=None):
+        g = torch.zeros(self.state_dim, device=self.device)
+        g[-2] = 0.9   # height
+        g[-1] = 1.0   # speed
+        return g
+
+
+class Swimmer(EnvWrapper):
+    """wrappers.py:633-665: [qpos, qvel] and the head's orientation (the
+    first row of its rotation, x and y)."""
+    state_dim = None
+
+    def __init__(self, env, env_name, task_name):
+        self.state_dim = env.model.nq + env.model.nv + 2
+        super().__init__(env, env_name, task_name)
+
+    def get_state(self, env_state, data=None):
+        phys = env_state.physics
+        base = torch.cat([phys.qpos, phys.qvel], 1)
+        if data is None:
+            return torch.cat([base, base.new_zeros((base.shape[0], 2))], 1)
+        head = self._env.model.name2id('body', 'head')
+        return torch.cat([base, data.ximat[:, head, 0, :2]], 1)
+
+    def sample_state(self, generator, batch_shape=()):
+        m, shape = self._env.model, tuple(batch_shape)
+        st = torch.zeros(shape + (m.nq + m.nv,), device=self.device)
+        st[..., 2] = self._uniform(generator, shape, -3.0, 3.0)
+        return st
+
+    def get_goal_weights(self):
+        w = torch.zeros(self.state_dim, device=self.device)
+        w[0:1] = 10 * self._state_penalty
+        w[5:-2] = self._state_penalty
+        return w
+
+    def set_goal(self, generator):
+        """A random target position (the task's own params carry the
+        target geom's)."""
+        g = torch.zeros(self.state_dim, device=self.device)
+        g[0:2] = self._uniform(generator, (2,), -.5, .5)
+        return g
+
+
 class Humanoid(EnvWrapper):
     """wrappers.py:668-727: [qpos, qvel] and five Tassa-style features
     (feet-to-CoM, torso-to-CoM and torso-over-feet distances, CoM xy
@@ -458,8 +564,10 @@ class Humanoid(EnvWrapper):
         return torch.zeros(self.state_dim, device=self.device)
 
 
-_WRAPPERS = {'Cheetah': Cheetah, 'Humanoid': Humanoid, 'Pendulum': Pendulum,
-             'PointMass': PointMass, 'Reacher': Reacher, 'Walker': Walker}
+_WRAPPERS = {'Cartpole': Cartpole, 'Cheetah': Cheetah, 'Hopper': Hopper,
+             'Humanoid': Humanoid, 'Pendulum': Pendulum,
+             'PointMass': PointMass, 'Reacher': Reacher, 'Swimmer': Swimmer,
+             'Walker': Walker}
 
 
 def load(env_name: str, task_name: str, device=None,

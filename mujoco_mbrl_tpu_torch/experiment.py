@@ -7,8 +7,13 @@ Port of mujoco_mbrl_tpu/experiment.py with the same CONFIG_DEF and enums:
 
 plus ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch
 versions of the kernels). ``--environment`` takes the ported domains'
-tasks: walker, cheetah, reacher, point_mass, pendulum and humanoid
-(``humanoid_stand``, ``humanoid_walk``, ``humanoid_run``). Choices
+tasks through ``envs.load``: walker, cheetah, hopper (``hopper_stand``,
+``hopper_hop``), reacher, point_mass, pendulum, cartpole
+(``cartpole_balance``, ``cartpole_swingup``: the name splits at its last
+underscore, as in the JAX CLI, so a task named with one is not reached),
+swimmer (``swimmer_swimmer6``, ``swimmer_swimmer15``) and humanoid
+(``humanoid_stand``, ``humanoid_walk``, ``humanoid_run``); acrobot has
+no wrapper, as in the JAX package. Choices
 whose classes are not ported (planners rs / grad / ilqr, models lin / rw
 / rnn, agent rw) raise
 ``NotImplementedError`` when constructed. Defaults follow the JAX CLI:

@@ -1,11 +1,13 @@
 """Forward dynamics, constraint solve and semi-implicit Euler, batched.
 
 Port of mujoco_mbrl_tpu/physics/engine.py: ``forward`` (with the
-``acc_stage=False`` position/velocity-only pass), ``_euler`` with implicit
-joint damping, ``integrate_pos``, ``step``, ``step_warm`` and ``substep``
-(the constraint row forces and the APGD power vector carried from one
-substep's solve into the next), ``n_substeps`` and ``diverged``. Every
-function takes the env batch as the leading dimension. RK4 is not ported.
+``acc_stage=False`` position/velocity-only pass; the fluid force in
+``qfrc_passive`` where the model has a medium), ``_euler`` with implicit
+joint damping, ``_rk4`` (four forward passes, each with a cold constraint
+solve), ``integrate_pos``, ``step``, ``step_warm`` and ``substep`` (with
+Euler, the constraint row forces and the APGD power vector carried from
+one substep's solve into the next), ``n_substeps`` and ``diverged``.
+Every function takes the env batch as the leading dimension.
 """
 
 from __future__ import annotations
@@ -21,11 +23,11 @@ from . import smooth
 from . import solver as solver_mod
 
 
-def _check_integrator(m: M.Model):
-    if m.opt.integrator != M.EULER or m.opt.solver != 'apgd':
+def _check_solver(m: M.Model):
+    if m.opt.solver != 'apgd':
         raise NotImplementedError(
-            'only Euler + APGD are ported (mujoco_mbrl_tpu.physics.engine._rk4'
-            ' / solver.solve)')
+            'only the APGD solver is ported '
+            '(mujoco_mbrl_tpu.physics.solver.solve)')
 
 
 def forward(m: M.Model, state: M.State, ctrl: torch.Tensor,
@@ -42,7 +44,7 @@ def forward(m: M.Model, state: M.State, ctrl: torch.Tensor,
 def _forward(m: M.Model, state: M.State, ctrl: torch.Tensor,
              acc_stage: bool = True, need_qacc: bool = True,
              warm_f=None, warm_v=None) -> M.Data:
-    _check_integrator(m)
+    _check_solver(m)
     meta = smooth.tree_meta(m)
     qpos, qvel = state.qpos, state.qvel
     B, dt, dev = qpos.shape[0], qpos.dtype, qpos.device
@@ -62,6 +64,9 @@ def _forward(m: M.Model, state: M.State, ctrl: torch.Tensor,
     if m.ntendon:
         qfrc_passive = qfrc_passive + smooth.tendon_passive_force(
             m, qpos, qvel)
+    if smooth.fluid_on(m):
+        qfrc_passive = qfrc_passive + smooth.fluid_force(
+            m, xipos, xquat, cvel, cdof, meta)
     contact = None
     if not (m.opt.disableflags & M.DSBL_CONTACT):
         pairs = M.cached(m, 'candidate_pairs', lambda: (
@@ -150,14 +155,46 @@ def _euler(m: M.Model, state: M.State, ctrl, warm_f=None, warm_v=None
             d.efc_force, d.efc_power_v)
 
 
+_RK4_A = ((0.5,), (0.0, 0.5), (0.0, 0.0, 1.0))
+_RK4_B = (1.0 / 6.0, 1.0 / 3.0, 1.0 / 3.0, 1.0 / 6.0)
+
+
+def _rk4(m: M.Model, state: M.State, ctrl) -> M.State:
+    """Classic Runge-Kutta on (qpos, qvel) with JAX's tableau: four full
+    forward passes (each a cold constraint solve), positions advanced by
+    ``integrate_pos`` at each stage (JAX engine.py:229-258)."""
+    h = m.opt.timestep.to(state.qpos.dtype)
+    q0, v0 = state.qpos, state.qvel
+    vels = [v0]
+    accs = [_forward(m, state, ctrl).qacc]
+    for arow in _RK4_A:
+        dv = sum(a * acc for a, acc in zip(arow, accs) if a != 0.0)
+        dq_vel = sum(a * vel for a, vel in zip(arow, vels) if a != 0.0)
+        qi = integrate_pos(m, q0, dq_vel, h)
+        vi = v0 + h * dv
+        vels.append(vi)
+        accs.append(_forward(m, M.State(qpos=qi, qvel=vi, time=state.time),
+                             ctrl).qacc)
+    vel_w = sum(bw * vel for bw, vel in zip(_RK4_B, vels))
+    acc_w = sum(bw * acc for bw, acc in zip(_RK4_B, accs))
+    return M.State(qpos=integrate_pos(m, q0, vel_w, h), qvel=v0 + h * acc_w,
+                   time=state.time + h)
+
+
 def step(m: M.Model, state: M.State, ctrl: torch.Tensor) -> M.State:
-    """Advance physics by one timestep (cold constraint solve)."""
+    """Advance physics by one timestep (cold constraint solves)."""
+    if m.opt.integrator == M.RK4:
+        return _rk4(m, state, ctrl)
     return _euler(m, state, ctrl)[0]
 
 
 def step_warm(m: M.Model, state: M.State, ctrl: torch.Tensor,
               warm_f=None, warm_v=None):
-    """`step` threading row forces and the power vector for warm starts."""
+    """`step` threading row forces and the power vector for warm starts.
+    RK4's four stage solves see different configurations and never warm
+    start: it returns ``(state, None, None)``."""
+    if m.opt.integrator == M.RK4:
+        return _rk4(m, state, ctrl), None, None
     return _euler(m, state, ctrl, warm_f=warm_f, warm_v=warm_v)
 
 
@@ -184,10 +221,11 @@ def n_substeps(m: M.Model, control_timestep: float) -> int:
 
 def substep(m: M.Model, state: M.State, ctrl: torch.Tensor,
             n: int) -> M.State:
-    """n physics steps under constant ctrl; with ``solver_warmstart`` the
-    first solve runs cold and each later one starts from the previous
-    substep's row forces and power vector (JAX engine.py:336-346)."""
-    if n == 1 or not m.opt.solver_warmstart:
+    """n physics steps under constant ctrl; with ``solver_warmstart`` (and
+    Euler: RK4 never warm starts) the first solve runs cold and each later
+    one starts from the previous substep's row forces and power vector
+    (JAX engine.py:336-346)."""
+    if n == 1 or not m.opt.solver_warmstart or m.opt.integrator == M.RK4:
         for _ in range(n):
             state = step(m, state, ctrl)
         return state

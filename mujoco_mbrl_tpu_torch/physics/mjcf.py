@@ -1,17 +1,21 @@
 """MJCF-subset compiler: XML string -> :class:`Model` (host-side numpy).
 
-Port of the part of mujoco_mbrl_tpu/physics/mjcf.py that the planar walker
-and cheetah, the contact-free reacher, point_mass and pendulum and the
-humanoid reach: ``<compiler angle settotalmass>``, ``<option timestep
-gravity>`` with its ``<flag contact gravity limit actuation>``, nested
-``<default>`` classes with ``childclass``, bodies with ``pos`` and
-orientation, hinge and slide joints with limits, ``<freejoint>`` (which
-takes no default but its name), plane, sphere and capsule geoms (placed
-by ``pos`` + orientation or by ``fromto``; mass given or from density),
-fixed tendons, and motors on a joint or a fixed tendon. Cameras and
-lights are visual only and skipped. Every other MJCF feature (ball
-joints, equality constraints, spatial tendons, tendon limits among them)
-raises ``NotImplementedError`` naming the JAX function that handles it.
+Port of the part of mujoco_mbrl_tpu/physics/mjcf.py that the planar walker,
+cheetah and hopper, the contact-free reacher, point_mass, pendulum,
+cartpole, acrobot and swimmer and the humanoid reach: ``<compiler angle
+settotalmass>``, ``<option timestep gravity integrator density viscosity
+wind>`` (Euler or RK4) with its ``<flag contact gravity limit
+actuation>``, nested ``<default>`` classes with ``childclass``, bodies with
+``pos`` and orientation, hinge and slide joints with limits,
+``<freejoint>`` (which takes no default but its name), plane, sphere,
+capsule and box geoms (placed by ``pos`` + orientation or by ``fromto``;
+mass given or from density), sites (MuJoCo's default size 0.005), fixed
+tendons, and motors on a joint or a fixed tendon; and the fluid model's
+per-body equivalent inertia box and principal frame. Cameras and lights
+are visual only and skipped. Every other MJCF feature (ball joints,
+ellipsoid and cylinder geoms, sensors, equality constraints, spatial
+tendons, tendon limits, elliptic cones among them) raises
+``NotImplementedError`` naming the JAX function that handles it.
 """
 
 from __future__ import annotations
@@ -85,7 +89,14 @@ def _skew(p):
 _JOINT_TYPES = {'free': M.FREE, 'slide': M.SLIDE, 'hinge': M.HINGE}
 _QPOS_WIDTH = {M.FREE: 7, M.SLIDE: 1, M.HINGE: 1}
 _DOF_WIDTH = {M.FREE: 6, M.SLIDE: 1, M.HINGE: 1}
-_GEOM_TYPES = {'plane': M.PLANE, 'sphere': M.SPHERE, 'capsule': M.CAPSULE}
+_GEOM_TYPES = {'plane': M.PLANE, 'sphere': M.SPHERE, 'capsule': M.CAPSULE,
+               'box': M.BOX}
+# a site's shape only bounds a touch zone; an unknown type reads as a
+# sphere, as in the JAX compiler
+_SITE_TYPES = {'sphere': M.SPHERE, 'capsule': M.CAPSULE,
+               'ellipsoid': M.ELLIPSOID, 'cylinder': M.CYLINDER,
+               'box': M.BOX}
+_SITE_SIZE = 0.005                    # MuJoCo's default site size
 _DEFAULT_SOLREF = np.array([0.02, 1.0])
 _DEFAULT_SOLIMP = np.array([0.9, 0.95, 0.001, 0.5, 2.0])
 
@@ -152,6 +163,8 @@ def _geom_volume(gtype: int, size) -> float:
         return 4.0 / 3.0 * math.pi * r ** 3
     if gtype == M.CAPSULE:
         return math.pi * r * r * (2 * size[1]) + 4.0 / 3.0 * math.pi * r ** 3
+    if gtype == M.BOX:
+        return 8.0 * size[0] * size[1] * size[2]
     return 0.0                                     # plane: massless
 
 
@@ -171,7 +184,31 @@ def _geom_inertia(gtype: int, size, mass: float) -> np.ndarray:
         ixy += sph_i + sphere_mass * height * (3 * r + 2 * height) / 8.0
         iz += sph_i
         return np.diag([ixy, ixy, iz])
+    if gtype == M.BOX:
+        a2, b2, c2 = (2 * np.asarray(size)) ** 2
+        return np.diag([mass * (b2 + c2) / 12.0, mass * (a2 + c2) / 12.0,
+                        mass * (a2 + b2) / 12.0])
     return np.zeros((3, 3))
+
+
+def _fluid_boxes(body_mass, body_inertia):
+    """The fluid model's equivalent inertia box of each massive body,
+    half-sizes a_i = sqrt(3 (I_j + I_k - I_i) / (2 m)) over the principal
+    moments, and the principal frame (eigenvectors of the inertia), as
+    the JAX compiler computes them."""
+    nbody = len(body_mass)
+    box = np.zeros((nbody, 3))
+    frame = np.tile(np.eye(3), (nbody, 1, 1))
+    for i in range(nbody):
+        mm = body_mass[i]
+        if mm > 1e-12:
+            evals, evecs = np.linalg.eigh(body_inertia[i])
+            frame[i] = evecs
+            for ax in range(3):
+                j, k = (ax + 1) % 3, (ax + 2) % 3
+                box[i, ax] = np.sqrt(3.0 * max(
+                    evals[j] + evals[k] - evals[ax], 1e-14) / (2.0 * mm))
+    return box, frame
 
 
 def parse(xml_string: str, dtype=torch.float32) -> M.Model:
@@ -195,6 +232,9 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
 
     timestep = 0.002
     gravity = np.array([0.0, 0.0, -9.81])
+    integrator = M.EULER
+    viscosity = density = 0.0
+    wind = np.zeros(3)
     solver_iterations = 30
     disableflags = 0
     opt_el = root.find('option')
@@ -203,13 +243,18 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
         solver_iterations = int(opt_el.get('iterations', 30))
         if 'gravity' in opt_el.attrib:
             gravity = _floats(opt_el.get('gravity'))
-        if opt_el.get('integrator', 'Euler') != 'Euler':
-            raise _unsupported('integrator other than Euler')
+        integ = opt_el.get('integrator', 'Euler')
+        if integ not in ('Euler', 'RK4'):
+            raise _unsupported(f'integrator {integ!r}')
+        integrator = M.RK4 if integ == 'RK4' else M.EULER
         if opt_el.get('cone', 'pyramidal') != 'pyramidal':
             raise _unsupported('elliptic friction cone')
-        for k in ('viscosity', 'density', 'wind', 'impratio'):
-            if k in opt_el.attrib:
-                raise _unsupported(f'option {k} (fluid model)')
+        if 'impratio' in opt_el.attrib:
+            raise _unsupported('option impratio')
+        viscosity = float(opt_el.get('viscosity', 0.0))
+        density = float(opt_el.get('density', 0.0))
+        if 'wind' in opt_el.attrib:
+            wind = _floats(opt_el.get('wind'))
         flag = opt_el.find('flag')
         if flag is not None:
             for attr, bit in (('contact', M.DSBL_CONTACT),
@@ -229,6 +274,7 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
     body_mass, body_fm, body_io = [0.0], [np.zeros(3)], [np.zeros((3, 3))]
     jnts, jnt_names = [], {}
     geoms, geom_names = [], {}
+    sites, site_names = [], {}
 
     def add_geom(attrs, body_id):
         gname = attrs.get('type', 'sphere')
@@ -287,6 +333,22 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
             body_io[body_id] = body_io[body_id] + inertia_com + mass * (
                 cx @ cx.T)
 
+    def add_site(attrs, body_id):
+        size = np.full(3, _SITE_SIZE)
+        if 'size' in attrs:
+            s = _floats(attrs['size'])
+            size[:len(s)] = s
+            if len(s) == 1:
+                size[:] = s[0]
+        if attrs.get('name'):
+            site_names[attrs['name']] = len(sites)
+        sites.append(dict(
+            body=body_id,
+            pos=_floats(attrs['pos']) if 'pos' in attrs else np.zeros(3),
+            quat=_orientation(attrs, deg),
+            type=_SITE_TYPES.get(attrs.get('type', 'sphere'), M.SPHERE),
+            size=size))
+
     def add_joint(attrs, body_id):
         jname = attrs.get('type', 'hinge')
         if jname not in _JOINT_TYPES:
@@ -335,6 +397,8 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
                       body_id)
         elif tag == 'geom':
             add_geom(cattrs, body_id)
+        elif tag == 'site':
+            add_site(cattrs, body_id)
         elif tag == 'body':
             walk_body(child, body_id, cls)
         elif tag in ('camera', 'light'):
@@ -404,6 +468,7 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
             cx = _skew(com)
             body_ipos[i] = com
             body_inertia[i] = body_io[i] - bmass[i] * (cx @ cx.T)
+    body_fluid_box, body_principal_mat = _fluid_boxes(bmass, body_inertia)
 
     # fixed tendons: one moment row (d length / d qvel) each
     tendon_names, tendons = {}, []
@@ -460,14 +525,14 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
             a = a.reshape(shape)
         return torch.as_tensor(a, dtype=dtype)
 
-    ng = len(geoms)
+    ng, ns = len(geoms), len(sites)
     model = M.Model(
         opt=M.Option(timestep=arr(timestep, ()), gravity=arr(gravity, (3,)),
-                     viscosity=arr(0.0, ()), density=arr(0.0, ()),
-                     wind=arr(np.zeros(3), (3,)),
+                     viscosity=arr(viscosity, ()), density=arr(density, ()),
+                     wind=arr(wind, (3,)), integrator=integrator,
                      disableflags=disableflags,
                      solver_iterations=solver_iterations),
-        nq=nq, nv=nv, nu=nu, nbody=nbody, njnt=njnt, ngeom=ng, nsite=0,
+        nq=nq, nv=nv, nu=nu, nbody=nbody, njnt=njnt, ngeom=ng, nsite=ns,
         ntendon=ntendon,
         body_parent=tuple(body_parent),
         jnt_type=tuple(j['type'] for j in jnts),
@@ -477,12 +542,13 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
         dof_jnt=tuple(dof_jnt),
         geom_type=tuple(g['type'] for g in geoms),
         geom_body=tuple(g['body'] for g in geoms),
-        site_body=(),
+        site_body=tuple(s['body'] for s in sites),
         actuator_trntype=tuple(a['trntype'] for a in acts),
         actuator_trnid=tuple(a['trnid'] for a in acts),
         actuator_ctrllimited=tuple(a['ctrllimited'] for a in acts),
         names={'body': body_names, 'joint': jnt_names, 'geom': geom_names,
-               'site': {}, 'actuator': act_names, 'tendon': tendon_names},
+               'site': site_names, 'actuator': act_names,
+               'tendon': tendon_names},
         body_pos=arr(body_pos, (nbody, 3)),
         body_quat=arr(body_quat, (nbody, 4)),
         body_mass=arr(bmass, (nbody,)),
@@ -511,7 +577,12 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
         geom_condim=tuple(g['condim'] for g in geoms),
         geom_priority=tuple(g['priority'] for g in geoms),
         geom_solmix=arr([g['solmix'] for g in geoms], (ng,)),
-        site_pos=arr([], (0, 3)), site_quat=arr([], (0, 4)),
+        site_pos=arr([s['pos'] for s in sites], (ns, 3)),
+        site_quat=arr([s['quat'] for s in sites], (ns, 4)),
+        site_size=arr([s['size'] for s in sites], (ns, 3)),
+        site_type=tuple(s['type'] for s in sites),
+        body_fluid_box=arr(body_fluid_box, (nbody, 3)),
+        body_principal_mat=arr(body_principal_mat, (nbody, 3, 3)),
         actuator_gear=arr([a['gear'] for a in acts], (nu,)),
         actuator_ctrlrange=arr([a['ctrlrange'] for a in acts], (nu, 2)),
         actuator_gainprm=arr([[1.0, 0.0, 0.0] for _ in acts], (nu, 3)),

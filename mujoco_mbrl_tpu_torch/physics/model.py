@@ -133,6 +133,7 @@ class Model:
     geom_solmix: torch.Tensor       # (ngeom,)
     site_pos: torch.Tensor          # (nsite, 3)
     site_quat: torch.Tensor         # (nsite, 4)
+    site_size: torch.Tensor         # (nsite, 3) touch-zone volumes
     actuator_gear: torch.Tensor     # (nu,)
     actuator_ctrlrange: torch.Tensor  # (nu, 2)
     actuator_gainprm: torch.Tensor  # (nu, 3)
@@ -140,8 +141,11 @@ class Model:
     actuator_forcerange: torch.Tensor  # (nu, 2)
     actuator_forcelimited: Tuple[bool, ...]
     actuator_biastype: Tuple[int, ...]
+    body_fluid_box: torch.Tensor    # (nbody, 3) equivalent-box half-sizes
+    body_principal_mat: torch.Tensor  # (nbody, 3, 3) body -> principal
     qpos0: torch.Tensor             # (nq,)
     qpos_spring: torch.Tensor       # (nq,)
+    site_type: Tuple[int, ...] = ()   # geom type codes of the site shapes
     na: int = 0
     actuator_dyntype: Tuple[int, ...] = ()
     actuator_actadr: Tuple[int, ...] = ()

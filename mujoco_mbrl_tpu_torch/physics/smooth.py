@@ -5,8 +5,9 @@ Port of mujoco_mbrl_tpu/physics/smooth.py for hinge, slide and free joints
 then body-local rotations). Every function takes the env batch as the
 leading dimension; the loops over bodies are static Python loops over the
 model's tree, as in the JAX package. Fixed tendons (their passive force
-and tendon-driven motors) are ported; ball joints, activation and bias
-actuators and the fluid model raise ``NotImplementedError``. A model
+and tendon-driven motors), site positions and the inertia-box fluid
+force are ported; ball joints and activation and bias actuators raise
+``NotImplementedError``. A model
 from ``model.with_env_fields`` carries per-env ``geom_pos`` and
 ``tendon_moment`` with the env batch leading; ``kinematics`` and
 ``actuation`` broadcast over it.
@@ -147,10 +148,9 @@ def kinematics(m: M.Model, qpos: torch.Tensor, meta: TreeMeta):
     gb = list(m.geom_body)
     geom_xpos = xpos[:, gb] + pm.quat_rot(xquat[:, gb], m.geom_pos)
     geom_xmat = pm.quat_to_mat(pm.quat_mul(xquat[:, gb], m.geom_quat))
-    site_xpos = torch.zeros((B, 0, 3), dtype=dt, device=dev)
-    if m.nsite:
-        raise NotImplementedError(
-            'sites are not ported (mujoco_mbrl_tpu.physics.smooth.kinematics)')
+    sb = list(m.site_body)
+    site_xpos = (xpos[:, sb] + pm.quat_rot(xquat[:, sb], m.site_pos) if sb
+                 else torch.zeros((B, 0, 3), dtype=dt, device=dev))
     return (xpos, xquat, xmat, geom_xpos, geom_xmat, site_xpos,
             torch.stack(xanchor, 1), torch.stack(xaxis, 1))
 
@@ -327,6 +327,56 @@ def tendon_passive_force(m: M.Model, qpos, qvel) -> torch.Tensor:
                  - m.tendon_damping[t] * (row * qvel).sum(-1))
         qfrc = qfrc + row * force[:, None]
     return qfrc
+
+
+def fluid_on(m: M.Model) -> bool:
+    """Whether the model has a medium (density or viscosity > 0): read
+    once per model, not on every forward."""
+    return M.cached(m, 'fluid_on', lambda: float(m.opt.density) > 0
+                    or float(m.opt.viscosity) > 0)
+
+
+def fluid_force(m: M.Model, xipos, xquat, cvel, cdof,
+                meta: TreeMeta) -> torch.Tensor:
+    """(B, nv) viscous + density fluid forces of the inertia-box model.
+
+    Per massive body, in its principal frame with equivalent box
+    half-sizes (b0, b1, b2) and d = 2 (b0 + b1 + b2) / 3:
+      viscosity eta: f = -3 pi eta d v,  tau = -pi eta d^3 w;
+      density rho:   f_i = -2 rho b_j b_k |v_i| v_i,
+                     tau_i = -rho b_i (b_j^4 + b_k^4) |w_i| w_i / 2,
+    with v the CoM velocity less the wind. The spatial forces about the
+    world origin sum over each subtree (a static loop over bodies) and
+    project onto the dofs (J' f), as the JAX function does."""
+    dt = cvel.dtype
+    live = M.cached(m, 'fluid_live', lambda: (m.body_mass > 1e-12).to(dt))
+    R = pm.quat_to_mat(xquat) @ m.body_principal_mat        # (B, nb, 3, 3)
+    w_world = cvel[..., :3]
+    v_world = (cvel[..., 3:] + torch.linalg.cross(w_world, xipos)
+               - m.opt.wind)
+    v = torch.einsum('nbji,nbj->nbi', R, v_world)            # R' v
+    w = torch.einsum('nbji,nbj->nbi', R, w_world)
+    box = m.body_fluid_box                                   # (nb, 3)
+    d_eq = 2.0 * box.sum(1, keepdim=True) / 3.0
+    eta, rho = m.opt.viscosity, m.opt.density
+    f_loc = -3.0 * np.pi * eta * d_eq * v
+    t_loc = -np.pi * eta * d_eq ** 3 * w
+    b0, b1, b2 = box.unbind(1)
+    areas = torch.stack([b1 * b2, b0 * b2, b0 * b1], 1)
+    f_loc = f_loc - 2.0 * rho * areas * v.abs() * v
+    moments = torch.stack([b0 * (b1 ** 4 + b2 ** 4), b1 * (b0 ** 4 + b2 ** 4),
+                           b2 * (b0 ** 4 + b1 ** 4)], 1)
+    t_loc = t_loc - 0.5 * rho * moments * w.abs() * w
+    f_world = torch.einsum('nbij,nbj->nbi', R, f_loc)
+    t_world = torch.einsum('nbij,nbj->nbi', R, t_loc)
+    f_spatial = live[:, None] * torch.cat(
+        [t_world + torch.linalg.cross(xipos, f_world), f_world], -1)
+    f = list(f_spatial.unbind(1))
+    for b in range(m.nbody - 1, 0, -1):
+        p = m.body_parent[b]
+        f[p] = f[p] + f[b]
+    f = torch.stack(f, 1)
+    return torch.einsum('nkj,nkj->nk', cdof, f[:, list(meta.dof_body)])
 
 
 def actuation(m: M.Model, qpos, qvel, ctrl):

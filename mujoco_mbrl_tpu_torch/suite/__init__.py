@@ -1,5 +1,6 @@
-"""Control-suite port: the walker, cheetah, reacher, point_mass,
-pendulum and humanoid domains and the environment core.
+"""Control-suite port: the walker, cheetah, hopper, reacher, point_mass,
+pendulum, cartpole, acrobot, swimmer and humanoid domains and the
+environment core.
 
 Each domain module registers its tasks in its own ``SUITE``
 (``registry.TaggedTasks``), as in mujoco_mbrl_tpu/suite/__init__.py;
@@ -9,13 +10,14 @@ Each domain module registers its tasks in its own ``SUITE``
 from __future__ import annotations
 
 from ..device import resolve_device
-from . import (cheetah, control, humanoid, pendulum, point_mass, reacher,
-               registry, walker)
+from . import (acrobot, cartpole, cheetah, control, hopper, humanoid,
+               pendulum, point_mass, reacher, registry, swimmer, walker)
 from .control import EnvState, Environment, TimeStep, flatten_observation
 
-_DOMAINS = {'cheetah': cheetah, 'humanoid': humanoid,
-            'pendulum': pendulum, 'point_mass': point_mass,
-            'reacher': reacher, 'walker': walker}
+_DOMAINS = {'acrobot': acrobot, 'cartpole': cartpole, 'cheetah': cheetah,
+            'hopper': hopper, 'humanoid': humanoid, 'pendulum': pendulum,
+            'point_mass': point_mass, 'reacher': reacher,
+            'swimmer': swimmer, 'walker': walker}
 
 
 def load(domain: str, task: str, device=None, **kwargs) -> Environment:
@@ -30,6 +32,7 @@ def load(domain: str, task: str, device=None, **kwargs) -> Environment:
     return suite[task](device=resolve_device(device), **kwargs)
 
 
-__all__ = ['EnvState', 'Environment', 'TimeStep', 'cheetah', 'control',
-           'flatten_observation', 'humanoid', 'load', 'pendulum',
-           'point_mass', 'reacher', 'registry', 'walker']
+__all__ = ['EnvState', 'Environment', 'TimeStep', 'acrobot', 'cartpole',
+           'cheetah', 'control', 'flatten_observation', 'hopper', 'humanoid',
+           'load', 'pendulum', 'point_mass', 'reacher', 'registry', 'swimmer',
+           'walker']

@@ -240,8 +240,8 @@ def test_unported_choices_raise(tmp_path, wrapper):
         agents.MPCPolicy()
     with pytest.raises(NotImplementedError, match='_rollout_costs'):
         agents.BatchedMPCPolicy(4, 6)
-    with pytest.raises(NotImplementedError, match='hopper'):
-        envs.load('hopper', 'hop', device='cpu')
+    with pytest.raises(NotImplementedError, match='finger'):
+        envs.load('finger', 'spin', device='cpu')
     with pytest.raises(NotImplementedError, match='divisible'):
         _agent(tmp_path, models.EnsembleDynamics(
             models.MLPDynamics(20, 6, hidden_units=8), 5))

@@ -115,3 +115,22 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                              capture_output=True, text=True, timeout=120)
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+_XML_COPIES = [(d, None) for d in ('acrobot', 'cheetah', 'hopper', 'humanoid',
+                                   'pendulum', 'point_mass', 'reacher',
+                                   'walker')] + [
+    ('cartpole', n) for n in (1, 2, 3)] + [('swimmer', n) for n in (6, 15)]
+
+
+@pytest.mark.parametrize('domain,n', _XML_COPIES)
+def test_model_xml_is_the_jax_modules_copy(domain, n):
+    """Each ported domain keeps its own copy of the JAX module's model XML
+    (or of its XML generator): the two give the same text."""
+    import importlib
+    ours = importlib.import_module(f'mujoco_mbrl_tpu_torch.suite.{domain}')
+    ref = importlib.import_module(f'mujoco_mbrl_tpu.suite.{domain}')
+    if n is None:
+        assert ours._XML == ref._XML
+    else:
+        assert ours._make_model_xml(n) == ref._make_model_xml(n)

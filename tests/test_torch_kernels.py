@@ -621,3 +621,48 @@ def test_apgd_factored_block_path_on_humanoid_solves(dev, monkeypatch):
             moved = (~close(f64, f_p[odd].double())
                      | ~close(v64, v_p[odd].double()))
             assert bool(moved.all()), odd.nonzero()[:, 0].tolist()
+
+
+# The hopper's solve: 88 rows (its 4 joint limits, then 21 contact points
+# of 4 pyramid facets, all non-negative), past the warp path's 64, so one
+# block per env; limit rows active at random, a contact's 4 facets
+# together; cold and warm
+@pytest.mark.parametrize('cold', [True, False])
+def test_apgd_kernel_hopper_rows(dev, cold):
+    B, nr = 64, 88
+    Ad, rhs, f0, v0, _, _, _ = _problem(dev, B, nr, seed=88 + int(cold))
+    g = torch.Generator(device=dev).manual_seed(89)
+    act = torch.cat([(torch.rand((B, 4), generator=g, device=dev) < 0.3),
+                     (torch.rand((B, 21), generator=g, device=dev) < 0.4
+                      ).repeat_interleave(4, dim=1)], 1).float()
+    zeros = torch.zeros(nr, device=dev)
+    args = (Ad, rhs * act, f0 * act, v0, act, zeros, zeros)
+    kw = dict(nonneg=tuple(range(nr)), box_rows=(), con0=(), iterations=60,
+              cold=cold, eq_rows=())
+    before = ops.launch_counts['apgd_solve']
+    f, v = apgd_solve.apgd_iterate_batched(*args, **kw)
+    assert ops.launch_counts['apgd_solve'] == before + 1
+    f_p, v_p = apgd_solve.apgd_iterate_plain(*args, **kw)
+    torch.testing.assert_close(f, f_p, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(v, v_p, rtol=2e-4, atol=2e-4)
+    assert float((f * (1 - act)).abs().max()) == 0.0
+
+
+# The hopper bench's observation-space model (sd 15, ad 4: two state
+# tiles) takes the sized (3, 7, 2) instantiation
+@pytest.mark.parametrize('sampler', ['triangular', 'spline4'])
+def test_sampler_kernel_hopper_observation_tiles(dev, sampler):
+    B, K, H, sd, ad = 9, 200, 12, 15, 4
+    assert cem_rollout.sampler_instantiation(K, H, sd, ad, 50) == (
+        3, 7, 2, True, True)
+    params = MLPDynamics(sd, ad, hidden_units=50).init(
+        torch.Generator().manual_seed(2), device=dev)
+    g, mean, std = _proposal(dev, B, H, ad, 15)
+    s0 = torch.randn((B, sd), generator=g, device=dev)
+    goal = torch.randn(sd, generator=g, device=dev)
+    w = torch.rand(sd, generator=g, device=dev)
+    costs, acts = cem_rollout.mlp_sample_rollout_costs(
+        params, 4, s0, mean, std, goal, w, K, sampler=sampler)
+    ref = cem_rollout.rollout_costs_of_actions(params, s0, acts, goal, w)
+    torch.testing.assert_close(costs, ref, rtol=1e-4, atol=1e-4)
+    assert float(acts.abs().max()) <= 1.0
