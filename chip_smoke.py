@@ -142,16 +142,37 @@ Run from the repository root:  python3 chip_smoke.py
       row, so no launch);
    ptxas registers and spills of the (3, 7, 2) instantiation and of #1's
    block kernel go into the kernel line;
-10. prints one ``{"kernels": [...]}`` line (one entry per TPU kernel), a
-   ``{"paths": ...}`` line with the cheetah, contact-free, humanoid and
-   slice-10 paths' times, the card line, and last ``{"ok": true,
-   "device": {...}}``.
+10. the per-env planners, the other models and RewardAgent (slice 11),
+   each path with exact launch counts, none of #2-#7 on them:
+   a. (23) the JAX CLI's defaults on walker_walk (GoalStateAgent, random
+      shooting, MLP; 1000 candidates, horizon 20, 5 rollouts planned per
+      env in lockstep), its phases timed and each control step split into
+      plan and physics; 10 #1 launches a control step;
+   b. (24) per-env CEM through CEMPlanner.plan at the walker's width
+      (1000 x 5 iterations, H 20, B 5) on (a)'s fitted model, after
+      checking that get_action fails on the walker as JAX's does;
+   c. (25) reacher_easy's CLI with --planner grad, and with --planner
+      ilqr, which fails where JAX's does; the iterations each env ran and
+      iLQR's accepted step sizes on the grad CLI's fitted model;
+   d. (26) point_mass_easy's CLI with --agent rw --model rw --planner
+      cem (RewardAgent) and its get_action;
+   e. (27) walker_walk's CLI with --planner cem over --model lin and over
+      --model ens with 998 candidates: the model / cost scan, no sampler;
+   f. (28) each per-env planner on the card against the CPU on the same
+      fed inputs at B = 5 (random shooting, CEM, gradient descent, iLQR;
+      the decisions rounding decides named and counted, at most 1%), and
+      an RNNDynamics fit and rollout on the card against the CPU;
+11. prints one ``{"kernels": [...]}`` line (one entry per TPU kernel), a
+   ``{"paths": ...}`` line with the cheetah, contact-free, humanoid,
+   slice-10 and slice-11 paths' times, the card line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the process exits non-zero. It also exits
 non-zero without a result when no CUDA card is present or when the
 package is missing. Imports nothing of JAX.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -2014,6 +2035,480 @@ def acrobot_phase(dev, torch):
     return counts, out
 
 
+# ---- slice 11: the per-env planners, the other models, RewardAgent -----
+
+PER_ENV_T = 10               # control steps of each collection, paths 23-27
+PER_ENV_B = 5                # the CLI's policy rollouts (planned per env)
+
+
+@contextlib.contextmanager
+def timed_calls(torch, log, targets):
+    """Times every call of the (owner, method name, label) ``targets``
+    between two synchronizes into ``log`` as (label, start, seconds); the
+    methods are put back on exit."""
+    saved = [(owner, name, owner.__dict__[name]) for owner, name, _ in targets]
+
+    def wrap(fn, label):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            log.append((label, t0, time.perf_counter() - t0))
+            return out
+        return run
+    try:
+        for (owner, name, fn), (_, _, label) in zip(saved, targets):
+            setattr(owner, name, wrap(fn, label))
+        yield log
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def run_cli(torch, label, argv, **solves):
+    """The experiment CLI on ``argv`` with every launch count zeroed just
+    before and read just after: (agent, counts, seconds). ``solves`` are
+    the APGD launches expected; no other kernel may launch."""
+    from mujoco_mbrl_tpu_torch import experiment, ops
+
+    args = experiment.parse_args(argv)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    agent = experiment.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.launch_counts)
+    exact_counts(label, counts, **solves)
+    buf = agent.dataset
+    check(buf.filled == 20 + PER_ENV_B, (label, buf.filled))
+    for name in ('states', 'observations', 'actions', 'rewards'):
+        check(bool(torch.isfinite(getattr(buf, name)).all()), (label, name))
+    return agent, counts, wall
+
+
+def cli_argv(tmp, environment, *extra):
+    return ['--exp_dir', tmp, '--environment', environment,
+            '--rollout_length', str(PER_ENV_T), '--num_train_iterations', '1',
+            '--train_epochs', '2', *extra]
+
+
+def walker_rs_cli_phase(dev, torch, tmp):
+    """(23) the JAX CLI's defaults on walker_walk: GoalStateAgent, random
+    shooting (1000 candidates, horizon 20) per env over the MLP (hidden 50)
+    of the 20-dim featured state, 5 rollouts planned in lockstep; 20 seed
+    and 5 policy rollouts of 10 control steps, one fit of 2 epochs. Each
+    control step's 10 substeps are 10 #1 launches; random shooting
+    launches no kernel (JAX rolls it through XLA). Times the phases and,
+    per control step of the policy collection, the plan (the per-env
+    policy's call) and the physics (the env step)."""
+    from mujoco_mbrl_tpu_torch import agents, experiment, models, planners
+    from mujoco_mbrl_tpu_torch.suite.control import Environment
+
+    argv = cli_argv(tmp, 'walker_walk')
+    args = experiment.parse_args(argv)
+    check((str(args.agent), str(args.planner), str(args.model), args.horizon,
+           args.num_rollouts_per_iteration) == ('gs', 'rs', 'nn', 20,
+                                                PER_ENV_B), args)
+    log = []
+    with timed_calls(torch, log, [
+            (agents.MPCAgent, 'add_rollouts', 'collect'),
+            (agents.MPCAgent, 'fit_model', 'fit'),
+            (agents.MPCPolicy, '__call__', 'plan'),
+            (Environment, 'step_with_data', 'physics')]):
+        agent, counts, wall = run_cli(torch, 'walker rs CLI', argv,
+                                      apgd_solve=10 * 2 * PER_ENV_T)
+    check(agent.planner is planners.RandomShootingPlanner
+          and type(agent.model) is models.MLPDynamics
+          and agent.obs_only is False, (agent.planner, agent.model))
+    check(float(agent.dataset.actions.abs().max()) <= 1.0, 'action range')
+    collect = [e for e in log if e[0] == 'collect']
+    fit = [e for e in log if e[0] == 'fit']
+    plans = [e for e in log if e[0] == 'plan']
+    check(len(collect) == 2 and len(fit) == 1 and len(plans) == PER_ENV_T,
+          [e[0] for e in log if e[0] != 'physics'])
+    start, span = collect[1][1], collect[1][2]
+    physics = [e[2] for e in log if e[0] == 'physics'
+               and start <= e[1] <= start + span]
+    check(len(physics) == PER_ENV_T, len(physics))
+    times = dict(cli_s=wall, seed_collect_s=collect[0][2], fit_s=fit[0][2],
+                 policy_collect_s=span,
+                 plan_ms=1e3 * sum(e[2] for e in plans) / PER_ENV_T,
+                 physics_ms=1e3 * sum(physics) / PER_ENV_T)
+    print('walker rs CLI (gs / rs / nn, K 1000, H 20, B 5): '
+          + ', '.join(f'{k} {v:.3f}' for k, v in times.items())
+          + f' (plan and physics ms per control step); launches {counts}')
+    return counts, times, agent
+
+
+def walker_cem_policy_phase(dev, torch, rs_agent):
+    """(24) per-env CEM through CEMPlanner.plan at the walker's width:
+    1000 candidates, 100 elites, 5 iterations, horizon 20, on path 23's
+    fitted MLP and goal, from the 5 policy rollouts' last featured states;
+    two control steps (t = 0 from zeros, t = 1 warm-started). This is the
+    policy GoalStateAgent.get_action builds; get_action itself fails on
+    the walker as JAX's does (it passes the policy no state, and the
+    walker plans on states), which is checked first. No kernel launches."""
+    from mujoco_mbrl_tpu_torch import agents, ops, planners
+    from mujoco_mbrl_tpu_torch.models import train as Mt
+
+    agent = agents.GoalStateAgent(
+        environment=rs_agent.environment, planner=planners.CEMPlanner,
+        model=rs_agent.model, horizon=20, optimizer=Mt.adam(0.01),
+        rollout_length=PER_ENV_T, num_rollouts_per_iteration=PER_ENV_B,
+        num_train_iterations=1, writer=None, base_path='',
+        dataset=rs_agent.dataset, seed=1)
+    agent.params = rs_agent.params
+    agent.training_goal_state = rs_agent.training_goal_state
+    buf = agent.dataset
+    try:
+        agent.get_action(torch.Generator(), buf.observations[20, -1])
+        check(False, 'walker get_action ran; JAX fails there')
+    except AttributeError as e:
+        check("'NoneType'" in str(e), str(e))
+    states = buf.states[20:20 + PER_ENV_B, -1].contiguous()
+    policy = agent._make_policy(agent.params, agent._normalizers(),
+                                agent.training_goal_state)
+    gen, carry, times = torch.Generator().manual_seed(2), policy.init_carry(), []
+    ops.reset_launch_counts()
+    for t in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        acts, carry = policy(gen, t, states, None, carry)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    counts = dict(ops.launch_counts)
+    exact_counts('walker per-env CEM', counts)
+    traj = carry[1]
+    check(acts.shape == (PER_ENV_B, 6) and traj.states.shape == (
+        PER_ENV_B, 21, 20) and bool(torch.isfinite(traj.states).all())
+        and float(traj.actions.abs().max()) <= 1.0, 'per-env CEM plan')
+    out = dict(plan_ms_t0=times[0], plan_ms_t1=times[1])
+    print(f'walker per-env CEM (K 1000 x 5 iterations, H 20, B 5): plan '
+          f'{times[0]:.2f} ms at t = 0, {times[1]:.2f} ms warm; get_action '
+          f'fails as in JAX; launches {counts}')
+    return counts, out
+
+
+def reacher_grad_ilqr_phase(dev, torch, tmp, tmp2):
+    """(25) reacher_easy's CLI with --planner grad (Adam on each env's
+    sequence, up to 40 iterations, each env stopping on its own) runs: 2
+    #1 launches a control step of both collections. With --planner ilqr it
+    fails where JAX's does, in ILQRPlanner.plan at the first policy step,
+    after the seed collection and the fit. Then, on the grad CLI's fitted
+    MLP from its 5 policy rollouts' last observations, the iterations each
+    env ran (gradient_descent) and the step size each env accepted in each
+    of iLQR's 10 iterations (the ilqr function)."""
+    from mujoco_mbrl_tpu_torch import ops, planners
+
+    agent, g_counts, g_wall = run_cli(
+        torch, 'reacher grad CLI',
+        cli_argv(tmp, 'reacher_easy', '--planner', 'grad'),
+        apgd_solve=2 * 2 * PER_ENV_T)
+    from mujoco_mbrl_tpu_torch import experiment
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        experiment.main(experiment.parse_args(
+            cli_argv(tmp2, 'reacher_easy', '--planner', 'ilqr')))
+        check(False, 'the ilqr CLI ran; JAX fails there')
+    except AttributeError as e:
+        check("no attribute 'ilqr'" in str(e), str(e))
+    torch.cuda.synchronize()
+    i_wall = time.perf_counter() - t0
+    i_counts = dict(ops.launch_counts)
+    exact_counts('reacher ilqr CLI (fails as in JAX)', i_counts,
+                 apgd_solve=2 * PER_ENV_T)
+    obs = agent.dataset.observations[20:20 + PER_ENV_B, -1].contiguous()
+    policy = agent._make_policy(agent.params, agent._normalizers(),
+                                agent.training_goal_state)
+    env = agent.environment
+    g = torch.Generator(device=dev).manual_seed(3)
+    out = {}
+    ops.reset_launch_counts()
+    for name, fn in (('gradient_descent', planners.gradient_descent),
+                     ('ilqr', planners.ilqr)):
+        info = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        traj = fn(g, obs, policy.model, policy.cost, env.sample_action,
+                  agent.horizon, info=info)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(traj.states).all()), name)
+        out[name] = dict(ms=1e3 * (time.perf_counter() - t0), **{
+            k: info[k].tolist() for k in ('iterations', 'alphas')
+            if k in info})
+    exact_counts('reacher planners', dict(ops.launch_counts))
+    out.update(grad_cli_s=g_wall, ilqr_cli_s=i_wall)
+    print(f'reacher grad CLI {g_wall:.3f} s, launches {g_counts}; ilqr CLI '
+          f'fails as in JAX after {i_wall:.3f} s, launches {i_counts}; '
+          f'gradient_descent iterations per env '
+          f'{out["gradient_descent"]["iterations"]} '
+          f'({out["gradient_descent"]["ms"]:.1f} ms); ilqr accepted step '
+          f'sizes (iteration x env) {out["ilqr"]["alphas"]} '
+          f'({out["ilqr"]["ms"]:.1f} ms)')
+    return g_counts, i_counts, out, agent
+
+
+def reward_agent_cli_phase(dev, torch, tmp):
+    """(26) point_mass_easy's CLI with --agent rw --model rw --planner cem:
+    RewardAgent, whose cost is minus the reward the model predicts for
+    (s_t, a_t), plans per env through MPCPolicy with CEM (1000 x 5, H 20):
+    no sampler launch, 1 #1 launch a control step of both collections.
+    Then get_action on one observation."""
+    from mujoco_mbrl_tpu_torch import agents, models
+
+    agent, counts, wall = run_cli(
+        torch, 'point_mass rw CLI',
+        cli_argv(tmp, 'point_mass_easy', '--agent', 'rw', '--model', 'rw',
+                 '--planner', 'cem'), apgd_solve=1 * 2 * PER_ENV_T)
+    check(type(agent) is agents.RewardAgent
+          and type(agent.model) is models.RewardDynamics, type(agent))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    act, carry = agent.get_action(torch.Generator().manual_seed(4),
+                                  agent.dataset.observations[20, -1])
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    check(act.shape == (2,) and bool(torch.isfinite(act).all())
+          and float(act.abs().max()) <= 1.0 and carry[0], act)
+    print(f'point_mass rw CLI (RewardAgent, reward model, per-env CEM): '
+          f'{wall:.3f} s; get_action {ms:.2f} ms; launches {counts}')
+    return counts, dict(cli_s=wall, get_action_ms=ms)
+
+
+def walker_scan_cli_phase(dev, torch, tmp, tmp2):
+    """(27) walker_walk's CLI with --planner cem over --model lin, and over
+    --model ens with 998 candidates (998 % 5 != 0): both plan through
+    cem_batched's model / cost scan, as JAX routes them (the samplers take
+    a plain MLP and an ensemble whose size divides the candidates), so no
+    sampler launches; 10 #1 launches a control step."""
+    import warnings
+
+    from mujoco_mbrl_tpu_torch import models
+
+    out, counts = {}, {}
+    for key, model, extra, d in (
+            ('lin', 'lin', (), tmp),
+            ('ens998', 'ens', ('--planner_kwargs',
+                               '{"num_candidates": 998}'), tmp2)):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            agent, c, wall = run_cli(
+                torch, f'walker {key} CLI',
+                cli_argv(d, 'walker_walk', '--planner', 'cem', '--model',
+                         model, *extra), apgd_solve=10 * 2 * PER_ENV_T)
+        warned = any('not divisible' in str(w.message) for w in caught)
+        check(warned == (key == 'ens998'), (key, warned))
+        check(isinstance(agent.model, (models.LinearDynamics,
+                                       models.EnsembleDynamics)), key)
+        out[f'{key}_cli_s'], counts[key] = wall, c
+        print(f'walker {key} CLI (cem through the model / cost scan): '
+              f'{wall:.3f} s; launches {c}')
+    return counts['lin'], counts['ens998'], out
+
+
+def plan_fns(agent, device):
+    """The agent's plan model and goal cost with every tensor on
+    ``device``."""
+    import dataclasses
+
+    from mujoco_mbrl_tpu_torch import models as Mo
+
+    to = lambda t: t.detach().to(device)
+    params = {k: {kk: to(v) for kk, v in d.items()}
+              for k, d in agent.params.items()}
+    n = agent._normalizers()
+    norms = type(n)(**{f.name: None if getattr(n, f.name) is None
+                       else to(getattr(n, f.name))
+                       for f in dataclasses.fields(n)})
+    goal, weights = to(agent.training_goal_state), to(agent.state_cost_weights)
+    alpha = agent.action_cost_alpha
+    return (agent._plan_model_fn(params, norms),
+            lambda s, a: (Mo.smooth_abs_loss(s, goal, weights)
+                          + Mo.cosh_loss(a, alpha)))
+
+
+def ilqr_ties(torch, info):
+    """(iterations, B): the iLQR decisions rounding decides on the CPU's
+    costs: its two cheapest step sizes, or its cheapest and the cost it
+    would keep, within 1e-5 relative of each other."""
+    costs = info['costs']                                 # (I, A, B)
+    low2 = costs.topk(2, 1, largest=False).values         # (I, 2, B)
+    prev, kept = info['initial_cost'], []
+    for best in low2[:, 0]:
+        kept.append(prev)
+        prev = torch.minimum(best, prev)
+    kept = torch.stack(kept)
+    near = lambda a, b: (a - b).abs() <= 1e-5 * b.abs()
+    return near(low2[:, 1], low2[:, 0]) | near(low2[:, 0], kept)
+
+
+def per_env_card_vs_cpu_phase(dev, torch, walker, reacher):
+    """(28) each per-env planner on the card against the CPU on the same
+    fed inputs at B = 5: random shooting and CEM (1000 candidates, H 20;
+    CEM 100 elites x 5 iterations) on path 23's fitted walker MLP from its
+    policy rollouts' last states, on the same candidates and normals;
+    gradient descent and iLQR on path 25's fitted reacher MLP from the same
+    initial sequences. Every candidate cost agrees to rtol = atol = 1e-4.
+    A decision is decided by rounding when the CPU's costs tie within 1e-5
+    relative: random shooting's two lowest, an elite swapped across CEM's
+    boundary, gradient descent's count one apart. At most 1% of the
+    decisions may be such: of 5 envs none for random shooting and
+    gradient descent (iterations run), which must agree in every env; of
+    the 2,500 elite memberships of CEM, 25, whose envs then leave the
+    final comparison. iLQR's step sizes must agree wherever the CPU's
+    choice is not such a tie (``ilqr_ties``; near convergence most are,
+    and there every step size gives nearly the same plan). The plans agree
+    to rtol = atol = 1e-4 in every other env. Then an
+    RNNDynamics (hidden 64) fit on path 23's replay, 2 epochs of windows of
+    3 on the same batches (per-minibatch loss rtol 1e-3: Adam steps on
+    near-zero gradients round apart), and an open-loop rollout of the
+    card-fitted weights on both (rtol = atol = 1e-4)."""
+    from mujoco_mbrl_tpu_torch import models, ops, planners
+    from mujoco_mbrl_tpu_torch.data import replay as R
+    from mujoco_mbrl_tpu_torch.models import train as Mt
+
+    cpu, nb, out = torch.device('cpu'), PER_ENV_B, {}
+    close = lambda a, b, tol: bool(torch.allclose(a.cpu(), b.cpu(), rtol=tol,
+                                                  atol=tol))
+    ops.reset_launch_counts()
+    # -- random shooting and CEM on the walker
+    states = walker.dataset.states[20:20 + nb, -1].cpu()
+    cand = 2 * torch.rand((nb, 20, K, 6), generator=torch.Generator()
+                          .manual_seed(11)) - 1
+    normals = torch.randn((5, nb, 20, K, 6), generator=torch.Generator()
+                          .manual_seed(12))
+    res = {}
+    for where, d in (('cpu', cpu), ('card', dev)):
+        model, cost = plan_fns(walker, d)
+        rs_info, cem_info = {}, {}
+        rs = planners.random_shooting(
+            None, states.to(d), model, cost, lambda g, shape: cand.to(d), 20,
+            K, info=rs_info)
+        ce = planners.cem(None, states.to(d), model, cost, 20, 6,
+                          normals=normals.to(d), info=cem_info)
+        res[where] = (rs, rs_info['costs'].cpu(), ce,
+                      cem_info['costs'].cpu())
+    (rs_c, c_cpu, ce_c, cc_cpu), (rs_g, c_gpu, ce_g, cc_gpu) = (
+        res['cpu'], res['card'])
+    check(close(c_gpu, c_cpu, 1e-4), ('rs costs', float(
+        (c_gpu - c_cpu).abs().max())))
+    best_c, best_g = c_cpu.argmin(1), c_gpu.argmin(1)
+    low2 = c_cpu.topk(2, 1, largest=False).values
+    gap = ((low2[:, 1] - low2[:, 0]) / low2[:, 0].abs()).tolist()
+    check(torch.equal(best_c, best_g), ('rs chosen candidates',
+                                        best_c.tolist(), best_g.tolist(),
+                                        'relative gap of the two lowest',
+                                        gap))
+    check(torch.equal(rs_g.actions.cpu(), rs_c.actions)
+          and close(rs_g.states, rs_c.states, 1e-4), 'rs plan')
+    out['random_shooting'] = dict(
+        chosen=best_c.tolist(), min_relative_gap=min(gap),
+        max_abs_cost_err=float((c_gpu - c_cpu).abs().max()))
+    swaps, flipped, compared = 0, set(), 0
+    for b in range(nb):
+        for i in range(5):
+            check(close(cc_gpu[i, b], cc_cpu[i, b], 1e-4),
+                  ('cem costs', i, b))
+            e_c = set(cc_cpu[i, b].topk(100, largest=False).indices.tolist())
+            e_g = set(cc_gpu[i, b].topk(100, largest=False).indices.tolist())
+            compared += 100
+            if e_c != e_g:
+                srt = cc_cpu[i, b].sort().values
+                edge = float(srt[99])
+                moved = [float(cc_cpu[i, b, k]) for k in e_c ^ e_g]
+                check(all(abs(v - edge) <= 1e-5 * abs(edge) for v in moved),
+                      ('cem elites apart beyond rounding', i, b, edge,
+                       moved))
+                swaps += len(e_c - e_g)
+                flipped.add(b)
+                break
+    check(swaps <= compared // 100, ('cem swaps', swaps, compared))
+    keep = [b for b in range(nb) if b not in flipped]
+    check(close(ce_g.actions[keep], ce_c.actions[keep], 1e-4)
+          and close(ce_g.states[keep], ce_c.states[keep], 1e-4), 'cem plan')
+    out['cem'] = dict(elite_swaps_by_rounding=swaps,
+                      envs_decided_by_rounding=sorted(flipped),
+                      max_abs_action_err=float((ce_g.actions.cpu()[keep]
+                                                - ce_c.actions[keep]).abs()
+                                               .max()))
+    # -- gradient descent and iLQR on the reacher
+    obs = reacher.dataset.observations[20:20 + nb, -1].cpu()
+    init = 2 * torch.rand((nb, 20, 2), generator=torch.Generator()
+                          .manual_seed(13)) - 1
+    for name, fn in (('gradient_descent', planners.gradient_descent),
+                     ('ilqr', planners.ilqr)):
+        got = {}
+        for where, d in (('cpu', cpu), ('card', dev)):
+            model, cost = plan_fns(reacher, d)
+            info = {}
+            traj = fn(None, obs.to(d), model, cost, None, 20,
+                      initial_trajectory=planners.Trajectory(
+                          states=None, actions=init.to(d)), info=info)
+            got[where] = (traj, {k: v.cpu() for k, v in info.items()})
+        (tc, ic), (tg, ig) = got['cpu'], got['card']
+        err = float((tg.actions.cpu() - tc.actions).abs().max())
+        check(close(tg.actions, tc.actions, 1e-4)
+              and close(tg.states, tc.states, 1e-4), (name, err))
+        out[name] = dict(max_abs_action_err=err)
+        if name == 'gradient_descent':
+            check(torch.equal(ic['iterations'], ig['iterations']),
+                  (name, ic['iterations'].tolist(),
+                   ig['iterations'].tolist()))
+            out[name]['iterations'] = ic['iterations'].tolist()
+            continue
+        tied = ilqr_ties(torch, ic)
+        apart = (ic['alphas'] != ig['alphas']) & ~tied
+        check(not bool(apart.any()), (name, 'step sizes apart beyond '
+                                      'rounding', ic['alphas'].tolist(),
+                                      ig['alphas'].tolist()))
+        out[name].update(alphas=ic['alphas'].tolist(),
+                         tied_decisions=int(tied.sum()),
+                         tied_decisions_apart=int(
+                             ((ic['alphas'] != ig['alphas']) & tied).sum()))
+    # -- an RNN fit and rollout
+    rnn = models.RNNDynamics(20, 6)
+    p0 = rnn.init(torch.Generator().manual_seed(14), device='cpu')
+    buf_c = R.from_tree(R.as_tree(walker.dataset), cpu)
+    fitted = {}
+    for where, d, buf in (('cpu', cpu, buf_c), ('card', dev, walker.dataset)):
+        p = {k: {kk: v.clone().to(d) for kk, v in dd.items()}
+             for k, dd in p0.items()}
+        _, _, log = Mt.train_model(
+            rnn, p, buf, torch.Generator().manual_seed(15), batch_size=512,
+            num_epochs=2, horizon=3, obs_only=False,
+            normalizers=Mt.make_normalizers(buf, use_observations=False))
+        fitted[where] = (p, log.losses.cpu())
+    lc, lg = fitted['cpu'][1], fitted['card'][1]
+    check(lc.shape == lg.shape and bool(torch.isfinite(lg).all())
+          and bool(torch.allclose(lg, lc, rtol=1e-3, atol=0)),
+          ('rnn fit losses', float(((lg - lc) / lc).abs().max())))
+    acts = 2 * torch.rand((20, nb, 6), generator=torch.Generator()
+                          .manual_seed(16)) - 1
+    p_g = fitted['card'][0]
+    roll = {}
+    for where, d, buf in (('cpu', cpu, buf_c), ('card', dev, walker.dataset)):
+        p = {k: {kk: v.detach().to(d) for kk, v in dd.items()}
+             for k, dd in p_g.items()}
+        with torch.no_grad():
+            roll[where] = rnn.rollout(
+                p, states.to(d), acts.to(d),
+                Mt.make_normalizers(buf, use_observations=False)).cpu()
+    check(close(roll['card'], roll['cpu'], 1e-4) and bool(
+        torch.isfinite(roll['card']).all()), ('rnn rollout', float(
+            (roll['card'] - roll['cpu']).abs().max())))
+    out['rnn'] = dict(max_rel_loss_err=float(((lg - lc) / lc).abs().max()),
+                      max_abs_rollout_err=float(
+                          (roll['card'] - roll['cpu']).abs().max()),
+                      updates=int(lg.shape[0]))
+    counts = dict(ops.launch_counts)
+    exact_counts('per-env planners card vs CPU', counts)
+    print(f'per-env planners and the RNN, card vs CPU on fed inputs: '
+          f'{json.dumps(out)}')
+    return counts, out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2193,6 +2688,23 @@ def main() -> int:
             apgd_solve=15 * 2 * 10)
     ac_counts, ac_out = acrobot_phase(dev, torch)
 
+    # ---- slice 11: per-env planners, the other models, RewardAgent -----
+    with tempfile.TemporaryDirectory() as tmp:
+        rs_counts, rs_out, rs_agent = walker_rs_cli_phase(dev, torch, tmp)
+    pc_cem_counts, pc_cem_out = walker_cem_policy_phase(dev, torch, rs_agent)
+    with tempfile.TemporaryDirectory() as tmp, \
+            tempfile.TemporaryDirectory() as tmp2:
+        gr_counts, il_counts, gi_out, r_agent = reacher_grad_ilqr_phase(
+            dev, torch, tmp, tmp2)
+    with tempfile.TemporaryDirectory() as tmp:
+        rw_counts, rw_out = reward_agent_cli_phase(dev, torch, tmp)
+    with tempfile.TemporaryDirectory() as tmp, \
+            tempfile.TemporaryDirectory() as tmp2:
+        lin_counts, e998_counts, scan_out = walker_scan_cli_phase(
+            dev, torch, tmp, tmp2)
+    cv_counts, cv_out = per_env_card_vs_cpu_phase(dev, torch, rs_agent,
+                                                  r_agent)
+
     sampler_entry = lambda tiles: ptxas_info(
         'cem_sample_rollout', 'cem_sample_rollout_kernelI' + ''.join(
             f'Li{t}E' for t in tiles[:3]) + ''.join(
@@ -2231,7 +2743,12 @@ def main() -> int:
              'humanoid_control_step': h_counts, 'humanoid_cli': hc_counts,
              'cartpole_control_step': cp_counts, 'cartpole_cli': cpc_counts,
              'hopper_control_step': hp_counts, 'hopper_cli': hpc_counts,
-             'swimmer_cli': swc_counts, 'acrobot_step': ac_counts}
+             'swimmer_cli': swc_counts, 'acrobot_step': ac_counts,
+             'walker_rs_cli': rs_counts, 'walker_per_env_cem': pc_cem_counts,
+             'reacher_grad_cli': gr_counts, 'reacher_ilqr_cli': il_counts,
+             'point_mass_rw_cli': rw_counts, 'walker_lin_cli': lin_counts,
+             'walker_ens998_cli': e998_counts,
+             'per_env_card_vs_cpu': cv_counts}
     by_path = lambda key: {p: c[key] for p, c in paths.items() if c[key]}
     src = lambda f: f'mujoco_mbrl_tpu_torch/csrc/{f}'
     tpu = lambda f, line, fn: f'mujoco_mbrl_tpu/ops/{f}:{line} ({fn})'
@@ -2359,7 +2876,10 @@ def main() -> int:
         humanoid_cli_s=hc_wall, cartpole_control_step=cp_out,
         cartpole_cli_s=cpc_wall, hopper_control_step=hp_out,
         hopper_cli_s=hpc_wall, swimmer_cli_s=swc_wall,
-        acrobot_step=ac_out)}))
+        acrobot_step=ac_out, walker_rs_cli=rs_out,
+        walker_per_env_cem=pc_cem_out, reacher_grad_ilqr=gi_out,
+        point_mass_rw_cli=rw_out, walker_scan_clis=scan_out,
+        per_env_card_vs_cpu=cv_out)}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,16 +1,20 @@
 """MPC agents: the collect -> replay -> fit -> plan loop.
 
-Port of the batched-CEM path of mujoco_mbrl_tpu/agents/mpc.py:
-``BatchedMPCPolicy``, ``MPCAgent``, ``GoalStateAgent`` and ``save`` /
-``load``. The agent plans through the fused sampler: the
-``mlp_sample_rollout_costs`` kernel for ``MLPDynamics``, the
-``mlp_sample_rollout_costs_ensemble`` kernel (TS-infinity, candidate k ->
-member k % n) for ``EnsembleDynamics``; on CPU tensors the same functions
-run their plain versions. ``BatchedMPCPolicy`` also takes the non-fused
-``rollout_costs_fn`` (``ops.mlp_rollout_costs_t``, which the agent builds
-for a plain MLP as the JAX agent does) and plans through it when no
-sampler builder is given. The per-env ``MPCPolicy`` and ``RewardAgent``
-are not ported and raise.
+Port of mujoco_mbrl_tpu/agents/mpc.py: ``MPCPolicy``,
+``BatchedMPCPolicy``, ``MPCAgent``, ``GoalStateAgent``, ``RewardAgent``
+and ``save`` / ``load``.
+
+``GoalStateAgent`` with ``CEMPlanner`` plans for the whole env batch in
+one ``cem_batched`` call a control step (``BatchedMPCPolicy``), routed as
+the JAX agent routes it: through the fused sampler
+(``mlp_sample_rollout_costs``) for a plain ``MLPDynamics`` without output
+noise, through the ensemble sampler (``mlp_sample_rollout_costs_ensemble``,
+TS-infinity, candidate k -> member k % n) for an ``EnsembleDynamics`` over
+such an MLP when the candidate count divides by its size, and through
+``cem_batched``'s model / cost scan otherwise (a linear or noisy model,
+an ensemble whose size does not divide the candidates). On CPU tensors
+the kernels run their plain versions. Every other planner, and
+``RewardAgent`` with any planner, plans per env through ``MPCPolicy``.
 
 Randomness comes from one CPU ``torch.Generator`` seeded by ``seed`` (the
 JAX agent's key); model weights and optimizer state live on the env's
@@ -19,6 +23,7 @@ device, and the model parameters are updated in place by the optimizer.
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Optional
 
 import torch
@@ -29,7 +34,7 @@ from ..envs import EnvWrapper
 from ..models.train import make_normalizers, param_leaves, train_model
 from ..ops.cem_rollout import (mlp_rollout_costs_t, mlp_sample_rollout_costs,
                                mlp_sample_rollout_costs_ensemble)
-from ..planners import CEMPlanner, cem_batched
+from ..planners import CEMPlanner, Trajectory, cem_batched
 from ..utils import MetricsWriter, load_tree, logger, save_tree
 
 # TPU layout knobs of the JAX kernels, dropped from kernel_kwargs
@@ -37,11 +42,59 @@ _TPU_KNOBS = ('envs_per_program', 'return_padded', 'unroll')
 
 
 class MPCPolicy:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            'the per-env MPC policy is not ported '
-            '(mujoco_mbrl_tpu.agents.mpc.MPCPolicy); GoalStateAgent with '
-            'CEMPlanner plans through BatchedMPCPolicy')
+    """Warm-started receding-horizon policy over a per-env planner.
+
+    ``policy(generator, t, state (B, sd), obs (B, od), carry) -> (actions
+    (B, ad), carry)``: one ``planner.plan`` call a control step plans for
+    every env, each as JAX's vmapped one-env policy would (agents/mpc.py:
+    43-94). The carry holds the previous plan, invalidated at t == 0; the
+    fallback warm start is zeros for CEM (its initial mean) and a
+    ``sample_action`` draw for the other planners. Each call draws one
+    seed from ``generator`` for a generator on the plan's device, from
+    which the fallback and the planner draw.
+    """
+
+    def __init__(self, model: Callable, cost: Callable, planner,
+                 sample_action: Callable, horizon: int, action_dim: int,
+                 obs_dim: int, planner_kwargs: Optional[dict] = None,
+                 plan_on_observations: bool = True):
+        self.model = model
+        self.cost = cost
+        self.planner = planner
+        self.sample_action = sample_action
+        self.horizon = horizon
+        self.action_dim = action_dim
+        self.obs_dim = obs_dim
+        self.planner_kwargs = planner_kwargs or {}
+        self.plan_on_observations = plan_on_observations
+
+    def init_carry(self):
+        return (False, None)
+
+    def __call__(self, generator, t, state_mat, obs_mat, carry):
+        plan_vec = obs_mat if self.plan_on_observations else state_mat
+        if plan_vec is None:
+            # JAX's get_action passes no state, and a policy planning on
+            # states then plans from None (agents/mpc.py:68-69, :525-531)
+            raise AttributeError(
+                "'NoneType' object has no attribute 'dtype': the policy "
+                'plans on states and was given none, as JAX\'s '
+                'GoalStateAgent.get_action gives a state-space policy')
+        valid, last = carry
+        B, H = plan_vec.shape[0], self.horizon
+        g = torch.Generator(device=plan_vec.device).manual_seed(int(
+            torch.randint(0, 2 ** 62, (), generator=generator)))
+        if self.planner is CEMPlanner:
+            fallback = plan_vec.new_zeros((B, H, self.action_dim))
+        else:
+            fallback = self.sample_action(g, (B, H))
+        warm = last.actions if valid and t != 0 else fallback
+        traj = self.planner.plan(
+            plan_vec, self.model, self.cost, self.sample_action, H,
+            initial_trajectory=Trajectory(
+                states=None if last is None else last.states, actions=warm),
+            generator=g, **self.planner_kwargs)
+        return traj.actions[:, 0], (True, traj)
 
 
 class BatchedMPCPolicy:
@@ -52,20 +105,24 @@ class BatchedMPCPolicy:
     is invalidated at t == 0. ``sample_costs_builder(obs) ->
     sample_costs_fn`` binds the planning states into the fused sampler;
     without one, ``rollout_costs_fn(s0T, actionsT)`` costs the candidates
-    that ``cem_batched`` draws (JAX agents/mpc.py:150-152).
+    that ``cem_batched`` draws (JAX agents/mpc.py:150-152), and without
+    that either, the scan of ``model(s (N, sd), a (N, ad))`` and
+    ``cost(s, a)`` over all B K candidates does.
     """
 
     def __init__(self, horizon: int, action_dim: int,
                  planner_kwargs: Optional[dict] = None,
                  rollout_costs_fn: Optional[Callable] = None,
                  sample_costs_builder: Optional[Callable] = None,
-                 plan_on_observations: bool = True):
-        if sample_costs_builder is None and rollout_costs_fn is None:
-            raise NotImplementedError(
-                'BatchedMPCPolicy plans through a sample_costs_builder or a '
-                'rollout_costs_fn; the JAX policy\'s model / cost scan '
-                '(mujoco_mbrl_tpu.planners.shooting._rollout_costs) is not '
-                'wired into it')
+                 plan_on_observations: bool = True,
+                 model: Optional[Callable] = None,
+                 cost: Optional[Callable] = None):
+        if (sample_costs_builder is None and rollout_costs_fn is None
+                and (model is None or cost is None)):
+            raise ValueError('BatchedMPCPolicy needs a sample_costs_builder, '
+                             'a rollout_costs_fn or a model and a cost')
+        self.model = model
+        self.cost = cost
         self.rollout_costs_fn = rollout_costs_fn
         cfg = {**CEMPlanner.defaults, **(planner_kwargs or {})}
         cfg.pop('action_dim', None)
@@ -95,7 +152,7 @@ class BatchedMPCPolicy:
             action_high=self.cfg['action_high'],
             rollout_costs_fn=None if scf is not None
             else self.rollout_costs_fn,
-            sample_costs_fn=scf)
+            sample_costs_fn=scf, model=self.model, cost=self.cost)
         return traj.actions[0], (True, traj.actions)
 
 
@@ -223,7 +280,7 @@ class MPCAgent:
     def train(self):
         raise NotImplementedError
 
-    def get_action(self, key, obs_vec):
+    def get_action(self, generator, obs_vec):
         raise NotImplementedError
 
 
@@ -233,15 +290,6 @@ class GoalStateAgent(MPCAgent):
     def __init__(self, *, action_cost=None, state_cost_weights=None,
                  **kwargs):
         super().__init__(**kwargs)
-        if self.planner is not CEMPlanner:
-            raise NotImplementedError(
-                f'planner {getattr(self.planner, "__name__", self.planner)} '
-                'is not ported: GoalStateAgent plans with CEMPlanner '
-                '(mujoco_mbrl_tpu.agents.mpc.GoalStateAgent._make_policy)')
-        if not isinstance(self.model, (Mo.MLPDynamics, Mo.EnsembleDynamics)):
-            raise NotImplementedError(
-                f'model {type(self.model).__name__} is not ported '
-                '(mujoco_mbrl_tpu.agents.mpc.GoalStateAgent)')
         env = self.environment
         self.state_cost_weights = (
             state_cost_weights if state_cost_weights is not None
@@ -261,25 +309,63 @@ class GoalStateAgent(MPCAgent):
                 f'observation_dim {env.observation_dim} nor state_dim '
                 f'{env.state_dim} of {type(env).__name__}')
         self.plan_dim = goal_dim
-        self._sample_costs_builder(self.params, None)   # fail early
+
+    def _plan_model_fn(self, params, norms):
+        """The model the planner rolls candidates through: an ensemble
+        propagates TS-infinity (row k -> member k % n of the rows it is
+        given). Called as JAX calls it, ``forward(params, s, a, norms)``:
+        on an ``RNNDynamics`` that binds the normalizers to its hidden
+        state and fails, as in JAX."""
+        if isinstance(self.model, Mo.EnsembleDynamics):
+            return lambda s, a: self.model.forward_ts(params, s, a, norms)
+        return lambda s, a: self.model.forward(params, s, a, norms)
+
+    def _cost(self, goal_state):
+        weights, alpha = self.state_cost_weights, self.action_cost_alpha
+        return lambda states, actions: (
+            Mo.smooth_abs_loss(states, goal_state, weights)
+            + Mo.cosh_loss(actions, alpha))
+
+    def _make_policy(self, params, norms, goal_state):
+        """The per-env policy (every planner but the batched CEM)."""
+        env = self.environment
+        return MPCPolicy(
+            model=self._plan_model_fn(params, norms),
+            cost=self._cost(goal_state), planner=self.planner,
+            sample_action=env.sample_action, horizon=self.horizon,
+            action_dim=env.action_dim, obs_dim=self.plan_dim,
+            planner_kwargs=self.planner_kwargs,
+            plan_on_observations=self.obs_only)
 
     def _sample_costs_builder(self, params, norms):
         """builder(plan_vec, goal) -> sample_costs_fn(seed, mean, std),
-        bound to the fused sampler of the model family."""
+        bound to the fused sampler of the model family, or None where JAX
+        plans on its scan (agents/mpc.py:398-457): the sampler for a plain
+        ``MLPDynamics`` (not a subclass) without output noise, the
+        ensemble sampler for an ensemble of those whose size divides the
+        candidate count."""
+        model = self.model
+        is_ens = (isinstance(model, Mo.EnsembleDynamics)
+                  and type(model.base) is Mo.MLPDynamics)
+        if not ((is_ens or type(model) is Mo.MLPDynamics)
+                and model.noise is None):
+            return None
         K = {**CEMPlanner.defaults, **self.planner_kwargs}['num_candidates']
         kkw = {k: v for k, v in self.kernel_kwargs.items()
                if k not in _TPU_KNOBS}
         common = dict(normalizers=norms, alpha_action=self.action_cost_alpha,
                       num_candidates=K, **kkw)
         weights = self.state_cost_weights
-        if isinstance(self.model, Mo.EnsembleDynamics):
-            n = self.model.n
+        if is_ens:
+            n = model.n
             if K % n:
-                raise NotImplementedError(
+                warnings.warn(
                     f'num_candidates={K} is not divisible by the {n}-member '
-                    'ensemble: JAX then plans on its XLA scan path '
-                    '(mujoco_mbrl_tpu.agents.mpc.GoalStateAgent.'
-                    '_sample_costs_builder), which is not ported')
+                    'ensemble: the TS-infinity sampler is disabled and '
+                    'planning takes the (slower) model / cost scan, as in '
+                    'JAX. Pick num_candidates as a multiple of the ensemble '
+                    'size.', RuntimeWarning, stacklevel=2)
+                return None
             return lambda obs, goal: (
                 lambda seed, mean, std: mlp_sample_rollout_costs_ensemble(
                     params, seed, obs, mean, std, goal, weights,
@@ -289,31 +375,41 @@ class GoalStateAgent(MPCAgent):
                 params, seed, obs, mean, std, goal, weights, **common))
 
     def _make_batched_policy(self, params, norms, goal_state):
-        """Batched-CEM policy over the fused sampler; for a plain
-        ``MLPDynamics`` it also carries the non-fused rollout-cost kernel
-        (JAX agents/mpc.py:376-380), which the policy takes only without
-        a sampler builder."""
+        """Batched-CEM policy: over the fused sampler where the model
+        family has one; for a plain ``MLPDynamics`` it also carries the
+        non-fused rollout-cost kernel (JAX agents/mpc.py:376-380), which
+        the policy takes only without a sampler builder; else the model /
+        cost scan."""
         build = self._sample_costs_builder(params, norms)
         rc = None
-        if type(self.model) is Mo.MLPDynamics:
+        if type(self.model) is Mo.MLPDynamics and self.model.noise is None:
             rc = lambda s0T, aT: mlp_rollout_costs_t(
                 params, s0T, aT, goal_state, self.state_cost_weights,
                 normalizers=norms, alpha_action=self.action_cost_alpha)
         return BatchedMPCPolicy(
             horizon=self.horizon, action_dim=self.environment.action_dim,
             planner_kwargs=self.planner_kwargs, rollout_costs_fn=rc,
-            sample_costs_builder=lambda plan_vec: build(plan_vec,
-                                                        goal_state),
-            plan_on_observations=self.obs_only)
+            sample_costs_builder=None if build is None else (
+                lambda plan_vec: build(plan_vec, goal_state)),
+            plan_on_observations=self.obs_only,
+            model=self._plan_model_fn(params, norms),
+            cost=self._cost(goal_state))
 
     def _policy_collect(self, n):
-        """collect(params, norms, goal, generator) -> n MPC rollouts."""
+        """collect(params, norms, goal, generator) -> n MPC rollouts: the
+        batched collector for CEM, the per-env one otherwise."""
         env = self.environment
 
         def collect(params, norms, goal, generator):
-            policy = self._make_batched_policy(params, norms, goal)
-            return env.get_rollouts_batched(
-                generator, n, self.rollout_length, policy_batched=policy,
+            if self.planner is CEMPlanner:
+                policy = self._make_batched_policy(params, norms, goal)
+                return env.get_rollouts_batched(
+                    generator, n, self.rollout_length,
+                    policy_batched=policy, goal_state=goal,
+                    policy_init=policy.init_carry)
+            policy = self._make_policy(params, norms, goal)
+            return env.get_rollouts(
+                generator, n, self.rollout_length, policy=policy,
                 goal_state=goal, policy_init=policy.init_carry)
         return collect
 
@@ -354,15 +450,70 @@ class GoalStateAgent(MPCAgent):
                     self.params, norms, goal, generator),
                 goal_state=self.training_goal_state)
 
-    def get_action(self, key, obs_vec, carry=None, t=0):
-        raise NotImplementedError(
-            'GoalStateAgent.get_action plans with the per-env MPCPolicy, '
-            'which is not ported (mujoco_mbrl_tpu.agents.mpc.MPCPolicy)')
+    def get_action(self, generator, obs_vec, carry=None, t=0):
+        """The per-env policy's action for ``obs_vec`` (od,) at step
+        ``t``: (action (ad,), carry). As in JAX no state is passed, so an
+        agent that plans on states fails here."""
+        policy = self._make_policy(self.params, self._normalizers(),
+                                   self.training_goal_state)
+        return _one_env_action(policy, generator, obs_vec, carry, t)
+
+
+def _one_env_action(policy, generator, obs_vec, carry, t):
+    if carry is None:
+        carry = policy.init_carry()
+    with torch.no_grad():
+        actions, carry = policy(generator, t, None, obs_vec[None], carry)
+    return actions[0], carry
 
 
 class RewardAgent(MPCAgent):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            'RewardAgent is not ported (mujoco_mbrl_tpu.agents.mpc.'
-            'RewardAgent): it plans through the learned reward head of '
-            'RewardDynamics')
+    """Plans against the learned reward head: the cost of (s_t, a_t) is
+    the negated predicted reward of that transition (agents/mpc.py:534-
+    589), always through the per-env ``MPCPolicy``, CEM included."""
+
+    def _make_policy(self, params, norms):
+        env = self.environment
+
+        def model_fn(s, a):
+            s_next, _ = self.model.forward(params, s, a, norms)
+            return s_next
+
+        def cost(states, actions):
+            _, r = self.model.forward(params, states, actions, norms)
+            return -r[..., 0]
+
+        return MPCPolicy(
+            model=model_fn, cost=cost, planner=self.planner,
+            sample_action=env.sample_action, horizon=self.horizon,
+            action_dim=env.action_dim, obs_dim=env.observation_dim,
+            planner_kwargs=self.planner_kwargs)
+
+    def _policy_collect(self, n):
+        env = self.environment
+
+        def collect(params, norms, generator):
+            policy = self._make_policy(params, norms)
+            return env.get_rollouts(generator, n, self.rollout_length,
+                                    policy=policy,
+                                    policy_init=policy.init_carry)
+        return collect
+
+    def train(self):
+        """Seed rollouts -> [fit -> collect] x N."""
+        logger.info('Starting outer training loop.')
+        self.add_rollouts(num_rollouts=self.num_initial_rollouts)
+        for iteration in range(1, self.num_train_iterations + 1):
+            logger.info('Iteration %d', iteration)
+            self.train_iterations = iteration
+            self.fit_model()
+            norms = self._normalizers()
+            collect = self._policy_collect(self.num_rollouts_per_iteration)
+            self.add_rollouts(
+                policy_collect=lambda generator, goal: collect(
+                    self.params, norms, generator))
+
+    def get_action(self, generator, obs_vec, carry=None, t=0):
+        """(action (ad,), carry) for the observation ``obs_vec`` (od,)."""
+        policy = self._make_policy(self.params, self._normalizers())
+        return _one_env_action(policy, generator, obs_vec, carry, t)

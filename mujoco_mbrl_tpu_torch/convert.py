@@ -24,8 +24,21 @@ def tensor(x, device='cpu', dtype=torch.float32) -> torch.Tensor:
 
 def mlp_params(params: Mapping[str, Mapping[str, Any]], device='cpu'):
     """MLP param tree {'l1','l2','l3'} x {'w','b'} (w stored (in, out))."""
+    return dense_params(params, ('l1', 'l2', 'l3'), device)
+
+
+def dense_params(params: Mapping[str, Mapping[str, Any]], layers,
+                 device='cpu'):
+    """A tree of dense layers {layer: {'w', 'b'}} (w stored (in, out)), the
+    layout every model family shares: ``mlp_params``' ('l1', 'l2', 'l3'),
+    ``LinearDynamics``' ('l1',), ``RewardDynamics``' (``REWARD_LAYERS``),
+    ``RNNDynamics``' (``RNN_LAYERS``)."""
     return {layer: {k: tensor(params[layer][k], device) for k in ('w', 'b')}
-            for layer in ('l1', 'l2', 'l3')}
+            for layer in layers}
+
+
+REWARD_LAYERS = ('l1', 'l2', 'state_head', 'reward_head')
+RNN_LAYERS = ('gru_rz', 'gru_n', 'head1', 'head2')
 
 
 def ensemble_params(params: Mapping[str, Mapping[str, Any]], device='cpu'):

@@ -18,8 +18,13 @@ boundary first is in sorted pytree order (height, orientations,
 velocity). ``get_rollouts_batched`` flattens its first observation in task
 order (``_observe_full`` under ``vmap``) and every later one in sorted
 order (``ts.observation`` returned by ``vmap(env.step_with_data)``); the
-random collector ``rollout_fn`` flattens inside its scan body, so all its
-observations are in task order. ``collect_from`` reproduces both.
+per-env collector ``rollout_fn`` (``get_rollouts``, random or with a
+per-env policy) flattens inside its scan body, so all its observations
+are in task order. ``collect_from`` reproduces both.
+
+``get_rollouts`` takes the per-env policies (``agents.MPCPolicy``) with
+the batched protocol: the port's policy plans for all B envs in one call,
+each as JAX's vmapped one-env policy would.
 """
 
 from __future__ import annotations
@@ -100,6 +105,11 @@ class EnvWrapper:
     def get_state(self, env_state: EnvState, data=None) -> torch.Tensor:
         """(B, state_dim): [qpos, qvel]."""
         return torch.cat([env_state.physics.qpos, env_state.physics.qvel], 1)
+
+    def state_to_physics(self, state: torch.Tensor):
+        """(qpos, qvel) of a [qpos, qvel] state (..., nq + nv)."""
+        nq = self._env.model.nq
+        return state[..., :nq], state[..., nq:]
 
     def _observe_full(self, env_state: EnvState
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -214,14 +224,21 @@ class EnvWrapper:
                      num_steps: int, policy: Optional[Callable] = None,
                      goal_state=None, initial_states=None,
                      policy_init=None) -> Rollouts:
-        """`num_rollouts` rollouts of uniformly random actions."""
-        if policy is not None or initial_states is not None:
-            raise NotImplementedError(
-                'per-env policies and initial states are not ported '
-                '(mujoco_mbrl_tpu.envs.wrappers.EnvWrapper.get_rollouts)')
+        """`num_rollouts` rollouts of ``policy`` (uniformly random actions
+        when None), the per-env collector (wrappers.py:330-355): from
+        ``initial_states`` (num_rollouts, nq + nv) when given, teleported
+        in after the reset (``state_to_physics``), with ``goal_state``
+        applied; ``goal_state`` may be one goal or one per env."""
         env_state = self.reset(num_rollouts, generator, goal_state)
-        return self.collect_from(env_state, num_steps, self.random_policy,
-                                 generator, sorted_later_obs=False)
+        if initial_states is not None:
+            phys = env_state.physics
+            qpos, qvel = self.state_to_physics(initial_states.to(phys.qpos))
+            env_state = dataclasses.replace(env_state, physics=(
+                dataclasses.replace(phys, qpos=qpos.contiguous(),
+                                    qvel=qvel.contiguous())))
+        return self.collect_from(env_state, num_steps,
+                                 policy or self.random_policy, generator,
+                                 policy_init, sorted_later_obs=False)
 
 
 class Walker(EnvWrapper):
@@ -242,6 +259,20 @@ class Walker(EnvWrapper):
         return torch.cat([base, upright[:, None], height[:, None],
                           speed[:, None]], 1)
 
+    def sample_state(self, generator, batch_shape=()):
+        """[qpos, qvel] (..., 18): the torso angle, the right leg's
+        joints and the left's (its hip mirrors the right hip) drawn
+        uniform in their ranges, the rest zero (wrappers.py:506-522)."""
+        shape = tuple(batch_shape)
+        u = self._uniform(generator, shape + (6,),
+                          [-.1, -.15, -.3, -.1, -.3, -.1],
+                          [.1, .15, 0., .1, 0., .1])
+        st = torch.zeros(shape + (18,), device=self.device)
+        st[..., 2:6] = u[..., :4]
+        st[..., 6] = -u[..., 1]
+        st[..., 7:9] = u[..., 4:]
+        return st
+
     def get_goal_weights(self):
         w = torch.zeros(self.state_dim, device=self.device)
         w[-3:] = self._state_penalty
@@ -256,10 +287,15 @@ class Walker(EnvWrapper):
 
 
 class Cheetah(EnvWrapper):
-    """Drop x, append speed and torso height (wrappers.py:489-535).
-    ``sample_state`` is not ported, as for the walker."""
+    """Drop x, append speed and torso height (wrappers.py:489-535)."""
     state_dim = 18 - 1 + 2
     observation_dim = 17
+    # sample_state's uniform ranges of state[1:9] (rootz, rooty, the six
+    # joints) and of the nine velocities
+    _SAMPLE_RANGES = ((-.2, .2), (-3.14, 3.14), (-0.5236, 1.0472),
+                      (-0.8727, 0.8727), (-4.0143, 0.8727),
+                      (-0.9948, 0.0070), (-1.2217, 0.8727),
+                      (-0.4887, 0.4887))
 
     def get_state(self, env_state, data=None):
         m = self._env.model
@@ -271,6 +307,17 @@ class Cheetah(EnvWrapper):
         speed = sensors.subtree_linvel(m, data, torso)[:, 0]
         height = sensors.subtree_com(m, data, torso)[:, 2]
         return torch.cat([base, speed[:, None], height[:, None]], 1)
+
+    def sample_state(self, generator, batch_shape=()):
+        """[qpos, qvel] (..., 18): x zero, the rest uniform in
+        ``_SAMPLE_RANGES`` and the velocities in [-3, 3) (wrappers.py:
+        556-571)."""
+        shape = tuple(batch_shape)
+        lo, hi = zip(*self._SAMPLE_RANGES)
+        st = torch.zeros(shape + (18,), device=self.device)
+        st[..., 1:9] = self._uniform(generator, shape + (8,), lo, hi)
+        st[..., 9:] = self._uniform(generator, shape + (9,), -3., 3.)
+        return st
 
     def get_goal_weights(self):
         w = torch.zeros(self.state_dim, device=self.device)
@@ -369,10 +416,15 @@ class Reacher(EnvWrapper):
         return dataclasses.replace(
             env_state, params=xy.to(env_state.physics.qpos.dtype))
 
-    def sample_rollouts_biased_rewards(self, *args, **kwargs):
-        raise NotImplementedError(
-            'teleporting the arm onto the target is not ported (mujoco_mbrl'
-            '_tpu.envs.wrappers.Reacher.sample_rollouts_biased_rewards)')
+    def sample_rollouts_biased_rewards(self, generator,
+                                       num_rollouts: int = 20,
+                                       num_steps: int = 100) -> Rollouts:
+        """Random rollouts whose arm starts on its own target, so they see
+        reward (wrappers.py:435-447): each env's goal pose is both its
+        initial state and its goal."""
+        goals = self.set_goal_state(generator, (num_rollouts,))
+        return self.get_rollouts(generator, num_rollouts, num_steps,
+                                 goal_state=goals, initial_states=goals)
 
 
 class Pendulum(EnvWrapper):

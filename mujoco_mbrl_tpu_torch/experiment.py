@@ -13,10 +13,13 @@ tasks through ``envs.load``: walker, cheetah, hopper (``hopper_stand``,
 underscore, as in the JAX CLI, so a task named with one is not reached),
 swimmer (``swimmer_swimmer6``, ``swimmer_swimmer15``) and humanoid
 (``humanoid_stand``, ``humanoid_walk``, ``humanoid_run``); acrobot has
-no wrapper, as in the JAX package. Choices
-whose classes are not ported (planners rs / grad / ilqr, models lin / rw
-/ rnn, agent rw) raise
-``NotImplementedError`` when constructed. Defaults follow the JAX CLI:
+no wrapper, as in the JAX package. Every
+``--agent``, ``--planner`` and ``--model`` constructs as in the JAX CLI;
+the combinations the JAX package cannot run fail where it fails (an
+``RNNDynamics`` or ``RewardDynamics`` in a ``GoalStateAgent``, a model
+without a reward head in a ``RewardAgent``, ``--planner ilqr``, an
+ensemble planned per env when the plan dims divide by its size).
+Defaults follow the JAX CLI: ``--agent gs --planner rs --model nn``,
 horizon 20, rollout_length 200, 5 rollouts per iteration, 10 iterations,
 Adam lr=0.01.
 """
@@ -35,11 +38,6 @@ from .models import train as Mt
 from .utils import MetricsWriter, logger
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(f'{what} is not ported '
-                              '(mujoco_mbrl_tpu.experiment)')
-
-
 class Planner(Enum):
     RandomShooting = 'rs'
     GradientDescent = 'grad'
@@ -50,9 +48,12 @@ class Planner(Enum):
         return self.value
 
     def construct(self):
-        if self is Planner.CEM:
-            return planners.CEMPlanner
-        _not_ported(f'planner {self.value!r}')
+        return {
+            Planner.RandomShooting: planners.RandomShootingPlanner,
+            Planner.GradientDescent: planners.GradientDescentPlanner,
+            Planner.CEM: planners.CEMPlanner,
+            Planner.ILQR: planners.ILQRPlanner,
+        }[self]
 
 
 class Model(Enum):
@@ -71,10 +72,14 @@ class Model(Enum):
         ad = environment.action_dim
         if self is Model.NeuralNet:
             return models.MLPDynamics(od, ad)
+        if self is Model.Linear:
+            return models.LinearDynamics(od, ad)
+        if self is Model.ModelWithReward:
+            return models.RewardDynamics(od, ad, hidden_units=50)
         if self is Model.Ensemble:
             return models.EnsembleDynamics(models.MLPDynamics(od, ad),
                                            n_ensemble=5)
-        _not_ported(f'model {self.value!r}')
+        return models.RNNDynamics(od, ad)
 
 
 class Optimizer(Enum):

@@ -1,9 +1,14 @@
 """Dynamics models, planning costs and model fitting."""
 
-from .costs import CoshLoss, cosh_loss, smooth_abs_loss
-from .dynamics import EnsembleDynamics, MLPDynamics, Normalizers
+from .costs import (CoshLoss, CostModel, QuadraticCost, SmoothAbsLoss,
+                    cosh_loss, quadratic_cost, smooth_abs_loss,
+                    state_action_cost)
+from .dynamics import (EnsembleDynamics, LinearDynamics, MLPDynamics,
+                       Normalizers, RewardDynamics, RNNDynamics)
 from .train import TrainLog, evaluate_model, train_model
 
-__all__ = ['CoshLoss', 'EnsembleDynamics', 'MLPDynamics', 'Normalizers',
-           'TrainLog', 'cosh_loss', 'evaluate_model', 'smooth_abs_loss',
-           'train_model']
+__all__ = ['CoshLoss', 'CostModel', 'EnsembleDynamics', 'LinearDynamics',
+           'MLPDynamics', 'Normalizers', 'QuadraticCost', 'RNNDynamics',
+           'RewardDynamics', 'SmoothAbsLoss', 'TrainLog', 'cosh_loss',
+           'evaluate_model', 'quadratic_cost', 'smooth_abs_loss',
+           'state_action_cost', 'train_model']

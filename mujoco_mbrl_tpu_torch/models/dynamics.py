@@ -1,12 +1,15 @@
-"""MLP and ensemble dynamics models and normalizers.
+"""Dynamics model families and normalizers.
 
-Port of the MLPDynamics, EnsembleDynamics and Normalizers parts of
-mujoco_mbrl_tpu/models/dynamics.py.
+Port of mujoco_mbrl_tpu/models/dynamics.py: ``MLPDynamics`` (with its
+optional output noise), ``LinearDynamics``, ``RewardDynamics`` (next
+state and reward heads), ``RNNDynamics`` (a GRU cell with a state head)
+and ``EnsembleDynamics`` over an MLP base.
 
-Parameters are the JAX package's tree as a plain dict of tensors,
-``{'l1', 'l2', 'l3'} x {'w', 'b'}`` with ``w`` stored (in, out), so
-converted weights line up one to one (see ``convert.mlp_params``); an
-ensemble's leaves carry a leading member axis.
+Parameters are the JAX package's trees as plain dicts of tensors, each
+dense layer ``{'w', 'b'}`` with ``w`` stored (in, out), so converted
+weights line up one to one (see ``convert``); an ensemble's leaves carry a
+leading member axis. The models are functions of their parameter trees
+(no ``nn.Module``), so ``torch.func`` can differentiate and map them.
 """
 
 from __future__ import annotations
@@ -44,6 +47,11 @@ class Normalizers:
             return a
         return (a - self.action_mean) / (self.action_std + 1e-6)
 
+    def unnorm_reward(self, r):
+        if self.reward_mean is None:
+            return r
+        return r * (self.reward_std + 1e-6) + self.reward_mean
+
 
 def _dense_init(generator, n_in, n_out, dtype, device):
     """LeCun-uniform fan-in init (torch nn.Linear default semantics)."""
@@ -58,13 +66,16 @@ def _dense(params, x):
 
 
 class MLPDynamics:
-    """s' = MLP([s; a]) with two ReLU hidden layers (models.py:96-110)."""
+    """s' = MLP([s; a]) with two ReLU hidden layers and optional Gaussian
+    output noise of std ``noise`` (dynamics.py:73-134)."""
 
     def __init__(self, state_dim: int, action_dim: int,
-                 hidden_units: int = 50, dtype=torch.float32):
+                 hidden_units: int = 50, noise: Optional[float] = None,
+                 dtype=torch.float32):
         self.state_dim = state_dim
         self.action_dim = action_dim
         self.hidden_units = hidden_units
+        self.noise = noise
         self.dtype = dtype
 
     def init(self, generator: torch.Generator, device=None
@@ -87,10 +98,18 @@ class MLPDynamics:
         return _dense(params['l3'], x)
 
     def forward(self, params, state, action,
-                normalizers: Optional[Normalizers] = None):
+                normalizers: Optional[Normalizers] = None,
+                generator: Optional[torch.Generator] = None):
+        """The noise is added in normalized space, and only when a
+        ``generator`` is passed (JAX adds it only with a key)."""
         n = normalizers or Normalizers()
         x = torch.cat([n.norm_state(state), n.norm_action(action)], dim=-1)
-        return n.unnorm_state(self._net(params, x))
+        out = self._net(params, x)
+        if self.noise is not None and generator is not None:
+            out = out + torch.randn(
+                out.shape, generator=generator, dtype=out.dtype,
+                device=generator.device).to(out.device) * self.noise
+        return n.unnorm_state(out)
 
     def loss(self, params, batch, normalizers: Optional[Normalizers] = None,
              generator: Optional[torch.Generator] = None):
@@ -105,6 +124,166 @@ class MLPDynamics:
         per_step = torch.mean((pred - target) ** 2,
                               dim=(0,) + tuple(range(2, pred.ndim)))
         return per_step.sum()
+
+
+class LinearDynamics(MLPDynamics):
+    """A single affine layer (dynamics.py:137-145)."""
+
+    def init(self, generator: torch.Generator, device=None):
+        device = resolve_device(device)
+        return {'l1': _dense_init(generator,
+                                  self.state_dim + self.action_dim,
+                                  self.state_dim, self.dtype, device)}
+
+    def _net(self, params, x):
+        return _dense(params['l1'], x)
+
+
+class RewardDynamics:
+    """Joint next-state and reward model: a shared two-layer ReLU trunk
+    with a state head and a scalar reward head (dynamics.py:148-199)."""
+
+    def __init__(self, state_dim: int, action_dim: int,
+                 hidden_units: int = 200, dtype=torch.float32):
+        self.state_dim = state_dim
+        self.action_dim = action_dim
+        self.hidden_units = hidden_units
+        self.dtype = dtype
+
+    def init(self, generator: torch.Generator, device=None):
+        device = resolve_device(device)
+        h, nin = self.hidden_units, self.state_dim + self.action_dim
+        return {
+            'l1': _dense_init(generator, nin, h, self.dtype, device),
+            'l2': _dense_init(generator, h, h, self.dtype, device),
+            'state_head': _dense_init(generator, h, self.state_dim,
+                                      self.dtype, device),
+            'reward_head': _dense_init(generator, h, 1, self.dtype, device),
+        }
+
+    def _heads(self, params, n, state, action):
+        x = torch.cat([n.norm_state(state), n.norm_action(action)], dim=-1)
+        x = torch.relu(_dense(params['l1'], x))
+        x = torch.relu(_dense(params['l2'], x))
+        return _dense(params['state_head'], x), _dense(params['reward_head'],
+                                                       x)
+
+    def forward(self, params, state, action,
+                normalizers: Optional[Normalizers] = None):
+        """(next state (..., sd), reward (..., 1)), unnormalized."""
+        n = normalizers or Normalizers()
+        s, r = self._heads(params, n, state, action)
+        return n.unnorm_state(s), n.unnorm_reward(r)
+
+    def loss(self, params, batch, normalizers: Optional[Normalizers] = None,
+             generator: Optional[torch.Generator] = None):
+        """(state MSE + reward MSE, {'state_loss', 'reward_loss'}) in
+        normalized space, each a mean over batch and dim summed over the
+        window; the reward target is normalized by the reward stats.
+        ``generator`` is ignored, as for ``MLPDynamics.loss``."""
+        n = normalizers or Normalizers()
+        pred_s, pred_r = self._heads(params, n, batch['states'],
+                                     batch['actions'])
+        target_s = n.norm_state(batch['next_states'])
+        target_r = batch['rewards']
+        if n.reward_mean is not None:
+            target_r = (target_r - n.reward_mean[0]) / (n.reward_std[0]
+                                                        + 1e-6)
+        s_loss = torch.mean((pred_s - target_s) ** 2, dim=(0,) + tuple(
+            range(2, pred_s.ndim))).sum()
+        r_loss = torch.mean((pred_r[..., 0] - target_r) ** 2, dim=0).sum()
+        return s_loss + r_loss, {'state_loss': s_loss, 'reward_loss': r_loss}
+
+
+class RNNDynamics:
+    """GRU sequence dynamics: h' = GRU(h, [s; a]) and s' = s + f(h', [s;
+    a]) in normalized space (dynamics.py:202-313). ``rollout`` runs the
+    model open loop on its own predictions; ``loss`` is teacher-forced
+    over (B, h, dim) windows with the hidden state carried across the
+    window."""
+
+    def __init__(self, state_dim: int, action_dim: int,
+                 hidden_units: int = 64, dtype=torch.float32):
+        self.state_dim = state_dim
+        self.action_dim = action_dim
+        self.hidden_units = hidden_units
+        self.noise = None
+        self.dtype = dtype
+
+    def init(self, generator: torch.Generator, device=None):
+        device = resolve_device(device)
+        nin, h = self.state_dim + self.action_dim, self.hidden_units
+        return {
+            'gru_rz': _dense_init(generator, nin + h, 2 * h, self.dtype,
+                                  device),
+            'gru_n': _dense_init(generator, nin + h, h, self.dtype, device),
+            'head1': _dense_init(generator, h + nin, h, self.dtype, device),
+            'head2': _dense_init(generator, h, self.state_dim, self.dtype,
+                                 device),
+        }
+
+    def init_hidden(self, batch_shape=(), device=None) -> torch.Tensor:
+        return torch.zeros(tuple(batch_shape) + (self.hidden_units,),
+                           dtype=self.dtype, device=resolve_device(device))
+
+    def _cell(self, params, h, x):
+        rz = torch.sigmoid(_dense(params['gru_rz'], torch.cat([x, h], -1)))
+        r, z = torch.chunk(rz, 2, dim=-1)
+        n = torch.tanh(_dense(params['gru_n'], torch.cat([x, r * h], -1)))
+        return (1.0 - z) * n + z * h
+
+    def _step(self, params, n, state, action, hidden):
+        """(normalized next state, next hidden)."""
+        x = torch.cat([n.norm_state(state), n.norm_action(action)], dim=-1)
+        h_new = self._cell(params, hidden, x)
+        y = torch.relu(_dense(params['head1'], torch.cat([h_new, x], -1)))
+        return n.norm_state(state) + _dense(params['head2'], y), h_new
+
+    def forward(self, params, state, action, hidden,
+                normalizers: Optional[Normalizers] = None):
+        """One transition: (next_state, next_hidden)."""
+        if not isinstance(hidden, torch.Tensor):
+            # the JAX agents call forward(params, s, a, normalizers), which
+            # binds the normalizers to `hidden`; jnp.concatenate then
+            # raises a TypeError in the GRU cell
+            raise TypeError(
+                f'RNNDynamics.forward got a {type(hidden).__name__} as its '
+                'hidden state: the JAX agents pass the normalizers there '
+                '(mujoco_mbrl_tpu.agents.mpc._plan_model_fn), and the JAX '
+                'GRU cell fails the same way (concatenate requires ndarray)')
+        n = normalizers or Normalizers()
+        s, h_new = self._step(params, n, state, action, hidden)
+        return n.unnorm_state(s), h_new
+
+    def rollout(self, params, state0, actions,
+                normalizers: Optional[Normalizers] = None,
+                hidden0: Optional[torch.Tensor] = None):
+        """Open loop: actions (H, ..., ad) -> states (H, ..., sd)."""
+        h = (self.init_hidden(state0.shape[:-1], state0.device)
+             if hidden0 is None else hidden0)
+        s, states = state0, []
+        for a in actions:
+            s, h = self.forward(params, s, a, h, normalizers)
+            states.append(s)
+        return torch.stack(states)
+
+    def loss(self, params, batch, normalizers: Optional[Normalizers] = None,
+             generator: Optional[torch.Generator] = None):
+        """Teacher-forced MSE over (B, h, dim) windows (or (B, dim)
+        transitions): mean over batch and dim, summed over the window.
+        ``generator`` is ignored."""
+        n = normalizers or Normalizers()
+        s, a = batch['states'], batch['actions']
+        target = n.norm_state(batch['next_states'])
+        if s.ndim == 2:
+            s, a, target = s[:, None], a[:, None], target[:, None]
+        h = self.init_hidden((s.shape[0],), s.device)
+        preds = []
+        for t in range(s.shape[1]):
+            pred, h = self._step(params, n, s[:, t], a[:, t], h)
+            preds.append(pred)
+        preds = torch.stack(preds, 1)
+        return torch.mean((preds - target) ** 2, dim=(0, 2)).sum()
 
 
 def _stacked_net(params, x):
@@ -135,6 +314,7 @@ class EnsembleDynamics:
         self.n = n_ensemble
         self.state_dim = base.state_dim
         self.action_dim = base.action_dim
+        self.noise = base.noise
 
     def init(self, generator: torch.Generator, device=None):
         device = resolve_device(device)
@@ -162,10 +342,23 @@ class EnsembleDynamics:
     def forward_ts(self, params, state, action,
                    normalizers: Optional[Normalizers] = None):
         """TS-infinity: state/action (N, dim), row k -> member k % n; the
-        ensemble mean when N is not divisible by n (as in JAX)."""
+        ensemble mean when N is not divisible by n (as in JAX).
+
+        JAX reads N from the leading axis whatever the rank: a single
+        state (sd,) takes the mean when sd % n != 0 and fails when it
+        divides (the action cannot take the state's reshape); the port
+        raises there too."""
         N = state.shape[0]
         if N % self.n:
             return self.forward(params, state, action, normalizers)
+        if state.ndim == 1:
+            raise TypeError(
+                f'EnsembleDynamics.forward_ts got a single state of {N} '
+                f'dims, divisible by the {self.n} members: JAX reshapes '
+                f'the state to ({N // self.n}, {self.n}, -1) and fails on '
+                f'the ({action.shape[0]},) action (cannot reshape; '
+                'mujoco_mbrl_tpu.models.dynamics.EnsembleDynamics.'
+                'forward_ts)')
         n, x = self._inputs(state, action, normalizers)
         xg = x.reshape(N // self.n, self.n, -1).transpose(0, 1)
         out = _stacked_net(params, xg)                  # (n, N / n, sd)

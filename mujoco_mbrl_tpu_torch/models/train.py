@@ -7,6 +7,11 @@ optax; the JAX package has no Pallas kernel here. An epoch is two steps so
 that a caller can supply the indices: ``data.replay.epoch_batches`` draws
 them, ``fit_epoch`` runs the minibatches.
 
+Every model family fits through the same loop: a ``loss`` that returns
+``(loss, aux)`` (``RewardDynamics``) contributes its first element, and
+windows of ``horizon`` transitions reach the model as (B, h, dim) fields
+(the ``RNNDynamics`` sequences).
+
 Optimizers (``adam`` / ``sgd``) are factories over the parameter leaves.
 ``torch.optim.Adam`` and ``optax.adam`` are the same update: bias-corrected
 moments with betas (0.9, 0.999) and eps = 1e-8 added outside the square
@@ -68,6 +73,10 @@ def _batch_from_windows(win: Dict[str, torch.Tensor], obs_only: bool):
                 rewards=win['rewards'], next_states=win['next_states'])
 
 
+def _first(out):
+    return out[0] if isinstance(out, tuple) else out
+
+
 def fit_epoch(model, params, buf: R.ReplayBuffer, optimizer,
               roll_idx: torch.Tensor, start: torch.Tensor,
               horizon: int = 1, obs_only: bool = True,
@@ -80,8 +89,10 @@ def fit_epoch(model, params, buf: R.ReplayBuffer, optimizer,
         batch = _batch_from_windows(
             R.gather_windows(buf, ri, st, horizon), obs_only)
         optimizer.zero_grad(set_to_none=True)
-        # the ensemble bootstraps from the generator, as JAX hands its key on
-        loss = model.loss(params, batch, normalizers, generator=generator)
+        # the ensemble bootstraps from the generator, as JAX hands its key
+        # on; a loss may return (loss, aux), of which the fit takes loss
+        loss = _first(model.loss(params, batch, normalizers,
+                                 generator=generator))
         loss.backward()
         optimizer.step()
         losses.append(loss.detach())
@@ -128,5 +139,5 @@ def evaluate_model(model, params, buf: R.ReplayBuffer,
                    ) -> torch.Tensor:
     """Mean MSE over sampled transitions."""
     win = R.sample_transitions(buf, generator, batch_size, horizon)
-    return model.loss(params, _batch_from_windows(win, obs_only),
-                      normalizers)
+    return _first(model.loss(params, _batch_from_windows(win, obs_only),
+                             normalizers))

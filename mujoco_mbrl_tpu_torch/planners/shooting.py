@@ -1,7 +1,22 @@
-"""Batched CEM planner.
+"""Sampling planners: random shooting, per-env CEM and the batched CEM.
 
-Port of mujoco_mbrl_tpu/planners/shooting.py: ``rollout_actions``,
-``_rollout_costs`` and ``cem_batched`` with its three candidate paths:
+Port of mujoco_mbrl_tpu/planners/shooting.py.
+
+``random_shooting`` and ``cem`` are the per-env planners. JAX writes them
+for one env and the per-env policy maps them over the envs with ``vmap``;
+here they take a leading env axis, initial states (B, sd), and return
+``Trajectory(states (B, H+1, sd), actions (B, H, ad))``, the vmapped
+layout. The model and the cost are mapped over that axis with
+``torch.func.vmap`` (``env_map``), so they see the shapes JAX's one-env
+planner gives them: a (K, dim) candidate batch in the candidate rollouts,
+a single (dim,) state in the re-roll of the chosen sequence. That keeps
+the ensemble's row rule per env (``EnsembleDynamics.forward_ts`` splits
+members by the rows it is given). Draws come from the ``generator``;
+tests hand in JAX's own: the candidates through ``sample_action`` and
+CEM's normals through ``normals``.
+
+``cem_batched`` plans for a whole env batch in one call, with three
+candidate paths:
 
 * fused: ``sample_costs_fn(seed, mean, std)`` samples, rolls out and costs
   the candidates (``ops.mlp_sample_rollout_costs``) and returns exact-K
@@ -30,8 +45,10 @@ import torch
 
 
 class Trajectory(NamedTuple):
-    states: Optional[torch.Tensor]   # (H+1, B, sd) or None
-    actions: torch.Tensor            # (H, B, ad)
+    """``cem_batched``: states (H+1, B, sd) or None, actions (H, B, ad);
+    the per-env planners: states (B, H+1, sd), actions (B, H, ad)."""
+    states: Optional[torch.Tensor]
+    actions: torch.Tensor
 
 
 def rollout_actions(model: Callable, initial_state: torch.Tensor,
@@ -58,6 +75,117 @@ def _rollout_costs(model: Callable, cost: Callable,
         s = model(s, a)
         acc = acc + cost(s, a)
     return acc
+
+
+def env_map(fn: Callable, dims: int = 1) -> Callable:
+    """``fn`` mapped over ``dims`` leading env axes (``torch.func.vmap``):
+    inside, it sees one env's arrays."""
+    for _ in range(dims):
+        fn = torch.func.vmap(fn)
+    return fn
+
+
+def rollout_env(model: Callable, initial_states: torch.Tensor,
+                actions: torch.Tensor) -> torch.Tensor:
+    """Each env's sequence through ``model`` from its own state, the
+    model seeing one env's (sd,) state: initial_states (B, sd), actions
+    (B, H, ad) -> states (B, H, sd)."""
+    step, s, states = env_map(model), initial_states, []
+    for t in range(actions.shape[1]):
+        s = step(s, actions[:, t])
+        states.append(s)
+    return torch.stack(states, 1)
+
+
+def env_trajectory(model: Callable, initial_states: torch.Tensor,
+                   actions: torch.Tensor) -> Trajectory:
+    """(B, H, ad) actions re-rolled per env: states (B, H+1, sd)."""
+    states = rollout_env(model, initial_states, actions)
+    return Trajectory(states=torch.cat([initial_states[:, None], states], 1),
+                      actions=actions)
+
+
+def env_rollout_costs(model: Callable, cost: Callable,
+                      initial_states: torch.Tensor,
+                      actions: torch.Tensor) -> torch.Tensor:
+    """Total cost of each env's candidates, sum over t of cost(s_{t+1},
+    a_t), the model and cost seeing one env's (K, dim) batch:
+    initial_states (B, sd), actions (B, H, K, ad) -> (B, K)."""
+    B, H, K, _ = actions.shape
+    step, step_cost = env_map(model), env_map(cost)
+    s = initial_states[:, None].expand(B, K, initial_states.shape[-1])
+    acc = initial_states.new_zeros((B, K))
+    for t in range(H):
+        s = step(s, actions[:, t])
+        acc = acc + step_cost(s, actions[:, t])
+    return acc
+
+
+def random_shooting(generator: torch.Generator,
+                    initial_states: torch.Tensor, model: Callable,
+                    cost: Callable, sample_action: Callable, horizon: int,
+                    num_trajectories: int = 1000,
+                    initial_trajectory: Optional[Trajectory] = None,
+                    info: Optional[dict] = None) -> Trajectory:
+    """K candidate sequences per env from ``sample_action(generator, (B,
+    H, K))``, the lowest total cost kept and re-rolled through the model
+    (shooting.py:66-93). A warm start, ``initial_trajectory.actions`` (B,
+    H, ad), replaces each env's candidate 0. ``info``, when given,
+    receives 'costs' (B, K), the candidates' total costs."""
+    actions = sample_action(generator, (initial_states.shape[0], horizon,
+                                        num_trajectories))
+    if initial_trajectory is not None:
+        actions = actions.clone()
+        actions[:, :, 0] = initial_trajectory.actions
+    costs = env_rollout_costs(model, cost, initial_states, actions)
+    if info is not None:
+        info['costs'] = costs
+    best = torch.argmin(costs, dim=1)
+    env = torch.arange(actions.shape[0], device=actions.device)
+    return env_trajectory(model, initial_states, actions[env, :, best])
+
+
+def cem(generator: torch.Generator, initial_states: torch.Tensor,
+        model: Callable, cost: Callable, horizon: int, action_dim: int,
+        num_candidates: int = 1000, num_elites: int = 100,
+        num_iterations: int = 5, init_mean: Optional[torch.Tensor] = None,
+        init_std: float = 1.0, action_low: float = -1.0,
+        action_high: float = 1.0, min_std: float = 1e-2, alpha: float = 0.1,
+        normals: Optional[torch.Tensor] = None,
+        info: Optional[dict] = None) -> Trajectory:
+    """The per-env cross-entropy method (shooting.py:96-140): each env's
+    Gaussian over its (H, ad) sequence is refit on its ``num_elites``
+    lowest-cost candidates, mean <- alpha mean + (1 - alpha) elite mean,
+    std <- max(alpha std + (1 - alpha) elite std, min_std) (the elites'
+    population std); returns the clipped final mean re-rolled through the
+    model. ``init_mean`` (B, H, ad); ``normals`` (num_iterations, B, H, K,
+    ad) replaces the draws from ``generator``. ``info``, when given,
+    receives 'costs' (num_iterations, B, K), each iteration's candidate
+    costs."""
+    B, H, ad, K = initial_states.shape[0], horizon, action_dim, num_candidates
+    dt, dev = initial_states.dtype, initial_states.device
+    mean = (init_mean if init_mean is not None
+            else torch.zeros((B, H, ad), dtype=dt, device=dev))
+    std = torch.full((B, H, ad), init_std, dtype=dt, device=dev)
+    all_costs = []
+    for i in range(num_iterations):
+        eps = (normals[i] if normals is not None else torch.randn(
+            (B, H, K, ad), generator=generator, dtype=dt,
+            device=generator.device).to(dev))
+        actions = torch.clamp(mean[:, :, None] + std[:, :, None] * eps,
+                              action_low, action_high)      # (B, H, K, ad)
+        costs = env_rollout_costs(model, cost, initial_states, actions)
+        all_costs.append(costs)
+        elite_idx = torch.topk(-costs, num_elites, dim=1).indices
+        elites = torch.gather(actions, 2, elite_idx[:, None, :, None].expand(
+            B, H, num_elites, ad))
+        mean = alpha * mean + (1 - alpha) * elites.mean(2)
+        std = torch.clamp(alpha * std + (1 - alpha) * elites.std(
+            2, correction=0), min=min_std)
+    if info is not None:
+        info['costs'] = torch.stack(all_costs)
+    return env_trajectory(model, initial_states,
+                          torch.clamp(mean, action_low, action_high))
 
 
 def _normals(seed: int, shape, dtype, device) -> torch.Tensor:

@@ -229,19 +229,9 @@ def test_experiment_main_on_cpu(tmp_path):
 
 
 def test_unported_choices_raise(tmp_path, wrapper):
-    with pytest.raises(NotImplementedError, match='planner'):
-        experiment.Planner('rs').construct()
-    for m in ('lin', 'rw', 'rnn'):
-        with pytest.raises(NotImplementedError, match='model'):
-            experiment.Model(m).construct(wrapper)
-    with pytest.raises(NotImplementedError, match='RewardAgent'):
-        agents.RewardAgent()
-    with pytest.raises(NotImplementedError, match='MPCPolicy'):
-        agents.MPCPolicy()
-    with pytest.raises(NotImplementedError, match='_rollout_costs'):
-        agents.BatchedMPCPolicy(4, 6)
     with pytest.raises(NotImplementedError, match='finger'):
         envs.load('finger', 'spin', device='cpu')
-    with pytest.raises(NotImplementedError, match='divisible'):
-        _agent(tmp_path, models.EnsembleDynamics(
-            models.MLPDynamics(20, 6, hidden_units=8), 5))
+    with pytest.raises(NotImplementedError, match='MLPDynamics base'):
+        models.EnsembleDynamics(models.LinearDynamics(20, 6), 5)
+    with pytest.raises(NotImplementedError, match='task kwargs'):
+        envs.load('walker', 'walk', device='cpu', time_limit=5)
