@@ -22,7 +22,8 @@ Run from the repository root:  python3 chip_smoke.py
    noise and, for spline4, the lerp-and-renormalise identity between knots
    and the knots' moments; the sampler kernels (3xTF32 on the tensor
    cores) are timed beside two bounds: the tensor-core bound they are held
-   to (3 x FLOP at 495 TFLOP/s) and the FP32 bound (FLOP at 67 TFLOP/s);
+   to (3 x FLOP at 494.7 TFLOP/s) and the FP32 bound (FLOP at 66.9
+   TFLOP/s);
 4. holds the ensemble TS-infinity sampler kernel against the plain cost of
    its own actions by member k % n at walker_ens shapes (1024 envs x 1000
    candidates x horizon 30, 5 members; rtol 1e-4), with the same action
@@ -162,10 +163,32 @@ Run from the repository root:  python3 chip_smoke.py
       fed inputs at B = 5 (random shooting, CEM, gradient descent, iLQR;
       the decisions rounding decides named and counted, at most 1%), and
       an RNNDynamics fit and rollout on the card against the CPU;
-11. prints one ``{"kernels": [...]}`` line (one entry per TPU kernel), a
-   ``{"paths": ...}`` line with the cheetah, contact-free, humanoid,
-   slice-10 and slice-11 paths' times, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+11. the bf16 mode of the tensor-core CEM kernels (slice 12):
+   a. (29) each bf16 instantiation against its plain bf16 version
+      (``compute_dtype=torch.bfloat16``) on the same actions: #2 at
+      northstar (triangular, normal) and at the humanoid preset's shape,
+      #3 spline4 at northstar, #5 at walker_ens, #6 at the CLI's ensemble
+      layout, #4 at the cheetah's, and #2 at a shape only the guarded bf16
+      instantiation takes; every candidate within rtol = atol = 1e-3 and
+      all but at most 1% within 1e-5 (the rest, decided by accumulation
+      order, named), JAX's bf16 selfcheck tolerance against the plain
+      float32 rollout, bf16 actions in range with the antithetic identity;
+      each timed beside its bf16 bound (FLOP at 989.4 TFLOP/s) and the
+      float32 kernel on the same inputs;
+   b. (30) ``bench.main`` in-process: ``--config northstar`` at JAX's
+      defaults, with ``--dtype bf16`` (and bf16 spline4), every other
+      preset cut to 3 steps and 1 repeat (walker_ens also in bf16;
+      cheetah1024 at 5 epochs), ``--phases`` and ``--agent-loop`` on the
+      walker at the northstar width; each with exact launch counts, its
+      JSON line printed and checked (value finite and positive, every
+      mfu_* share in (0, 100]);
+12. prints one ``{"kernels": [...]}`` line (one entry per TPU kernel, and
+   one per bf16 mode of #2-#6), a ``{"paths": ...}`` line with the
+   cheetah, contact-free, humanoid, slice-10, slice-11 and bench paths'
+   times, the card line, and last ``{"ok": true, "device": {...}}``.
+
+The H100 peaks of the bounds come from the port's bench.py, whose mfu_*
+shares use the same ones.
 
 Any failed check raises, so the process exits non-zero. It also exits
 non-zero without a result when no CUDA card is present or when the
@@ -174,6 +197,7 @@ package is missing. Imports nothing of JAX.
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -181,9 +205,10 @@ import tempfile
 import time
 
 B, K, H, ITERS, STEPS = 1024, 1000, 30, 3, 3
-PEAK_FP32_FLOPS = 67e12      # H100 SXM, non-tensor FP32 (data sheet)
-PEAK_TF32_FLOPS = 495e12     # H100 SXM, dense TF32 tensor cores (data sheet)
-PEAK_BYTES = 3.35e12         # H100 SXM HBM3 (data sheet)
+# the H100 SXM data-sheet peaks, set by main() from the port's bench.py
+# (PEAK_BF16_FLOPS, PEAK_TF32_FLOPS, PEAK_FP32_FLOPS, PEAK_BYTES), which
+# its mfu_* shares use too
+PEAK_BF16_FLOPS = PEAK_TF32_FLOPS = PEAK_FP32_FLOPS = PEAK_BYTES = None
 
 
 def check(ok: bool, detail) -> None:
@@ -669,7 +694,7 @@ def sampler_case(label, flops, bounds, k_ms, p_ms, **extra):
           f'{flops / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s of model FLOP')
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=tc_ms, bound_by=tc_by,
                 bound_fp32_ms=fp_ms, bound_fp32_by=fp_by,
-                held_to='3xTF32 tensor cores: 3 x FLOP at 495 TFLOP/s',
+                held_to='3xTF32 tensor cores: 3 x FLOP at 494.7 TFLOP/s',
                 **extra)
 
 
@@ -2509,6 +2534,323 @@ def per_env_card_vs_cpu_phase(dev, torch, walker, reacher):
     return counts, out
 
 
+# ---- slice 12: the bf16 kernels (29) and the bench CLI (30) ----
+
+BF16_TIGHT = 1e-5            # rtol = atol against the plain bf16 version
+BF16_FLIP = 1e-3             # rtol = atol every candidate holds there
+BF16_SELF = (5e-2, 5e-1)     # JAX's bf16 selfcheck against float32
+BF16_NAMED = 0.01            # share admitted beyond BF16_TIGHT, named
+
+
+def params64(params):
+    return {l: {k: v.double() for k, v in d.items()}
+            for l, d in params.items()}
+
+
+def bf16_bound(flops, n_bytes):
+    """The bf16 kernels' bound: FLOP at the bf16 tensor rate, or the bytes
+    at the HBM rate, the larger."""
+    t_b, t_o = n_bytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+    return max(t_b, t_o) * 1e3, ('bytes' if t_b >= t_o else 'operations')
+
+
+def hold_bf16(torch, label, costs, ref16, ref16_64, ref32, acts=None,
+              mean=None):
+    """A bf16 kernel's costs against the plain bf16 version of the same
+    actions (float32 products): every candidate within BF16_FLIP, all but
+    the named ones within BF16_TIGHT. The named ones are decided by
+    accumulation order (some activation's bf16 rounding turned on the order
+    of a float32 sum, and the trajectory moved with it): at most
+    BF16_NAMED of them, printed with how many of them the plain version
+    with float64 products also moves by more than BF16_TIGHT. Then against
+    the plain float32 rollout at JAX's bf16 selfcheck tolerance; and, for
+    a sampler, bf16 actions in [-1, 1] with the antithetic identity to
+    bf16 rounding (half an ulp, at most 2^-9, on each side)."""
+    c, r = costs.reshape(-1), ref16.reshape(-1)
+    check(bool(torch.isfinite(c).all()), (label, 'non-finite costs'))
+    gap = (c - r).abs()
+    scale = 1.0 + r.abs()
+    check(bool((gap <= BF16_FLIP * scale).all()),
+          (label, 'beyond the flip bound', float((gap / scale).max())))
+    named = gap > BF16_TIGHT * scale
+    n_named = int(named.sum())
+    check(n_named <= BF16_NAMED * c.numel(), (label, 'named', n_named))
+    by_order = (r - ref16_64.reshape(-1)).abs() > BF16_TIGHT * scale
+    also = int((named & by_order).sum())
+    torch.testing.assert_close(costs, ref32, rtol=BF16_SELF[0],
+                               atol=BF16_SELF[1])
+    rec = dict(max_abs_err=float(gap.max()),
+               max_abs_err_vs_f32=float((costs - ref32).abs().max()),
+               named=n_named, named_share=n_named / c.numel(),
+               named_also_by_float64_order=also,
+               plain_orders_apart=int(by_order.sum()),
+               max_abs_err_unnamed=float(gap[~named].max()))
+    if acts is not None:
+        check(acts.dtype == torch.bfloat16, (label, acts.dtype))
+        a = acts.float()
+        check(float(a.abs().max()) <= 1.0, (label, 'action out of [-1, 1]'))
+        Kc = a.shape[-1]
+        a1, a2 = a[..., :Kc // 2], a[..., Kc // 2:]
+        free = (a1.abs() < 1.0) & (a2.abs() < 1.0)
+        pair = float((a1 + a2 - 2.0 * mean[..., None]).abs()[free].max())
+        check(pair <= 2.0 ** -8 + 1e-6, (label, 'antithetic', pair))
+        rec['antithetic_max_dev'] = pair
+    first = [int(i) for i in named.nonzero()[:5, 0].tolist()]
+    print(f'{label}: bf16 kernel vs plain bf16 max|d| {rec["max_abs_err"]:.3e}'
+          f' ({rec["max_abs_err_unnamed"]:.3e} unnamed); decided by '
+          f'accumulation order (beyond rtol = atol {BF16_TIGHT:g}): '
+          f'{n_named} of {c.numel()} ({100 * rec["named_share"]:.4f}%), '
+          f'first flat indices {first}, {also} of them also between the '
+          f'plain float32- and float64-product orders '
+          f'({rec["plain_orders_apart"]} apart in all); vs float32 max|d| '
+          f'{rec["max_abs_err_vs_f32"]:.3e}')
+    return rec
+
+
+def bf16_timed(label, flops, n_bytes, k_ms, f32_ms, p_ms, rec, **extra):
+    b_ms, b_by = bf16_bound(flops, n_bytes)
+    check(b_ms <= k_ms, (label, 'faster than its bound', k_ms, b_ms))
+    print(f'{label}: bf16 kernel {k_ms:.4f} ms, float32 kernel {f32_ms:.4f} '
+          f'ms on the same inputs ({f32_ms / k_ms:.2f}x), plain bf16 '
+          f'{p_ms:.3f} ms; bf16 bound {b_ms:.4f} ms ({b_by}): '
+          f'{100 * b_ms / k_ms:.1f}% of it; '
+          f'{flops / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s of model FLOP')
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                f32_ms=f32_ms, held_to='bf16 tensor cores: FLOP at 989.4 '
+                'TFLOP/s', **rec, **extra)
+
+
+def bf16_sampler_case(dev, torch, label, params, s0, goal, weights, mean,
+                      std, Kc, sampler, instantiation=None, n=None):
+    """#2 / #3 (n None) or #5 / #6 (an n-member ensemble) in bf16 against
+    the plain bf16 cost of the kernel's own actions (hold_bf16), timed
+    beside the bf16 bound and the float32 kernel on the same inputs."""
+    from mujoco_mbrl_tpu_torch.ops import cem_rollout as C
+
+    bf = torch.bfloat16
+    (Bs, sd), (Hc, ad) = s0.shape, mean.shape[1:]
+    hid = params['l2']['w'].shape[-1]
+    if n is None:
+        kern = lambda **kw: C.mlp_sample_rollout_costs(
+            params, 7, s0, mean, std, goal, weights, Kc, sampler=sampler,
+            **kw)
+        plain = lambda: C.mlp_sample_rollout_costs_plain(
+            params, 7, s0, mean, std, goal, weights, Kc, sampler=sampler,
+            compute_dtype=bf)
+        of = C.rollout_costs_of_actions
+    else:
+        kern = lambda **kw: C.mlp_sample_rollout_costs_ensemble(
+            params, 7, s0, mean, std, goal, weights, Kc, n, sampler=sampler,
+            **kw)
+        plain = lambda: C.mlp_sample_rollout_costs_ensemble_plain(
+            params, 7, s0, mean, std, goal, weights, Kc, n, sampler=sampler,
+            compute_dtype=bf)
+        of = C.rollout_costs_of_actions_ensemble
+    if instantiation is not None:
+        taken = C.sampler_instantiation(Kc, Hc, sd, ad, hid,
+                                        compute_dtype=bf)
+        check(taken == instantiation, (label, taken, instantiation))
+    with torch.no_grad():
+        costs, acts = kern(compute_dtype=bf)
+        ref16 = of(params, s0, acts, goal, weights, compute_dtype=bf)
+        ref16_64 = of(params64(params), s0.double(), acts.double(),
+                      goal.double(), weights.double(), compute_dtype=bf)
+        ref32 = of(params, s0, acts, goal, weights)
+        torch.cuda.synchronize()
+        rec = hold_bf16(torch, label, costs, ref16, ref16_64, ref32, acts,
+                        mean)
+        del ref16_64
+        k_ms = time_ms(lambda: kern(compute_dtype=bf), 5)
+        f32_ms = time_ms(kern, 5)
+        p_ms = time_ms(plain, 2)
+    flops = 2.0 * Bs * Kc * Hc * ((sd + ad) * hid + hid * hid + hid * sd)
+    n_bytes = (2.0 * Bs * Hc * ad * Kc + 4.0 * (
+        Bs * Kc + Bs * sd + 2 * Bs * Hc * ad + 2 * sd)
+        + 2.0 * (n or 1) * ((sd + ad) * hid + hid * hid + hid * sd
+                            + 2 * hid + sd))
+    return bf16_timed(f'{label} B={Bs} K={Kc} H={Hc} sd={sd} ad={ad}',
+                      flops, n_bytes, k_ms, f32_ms, p_ms, rec,
+                      instantiation=instantiation)
+
+
+def bf16_given_case(dev, torch, label, params, s0, goal, weights, seed):
+    """#4 in bf16 on given actions (cem_batched's non-fused candidates) at
+    B x K candidates, H 30, against its plain bf16 version (hold_bf16),
+    timed beside the bf16 bound and the float32 kernel."""
+    from mujoco_mbrl_tpu_torch.ops import cem_rollout as C
+
+    bf = torch.bfloat16
+    s0T = states_t(s0)
+    _, aT = candidates(dev, torch, s0.shape[0], H, 6, seed)
+    (sd, N), (Hc, ad) = s0T.shape, aT.shape[:2]
+    hid = params['l2']['w'].shape[0]
+    kern = lambda **kw: C.mlp_rollout_costs_t(params, s0T, aT, goal, weights,
+                                              **kw)
+    plain = lambda p, s, a, g, w, **kw: C.mlp_rollout_costs_reference(
+        p, s.T, a.transpose(1, 2), g, w, **kw)
+    with torch.no_grad():
+        costs = kern(compute_dtype=bf)
+        ref16 = plain(params, s0T, aT, goal, weights, compute_dtype=bf)
+        ref16_64 = plain(params64(params), s0T.double(), aT.double(),
+                         goal.double(), weights.double(), compute_dtype=bf)
+        ref32 = plain(params, s0T, aT, goal, weights)
+        torch.cuda.synchronize()
+        rec = hold_bf16(torch, label, costs, ref16, ref16_64, ref32)
+        del ref16_64
+        k_ms = time_ms(lambda: kern(compute_dtype=bf), 5)
+        f32_ms = time_ms(kern, 5)
+        p_ms = time_ms(lambda: plain(params, s0T, aT, goal, weights,
+                                     compute_dtype=bf), 2)
+    flops = 2.0 * N * Hc * ((sd + ad) * hid + hid * hid + hid * sd)
+    n_bytes = 4.0 * (N * Hc * ad + N * sd + N + 3 * sd) + 2.0 * (
+        (sd + ad) * hid + hid * hid + hid * sd + 2 * hid + sd)
+    return bf16_timed(f'{label} N={N} H={Hc} sd={sd}', flops, n_bytes, k_ms,
+                      f32_ms, p_ms, rec)
+
+
+def bf16_phase(dev, torch, walker, cheetah, humanoid):
+    """(29) The bf16 instantiations against their plain bf16 versions at
+    the shapes of the paths that reach them: #2 at northstar (walker obs
+    sd 24, 1024 x 1000 x 30; triangular and normal) and at the humanoid
+    preset's (sd 67, ad 21, 512 envs; run-time loop bounds), #3 spline4 at
+    northstar, #5 at walker_ens (n 5), #6 at the CLI's ensemble layout (B
+    5, H 20, sd 20), #4 at the cheetah's (sd 17, B K = 1,024,000, H 30),
+    and #2 at a shape only the guarded bf16 instantiation takes (sd 40 +
+    6, hidden 64)."""
+    from mujoco_mbrl_tpu_torch import models
+
+    (w_params, w_obs), (c_params, c_obs), (h_params, h_obs) = (
+        walker, cheetah, humanoid)
+    goal, weights, mean, std = proposal(dev, torch)
+    cases = {}
+    for sampler in ('triangular', 'normal', 'spline4'):
+        cases[f'northstar_{sampler}'] = bf16_sampler_case(
+            dev, torch, f'bf16 sampler {sampler}', w_params, w_obs, goal,
+            weights, mean, std, K, sampler, (2, 4, 3, True, True))
+    ens = models.EnsembleDynamics(models.MLPDynamics(
+        24, 6, hidden_units=50), 5).init(torch.Generator().manual_seed(1),
+                                         device=dev)
+    cases['walker_ens'] = bf16_sampler_case(
+        dev, torch, 'bf16 ensemble sampler', ens, w_obs, goal, weights, mean,
+        std, K, 'normal', n=5)
+    p20 = models.EnsembleDynamics(models.MLPDynamics(
+        20, 6, hidden_units=50), 5).init(torch.Generator().manual_seed(2),
+                                         device=dev)
+    cases['ensemble_b5_h20_sd20'] = bf16_sampler_case(
+        dev, torch, 'bf16 ensemble sampler, CLI layout', p20,
+        w_obs[:5, :20].contiguous(), goal[:20], weights[:20],
+        mean[:5, :20].contiguous(), std[:5, :20].contiguous(), K, 'normal',
+        n=5)
+    c_goal = torch.zeros(c_obs.shape[1], device=dev)
+    c_goal[1] = 1.0
+    cases['given_cheetah'] = bf16_given_case(
+        dev, torch, 'bf16 rollout costs (given actions)', c_params, c_obs,
+        c_goal, torch.ones_like(c_goal), 29)
+    g = torch.Generator(device=dev).manual_seed(29)
+    hm = (0.3 * torch.randn((h_obs.shape[0], H, 21), generator=g,
+                            device=dev)).clamp(-0.9, 0.9)
+    h_goal = torch.zeros(67, device=dev)
+    h_goal[1] = 1.0
+    cases['humanoid'] = bf16_sampler_case(
+        dev, torch, 'bf16 sampler humanoid', h_params, h_obs, h_goal,
+        torch.ones_like(h_goal), hm, 0.2 + torch.rand(
+            hm.shape, generator=g, device=dev), K, 'triangular',
+        (6, 4, 9, False, True))
+    Bg, gsd = 256, 40
+    gp = models.MLPDynamics(gsd, 6, hidden_units=64).init(
+        torch.Generator().manual_seed(24), device=dev)
+    gm = (0.3 * torch.randn((Bg, 20, 6), generator=g, device=dev)).clamp(
+        -0.9, 0.9)
+    cases['guarded_sd40_hid64'] = bf16_sampler_case(
+        dev, torch, 'bf16 sampler guarded', gp,
+        torch.randn((Bg, gsd), generator=g, device=dev),
+        torch.randn(gsd, generator=g, device=dev),
+        torch.rand(gsd, generator=g, device=dev), gm,
+        0.2 + torch.rand(gm.shape, generator=g, device=dev), 500,
+        'triangular', (8, 8, 16, False, False))
+    return cases
+
+
+# (argv, expected launches) of path 30: every preset through the CLI as a
+# user runs it, the JAX defaults on northstar (10 steps, 3 repeats), the
+# others (and the agent loop) cut to 3 steps and 1 repeat, which keeps the
+# script within half its time limit. Launches: the selfcheck's 1, then
+# (1 + repeats) runs of steps control steps, 3 CEM iterations each
+BENCH_CALLS = (
+    (['--config', 'northstar'],
+     dict(cem_sample_rollout=1 + 3 * 10 * 4, apgd_solve=10 * 10 * 4)),
+    (['--config', 'northstar', '--dtype', 'bf16'],
+     dict(cem_sample_rollout_bf16=1 + 3 * 10 * 4, apgd_solve=10 * 10 * 4)),
+    (['--config', 'northstar', '--dtype', 'bf16', '--sampler', 'spline4',
+      '--steps', '3', '--repeats', '1'],
+     dict(cem_sample_rollout_bf16=1 + 3 * 3 * 2, apgd_solve=10 * 3 * 2)),
+    (['--config', 'walker_ens', '--steps', '3', '--repeats', '1'],
+     dict(cem_sample_rollout_ens=1 + 3 * 3 * 2, apgd_solve=10 * 3 * 2)),
+    (['--config', 'walker_ens', '--dtype', 'bf16', '--steps', '3',
+      '--repeats', '1'],
+     dict(cem_sample_rollout_ens_bf16=1 + 3 * 3 * 2,
+          apgd_solve=10 * 3 * 2)),
+    # the scan route (obs_dim + act_dim < 16): the selfcheck's launch only
+    (['--config', 'cartpole', '--steps', '3', '--repeats', '1'],
+     dict(cem_sample_rollout=1, apgd_solve=RK4_SOLVES * 3 * 2)),
+    (['--config', 'reacher256', '--steps', '3', '--repeats', '1'],
+     dict(cem_sample_rollout=1, apgd_solve=3 * 2)),
+    (['--config', 'humanoid', '--steps', '3', '--repeats', '1'],
+     dict(cem_sample_rollout=1 + 3 * 3 * 2,
+          apgd_factored=HUMANOID_SUBSTEPS * 3 * 2)),
+    # the full loop: the reset's 200 settling solves, the seed collection's
+    # 3 steps, one timed iteration of 3 (1 factored solve a step)
+    (['--config', 'cheetah1024', '--steps', '3', '--repeats', '1',
+      '--train_epochs', '5'],
+     dict(cem_sample_rollout=1 + 3 * 3, apgd_factored=200 + 3 + 3)),
+    # chain 10, a warm-up and 5 repeats of each phase; no selfcheck
+    (['--task', 'walker_walk', '--phases'],
+     dict(cem_sample_rollout=3 * 10 * 6, apgd_solve=10 * 10 * 6)),
+    (['--task', 'walker_walk', '--agent-loop', '--steps', '3',
+      '--repeats', '1'],
+     dict(cem_sample_rollout=1 + 3 * 3 * 2, apgd_solve=10 * 3 * 2)),
+)
+
+
+def bench_cli_phase(dev, torch):
+    """(30) ``bench.main`` in-process for each of BENCH_CALLS, every launch
+    count zeroed just before and read just after (exact); each call's last
+    line is the JAX bench's JSON line less vs_baseline, its value finite
+    and positive, every mfu_* share in (0, 100]. Returns {argv: (record,
+    counts, seconds)}; prints each line."""
+    import io
+    from mujoco_mbrl_tpu_torch import bench, ops
+
+    out = {}
+    for argv, expected in BENCH_CALLS:
+        label = ' '.join(argv)
+        buf = io.StringIO()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = bench.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ops.launch_counts)
+        check(rc == 0, (label, rc))
+        exact_counts(f'bench {label}', counts, **expected)
+        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+        check('vs_baseline' not in rec and rec.get('unit', 'env-steps/s')
+              == 'env-steps/s', (label, rec))
+        value = rec.get('value', rec.get('implied_env_steps_per_s'))
+        check(math.isfinite(value) and value > 0, (label, rec))
+        shares = {k: v for k, v in rec.items() if 'mfu' in k and k !=
+                  'mfu_note'}
+        check('--full-loop' in argv or '--agent-loop' in argv
+              or 'cheetah1024' in argv or bool(shares), (label, rec))
+        check(all(0 < v <= 100 for v in shares.values()), (label, shares))
+        print(f'bench {label} ({wall:.1f} s, launches '
+              f'{ {k: v for k, v in counts.items() if v} }): '
+              f'{json.dumps(rec)}')
+        out[label] = dict(record=rec, launches=counts, seconds=wall)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2526,6 +2868,10 @@ def main() -> int:
     from mujoco_mbrl_tpu_torch import ops, suite
     from mujoco_mbrl_tpu_torch.bench import build_bench
     from mujoco_mbrl_tpu_torch.ops import _build
+    global PEAK_BF16_FLOPS, PEAK_TF32_FLOPS, PEAK_FP32_FLOPS, PEAK_BYTES
+    from mujoco_mbrl_tpu_torch.bench import (PEAK_BF16_FLOPS, PEAK_BYTES,
+                                             PEAK_FP32_FLOPS,
+                                             PEAK_TF32_FLOPS)
 
     card = card_line()
     print(card)
@@ -2542,9 +2888,9 @@ def main() -> int:
                 print(f'[{name}] {line.strip()}')
     from mujoco_mbrl_tpu_torch.ops import cem_rollout as C
     smem = (_build.library('cem_sample_rollout', C._SIGNATURES)
-            .cem_sample_smem_bytes(K, H, 24, 6, 50, 1),
+            .cem_sample_smem_bytes(K, H, 24, 6, 50, 1, 0),
             _build.library('cem_sample_rollout_ens', C._ENS_SIGNATURES)
-            .cem_ens_smem_bytes(K, 5, H, 24, 6, 50, 1))
+            .cem_ens_smem_bytes(K, 5, H, 24, 6, 50, 1, 0))
     print(f'sampler kernels, dynamic shared memory per block of '
           f'{8 * 32} threads at the walker shapes: MLP {smem[0]} bytes, '
           f'ensemble {smem[1]} bytes')
@@ -2705,6 +3051,18 @@ def main() -> int:
     cv_counts, cv_out = per_env_card_vs_cpu_phase(dev, torch, rs_agent,
                                                   r_agent)
 
+    # ---- slice 12: the bf16 kernels (29), the bench CLI (30) -----------
+    h_env = suite.load('humanoid', 'walk', device=dev)
+    h_obs = suite.flatten_observation(h_env._observe(
+        h_env.model, h_warm.physics, ()))
+    bf16_cases = bf16_phase(dev, torch, (params, obs0), (c_params, c_obs),
+                            (h_params, h_obs))
+    bench_out = bench_cli_phase(dev, torch)
+    bench_counts = lambda key: {a: r['launches'][key]
+                                for a, r in bench_out.items()
+                                if r['launches'][key]}
+    bf16_launches = lambda key: sum(bench_counts(key).values())
+
     sampler_entry = lambda tiles: ptxas_info(
         'cem_sample_rollout', 'cem_sample_rollout_kernelI' + ''.join(
             f'Li{t}E' for t in tiles[:3]) + ''.join(
@@ -2721,6 +3079,15 @@ def main() -> int:
                  sampler_entry((16, 16, 16, False, False)),
              'cem_sample_rollout_kernel<3,7,2,true,true>': sampler_entry(
                  (3, 7, 2, True, True)),
+             'cem_sample_rollout_bf16_kernel<2,4,3>': ptxas_info(
+                 'cem_sample_rollout',
+                 'cem_sample_rollout_bf16_kernelILi2ELi4ELi3ELb1ELb1E'),
+             'cem_sample_rollout_bf16_kernel<6,4,9>': ptxas_info(
+                 'cem_sample_rollout',
+                 'cem_sample_rollout_bf16_kernelILi6ELi4ELi9ELb0ELb1E'),
+             'cem_sample_rollout_bf16_kernel<8,8,16>': ptxas_info(
+                 'cem_sample_rollout',
+                 'cem_sample_rollout_bf16_kernelILi8ELi8ELi16ELb0ELb0E'),
              'apgd_block_kernel': ptxas_info('apgd_solve',
                                              '17apgd_block_kernel')}
     print(f'ptxas: {ptxas}')
@@ -2748,7 +3115,8 @@ def main() -> int:
              'reacher_grad_cli': gr_counts, 'reacher_ilqr_cli': il_counts,
              'point_mass_rw_cli': rw_counts, 'walker_lin_cli': lin_counts,
              'walker_ens998_cli': e998_counts,
-             'per_env_card_vs_cpu': cv_counts}
+             'per_env_card_vs_cpu': cv_counts,
+             **{f'bench {a}': r['launches'] for a, r in bench_out.items()}}
     by_path = lambda key: {p: c[key] for p, c in paths.items() if c[key]}
     src = lambda f: f'mujoco_mbrl_tpu_torch/csrc/{f}'
     tpu = lambda f, line, fn: f'mujoco_mbrl_tpu/ops/{f}:{line} ({fn})'
@@ -2758,6 +3126,14 @@ def main() -> int:
     # bound, FP32's beside it
     pick_s = lambda d: dict(pick(d), bound_fp32_ms=d['bound_fp32_ms'],
                             held_to=d['held_to'])
+    # the bf16 instantiations (path 29), launched on path 30
+    pick_b = lambda d: dict(pick(d), f32_ms=d['f32_ms'], held_to=d['held_to'],
+                            max_abs_err=d['max_abs_err'],
+                            named=d['named'], named_share=d['named_share'])
+    bf16_entry = lambda name, source, replaces, key, case, **kw: dict(
+        name=name, route='cuda', source=src(source), replaces=replaces,
+        launches=bf16_launches(key), launches_by_path=bench_counts(key),
+        library_ms=None, **pick_b(case), **kw)
     kernels = [
         dict(name='apgd_iterate_batched', route='cuda',
              source=src('apgd_solve.cu'),
@@ -2866,6 +3242,37 @@ def main() -> int:
              humanoid=dict(h_fact_t['humanoid-moving-warm'],
                            iteration_ns=h_iter_ns,
                            rounding_decided_envs=h_rounding)),
+        bf16_entry('mlp_sample_rollout_costs[bf16]', 'cem_sample_rollout.cu',
+                   tpu('cem_rollout.py', 364, '_sample_kernel_multi'),
+                   'cem_sample_rollout_bf16',
+                   bf16_cases['northstar_triangular'],
+                   cases={k: bf16_cases[k] for k in (
+                       'northstar_triangular', 'northstar_normal',
+                       'humanoid', 'guarded_sd40_hid64')},
+                   ptxas=ptxas['cem_sample_rollout_bf16_kernel<2,4,3>']),
+        bf16_entry('mlp_sample_rollout_costs[spline4,bf16]',
+                   'cem_sample_rollout.cu',
+                   tpu('cem_rollout.py', 258, '_sample_kernel'),
+                   'cem_sample_rollout_bf16', bf16_cases['northstar_spline4'],
+                   launches_note='the same CUDA kernel as '
+                                 'mlp_sample_rollout_costs[bf16]'),
+        bf16_entry('mlp_rollout_costs_t[bf16]', 'cem_rollout_costs.cu',
+                   tpu('cem_rollout.py', 70, '_kernel'),
+                   'cem_rollout_costs_bf16', bf16_cases['given_cheetah'],
+                   launches_note='no bench path routes bf16 to #4, as in '
+                                 'JAX (its rollout_costs_fn takes no '
+                                 'compute_dtype); held in path 29 only'),
+        bf16_entry('mlp_sample_rollout_costs_ensemble[bf16]',
+                   'cem_sample_rollout_ens.cu',
+                   tpu('cem_rollout.py', 671, '_sample_kernel_ens_grouped'),
+                   'cem_sample_rollout_ens_bf16', bf16_cases['walker_ens']),
+        bf16_entry('mlp_sample_rollout_costs_ensemble[B=5,bf16]',
+                   'cem_sample_rollout_ens.cu',
+                   tpu('cem_rollout.py', 840, '_sample_kernel_ens'),
+                   'cem_sample_rollout_ens_bf16',
+                   bf16_cases['ensemble_b5_h20_sd20'],
+                   launches_note='the same CUDA kernel as '
+                                 'mlp_sample_rollout_costs_ensemble[bf16]'),
     ]
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'paths': dict(
@@ -2879,7 +3286,10 @@ def main() -> int:
         acrobot_step=ac_out, walker_rs_cli=rs_out,
         walker_per_env_cem=pc_cem_out, reacher_grad_ilqr=gi_out,
         point_mass_rw_cli=rw_out, walker_scan_clis=scan_out,
-        per_env_card_vs_cpu=cv_out)}))
+        per_env_card_vs_cpu=cv_out,
+        bench_cli={a: dict(record=r['record'], seconds=r['seconds'])
+                   for a, r in bench_out.items()},
+        bf16_ptxas={k: v for k, v in ptxas.items() if 'bf16' in k})}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

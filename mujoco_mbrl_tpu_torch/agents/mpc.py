@@ -191,6 +191,7 @@ class MPCAgent:
         self.base_path = base_path
         self.planner_kwargs = planner_kwargs or {}
         # extra options of the fused sampler, e.g. {'sampler': 'spline4'}
+        # or {'compute_dtype': torch.bfloat16}
         self.kernel_kwargs = kernel_kwargs or {}
         self.train_epochs = train_epochs
         self.train_batch_size = train_batch_size

@@ -54,9 +54,28 @@
 // leave as runs of consecutive candidates (strided by n in the ensemble,
 // whose tile holds one member's candidates k = q n + m); the stores are
 // not waited on, so they overlap the step's products.
+//
+// bf16 (compute_dtype=bfloat16 of the TPU kernels): the same tile, rows,
+// noise and action stage (rollout_tile and the given-action tile take the
+// model as a type: Tf32 or Bf16), with each product one
+// mma.sync.m16n8k16 of bf16 operands accumulated in float32, no split.
+// The weights are the uncentred fold of the TPU kernels
+// (ops/cem_rollout.py _fold_normalizers) rounded to bf16 and packed by
+// ops/cem_mma.py pack_weights_bf16 (k padded to 16: [s; a] 30 -> 32,
+// hidden 50 -> 64; staged as bf16, half the float32 staging). The C
+// fragment of n-tiles 2k, 2k + 1 (columns 2t, 2t + 1 of rows g, g + 8)
+// is the A fragment of k16 tile k, so activations need no row
+// permutation. Rounding follows the TPU kernel body as the reference runs
+// it: start states and actions (after the clip) to bf16; each layer's
+// bias added in float32 to the float32 product, then ReLU and bf16; the
+// state to bf16; d = bf16(s - goal) * w, a / bf16(alpha_a) (JAX's
+// scalar takes the array's type) and the costs in float32 (XLA drops the
+// bf16 rounding of the product and the quotient before they are
+// widened). The actions leave as bf16.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -73,10 +92,12 @@ constexpr int kBlock = 32 * kWarps;
 constexpr int kMaxSharedBytes = 232448;
 
 // Packed weights of one member, offsets in floats (ops/cem_mma.py layout)
+// or, with bf16, in bf16 values (layout_bf16)
 struct Layout {
   int ni, nh, nso;        // k-tiles of [s; a], hidden tiles, state tiles
   int l1, l2, l3;         // fragment tiles: [k][n][lane] x float4
   int b1, b2, b3, goal, wvec, total;
+  int bf16;               // 1: bf16 values, ni / nh in k16 tiles
 };
 
 __host__ __device__ inline Layout make_layout(int sd, int ad, int hid) {
@@ -93,7 +114,35 @@ __host__ __device__ inline Layout make_layout(int sd, int ad, int hid) {
   L.goal = L.b3 + 8 * L.ni;
   L.wvec = L.goal + 8 * L.ni;
   L.total = (L.wvec + 8 * L.ni + 3) / 4 * 4;
+  L.bf16 = 0;
   return L;
+}
+
+// bf16 layout: ni, nh k16 tiles of [s; a] and hidden (hidden as n: 2 nh
+// tiles of 8), nso n-tiles of the state; a fragment tile is 16 x 8 = 128
+// values, a lane's four (b0, b1) at [k][n][lane]; biases, goal and cost
+// weights padded to 16 ni / 16 nh
+__host__ __device__ inline Layout make_layout_bf16(int sd, int ad, int hid) {
+  Layout L;
+  L.ni = (sd + ad + 15) / 16;
+  L.nh = (hid + 15) / 16;
+  L.nso = (sd + 7) / 8;
+  L.l1 = 0;
+  L.l2 = L.l1 + kTileFloats * L.ni * 2 * L.nh;
+  L.l3 = L.l2 + kTileFloats * L.nh * 2 * L.nh;
+  L.b1 = L.l3 + kTileFloats * L.nh * L.nso;
+  L.b2 = L.b1 + 16 * L.nh;
+  L.b3 = L.b2 + 16 * L.nh;
+  L.goal = L.b3 + 16 * L.ni;
+  L.wvec = L.goal + 16 * L.ni;
+  L.total = (L.wvec + 16 * L.ni + 7) / 8 * 8;
+  L.bf16 = 1;
+  return L;
+}
+
+// floats of shared memory the staged weights of layout L take
+__host__ __device__ inline int weight_floats(const Layout& L) {
+  return L.bf16 ? L.total / 2 : L.total;
 }
 
 struct Cfg {
@@ -330,6 +379,187 @@ __device__ __forceinline__ void row_costs(float cs0, float cs1, float ca0,
   *c1 = cs1 + aa2 * (ca1 / (float)ad);
 }
 
+// ---- bf16 products (mma.sync.m16n8k16, float32 accumulation)
+
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// two values in one register, the lower column in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d += a b; b = (b0, b1) of one lane: rows (2t, 2t + 1) and (2t + 8,
+// 2t + 9) of column g
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint2 b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// acc[n] = bias of n-tile n (bf16, widened) in C fragment order
+template <int NT>
+__device__ __forceinline__ void init_acc_bf16(
+    float (&acc)[NT][4], const __nv_bfloat16* __restrict__ bias, int nt,
+    int t) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    float2 b = make_float2(0.f, 0.f);
+    if (n < nt)
+      b = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(bias + 8 * n + 2 * t));
+    acc[n][0] = acc[n][2] = b.x;
+    acc[n][1] = acc[n][3] = b.y;
+  }
+}
+
+// acc[n] += sum_k x[k] W[k][n] over k16 tiles k < kt and n-tiles n < nt;
+// x holds bf16 values in C fragment order, 8-column tiles 2k and 2k + 1
+// making k16 tile k's A fragment (frag[(k * nt + n) * 32 + lane])
+template <int KT, int NT>
+__device__ __forceinline__ void product_bf16(const uint2* frag,
+                                             const float (&x)[2 * KT][4],
+                                             int kt, int nt,
+                                             float (&acc)[NT][4], int lane) {
+#pragma unroll
+  for (int k = 0; k < KT; ++k) {
+    if (k < kt) {
+      const uint32_t a[4] = {
+          pack_bf16(x[2 * k][0], x[2 * k][1]),
+          pack_bf16(x[2 * k][2], x[2 * k][3]),
+          pack_bf16(x[2 * k + 1][0], x[2 * k + 1][1]),
+          pack_bf16(x[2 * k + 1][2], x[2 * k + 1][3])};
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+        if (n < nt) mma_bf16(acc[n], a, frag[(k * nt + n) * 32 + lane]);
+    }
+  }
+}
+
+// model_step in bf16: NI, NH k16 tiles of [s; a] and hidden, NSO state
+// n-tiles; x holds 2 NI 8-column tiles
+template <int NI, int NH, int NSO, bool EXACT>
+__device__ __forceinline__ void model_step_bf16(const Layout& L,
+                                                const __nv_bfloat16* W,
+                                                int sd, float as,
+                                                float (&x)[2 * NI][4],
+                                                float& cs0, float& cs1,
+                                                int lane) {
+  const int t = lane & 3;
+  const int ni = EXACT ? NI : L.ni, nh = EXACT ? NH : L.nh;
+  const int nso = EXACT ? NSO : L.nso;
+  const uint2* frag = reinterpret_cast<const uint2*>(W);
+  float acc[2 * NH][4], h[2 * NH][4];
+  // ---- layer 1: h = bf16(relu([s; a] W1 + b1))
+  init_acc_bf16<2 * NH>(acc, W + L.b1, 2 * nh, t);
+  product_bf16<NI, 2 * NH>(frag + L.l1 / 4, x, ni, 2 * nh, acc, lane);
+#pragma unroll
+  for (int n = 0; n < 2 * NH; ++n)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) h[n][q] = bf16r(fmaxf(acc[n][q], 0.f));
+  // ---- layer 2: h = bf16(relu(h W2 + b2))
+  init_acc_bf16<2 * NH>(acc, W + L.b2, 2 * nh, t);
+  product_bf16<NH, 2 * NH>(frag + L.l2 / 4, h, nh, 2 * nh, acc, lane);
+#pragma unroll
+  for (int n = 0; n < 2 * NH; ++n)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) h[n][q] = bf16r(fmaxf(acc[n][q], 0.f));
+  // ---- layer 3: s = bf16(h W3 + b3), into the state columns of x
+  float s[NSO][4];
+  init_acc_bf16<NSO>(s, W + L.b3, nso, t);
+  product_bf16<NH, NSO>(frag + L.l3 / 4, h, nh, nso, s, lane);
+  const __nv_bfloat16* goal = W + L.goal;
+  const __nv_bfloat16* wv = W + L.wvec;
+#pragma unroll
+  for (int n = 0; n < 2 * NI; ++n) {
+    const bool st = n < NSO && n < nso;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      x[n][q] = st ? bf16r(s[n < NSO ? n : 0][q]) : 0.f;
+    if (st) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * t + e;
+        if (col < sd) {
+          const float gc = __bfloat162float(goal[col]);
+          const float wc = __bfloat162float(wv[col]);
+          const float d0 = bf16r(x[n][e] - gc) * wc;
+          const float d1 = bf16r(x[n][2 + e] - gc) * wc;
+          cs0 += sqrtf(d0 * d0 + as * as) - as;
+          cs1 += sqrtf(d1 * d1 + as * as) - as;
+        }
+      }
+    }
+  }
+}
+
+// ---- the model of a tile, as a type: packed weight and action types,
+// the rounding of what the model reads, one step, the staging
+
+// Copy one member's packed weights into shared memory (whole block),
+// splitting the fragment tiles into hi / lo on the way
+__device__ inline void stage(float* dst, const float* __restrict__ src,
+                             const Layout& L) {
+  const float4* s4 = reinterpret_cast<const float4*>(src);
+  float4* d4 = reinterpret_cast<float4*>(dst);
+  for (int e = threadIdx.x; e < L.total / 4; e += blockDim.x) {
+    const float4 v = __ldg(s4 + e);
+    d4[e] = e < L.b1 / 4 ? split_b(v) : v;
+  }
+}
+
+// 3xTF32 (NI, NH, NSO: 8-wide tiles)
+template <int NI, int NH, int NSO, bool EXACT, bool SPLIT_B>
+struct Tf32 {
+  using W = float;
+  using Act = float;
+  static constexpr int kX = NI;  // 8-column tiles of x
+  __device__ static int x_tiles(const Layout& L) { return EXACT ? NI : L.ni; }
+  __device__ static float round(float v) { return v; }
+  __device__ static float out(float a) { return a; }
+  __device__ static void step(const Layout& L, const float* w, int sd,
+                              float as, float (&x)[NI][4], float& cs0,
+                              float& cs1, int lane) {
+    model_step<NI, NH, NSO, EXACT, SPLIT_B>(L, w, sd, as, x, cs0, cs1, lane);
+  }
+  __device__ static void stage_weights(float* dst, const float* src,
+                                       const Layout& L) {
+    stage(dst, src, L);
+  }
+};
+
+// bf16 (NI, NH: k16 tiles; NSO: 8-wide state tiles)
+template <int NI, int NH, int NSO, bool EXACT>
+struct Bf16 {
+  using W = __nv_bfloat16;
+  using Act = __nv_bfloat16;
+  static constexpr int kX = 2 * NI;
+  __device__ static int x_tiles(const Layout& L) {
+    return 2 * (EXACT ? NI : L.ni);
+  }
+  __device__ static float round(float v) { return bf16r(v); }
+  __device__ static __nv_bfloat16 out(float a) {
+    return __float2bfloat16_rn(a);
+  }
+  __device__ static void step(const Layout& L, const __nv_bfloat16* w,
+                              int sd, float as, float (&x)[2 * NI][4],
+                              float& cs0, float& cs1, int lane) {
+    model_step_bf16<NI, NH, NSO, EXACT>(L, w, sd, as, x, cs0, cs1, lane);
+  }
+  __device__ static void stage_weights(float* dst,
+                                       const __nv_bfloat16* src,
+                                       const Layout& L) {
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    uint4* d4 = reinterpret_cast<uint4*>(dst);
+    for (int e = threadIdx.x; e < L.total / 8; e += blockDim.x)
+      d4[e] = __ldg(s4 + e);
+  }
+};
+
 // (row, column) of item e = lane + 32 s of an R x cols array, stepped
 // without an integer division per item
 struct Walk {
@@ -371,20 +601,23 @@ __device__ inline void draw_round(const Cfg& c, int m, int i, int b,
 
 // One tile: 16 candidates of member m and env b, rolled for H steps.
 // W: this member's packed weights (shared or global memory); ws: this
-// warp's scratch. NI, NH, NSO bound the tile counts; with EXACT they are
-// the layout's, so the unrolled loops carry no run-time guard. SPLIT_B:
-// W is the packed buffer itself (global memory), split as it is loaded.
-template <int NI, int NH, int NSO, bool EXACT, bool SPLIT_B>
-__device__ void rollout_tile(const Cfg& c, const float* W, float* ws, int m,
-                             int b, int i, const float* __restrict__ s0_g,
+// warp's scratch. Net is the model (Tf32 or Bf16): its tile bounds; with
+// EXACT they are the layout's, so the unrolled loops carry no run-time
+// guard. Tf32's SPLIT_B: W is the packed buffer itself (global memory),
+// split as it is loaded.
+template <class Net>
+__device__ void rollout_tile(const Cfg& c, const typename Net::W* W,
+                             float* ws, int m, int b, int i,
+                             const float* __restrict__ s0_g,
                              const float* __restrict__ mean_g,
                              const float* __restrict__ std_g,
                              float* __restrict__ costs_g,
-                             float* __restrict__ act_g) {
+                             typename Net::Act* __restrict__ act_g) {
+  constexpr int NI = Net::kX;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const Layout& L = c.L;
   const int sd = c.sd, ad = c.ad, H = c.H;
-  const int ni = EXACT ? NI : L.ni;
+  const int ni = Net::x_tiles(L);
   float* ubuf = ws;
   float* mean = ubuf + 16 * c.nu;
   float* stdv = mean + H * ad;
@@ -402,7 +635,7 @@ __device__ void rollout_tile(const Cfg& c, const float* W, float* ws, int m,
   const int z1row = c.shared ? g : g + 8;
   const Row rs = row_of(c, m, i, lane & 15);  // this lane's store row
   const int R = c.shared ? 8 : 16;
-  const float inv_aa = 1.f / c.alpha_a;
+  const float inv_aa = 1.f / Net::round(c.alpha_a);
 
   float x[NI][4];
 #pragma unroll
@@ -411,7 +644,7 @@ __device__ void rollout_tile(const Cfg& c, const float* W, float* ws, int m,
     for (int e = 0; e < 2; ++e) {
       const int col = 8 * k + 2 * t + e;
       const float v = col < sd ? s0_g[(size_t)b * sd + col] : 0.f;
-      x[k][e] = x[k][2 + e] = v;
+      x[k][e] = x[k][2 + e] = Net::round(v);
     }
   float cs0 = 0.f, cs1 = 0.f, ca0 = 0.f, ca1 = 0.f;
 
@@ -452,10 +685,11 @@ __device__ void rollout_tile(const Cfg& c, const float* W, float* ws, int m,
           const int j = 8 * k + 2 * t + e - sd;
           if (j >= 0 && j < ad) {
             const float mu = mean[tt * ad + j], sg = stdv[tt * ad + j];
-            const float a0 = fminf(fmaxf(fmaf(sg, r0.sign * z[g * ad + j],
-                                              mu), c.low), c.high);
-            const float a1 = fminf(fmaxf(fmaf(sg, r1.sign * z[z1row * ad + j],
-                                              mu), c.low), c.high);
+            const float a0 = Net::round(fminf(
+                fmaxf(fmaf(sg, r0.sign * z[g * ad + j], mu), c.low), c.high));
+            const float a1 = Net::round(fminf(
+                fmaxf(fmaf(sg, r1.sign * z[z1row * ad + j], mu), c.low),
+                c.high));
             x[k][e] = a0;
             x[k][2 + e] = a1;
             abuf[j * 16 + g] = a0;
@@ -469,12 +703,11 @@ __device__ void rollout_tile(const Cfg& c, const float* W, float* ws, int m,
     __syncwarp();
     // ---- the step's actions: runs of consecutive candidates, no wait
     if (rs.valid) {
-      float* dst = act_g + ((size_t)b * H + tt) * ad * c.K + rs.k;
+      typename Net::Act* dst = act_g + ((size_t)b * H + tt) * ad * c.K + rs.k;
       for (int j = lane >> 4; j < ad; j += 2)
-        dst[(size_t)j * c.K] = abuf[j * 16 + (lane & 15)];
+        dst[(size_t)j * c.K] = Net::out(abuf[j * 16 + (lane & 15)]);
     }
-    model_step<NI, NH, NSO, EXACT, SPLIT_B>(L, W, sd, c.alpha_s, x, cs0, cs1,
-                                            lane);
+    Net::step(L, W, sd, c.alpha_s, x, cs0, cs1, lane);
   }
   float c0, c1;
   row_costs(cs0, cs1, ca0, ca1, c.alpha_a, ad, &c0, &c1);
@@ -484,22 +717,11 @@ __device__ void rollout_tile(const Cfg& c, const float* W, float* ws, int m,
   }
 }
 
-// Copy one member's packed weights into shared memory (whole block),
-// splitting the fragment tiles into hi / lo on the way
-__device__ inline void stage(float* dst, const float* __restrict__ src,
-                             const Layout& L) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-  float4* d4 = reinterpret_cast<float4*>(dst);
-  for (int e = threadIdx.x; e < L.total / 4; e += blockDim.x) {
-    const float4 v = __ldg(s4 + e);
-    d4[e] = e < L.b1 / 4 ? split_b(v) : v;
-  }
-}
-
 // Host: the configuration of a launch
 inline Cfg make_cfg(int B, int K, int n, int H, int sd, int ad, int hid,
                     int sampler, int antithetic, float low, float high,
-                    float alpha_s, float alpha_a, unsigned long long seed) {
+                    float alpha_s, float alpha_a, unsigned long long seed,
+                    int bf16) {
   Cfg c;
   c.B = B;
   c.K = K;
@@ -521,7 +743,7 @@ inline Cfg make_cfg(int B, int K, int n, int H, int sd, int ad, int hid,
   c.alpha_a = alpha_a;
   c.key0 = (uint32_t)seed;
   c.key1 = (uint32_t)(seed >> 32);
-  c.L = make_layout(sd, ad, hid);
+  c.L = bf16 ? make_layout_bf16(sd, ad, hid) : make_layout(sd, ad, hid);
   return c;
 }
 
@@ -538,7 +760,16 @@ inline Cfg make_cfg(int B, int K, int n, int H, int sd, int ad, int hid,
 // where these take 168-176 and spill none; hidden 50 in all. Any other
 // shape: the guarded instantiation (up to 16 / 16 tiles), weights read
 // from global memory.
+// bf16: sized for the tile counts of the bench's presets and the walker
+// CLI: [s; a] in two k16 tiles with three state tiles (walker's 24- and
+// 20-dim, cheetah's 17-dim state and 6 actions), exact; the humanoid
+// bench's 67 + 21 (six k16 tiles, nine state tiles), run-time loop
+// bounds; hidden 49..64. Any other shape: the guarded bf16 instantiation
+// (up to 8 / 8 k16 tiles).
 inline bool sized_tiles(const Layout& L) {
+  if (L.bf16)
+    return L.nh == 4 && ((L.ni == 2 && L.nso == 3) ||
+                         (L.ni == 6 && L.nso == 9));
   return L.nh == 7 && (((L.ni == 4 || L.ni == 3) && L.nso == 3) ||
                        (L.ni == 3 && L.nso == 2) ||
                        (L.ni == 1 && L.nso == 1) ||
@@ -546,9 +777,12 @@ inline bool sized_tiles(const Layout& L) {
 }
 inline bool is_staged(const Layout& L, size_t scratch) {
   return sized_tiles(L) &&
-         sizeof(float) * (L.total + scratch) <= (size_t)kMaxSharedBytes;
+         sizeof(float) * (weight_floats(L) + scratch) <=
+             (size_t)kMaxSharedBytes;
 }
-inline bool is_large(const Layout& L) { return L.ni <= 16 && L.nh <= 16; }
+inline bool is_large(const Layout& L) {
+  return L.bf16 ? L.ni <= 8 && L.nh <= 8 : L.ni <= 16 && L.nh <= 16;
+}
 
 // Blocks an SM must hold (__launch_bounds__): two for the narrow exact
 // tiles (128 registers a thread); one for the hopper observation's
@@ -559,11 +793,23 @@ inline bool is_large(const Layout& L) { return L.ni <= 16 && L.nh <= 16; }
 constexpr int min_blocks(int ni, int nso, bool smem) {
   return smem && ni <= 4 && !(ni == 3 && nso == 2) ? kMinBlocks : 1;
 }
+// bf16: two for the walker / cheetah tiles, one for the humanoid's and the
+// guarded instantiation
+constexpr int min_blocks_bf16(int ni, bool smem) {
+  return smem && ni <= 2 ? kMinBlocks : 1;
+}
 
 // The instantiation that takes layout L with `scratch` floats of per-warp
-// scratch
+// scratch: f.run<NI, NH, NSO, EXACT, SMEM>() for float32 (3xTF32),
+// f.run_bf16<...>() for bf16
 template <typename F>
 inline int dispatch(const Layout& L, size_t scratch, const F& f) {
+  if (L.bf16) {
+    if (!is_staged(L, scratch))
+      return f.template run_bf16<8, 8, 16, false, false>();
+    if (L.ni == 2) return f.template run_bf16<2, 4, 3, true, true>();
+    return f.template run_bf16<6, 4, 9, false, true>();
+  }
   if (!is_staged(L, scratch))
     return f.template run<16, 16, 16, false, false>();
   if (L.ni == 4) return f.template run<4, 7, 3, true, true>();
@@ -587,6 +833,10 @@ struct Which {
     out[4] = SMEM;
     return 0;
   }
+  template <int NI, int NH, int NSO, bool EXACT, bool SMEM>
+  int run_bf16() const {
+    return run<NI, NH, NSO, EXACT, SMEM>();
+  }
 };
 
 inline size_t scratch_floats(const Cfg& c) {
@@ -596,7 +846,7 @@ inline size_t scratch_floats(const Cfg& c) {
 inline size_t smem_bytes(const Cfg& c) {
   const size_t scratch = scratch_floats(c);
   return sizeof(float) *
-         ((is_staged(c.L, scratch) ? c.L.total : 0) + scratch);
+         ((is_staged(c.L, scratch) ? weight_floats(c.L) : 0) + scratch);
 }
 
 // grid: every SM filled at the kernel's occupancy, no more blocks than

@@ -33,6 +33,11 @@
 // H = 30, the cheetah widths), 3x that at the TF32 tensor rate for the
 // split (1.68 ms) or 1x at the non-tensor FP32 rate (4.13 ms); the action
 // read (N H ad 4 bytes, 0.74 GB, 0.22 ms at HBM bandwidth) is below both.
+//
+// bf16 (compute_dtype=bfloat16): cem_rollout_costs_bf16_kernel, the same
+// tiles over cem_mma.cuh's Bf16 model; the float32 start states and
+// actions are rounded to bf16 as they are loaded (the weights are the
+// uncentred fold, mu = 0); bound: the FLOP at the bf16 tensor rate.
 
 #include "cem_mma.cuh"
 
@@ -74,18 +79,20 @@ __device__ __forceinline__ void stage_actions(const Given& c, float* ws,
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-template <int NI, int NH, int NSO, bool EXACT, bool SPLIT_B>
-__device__ void given_tile(const Given& c, const float* W, float* ws,
-                           long long n0, const float* __restrict__ s0_g,
+template <class Net>
+__device__ void given_tile(const Given& c, const typename Net::W* W,
+                           float* ws, long long n0,
+                           const float* __restrict__ s0_g,
                            const float* __restrict__ mu_g,
                            const float* __restrict__ act_g,
                            float* __restrict__ costs_g) {
+  constexpr int NI = Net::kX;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int sd = c.sd, ad = c.ad, H = c.H;
-  const int ni = EXACT ? NI : c.L.ni;
+  const int ni = Net::x_tiles(c.L);
   const long long N = c.N;
   const bool v0 = n0 + g < N, v1 = n0 + g + 8 < N;
-  const float inv_aa = 1.f / c.alpha_a;
+  const float inv_aa = 1.f / Net::round(c.alpha_a);
 
   __syncwarp();  // the previous tile's readers of the stage are done
   if (H > 0) stage_actions(c, ws, n0, 0, act_g, lane);
@@ -99,8 +106,8 @@ __device__ void given_tile(const Given& c, const float* W, float* ws,
       const bool st = col < sd;
       const float* s = s0_g + (size_t)(st ? col : 0) * N + n0 + g;
       const float m = st ? mu_g[col] : 0.f;
-      x[k][e] = st && v0 ? s[0] - m : 0.f;
-      x[k][2 + e] = st && v1 ? s[8] - m : 0.f;
+      x[k][e] = st && v0 ? Net::round(s[0] - m) : 0.f;
+      x[k][2 + e] = st && v1 ? Net::round(s[8] - m) : 0.f;
     }
   float cs0 = 0.f, cs1 = 0.f, ca0 = 0.f, ca1 = 0.f;
 
@@ -121,7 +128,8 @@ __device__ void given_tile(const Given& c, const float* W, float* ws,
         for (int e = 0; e < 2; ++e) {
           const int j = 8 * k + 2 * t + e - sd;
           if (j >= 0 && j < ad) {
-            const float a0 = buf[j * kAS + g], a1 = buf[j * kAS + 8 + g];
+            const float a0 = Net::round(buf[j * kAS + g]);
+            const float a1 = Net::round(buf[j * kAS + 8 + g]);
             x[k][e] = a0;
             x[k][2 + e] = a1;
             ca0 += cosh_m1(a0, inv_aa);
@@ -131,8 +139,7 @@ __device__ void given_tile(const Given& c, const float* W, float* ws,
       }
     }
     __syncwarp();  // buffer tt & 1 is read; step tt + 2 may refill it
-    model_step<NI, NH, NSO, EXACT, SPLIT_B>(c.L, W, sd, c.alpha_s, x, cs0,
-                                            cs1, lane);
+    Net::step(c.L, W, sd, c.alpha_s, x, cs0, cs1, lane);
   }
   float c0, c1;
   row_costs(cs0, cs1, ca0, ca1, c.alpha_a, ad, &c0, &c1);
@@ -142,6 +149,28 @@ __device__ void given_tile(const Given& c, const float* W, float* ws,
   }
 }
 
+template <class Net, bool SMEM>
+__device__ __forceinline__ void given_items(
+    const Given& c, const typename Net::W* __restrict__ packed,
+    const float* __restrict__ s0_g, const float* __restrict__ mu_g,
+    const float* __restrict__ act_g, float* __restrict__ costs_g) {
+  extern __shared__ __align__(16) float sm[];
+  float* scratch = sm;
+  if (SMEM) {
+    Net::stage_weights(sm, packed, c.L);
+    scratch = sm + weight_floats(c.L);
+    __syncthreads();
+  }
+  const typename Net::W* W =
+      SMEM ? reinterpret_cast<const typename Net::W*>(sm) : packed;
+  const int warp = threadIdx.x >> 5;
+  float* ws = scratch + warp * 2 * c.ad * kAS;
+  const long long tiles = (c.N + 15) / 16;
+  for (long long it = (long long)blockIdx.x * kWarps + warp; it < tiles;
+       it += (long long)gridDim.x * kWarps)
+    given_tile<Net>(c, W, ws, 16 * it, s0_g, mu_g, act_g, costs_g);
+}
+
 template <int NI, int NH, int NSO, bool EXACT, bool SMEM>
 __global__ void __launch_bounds__(kBlock, min_blocks(NI, NSO, SMEM))
     cem_rollout_costs_kernel(Given c, const float* __restrict__ packed,
@@ -149,21 +178,20 @@ __global__ void __launch_bounds__(kBlock, min_blocks(NI, NSO, SMEM))
                              const float* __restrict__ mu_g,
                              const float* __restrict__ act_g,
                              float* __restrict__ costs_g) {
-  extern __shared__ __align__(16) float sm[];
-  float* scratch = sm;
-  if (SMEM) {
-    stage(sm, packed, c.L);
-    scratch = sm + c.L.total;
-    __syncthreads();
-  }
-  const float* W = SMEM ? sm : packed;
-  const int warp = threadIdx.x >> 5;
-  float* ws = scratch + warp * 2 * c.ad * kAS;
-  const long long tiles = (c.N + 15) / 16;
-  for (long long it = (long long)blockIdx.x * kWarps + warp; it < tiles;
-       it += (long long)gridDim.x * kWarps)
-    given_tile<NI, NH, NSO, EXACT, !SMEM>(c, W, ws, 16 * it, s0_g, mu_g,
-                                          act_g, costs_g);
+  given_items<Tf32<NI, NH, NSO, EXACT, !SMEM>, SMEM>(c, packed, s0_g, mu_g,
+                                                     act_g, costs_g);
+}
+
+template <int NI, int NH, int NSO, bool EXACT, bool SMEM>
+__global__ void __launch_bounds__(kBlock, min_blocks_bf16(NI, SMEM))
+    cem_rollout_costs_bf16_kernel(Given c,
+                                  const __nv_bfloat16* __restrict__ packed,
+                                  const float* __restrict__ s0_g,
+                                  const float* __restrict__ mu_g,
+                                  const float* __restrict__ act_g,
+                                  float* __restrict__ costs_g) {
+  given_items<Bf16<NI, NH, NSO, EXACT>, SMEM>(c, packed, s0_g, mu_g, act_g,
+                                              costs_g);
 }
 
 inline size_t given_scratch_floats(const Given& c) {
@@ -172,39 +200,50 @@ inline size_t given_scratch_floats(const Given& c) {
 
 inline size_t given_smem_bytes(const Given& c) {
   const size_t scratch = given_scratch_floats(c);
-  return sizeof(float) * ((is_staged(c.L, scratch) ? c.L.total : 0) +
-                          scratch);
+  return sizeof(float) *
+         ((is_staged(c.L, scratch) ? weight_floats(c.L) : 0) + scratch);
 }
 
 struct Launch {
   Given c;
-  const float *packed, *s0, *mu, *actions;
+  const void* packed;
+  const float *s0, *mu, *actions;
   float* costs;
   cudaStream_t stream;
-  template <int NI, int NH, int NSO, bool EXACT, bool SMEM>
-  int run() const {
+  template <typename Wt, typename Kern>
+  int go(Kern kern) const {
     const size_t smem = given_smem_bytes(c);
-    auto kern = cem_rollout_costs_kernel<NI, NH, NSO, EXACT, SMEM>;
     int grid = 0;
     const long long work = ((c.N + 15) / 16 + kWarps - 1) / kWarps;
     cudaError_t e = grid_size(kern, smem, work, &grid);
     if (e != cudaSuccess) return (int)e;
-    kern<<<grid, kBlock, smem, stream>>>(c, packed, s0, mu, actions, costs);
+    kern<<<grid, kBlock, smem, stream>>>(c, (const Wt*)packed, s0, mu, actions,
+                                         costs);
     return (int)cudaGetLastError();
+  }
+  template <int NI, int NH, int NSO, bool EXACT, bool SMEM>
+  int run() const {
+    return go<float>(cem_rollout_costs_kernel<NI, NH, NSO, EXACT, SMEM>);
+  }
+  template <int NI, int NH, int NSO, bool EXACT, bool SMEM>
+  int run_bf16() const {
+    return go<__nv_bfloat16>(
+        cem_rollout_costs_bf16_kernel<NI, NH, NSO, EXACT, SMEM>);
   }
 };
 
 }  // namespace
 
 // s0T (sd, N), mu (sd,) the state mean the weights are centred at,
-// actionsT (H, ad, N), packed (ops/cem_mma.py pack_weights) -> costs (N,).
-// Returns a cudaError_t; cudaErrorInvalidValue for shapes no
-// instantiation takes (sd + ad or hidden past 128).
+// actionsT (H, ad, N), packed (ops/cem_mma.py pack_weights; with bf16,
+// pack_weights_bf16) -> costs (N,). Returns a cudaError_t;
+// cudaErrorInvalidValue for shapes no instantiation takes (sd + ad or
+// hidden past 128).
 extern "C" int cem_rollout_costs(const float* s0T, const float* mu,
-                                 const float* actionsT, const float* packed,
+                                 const float* actionsT, const void* packed,
                                  long long N, int H, int sd, int ad, int hid,
-                                 float alpha_s, float alpha_a, float* costs,
-                                 void* stream) {
+                                 int bf16, float alpha_s, float alpha_a,
+                                 float* costs, void* stream) {
   Given c;
   c.N = N;
   c.H = H;
@@ -212,7 +251,7 @@ extern "C" int cem_rollout_costs(const float* s0T, const float* mu,
   c.ad = ad;
   c.alpha_s = alpha_s;
   c.alpha_a = alpha_a;
-  c.L = make_layout(sd, ad, hid);
+  c.L = bf16 ? make_layout_bf16(sd, ad, hid) : make_layout(sd, ad, hid);
   if (!is_large(c.L) || given_smem_bytes(c) > (size_t)kMaxSharedBytes)
     return (int)cudaErrorInvalidValue;
   if (N <= 0) return 0;

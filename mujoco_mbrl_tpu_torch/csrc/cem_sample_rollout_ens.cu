@@ -36,6 +36,11 @@
 // single MLP since each candidate runs one member (3.2e11 at walker_ens
 // shapes): 3x that at the TF32 tensor rate, or 1x at the FP32 rate; the
 // action write (B * H * ad * K * 4 bytes) is the only large memory traffic.
+//
+// bf16 (compute_dtype=bfloat16): cem_sample_rollout_ens_bf16_kernel, the
+// same items over cem_mma.cuh's Bf16 model, each member's weights staged
+// as bf16, actions written as bf16; bound: the FLOP at the bf16 tensor
+// rate.
 
 #include "cem_mma.cuh"
 
@@ -43,16 +48,16 @@ namespace {
 
 using namespace cem_mma;
 
-template <int NI, int NH, int NSO, bool EXACT, bool SMEM>
-__global__ void __launch_bounds__(kBlock, min_blocks(NI, NSO, SMEM))
-    cem_sample_rollout_ens_kernel(Cfg c, const float* __restrict__ packed,
-                                  const float* __restrict__ s0_g,
-                                  const float* __restrict__ mean_g,
-                                  const float* __restrict__ std_g,
-                                  float* __restrict__ costs_g,
-                                  float* __restrict__ act_g) {
+// The block's work: member-major items, restaging the weights (SMEM) when
+// the member changes
+template <class Net, bool SMEM>
+__device__ __forceinline__ void ens_items(
+    const Cfg& c, const typename Net::W* __restrict__ packed,
+    const float* __restrict__ s0_g, const float* __restrict__ mean_g,
+    const float* __restrict__ std_g, float* __restrict__ costs_g,
+    typename Net::Act* __restrict__ act_g) {
   extern __shared__ __align__(16) float sm[];
-  float* scratch = SMEM ? sm + c.L.total : sm;
+  float* scratch = SMEM ? sm + weight_floats(c.L) : sm;
   const int warp = threadIdx.x >> 5;
   float* ws = scratch + warp * warp_floats(c.H, c.ad, c.nu);
   int staged = -1;
@@ -63,35 +68,70 @@ __global__ void __launch_bounds__(kBlock, min_blocks(NI, NSO, SMEM))
     const int m = (int)(base / c.P);
     if (SMEM && m != staged) {
       __syncthreads();
-      stage(sm, packed + (size_t)m * c.L.total, c.L);
+      Net::stage_weights(sm, packed + (size_t)m * c.L.total, c.L);
       __syncthreads();
       staged = m;
     }
-    const float* W = SMEM ? sm : packed + (size_t)m * c.L.total;
+    const typename Net::W* W =
+        SMEM ? reinterpret_cast<const typename Net::W*>(sm)
+             : packed + (size_t)m * c.L.total;
     const int j = (int)(base - (long long)m * c.P) + warp;
     if (j < c.B * c.T)
-      rollout_tile<NI, NH, NSO, EXACT, !SMEM>(c, W, ws, m, j / c.T, j % c.T,
-                                              s0_g, mean_g, std_g, costs_g,
-                                              act_g);
+      rollout_tile<Net>(c, W, ws, m, j / c.T, j % c.T, s0_g, mean_g, std_g,
+                        costs_g, act_g);
   }
+}
+
+template <int NI, int NH, int NSO, bool EXACT, bool SMEM>
+__global__ void __launch_bounds__(kBlock, min_blocks(NI, NSO, SMEM))
+    cem_sample_rollout_ens_kernel(Cfg c, const float* __restrict__ packed,
+                                  const float* __restrict__ s0_g,
+                                  const float* __restrict__ mean_g,
+                                  const float* __restrict__ std_g,
+                                  float* __restrict__ costs_g,
+                                  float* __restrict__ act_g) {
+  ens_items<Tf32<NI, NH, NSO, EXACT, !SMEM>, SMEM>(c, packed, s0_g, mean_g,
+                                                   std_g, costs_g, act_g);
+}
+
+template <int NI, int NH, int NSO, bool EXACT, bool SMEM>
+__global__ void __launch_bounds__(kBlock, min_blocks_bf16(NI, SMEM))
+    cem_sample_rollout_ens_bf16_kernel(
+        Cfg c, const __nv_bfloat16* __restrict__ packed,
+        const float* __restrict__ s0_g, const float* __restrict__ mean_g,
+        const float* __restrict__ std_g, float* __restrict__ costs_g,
+        __nv_bfloat16* __restrict__ act_g) {
+  ens_items<Bf16<NI, NH, NSO, EXACT>, SMEM>(c, packed, s0_g, mean_g, std_g,
+                                            costs_g, act_g);
 }
 
 struct Launch {
   Cfg c;
-  const float *packed, *s0, *mean, *stdv;
-  float *costs, *actions;
+  const void* packed;
+  const float *s0, *mean, *stdv;
+  float* costs;
+  void* actions;
   cudaStream_t stream;
-  template <int NI, int NH, int NSO, bool EXACT, bool SMEM>
-  int run() const {
+  template <typename Wt, typename At, typename Kern>
+  int go(Kern kern) const {
     const size_t smem = smem_bytes(c);
-    auto kern = cem_sample_rollout_ens_kernel<NI, NH, NSO, EXACT, SMEM>;
     int grid = 0;
     cudaError_t e = grid_size(kern, smem, (long long)c.n * c.P / kWarps,
                               &grid);
     if (e != cudaSuccess) return (int)e;
-    kern<<<grid, kBlock, smem, stream>>>(c, packed, s0, mean, stdv, costs,
-                                         actions);
+    kern<<<grid, kBlock, smem, stream>>>(c, (const Wt*)packed, s0, mean, stdv,
+                                         costs, (At*)actions);
     return (int)cudaGetLastError();
+  }
+  template <int NI, int NH, int NSO, bool EXACT, bool SMEM>
+  int run() const {
+    return go<float, float>(
+        cem_sample_rollout_ens_kernel<NI, NH, NSO, EXACT, SMEM>);
+  }
+  template <int NI, int NH, int NSO, bool EXACT, bool SMEM>
+  int run_bf16() const {
+    return go<__nv_bfloat16, __nv_bfloat16>(
+        cem_sample_rollout_ens_bf16_kernel<NI, NH, NSO, EXACT, SMEM>);
   }
 };
 
@@ -100,20 +140,22 @@ struct Launch {
 // Shared memory of a launch in bytes; 0 when the shapes are not taken
 // (more than 16 k-tiles of [s; a] or hidden tiles).
 extern "C" size_t cem_ens_smem_bytes(int K, int n, int H, int sd, int ad,
-                                     int hid, int antithetic) {
+                                     int hid, int antithetic, int bf16) {
   const Cfg c = make_cfg(1, K, n, H, sd, ad, hid, 0, antithetic, 0.f, 0.f,
-                         0.f, 1.f, 0ull);
+                         0.f, 1.f, 0ull, bf16);
   return is_large(c.L) ? smem_bytes(c) : 0;
 }
 
+// packed: n members of float32 (ops/cem_mma.py pack_weights) or, with
+// bf16, bf16 (pack_weights_bf16); actions: float32 or bf16 likewise
 extern "C" int cem_sample_rollout_ens(
     const float* s0, const float* mean, const float* stdv,
-    const float* packed, unsigned long long seed, int B, int K, int n, int H,
-    int sd, int ad, int hid, int sampler, int antithetic, float low,
-    float high, float alpha_s, float alpha_a, float* costs, float* actions,
-    void* stream) {
+    const void* packed, unsigned long long seed, int B, int K, int n, int H,
+    int sd, int ad, int hid, int sampler, int antithetic, int bf16,
+    float low, float high, float alpha_s, float alpha_a, float* costs,
+    void* actions, void* stream) {
   const Cfg c = make_cfg(B, K, n, H, sd, ad, hid, sampler, antithetic, low,
-                         high, alpha_s, alpha_a, seed);
+                         high, alpha_s, alpha_a, seed, bf16);
   if (!is_large(c.L) || smem_bytes(c) > (size_t)kMaxSharedBytes ||
       n <= 0 || K % n)
     return (int)cudaErrorInvalidValue;

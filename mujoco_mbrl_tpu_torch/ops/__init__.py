@@ -1,12 +1,15 @@
 """Hand-written Hopper kernels with their plain PyTorch versions.
 
-``launch_counts`` holds one integer per kernel; each wrapper adds one
+``launch_counts`` holds one integer per kernel (the CEM kernels' bf16
+instantiations under their own ``*_bf16`` keys); each wrapper adds one
 where it launches its kernel and nowhere else.
 """
 
 launch_counts = {'apgd_solve': 0, 'apgd_factored': 0,
                  'cem_sample_rollout': 0, 'cem_sample_rollout_ens': 0,
-                 'cem_rollout_costs': 0}
+                 'cem_rollout_costs': 0, 'cem_sample_rollout_bf16': 0,
+                 'cem_sample_rollout_ens_bf16': 0,
+                 'cem_rollout_costs_bf16': 0}
 
 
 def reset_launch_counts() -> None:

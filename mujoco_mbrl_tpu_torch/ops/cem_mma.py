@@ -34,6 +34,24 @@ rows, so that the CPU tests can check both without a card:
   candidates 16 i .. 16 i + 15 of N, each from its own start state, which
   the kernel centres as it loads it (``centred_weights`` gives the mean it
   subtracts).
+
+The bf16 mode (``compute_dtype=torch.bfloat16``) runs each product as one
+``mma.sync.m16n8k16`` of bf16 operands, accumulated in float32:
+
+- ``bf16``: round to bf16 (as float32), nearest-even, what
+  ``__float2bfloat16_rn`` gives;
+- ``layout_bf16`` / ``pack_weights_bf16``: k padded to multiples of 16
+  ([s; a] 30 -> 32, hidden 50 -> 64), n to multiples of 8, in fragment
+  order ([k16-tile][n-tile][lane] x (b0.lo, b0.hi, b1.lo, b1.hi), lane =
+  4 g + t: W[16k + 2t][8n + g], W[16k + 2t + 1][8n + g], W[16k + 2t +
+  8][8n + g], W[16k + 2t + 9][8n + g]), then the padded biases, goal and
+  cost weights, every value bf16. The C fragment of n-tiles 2k, 2k + 1
+  (columns 2t, 2t + 1 of rows g, g + 8) is already the A fragment of k16
+  tile k (columns 2t, 2t + 1, 2t + 8, 2t + 9), so no row permutation. The
+  weights are the TPU kernels' uncentred fold
+  (``cem_rollout._fold_normalizers``), rounded: the centring of
+  ``fold_centred`` serves the float32 kernels only, as the reference rounds
+  the uncentred fold.
 """
 
 from __future__ import annotations
@@ -44,6 +62,7 @@ import torch
 
 ROW_PERM = (0, 2, 4, 6, 1, 3, 5, 7)
 MAX_TILES = 16       # k-tiles of [s; a] and hidden tiles the kernels take
+MAX_TILES_BF16 = 8   # k16 tiles of [s; a] and of hidden, bf16
 
 
 class Layout(NamedTuple):
@@ -77,14 +96,40 @@ def layout(sd: int, ad: int, hid: int) -> Layout:
     return Layout(ni, nh, nso, l1, l2, l3, b1, b2, b3, goal, wvec, total)
 
 
-def check_shapes(what: str, sd: int, ad: int, hid: int) -> Layout:
+def layout_bf16(sd: int, ad: int, hid: int) -> Layout:
+    """Offsets in bf16 values of one member's bf16 weights (cem_mma.cuh
+    make_layout_bf16): ni and nh count k16 tiles of [s; a] and hidden
+    (hidden as n: 2 nh tiles of 8), nso n-tiles of the state; a fragment
+    tile is 16 x 8 = 128 values."""
+    ni, nh, nso = -(-(sd + ad) // 16), -(-hid // 16), -(-sd // 8)
+    l1 = 0
+    l2 = l1 + 128 * ni * 2 * nh
+    l3 = l2 + 128 * nh * 2 * nh
+    b1 = l3 + 128 * nh * nso
+    b2 = b1 + 16 * nh
+    b3 = b2 + 16 * nh
+    goal = b3 + 16 * ni
+    wvec = goal + 16 * ni
+    total = -(-(wvec + 16 * ni) // 8) * 8
+    return Layout(ni, nh, nso, l1, l2, l3, b1, b2, b3, goal, wvec, total)
+
+
+def check_shapes(what: str, sd: int, ad: int, hid: int,
+                 bf16: bool = False) -> Layout:
     """The layout, or a ValueError for shapes the kernels do not take."""
-    lay = layout(sd, ad, hid)
-    if lay.ni > MAX_TILES or lay.nh > MAX_TILES:
+    lay = layout_bf16(sd, ad, hid) if bf16 else layout(sd, ad, hid)
+    most = MAX_TILES_BF16 if bf16 else MAX_TILES
+    if lay.ni > most or lay.nh > most:
         raise ValueError(
             f'{what}: the tensor-core kernel takes sd + ad <= 128 and '
             f'hidden <= 128 (got sd {sd}, ad {ad}, hidden {hid})')
     return lay
+
+
+def bf16(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> bf16 (as float32), round to nearest, ties to even: what
+    ``__float2bfloat16_rn`` gives."""
+    return x.to(torch.bfloat16).to(x.dtype)
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -132,16 +177,31 @@ def _fragments(idx: torch.Tensor) -> torch.Tensor:
     return torch.stack([b0, b1], dim=-1)
 
 
+def _fragments_bf16(idx: torch.Tensor) -> torch.Tensor:
+    """(16 kt, 8 nt) padded matrix indices -> (kt, nt, 32 lanes, 4): lane
+    4 g + t takes rows 16k + 2t, 16k + 2t + 1, 16k + 2t + 8, 16k + 2t + 9
+    of column 8n + g (the m16n8k16 B fragment, b0 then b1)."""
+    kt, nt = idx.shape[0] // 16, idx.shape[1] // 8
+    lane = torch.arange(32)
+    g, t = lane // 4, lane % 4
+    k = torch.arange(kt)[:, None, None]
+    n = torch.arange(nt)[None, :, None]
+    col = 8 * n + g
+    rows = [16 * k + 2 * t + d for d in (0, 1, 8, 9)]
+    return torch.stack([idx[r, col] for r in rows], dim=-1)
+
+
 _INDEX_CACHE: Dict[tuple, torch.Tensor] = {}
 
 
-def _index(sd: int, ad: int, hid: int, device) -> torch.Tensor:
-    """For every float of the packed layout, its source index into the
-    flat vector [0, w1, w2, w3, b1, b2, b3, goal, wvec] (0: a zero of the
-    padding)."""
-    key = (sd, ad, hid, str(device))
+def _index(sd: int, ad: int, hid: int, device,
+           bf16: bool = False) -> torch.Tensor:
+    """For every value of the packed layout (float32, or the bf16 layout),
+    its source index into the flat vector [0, w1, w2, w3, b1, b2, b3,
+    goal, wvec] (0: a zero of the padding)."""
+    key = (sd, ad, hid, str(device), bf16)
     if key not in _INDEX_CACHE:
-        lay = layout(sd, ad, hid)
+        lay = layout_bf16(sd, ad, hid) if bf16 else layout(sd, ad, hid)
         inn = sd + ad
         o_w1 = 1
         o_w2 = o_w1 + inn * hid
@@ -151,22 +211,25 @@ def _index(sd: int, ad: int, hid: int, device) -> torch.Tensor:
         o_goal = o_b3 + sd
         o_wvec = o_goal + sd
         row = lambda n: (lambda r: r if r < n else None)
-        w1 = _pad_matrix_index(inn, hid, 8 * lay.ni, 8 * lay.nh, row(inn),
-                               o_w1)
-        w2 = _pad_matrix_index(hid, hid, 8 * lay.nh, 8 * lay.nh, row(hid),
-                               o_w2)
-        w3 = _pad_matrix_index(hid, sd, 8 * lay.nh, 8 * lay.nso, row(hid),
-                               o_w3)
-        # (tiles, 32 lanes, 2) -> (b0, b1, b0, b1) a lane
-        frag = torch.cat([_fragments(w).reshape(-1, 32, 2)
-                          for w in (w1, w2, w3)]).repeat(1, 1, 2)
+        # padded widths: k of [s; a] and of hidden, n of hidden and state
+        k_in, k_hid = (16 * lay.ni, 16 * lay.nh) if bf16 else (
+            8 * lay.ni, 8 * lay.nh)
+        n_hid, n_s = k_hid, 8 * lay.nso
+        w1 = _pad_matrix_index(inn, hid, k_in, n_hid, row(inn), o_w1)
+        w2 = _pad_matrix_index(hid, hid, k_hid, n_hid, row(hid), o_w2)
+        w3 = _pad_matrix_index(hid, sd, k_hid, n_s, row(hid), o_w3)
+        if bf16:
+            frag = torch.cat([_fragments_bf16(w).reshape(-1, 32, 4)
+                              for w in (w1, w2, w3)])
+        else:
+            # (tiles, 32 lanes, 2) -> (b0, b1, b0, b1) a lane
+            frag = torch.cat([_fragments(w).reshape(-1, 32, 2)
+                              for w in (w1, w2, w3)]).repeat(1, 1, 2)
         vec = lambda base, n, n_p: torch.cat([
             base + torch.arange(n), torch.zeros(n_p - n, dtype=torch.int64)])
-        tail = torch.cat([vec(o_b1, hid, 8 * lay.nh),
-                          vec(o_b2, hid, 8 * lay.nh),
-                          vec(o_b3, sd, 8 * lay.ni),
-                          vec(o_goal, sd, 8 * lay.ni),
-                          vec(o_wvec, sd, 8 * lay.ni)])
+        tail = torch.cat([vec(o_b1, hid, n_hid), vec(o_b2, hid, n_hid),
+                          vec(o_b3, sd, k_in), vec(o_goal, sd, k_in),
+                          vec(o_wvec, sd, k_in)])
         tail = torch.cat([tail, torch.zeros(lay.total - lay.b1 - tail.numel(),
                                             dtype=torch.int64)])
         _INDEX_CACHE[key] = torch.cat([frag.reshape(-1), tail]).to(device)
@@ -218,6 +281,16 @@ def pack_weights(w1, b1, w2, b2, w3, b3, goal, wvec) -> torch.Tensor:
     sd), (sd,), each with an optional leading member axis n) and the cost's
     goal / weights (sd,) -> (n, layout.total) float32 on the weights'
     device (n = 1 without a member axis), as the kernels stage it."""
+    return _pack(w1, b1, w2, b2, w3, b3, goal, wvec, bf16=False)
+
+
+def pack_weights_bf16(w1, b1, w2, b2, w3, b3, goal, wvec) -> torch.Tensor:
+    """``pack_weights`` for the bf16 kernels: (n, layout_bf16.total)
+    torch.bfloat16, each value rounded to nearest-even."""
+    return _pack(w1, b1, w2, b2, w3, b3, goal, wvec, bf16=True)
+
+
+def _pack(w1, b1, w2, b2, w3, b3, goal, wvec, bf16: bool) -> torch.Tensor:
     lead = w1.shape[:-2]
     n = int(torch.tensor(lead).prod()) if lead else 1
     inn, hid = w1.shape[-2:]
@@ -228,7 +301,8 @@ def pack_weights(w1, b1, w2, b2, w3, b3, goal, wvec) -> torch.Tensor:
         flat(w1), flat(w2), flat(w3), flat(b1), flat(b2), flat(b3),
         goal.reshape(1, sd).expand(n, sd), wvec.reshape(1, sd).expand(n, sd),
     ], dim=1).float()
-    return src[:, _index(sd, inn - sd, hid, src.device)]
+    packed = src[:, _index(sd, inn - sd, hid, src.device, bf16)]
+    return packed.to(torch.bfloat16) if bf16 else packed
 
 
 class Row(NamedTuple):

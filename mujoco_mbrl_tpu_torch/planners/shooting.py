@@ -210,10 +210,11 @@ def cem_batched(seeds: Sequence[int], initial_states: torch.Tensor,
     """CEM for a whole env batch; one iteration per entry of ``seeds``.
 
     ``sample_costs_fn(seed, mean (B, H, ad), std) -> (costs (B, K),
-    actions (B, H, ad, K))`` takes precedence; without it candidates are
-    drawn here and costed by ``rollout_costs_fn(s0T, actionsT) -> (B K,)``
-    or, without that too, by the scan of ``model(s (N, sd), a (N, ad)) ->
-    (N, sd)`` and ``cost(s, a) -> (N,)``. Each iteration refits every
+    actions (B, H, ad, K))`` (actions float32 or bf16) takes precedence;
+    without it candidates are drawn here and costed by
+    ``rollout_costs_fn(s0T, actionsT) -> (B K,)`` or, without that too, by
+    the scan of ``model(s (N, sd), a (N, ad)) -> (N, sd)`` and ``cost(s,
+    a) -> (N,)``. Each iteration refits every
     env's proposal on its ``num_elites`` lowest-cost candidates:
     mean <- alpha mean + (1 - alpha) elite_mean,
     std <- max(alpha std + (1 - alpha) elite_std, min_std).
@@ -244,8 +245,11 @@ def cem_batched(seeds: Sequence[int], initial_states: torch.Tensor,
                 raise ValueError('sample_costs_fn must return exact-K '
                                  'buffers')
             elite_idx = torch.topk(-costs, num_elites, dim=1).indices
+            # bf16 actions (the kernels' bf16 mode) are widened to the
+            # proposal's dtype, as JAX's refit promotes them against its
+            # float32 membership
             elites = torch.gather(actions, 3, elite_idx[:, None, None, :]
-                                  .expand(B, H, ad, num_elites))
+                                  .expand(B, H, ad, num_elites)).to(dt)
             sum1, sum2 = elites.sum(3), (elites * elites).sum(3)
         else:
             eps = _normals(seed, (H, ad, B, K), dt, dev)

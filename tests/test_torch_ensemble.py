@@ -268,11 +268,11 @@ def test_unsupported_options_raise(jens):
         cem_rollout.mlp_sample_rollout_costs_ensemble(*args, 10, N)
     with pytest.raises(NotImplementedError, match='compute_dtype'):
         cem_rollout.mlp_sample_rollout_costs_ensemble(
-            *args, 4 * N, N, compute_dtype=torch.bfloat16)
+            *args, 4 * N, N, compute_dtype=torch.float16)
     mlp = {l: {k: v[0] for k, v in p.items()} for l, p in tp.items()}
     with pytest.raises(NotImplementedError, match='compute_dtype'):
         cem_rollout.mlp_sample_rollout_costs(
-            mlp, *args[1:], 8, compute_dtype=torch.bfloat16)
+            mlp, *args[1:], 8, compute_dtype=torch.float16)
     with pytest.raises(ValueError, match='member axis'):
         convert.ensemble_params(jax.tree_util.tree_map(lambda v: v[0],
                                                        params))

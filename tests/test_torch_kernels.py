@@ -666,3 +666,92 @@ def test_sampler_kernel_hopper_observation_tiles(dev, sampler):
     ref = cem_rollout.rollout_costs_of_actions(params, s0, acts, goal, w)
     torch.testing.assert_close(costs, ref, rtol=1e-4, atol=1e-4)
     assert float(acts.abs().max()) <= 1.0
+
+
+# ---- the bf16 instantiations (compute_dtype=torch.bfloat16) against the
+# plain bf16 versions: at most 1% of candidates beyond rtol = atol = 1e-5
+# (those whose bf16 rounding an accumulation order decides), every one
+# within 1e-3; and JAX's bf16 selfcheck tolerance against float32
+
+def _bf16_normalizers(dev, sd, ad):
+    """_normalizers without the near-constant state dim: the bf16 mode
+    rounds the uncentred fold, as JAX's does, so a state std of 1e-3 would
+    put the float32 reference out of reach of bf16 weights."""
+    norms = _normalizers(dev, sd, ad)
+    norms.state_std[3] = 0.5
+    return norms
+
+
+def _hold_bf16(costs, ref16, ref32):
+    gap, scale = (costs - ref16).abs(), 1.0 + ref16.abs()
+    assert bool((gap <= 1e-3 * scale).all()), float((gap / scale).max())
+    assert int((gap > 1e-5 * scale).sum()) <= 0.01 * costs.numel()
+    torch.testing.assert_close(costs, ref32, rtol=5e-2, atol=5e-1)
+
+
+@pytest.mark.parametrize('sd,ad,hid,tiles', [
+    (24, 6, 50, (2, 4, 3, True, True)), (20, 6, 50, (2, 4, 3, True, True)),
+    (67, 21, 50, (6, 4, 9, False, True)),
+    (40, 6, 64, (8, 8, 16, False, False))])
+@pytest.mark.parametrize('sampler', ['triangular', 'normal', 'spline4'])
+def test_bf16_sampler_matches_plain_bf16(dev, sampler, sd, ad, hid, tiles):
+    B, K, H = 8, 101, 9
+    bf = torch.bfloat16
+    assert cem_rollout.sampler_instantiation(K, H, sd, ad, hid,
+                                             compute_dtype=bf) == tiles
+    params = MLPDynamics(sd, ad, hidden_units=hid).init(
+        torch.Generator().manual_seed(0), device=dev)
+    g, mean, std = _proposal(dev, B, H, ad, 1)
+    s0 = torch.randn((B, sd), generator=g, device=dev)
+    goal, w = torch.zeros(sd, device=dev), torch.ones(sd, device=dev)
+    before = dict(ops.launch_counts)
+    costs, acts = cem_rollout.mlp_sample_rollout_costs(
+        params, 3, s0, mean, std, goal, w, K, sampler=sampler,
+        compute_dtype=bf)
+    assert ops.launch_counts['cem_sample_rollout_bf16'] == (
+        before['cem_sample_rollout_bf16'] + 1)
+    assert ops.launch_counts['cem_sample_rollout'] == before[
+        'cem_sample_rollout']
+    assert acts.dtype == bf and acts.shape == (B, H, ad, K)
+    assert float(acts.float().abs().max()) <= 1.0
+    of = cem_rollout.rollout_costs_of_actions
+    _hold_bf16(costs, of(params, s0, acts, goal, w, compute_dtype=bf),
+               of(params, s0, acts, goal, w))
+
+
+def test_bf16_ensemble_matches_plain_bf16(dev):
+    B, K, n, H, sd, ad = 8, 60, 4, 7, 24, 6
+    bf = torch.bfloat16
+    params = EnsembleDynamics(MLPDynamics(sd, ad), n).init(
+        torch.Generator().manual_seed(0), device=dev)
+    g, mean, std = _proposal(dev, B, H, ad, 1)
+    s0 = torch.randn((B, sd), generator=g, device=dev)
+    goal, w = torch.zeros(sd, device=dev), torch.ones(sd, device=dev)
+    norms = _bf16_normalizers(dev, sd, ad)
+    costs, acts = cem_rollout.mlp_sample_rollout_costs_ensemble(
+        params, 3, s0, mean, std, goal, w, K, n, normalizers=norms,
+        compute_dtype=bf)
+    assert acts.dtype == bf
+    of = cem_rollout.rollout_costs_of_actions_ensemble
+    _hold_bf16(costs, of(params, s0, acts, goal, w, norms, compute_dtype=bf),
+               of(params, s0, acts, goal, w, norms))
+
+
+@pytest.mark.parametrize('sd,hid', [(17, 50), (24, 50), (40, 64)])
+def test_bf16_rollout_costs_matches_plain_bf16(dev, sd, hid):
+    N, H, ad = 1000, 9, 6
+    bf = torch.bfloat16
+    params = MLPDynamics(sd, ad, hidden_units=hid).init(
+        torch.Generator().manual_seed(0), device=dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    s0T = torch.randn((sd, N), generator=g, device=dev)
+    aT = torch.rand((H, ad, N), generator=g, device=dev) * 2 - 1
+    goal, w = torch.zeros(sd, device=dev), torch.ones(sd, device=dev)
+    norms = _bf16_normalizers(dev, sd, ad)
+    before = ops.launch_counts['cem_rollout_costs_bf16']
+    costs = cem_rollout.mlp_rollout_costs_t(params, s0T, aT, goal, w, norms,
+                                            compute_dtype=bf)
+    assert ops.launch_counts['cem_rollout_costs_bf16'] == before + 1
+    ref = lambda **kw: cem_rollout.mlp_rollout_costs_reference(
+        params, s0T.T, aT.transpose(1, 2), goal, w, norms, **kw)
+    _hold_bf16(costs, ref(compute_dtype=bf), ref())

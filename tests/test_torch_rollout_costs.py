@@ -81,7 +81,7 @@ def test_rollout_costs_reject_other_compute_dtypes():
             convert.mlp_params(params), torch.as_tensor(s0.T.copy()),
             torch.as_tensor(acts.transpose(0, 2, 1).copy()),
             torch.as_tensor(goal), torch.as_tensor(w),
-            compute_dtype=torch.bfloat16)
+            compute_dtype=torch.float16)
 
 
 def test_non_fused_cem_refit_equals_direct_computation():
