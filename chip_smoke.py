@@ -182,10 +182,31 @@ Run from the repository root:  python3 chip_smoke.py
       walker at the northstar width; each with exact launch counts, its
       JSON line printed and checked (value finite and positive, every
       mfu_* share in (0, 100]);
-12. prints one ``{"kernels": [...]}`` line (one entry per TPU kernel, and
+12. finger, ball_in_cup and lqr (slice 13: elliptic cones, friction-loss
+   rows, a spatial-tendon limit row, early termination, autoreset), each
+   path through ``suite.load`` at 1024 envs with exact launch counts:
+   a. (31) finger spin and turn_hard from a card reset, random actions:
+      2 substeps and the observation's forward (the touch sensors read
+      its solve), so 3 #1 launches a control step, each checked to carry
+      39 rows (a box row with per-env bounds, two hinge limits, 12 cone
+      triples) and the 400-iteration cap; the card's step against the
+      CPU's; then #1 on finger solves captured at the reset states and in
+      contact (fingertip pressed into the spinner, a tenth past a hinge
+      limit), cold and warm, and on the contact ones with each env's
+      bound scaled by its own factor, held and timed as in 9e;
+   b. (32) ball_in_cup catch the same way: 10 substeps, 10 21-row
+      launches a control step (the string's limit row, 5 sphere-capsule
+      points of 4 facets), card vs CPU, and #1 on solves captured at the
+      reset states and with the ball in the cup or the string taut;
+   c. (33) lqr_6_2 (seed 0): card vs CPU, then the analytic gain of
+      ``suite.lqr_solver`` drives states of norm sqrt(2) 1e-6 until the
+      envs terminate (LAST, discount 0) and ``autoreset_step`` restarts
+      them (FIRST); no launch;
+13. prints one ``{"kernels": [...]}`` line (one entry per TPU kernel, and
    one per bf16 mode of #2-#6), a ``{"paths": ...}`` line with the
-   cheetah, contact-free, humanoid, slice-10, slice-11 and bench paths'
-   times, the card line, and last ``{"ok": true, "device": {...}}``.
+   cheetah, contact-free, humanoid, slice-10, slice-11, bench and
+   slice-13 paths' times, the card line, and last ``{"ok": true,
+   "device": {...}}``.
 
 The H100 peaks of the bounds come from the port's bench.py, whose mfu_*
 shares use the same ones.
@@ -1320,7 +1341,8 @@ def control_step(dev, torch, run, params, state0, gen, label, envs=B):
     return counts, out, state, warm_state
 
 
-def card_vs_cpu_step(dev, torch, domain, task, start, by_rounding=False):
+def card_vs_cpu_step(dev, torch, domain, task, start, by_rounding=False,
+                     task_kwargs=None):
     """One env.step of random actions from `start`, on the card and with
     the plain versions on the CPU: qpos and reward within 1e-3. With
     ``by_rounding`` (the hopper, whose contact solves run to the iteration
@@ -1332,8 +1354,8 @@ def card_vs_cpu_step(dev, torch, domain, task, start, by_rounding=False):
 
     from mujoco_mbrl_tpu_torch import suite
 
-    env = suite.load(domain, task, device=dev)
-    env_cpu = suite.load(domain, task, device='cpu')
+    env = suite.load(domain, task, task_kwargs=task_kwargs, device=dev)
+    env_cpu = suite.load(domain, task, task_kwargs=task_kwargs, device='cpu')
     nu, n = env.model.nu, start.physics.qpos.shape[0]
     acts = 2 * torch.rand((n, nu), generator=torch.Generator().manual_seed(
         5)) - 1
@@ -2851,6 +2873,298 @@ def bench_cli_phase(dev, torch):
     return out
 
 
+# ---- slice 13: finger, ball_in_cup, lqr ---------------------------------
+
+FINGER_SOLVES = 3            # 2 substeps + the observation's forward
+CUP_SOLVES = 10              # 10 substeps; the observation needs no solve
+FINGER_CONE_ROWS = tuple(range(3, 39, 3))
+LQR_DRIVE_CAP = 1500         # control steps to drive lqr_6_2 toward 0
+
+
+def suite_control_steps(dev, torch, env, state0, label, rows=None):
+    """A warm-up control step of random actions from `state0`, then
+    STEPS timed ones with every launch count zeroed just before and read
+    just after; `rows(args, kw)` checks each #1 call of the timed steps.
+    Returns (counts, times, the state after the warm-up)."""
+    from mujoco_mbrl_tpu_torch import ops
+    from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    act = lambda: 2 * torch.rand((state0.physics.qpos.shape[0],
+                                  env.model.nu), generator=g, device=dev) - 1
+    warm, _ = env.step(state0, act())
+    torch.cuda.synchronize()
+    seen, real = [], A.apgd_iterate_batched
+
+    def watch(*args, **kw):
+        seen.append((args, kw))
+        return real(*args, **kw)
+
+    ops.reset_launch_counts()
+    A.apgd_iterate_batched = watch
+    try:
+        t0 = time.perf_counter()
+        state = warm
+        for _ in range(STEPS):
+            state, ts = env.step(state, act())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        A.apgd_iterate_batched = real
+    counts = dict(ops.launch_counts)
+    for name, x in (('qpos', state.physics.qpos),
+                    ('qvel', state.physics.qvel), ('reward', ts.reward)):
+        check(bool(torch.isfinite(x).all()), (label, name))
+    if rows is not None:
+        for args, kw in seen:
+            rows(args, kw)
+    out = dict(ms_per_step=1e3 * wall / STEPS, wall_s=wall)
+    print(f'{label}: {STEPS} control steps x {state0.physics.qpos.shape[0]} '
+          f'envs in {wall:.3f} s = {out["ms_per_step"]:.2f} ms per control '
+          f'step; launches {counts}; mean reward '
+          f'{float(ts.reward.mean()):.4f}')
+    return counts, out, warm
+
+
+def finger_rows(B_):
+    """The check of each #1 call on finger: 39 rows (a box row with
+    per-env bounds, two hinge limits, 12 cone triples), the 400 cap."""
+    def rows(args, kw):
+        check(args[0].shape == (B_, 39, 39) and args[6].shape == (B_, 39),
+              (args[0].shape, args[6].shape))
+        check((kw['box_rows'], kw['nonneg'], kw['con0'], kw['iterations'])
+              == ((0,), (1, 2), FINGER_CONE_ROWS, 400), kw)
+    return rows
+
+
+def finger_control_step_phase(dev, torch, task):
+    """(31) finger's spin and turn_hard through suite.load at 1024 envs
+    from a card reset, random actions: 2 substeps and the observation's
+    forward a control step (the touch sensors read its solve), each one
+    39-row #1 launch with per-env box bounds; the card's step against the
+    CPU's."""
+    from mujoco_mbrl_tpu_torch import suite
+
+    env = suite.load('finger', task, device=dev)
+    state0, _ = env.reset(B, torch.Generator(device=dev).manual_seed(30))
+    counts, out, warm = suite_control_steps(
+        dev, torch, env, state0, f'finger {task} control step',
+        rows=finger_rows(B))
+    exact_counts(f'finger {task} control step', counts,
+                 apgd_solve=FINGER_SOLVES * STEPS)
+    out['card_vs_cpu'] = card_vs_cpu_step(dev, torch, 'finger', task, warm,
+                                          by_rounding=True)
+    return counts, out, state0
+
+
+def finger_contact_state(dev, torch, n):
+    """n finger poses with the fingertip pressed into the spinner (a pool
+    of random poses, the penetrating ones kept), a tenth of them with the
+    proximal hinge past its limit and moving on into it; small finger
+    velocities, the spinner fast (its friction-loss row saturates)."""
+    from types import SimpleNamespace
+
+    from mujoco_mbrl_tpu_torch import suite
+    from mujoco_mbrl_tpu_torch.physics import collision, smooth
+    from mujoco_mbrl_tpu_torch.physics.model import State
+
+    m = suite.load('finger', 'turn_hard', device=dev).model
+    g = torch.Generator(device=dev).manual_seed(32)
+    N = 64 * n                      # ~3% penetrate by under 1 cm
+    q = torch.stack([3.84 * torch.rand(N, generator=g, device=dev) - 1.92,
+                     3.84 * torch.rand(N, generator=g, device=dev) - 1.92,
+                     6.2832 * torch.rand(N, generator=g, device=dev)
+                     - 3.1416], 1)
+    kin = smooth.kinematics(m, q, smooth.tree_meta(m))
+    dist = collision.detect(m, kin[3], kin[4],
+                            collision.candidate_pairs(m)).dist
+    keep = ((dist < 0) & (dist > -0.01)).any(1).nonzero()[:, 0]
+    check(len(keep) >= n, ('finger contact pool', len(keep)))
+    qpos = q[keep[:n]].clone()
+    qvel = 0.2 * torch.randn((n, 3), generator=g, device=dev)
+    qvel[:, 2] = 2.0 * torch.randn(n, generator=g, device=dev)
+    lim = torch.arange(n, device=dev) % 10 == 0
+    side = torch.where(qpos[:, 0] > 0, 1.0, -1.0)
+    qpos[lim, 0] = side[lim] * 1.95
+    qvel[lim, 0] = side[lim] * 0.5
+    return SimpleNamespace(physics=State(qpos=qpos, qvel=qvel,
+                                         time=torch.zeros(n, device=dev)))
+
+
+def cup_contact_state(dev, torch, n):
+    """n ball_in_cup states: the ball resting in the cup's bottom (half),
+    against a side wall (a quarter), or hanging below with the string past
+    its 0.3 length (a quarter); random velocities."""
+    from types import SimpleNamespace
+
+    from mujoco_mbrl_tpu_torch.physics.model import State
+
+    g = torch.Generator(device=dev).manual_seed(33)
+    u = lambda *shape: torch.rand(shape, generator=g, device=dev)
+    qpos = torch.zeros((n, 4), device=dev)
+    qpos[:, :2] = 0.04 * u(n, 2) - 0.02
+    kind = torch.arange(n, device=dev) % 4
+    side = torch.where(u(n) < 0.5, -1.0, 1.0)
+    qpos[:, 2] = qpos[:, 0] + torch.where(
+        kind == 2, side * (0.018 + 0.004 * u(n)), 0.01 * u(n) - 0.005)
+    qpos[:, 3] = qpos[:, 1] + torch.where(
+        kind == 3, -0.05 - 0.1 * u(n), 0.322 + 0.004 * u(n))
+    qvel = 0.3 * torch.randn((n, 4), generator=g, device=dev)
+    return SimpleNamespace(physics=State(qpos=qpos, qvel=qvel,
+                                         time=torch.zeros(n, device=dev)))
+
+
+def varied_bounds(torch, cases):
+    """The captured finger cases with each env's box bound scaled by its
+    own factor in [0.5, 2): finger's spinner inertia does not change with
+    the pose, so its envs share one scaled bound; this case makes the
+    kernel read each env's own."""
+    out = []
+    for tag, args, kw in cases:
+        Bs = args[6].shape[0]
+        scale = 0.5 + 1.5 * torch.arange(Bs, device=args[6].device) / Bs
+        out.append((tag + '-varied-bounds',
+                    args[:6] + ((args[6] * scale[:, None]).contiguous(),),
+                    kw))
+    return out
+
+
+def slice13_apgd_phase(dev, torch, label, env, reset_state, contact_state,
+                       per_env_bounds):
+    """(31, 32) #1 against its plain version on solves captured from the
+    port at 1024 envs, at the reset states and in contact, cold and warm
+    (and, for finger, with per-env varied bounds), under the one APGD rule
+    (rtol = atol = 2e-4, at most 1% of envs decided by rounding); device
+    time, the largest iteration count of the cap, us per dependent step,
+    ns per APGD iteration, beside the FP32 bound."""
+    from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
+
+    cases = (capture_solves(dev, torch, env, reset_state, f'{label}-reset',
+                            'apgd_iterate_batched')
+             + capture_solves(dev, torch, env, contact_state,
+                              f'{label}-contact', 'apgd_iterate_batched'))
+    for tag, args, kw in cases:
+        act = args[4]
+        n_con = int((act[:, 3:].sum(1) > 0).sum()) if per_env_bounds else \
+            int((act[:, 1:].sum(1) > 0).sum())
+        print(f'apgd {tag} cold={kw["cold"]}: nr {args[0].shape[1]}, '
+              f'{int(act.sum())} of {act.numel()} rows active, {n_con} of '
+              f'{act.shape[0]} envs in contact; bounds {tuple(args[6].shape)}'
+              f'; cap {kw["iterations"]}')
+        if tag.endswith('contact'):
+            check(n_con >= act.shape[0] // 2, (tag, n_con))
+    held = cases + (varied_bounds(torch, cases[2:]) if per_env_bounds
+                    else [])
+    worst, rounding_envs = hold_apgd(
+        torch, f'apgd {label}', A.apgd_iterate_batched, A.apgd_iterate_plain,
+        lambda args: args[0], held)
+    times = time_apgd(
+        torch, f'apgd {label}', A.apgd_iterate_batched, A.apgd_iterate_plain,
+        cases, lambda a: 2.0 * a[1].shape[1] ** 2,
+        lambda a: 4.0 * (a[0].numel() + 6 * a[1].numel() + a[5].numel()
+                         + a[6].numel()),
+        trace_bound=False)
+    tag, args, kw = cases[-1]
+    check(tag.endswith('contact') and not kw['cold'], tag)
+    cap = lambda n: device_ms(lambda: A.apgd_iterate_batched(
+        *args, **dict(kw, iterations=n, tol2=0.0)), 20)
+    t1, t41 = cap(1), cap(41)
+    iteration_ns = 1e6 * (t41 - t1) / 40
+    print(f'apgd {label} {tag}-warm, tol2 = 0: {t1:.4f} ms at 1 iteration, '
+          f'{t41:.4f} ms at 41: {iteration_ns:.0f} ns per APGD iteration')
+    return worst, rounding_envs, times, iteration_ns
+
+
+def cup_control_step_phase(dev, torch):
+    """(32) ball_in_cup catch through suite.load at 1024 envs from a card
+    reset, random actions: 10 substeps a control step, each one 21-row #1
+    launch (the string's limit row, 5 sphere-capsule points of 4 facets);
+    the observation needs no solve. The card's step against the CPU's."""
+    from mujoco_mbrl_tpu_torch import suite
+
+    def rows(args, kw):
+        check(args[0].shape == (B, 21, 21) and not kw['box_rows']
+              and not kw['con0'] and kw['nonneg'] == tuple(range(21))
+              and kw['iterations'] == 60, (args[0].shape, kw))
+
+    env = suite.load('ball_in_cup', 'catch', device=dev)
+    state0, _ = env.reset(B, torch.Generator(device=dev).manual_seed(34))
+    counts, out, warm = suite_control_steps(
+        dev, torch, env, state0, 'ball_in_cup catch control step', rows=rows)
+    exact_counts('ball_in_cup control step', counts,
+                 apgd_solve=CUP_SOLVES * STEPS)
+    out['card_vs_cpu'] = card_vs_cpu_step(dev, torch, 'ball_in_cup',
+                                          'catch', warm, by_rounding=True)
+    return counts, out, env, state0
+
+
+def lqr_phase(dev, torch):
+    """(33) lqr_6_2 (seed 0) at 1024 envs: the card's step against the
+    CPU's; then the analytic gain of the port's lqr_solver drives states
+    of norm sqrt(2) 1e-6 below the task's 1e-6 termination bound (at most
+    LQR_DRIVE_CAP control steps): a terminated env reports LAST with
+    discount 0, the others MID with discount 1, and autoreset_step starts
+    the terminated envs afresh (FIRST, step count 0, norm sqrt(2)) while
+    the others step on. Contacts and limits are off: no launch."""
+    from mujoco_mbrl_tpu_torch import ops, suite
+    from mujoco_mbrl_tpu_torch.suite import control, lqr_solver
+
+    kw = {'seed': 0}
+    env = suite.load('lqr', 'lqr_6_2', task_kwargs=kw, device=dev)
+    start, _ = env.reset(B, torch.Generator().manual_seed(35))
+    ops.reset_launch_counts()
+    out = dict(card_vs_cpu=card_vs_cpu_step(dev, torch, 'lqr', 'lqr_6_2',
+                                            start, task_kwargs=kw))
+    _, k, beta = lqr_solver.solve(env)
+    K = torch.tensor(k, dtype=torch.float32, device=dev)
+    state, _ = env.start(start.physics.replace(
+        qpos=start.physics.qpos * 1e-6))
+    first = torch.full((B,), -1, dtype=torch.long, device=dev)
+    t0 = time.perf_counter()
+    for i in range(LQR_DRIVE_CAP):
+        x = torch.cat([state.physics.qpos, state.physics.qvel], 1)
+        state, ts = env.step(state, x @ K.T)
+        last = ts.step_type == control.LAST
+        first = torch.where((first < 0) & last, i, first)
+        if i % 50 == 49 and bool((first >= 0).all()):
+            break
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = i + 1
+    ended = int((first >= 0).sum())
+    check(ended >= B * 9 // 10, ('lqr terminated envs', ended))
+    check(bool((ts.discount[last] == 0).all())
+          and bool((ts.discount[~last] == 1).all()), 'lqr discount')
+    q, v = state.physics.qpos, state.physics.qvel
+    norm = torch.sqrt((q * q).sum(1) + (v * v).sum(1))
+    check(bool((last == (norm < 1e-6)).all()), 'lqr LAST is the bound')
+    new, ts2 = env.autoreset_step(state, torch.zeros((B, env.model.nu),
+                                                     device=dev),
+                                  torch.Generator(device=dev).manual_seed(36))
+    check(bool((ts2.step_type[last] == control.FIRST).all())
+          and bool((new.step_count[last] == 0).all()), 'lqr autoreset')
+    check(bool((ts2.step_type[~last] != control.FIRST).all())
+          and bool((new.step_count[~last]
+                    == state.step_count[~last] + 1).all()), 'lqr stepped')
+    check(bool(torch.isclose(torch.linalg.vector_norm(
+        new.physics.qpos[last], dim=1), torch.tensor(
+            2.0 ** 0.5, device=dev)).all()), 'lqr reset norm')
+    counts = dict(ops.launch_counts)
+    exact_counts('lqr_6_2 drive', counts)
+    out.update(drive_steps=steps, drive_s=wall,
+               ms_per_step=1e3 * wall / steps, beta=float(beta),
+               terminated=ended, last_at_end=int(last.sum()),
+               first_termination=int(first[first >= 0].min()),
+               median_termination=int(first[first >= 0].median()))
+    print(f'lqr_6_2 drive at {B} envs: {steps} control steps in {wall:.2f} s'
+          f' ({out["ms_per_step"]:.3f} ms a step), beta {beta:.6f}; '
+          f'{ended} envs terminated (first at step '
+          f'{out["first_termination"]}, median '
+          f'{out["median_termination"]}), {int(last.sum())} LAST at the '
+          f'end and restarted by autoreset_step; launches {counts}')
+    return counts, out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3063,6 +3377,20 @@ def main() -> int:
                                 if r['launches'][key]}
     bf16_launches = lambda key: sum(bench_counts(key).values())
 
+    # ---- slice 13: finger, ball_in_cup, lqr (31-33) ---------------------
+    fs_counts, fs_out, f_state0 = finger_control_step_phase(dev, torch,
+                                                            'spin')
+    ft_counts, ft_out, _ = finger_control_step_phase(dev, torch,
+                                                     'turn_hard')
+    f_err, f_rounding, f_t, f_iter_ns = slice13_apgd_phase(
+        dev, torch, 'finger', suite.load('finger', 'spin', device=dev),
+        f_state0, finger_contact_state(dev, torch, B), per_env_bounds=True)
+    cu_counts, cu_out, cu_env, cu_state0 = cup_control_step_phase(dev, torch)
+    cu_err, cu_rounding, cu_t, cu_iter_ns = slice13_apgd_phase(
+        dev, torch, 'ball_in_cup', cu_env, cu_state0,
+        cup_contact_state(dev, torch, B), per_env_bounds=False)
+    lq_counts, lq_out = lqr_phase(dev, torch)
+
     sampler_entry = lambda tiles: ptxas_info(
         'cem_sample_rollout', 'cem_sample_rollout_kernelI' + ''.join(
             f'Li{t}E' for t in tiles[:3]) + ''.join(
@@ -3116,7 +3444,11 @@ def main() -> int:
              'point_mass_rw_cli': rw_counts, 'walker_lin_cli': lin_counts,
              'walker_ens998_cli': e998_counts,
              'per_env_card_vs_cpu': cv_counts,
-             **{f'bench {a}': r['launches'] for a, r in bench_out.items()}}
+             **{f'bench {a}': r['launches'] for a, r in bench_out.items()},
+             'finger_spin_control_step': fs_counts,
+             'finger_turn_hard_control_step': ft_counts,
+             'ball_in_cup_control_step': cu_counts,
+             'lqr_6_2_drive': lq_counts}
     by_path = lambda key: {p: c[key] for p, c in paths.items() if c[key]}
     src = lambda f: f'mujoco_mbrl_tpu_torch/csrc/{f}'
     tpu = lambda f, line, fn: f'mujoco_mbrl_tpu/ops/{f}:{line} ({fn})'
@@ -3139,7 +3471,8 @@ def main() -> int:
              source=src('apgd_solve.cu'),
              replaces=tpu('apgd_solve.py', 60, '_apgd_kernel'),
              launches=counts['apgd_solve'],
-             max_abs_err=max(apgd_err, lim_err, sr_err, hb_err),
+             max_abs_err=max(apgd_err, lim_err, sr_err, hb_err, f_err,
+                             cu_err),
              library_ms=None, **pick(apgd_t['contact-warm']),
              call_ms=apgd_t['contact-warm']['call_ms'],
              max_iterations=apgd_t['contact-warm']['max_iterations'],
@@ -3147,13 +3480,25 @@ def main() -> int:
                  'us_per_dependent_step'],
              iteration_ns=apgd_iter_ns,
              rounding_decided_envs=(rounding_envs + lim_rounding
-                                    + sr_rounding + hb_rounding),
+                                    + sr_rounding + hb_rounding
+                                    + f_rounding + cu_rounding),
              launches_by_path=by_path('apgd_solve'),
-             cases=dict(apgd_t, **lim_t, **sr_t, **hb_t),
+             cases=dict(apgd_t, **lim_t, **sr_t, **hb_t, **f_t, **cu_t),
              hopper_block=dict(hb_t['hopper-contact-warm'],
                                iteration_ns=hb_iter_ns,
                                rounding_decided_envs=hb_rounding,
                                launches_per_control_step=HOPPER_SOLVES),
+             finger=dict(f_t['finger-contact-warm'], iteration_ns=f_iter_ns,
+                         rounding_decided_envs=f_rounding,
+                         launches_per_control_step=FINGER_SOLVES,
+                         iteration_cap=400, rows=39,
+                         reset_cold=f_t['finger-reset-cold']),
+             ball_in_cup=dict(cu_t['ball_in_cup-contact-warm'],
+                              iteration_ns=cu_iter_ns,
+                              rounding_decided_envs=cu_rounding,
+                              launches_per_control_step=CUP_SOLVES,
+                              iteration_cap=60, rows=21,
+                              reset_cold=cu_t['ball_in_cup-reset-cold']),
              ptxas_one_row=ptxas['apgd_warp_kernel<1>'],
              ptxas_block=ptxas['apgd_block_kernel']),
         dict(name='mlp_sample_rollout_costs', route='cuda',
@@ -3287,6 +3632,9 @@ def main() -> int:
         walker_per_env_cem=pc_cem_out, reacher_grad_ilqr=gi_out,
         point_mass_rw_cli=rw_out, walker_scan_clis=scan_out,
         per_env_card_vs_cpu=cv_out,
+        finger_spin_control_step=fs_out,
+        finger_turn_hard_control_step=ft_out,
+        ball_in_cup_control_step=cu_out, lqr_6_2=lq_out,
         bench_cli={a: dict(record=r['record'], seconds=r['seconds'])
                    for a, r in bench_out.items()},
         bf16_ptxas={k: v for k, v in ptxas.items() if 'bf16' in k})}))

@@ -1,7 +1,8 @@
 """PyTorch / CUDA port of mujoco_mbrl_tpu for NVIDIA Hopper (H100).
 
 The JAX package ``mujoco_mbrl_tpu`` stays the reference; this package
-re-implements, for walker_walk and cheetah_run, the MPC control step
+re-implements the ported control-suite domains (``suite.all_tasks()``)
+and, for walker_walk and cheetah_run, the MPC control step
 (batched CEM over the MLP or the ensemble dynamics model, then one batched
 physics step), the full MBRL iteration of ``bench.full_loop_bench`` and
 the agent loop around it (``experiment`` -> ``agents.GoalStateAgent`` ->
@@ -10,7 +11,8 @@ plain PyTorch around hand-written CUDA kernels (``csrc/``):
 
 * ``ops.apgd_solve.apgd_iterate_batched`` — the batched APGD constraint
   solve up to 96 rows (one warp per env with Ad in registers up to 64
-  rows, one block per env with Ad in shared memory past that);
+  rows, one block per env with Ad in shared memory past that; box bounds
+  shared or per env);
 * ``ops.apgd_solve.apgd_iterate_factored`` — the same past 96 rows, over
   the factors J~ and M^-1;
 * ``ops.cem_rollout.mlp_sample_rollout_costs`` — the fused CEM sample +

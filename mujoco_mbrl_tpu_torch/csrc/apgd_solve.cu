@@ -6,7 +6,8 @@
 // (24 cold steps, or 6 + 2 warm steps with the Rayleigh staleness guard and
 // the inf-norm row-sum fallback; L = 1.5 * max(r, 1)), then Nesterov APGD
 // with adaptive restart, projecting onto non-negative, box and friction-cone
-// rows, a Gauss-Seidel polish on equality rows, and a per-env exit once
+// rows (box bounds shared or per env: JAX divides them by each env's row
+// scale), a Gauss-Seidel polish on equality rows, and a per-env exit once
 // converged (|df|^2 <= tol2 * (1e-12 + |f|^2)) or at the iteration cap.
 //
 // Design. The kernel is latency-bound: each env is a chain of ~70
@@ -59,7 +60,8 @@ __global__ void apgd_block_kernel(const float* __restrict__ Ad_g,
                             const float* __restrict__ bnd_g,
                             const int* __restrict__ rowtype_g,
                             const int* __restrict__ eq_g, int n_eq, int nr,
-                            int ld, int iterations, int cold, int has_cone,
+                            int ld, int bnd_ld, int iterations, int cold,
+                            int has_cone,
                             float tol2, float* __restrict__ f_out,
                             float* __restrict__ v_out,
                             int* __restrict__ its_out) {
@@ -84,7 +86,7 @@ __global__ void apgd_block_kernel(const float* __restrict__ Ad_g,
   const float rhs_i = row ? rhs_g[off + i] : 0.f;
   const float act_i = row ? act_g[off + i] : 0.f;
   const float mu_i = row ? mu_g[i] : 0.f;
-  const float bnd_i = row ? bnd_g[i] : 0.f;
+  const float bnd_i = row ? bnd_g[(size_t)b * bnd_ld + i] : 0.f;
   const int type_i = row ? rowtype_g[i] : 0;
   int parity = 0;
   __syncthreads();
@@ -206,7 +208,8 @@ __global__ void __launch_bounds__(32 * kWarpEnvs)
                      const float* __restrict__ bnd_g,
                      const int* __restrict__ rowtype_g,
                      const int* __restrict__ eq_g, int n_eq, int B, int nr,
-                     int iterations, int cold, int has_cone, float tol2,
+                     int bnd_ld, int iterations, int cold, int has_cone,
+                     float tol2,
                      float* __restrict__ f_out, float* __restrict__ v_out,
                      int* __restrict__ its_out) {
   constexpr int NC = 32 * R, LD = NC + 1;
@@ -235,7 +238,8 @@ __global__ void __launch_bounds__(32 * kWarpEnvs)
   bool valid[R];
   float rhs[R];
   LaneRows<R> rows;
-  load_lane_rows<R>(rows, lane, nr, act_g + off, mu_g, bnd_g, rowtype_g);
+  load_lane_rows<R>(rows, lane, nr, act_g + off, mu_g,
+                    bnd_g + (size_t)b * bnd_ld, rowtype_g);
 #pragma unroll
   for (int s = 0; s < R; ++s) {
     const int i = lane + 32 * s;
@@ -396,14 +400,14 @@ template <int R>
 int launch_warp(const float* Ad, const float* rhs, const float* f0,
                 const float* v0, const float* active, const float* mu,
                 const float* bounds, const int* rowtype, const int* eq_rows,
-                int n_eq, int B, int nr, int iterations, int cold,
+                int n_eq, int B, int nr, int bnd_ld, int iterations, int cold,
                 int has_cone, float tol2, float* f_out, float* v_out,
                 int* its_out, cudaStream_t stream) {
   const size_t smem = sizeof(float) * kWarpEnvs * warp_floats<R>();
   apgd_warp_kernel<R><<<(B + kWarpEnvs - 1) / kWarpEnvs, 32 * kWarpEnvs,
                         smem, stream>>>(
       Ad, rhs, f0, v0, active, mu, bounds, rowtype, eq_rows, n_eq, B, nr,
-      iterations, cold, has_cone, tol2, f_out, v_out, its_out);
+      bnd_ld, iterations, cold, has_cone, tol2, f_out, v_out, its_out);
   return (int)cudaGetLastError();
 }
 
@@ -419,22 +423,24 @@ extern "C" size_t apgd_smem_bytes(int nr) {
          sizeof(int) * nr;
 }
 
+// bounds holds the box rows' bounds: (nr,) shared by the envs with
+// bnd_ld = 0, or (B, nr) per env with bnd_ld = nr.
 extern "C" int apgd_iterate_batched(
     const float* Ad, const float* rhs, const float* f0, const float* v0,
     const float* active, const float* mu, const float* bounds,
     const int* rowtype, const int* eq_rows, int n_eq, int B, int nr,
-    int iterations, int cold, int has_cone, float tol2, float* f_out,
-    float* v_out, int* its_out, void* stream) {
+    int bnd_ld, int iterations, int cold, int has_cone, float tol2,
+    float* f_out, float* v_out, int* its_out, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   if (B <= 0) return 0;
   if (nr <= 32)
     return launch_warp<1>(Ad, rhs, f0, v0, active, mu, bounds, rowtype,
-                          eq_rows, n_eq, B, nr, iterations, cold, has_cone,
-                          tol2, f_out, v_out, its_out, st);
+                          eq_rows, n_eq, B, nr, bnd_ld, iterations, cold,
+                          has_cone, tol2, f_out, v_out, its_out, st);
   if (nr <= 64)
     return launch_warp<2>(Ad, rhs, f0, v0, active, mu, bounds, rowtype,
-                          eq_rows, n_eq, B, nr, iterations, cold, has_cone,
-                          tol2, f_out, v_out, its_out, st);
+                          eq_rows, n_eq, B, nr, bnd_ld, iterations, cold,
+                          has_cone, tol2, f_out, v_out, its_out, st);
   const int threads = ((nr + 31) / 32) * 32;
   const size_t smem = apgd_smem_bytes(nr);
   if (smem > 48 * 1024) {
@@ -445,6 +451,7 @@ extern "C" int apgd_iterate_batched(
   }
   apgd_block_kernel<<<B, threads, smem, st>>>(
       Ad, rhs, f0, v0, active, mu, bounds, rowtype, eq_rows, n_eq, nr,
-      nr | 1, iterations, cold, has_cone, tol2, f_out, v_out, its_out);
+      nr | 1, bnd_ld, iterations, cold, has_cone, tol2, f_out, v_out,
+      its_out);
   return (int)cudaGetLastError();
 }

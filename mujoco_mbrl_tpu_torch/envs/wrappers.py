@@ -76,15 +76,13 @@ class EnvWrapper:
                 f'no ported wrapper for {env_name!r} '
                 '(mujoco_mbrl_tpu.envs.wrappers.EnvWrapper.load)')
         env_kwargs = dict(kwargs.pop('environment_kwargs', {}) or {})
-        if kwargs:
-            raise NotImplementedError(
-                f'task kwargs {sorted(kwargs)} are not ported '
-                '(mujoco_mbrl_tpu.envs.wrappers.EnvWrapper.load)')
         if wrapper_class.override_control_timestep is not None:
             env_kwargs['control_timestep'] = (
                 wrapper_class.override_control_timestep)
-        env = _suite.load(env_name, task_name, device=device,
-                          environment_kwargs=env_kwargs or None)
+        # the remaining kwargs are the task's, as in JAX
+        env = _suite.load(env_name, task_name, task_kwargs=kwargs or None,
+                          environment_kwargs=env_kwargs or None,
+                          device=device)
         return wrapper_class(env, env_name=env_name, task_name=task_name)
 
     @property

@@ -4,9 +4,11 @@
 mujoco_mbrl_tpu/ops/apgd_solve.py:_apgd_kernel. For CUDA tensors it
 launches ``csrc/apgd_solve.cu`` (one warp per env up to 64 rows with Ad
 in registers, one thread block per env past that; a real per-env early
-exit) and raises on inputs the kernel
-does not take; for CPU tensors it runs ``apgd_iterate_plain``, the batched
-PyTorch form of physics/solver.py's ``_apgd_dispatch.impl``.
+exit; box bounds shared (nr,) or per env (B, nr), as JAX's vmapped
+iterate takes them once each env's row scale divides them, finger's
+friction-loss row) and raises on inputs the kernel does not take; for
+CPU tensors it runs ``apgd_iterate_plain``, the batched PyTorch form of
+physics/solver.py's ``_apgd_dispatch.impl``.
 
 ``apgd_iterate_factored`` replaces ``_apgd_factored_kernel``, the regime
 past 96 rows where Ad = J~ M^-1 J~' + diag(Rs) is never materialized. For
@@ -43,7 +45,7 @@ _NONNEG, _BOX, _CONE = 1, 2, 4
 _SIGNATURES = {
     'apgd_smem_bytes': (ctypes.c_size_t, [ctypes.c_int]),
     'apgd_iterate_batched': (ctypes.c_int, [ctypes.c_void_p] * 9
-                             + [ctypes.c_int] * 6 + [ctypes.c_float]
+                             + [ctypes.c_int] * 7 + [ctypes.c_float]
                              + [ctypes.c_void_p] * 4),
 }
 _FACTORED_SIGNATURES = {
@@ -70,7 +72,8 @@ def apgd_iterate_plain(Ad, rhs, f0, v0, active, mu_full, bounds_full, *,
 
     Same contract as the JAX ``apgd_iterate_batched``: Ad (B, nr, nr),
     rhs / f0 (scaled warm start) / v0 (power vector) / active (B, nr),
-    mu_full / bounds_full (nr,). Returns (f, v), each (B, nr), and with
+    mu_full (nr,), bounds_full (nr,) or, per env as JAX's vmapped iterate
+    takes them, (B, nr). Returns (f, v), each (B, nr), and with
     ``return_iterations`` also the APGD iterations each env ran (B,).
     The warm staleness fallback is Ad's largest absolute row sum.
     """
@@ -208,7 +211,7 @@ def apgd_iterate_batched(Ad, rhs, f0, v0, active, mu_full, bounds_full, *,
             raise ValueError('apgd_iterate_batched kernel takes contiguous '
                              'float32 CUDA tensors')
     if Ad.shape != (B, nr, nr) or mu_full.shape != (nr,) or \
-            bounds_full.shape != (nr,) or any(
+            bounds_full.shape not in ((nr,), (B, nr)) or any(
                 t.shape != (B, nr) for t in (f0, v0, active)):
         raise ValueError('apgd_iterate_batched: inconsistent shapes')
     lib = _build.library('apgd_solve', _SIGNATURES)
@@ -225,7 +228,7 @@ def apgd_iterate_batched(Ad, rhs, f0, v0, active, mu_full, bounds_full, *,
         Ad.data_ptr(), rhs.data_ptr(), f0.data_ptr(), v0.data_ptr(),
         active.data_ptr(), mu_full.data_ptr(), bounds_full.data_ptr(),
         types.data_ptr(), eq.data_ptr(), len(eq_rows), B, nr,
-        int(iterations), int(bool(cold)), int(bool(len(con0))),
+        nr if bounds_full.dim() == 2 else 0, int(iterations), int(bool(cold)), int(bool(len(con0))),
         float(tol2), f.data_ptr(), v.data_ptr(),
         its.data_ptr() if its is not None else 0,
         torch.cuda.current_stream(Ad.device).cuda_stream)

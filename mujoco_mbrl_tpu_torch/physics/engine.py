@@ -94,9 +94,13 @@ def _forward(m: M.Model, state: M.State, ctrl: torch.Tensor,
 
     actuator_force, qfrc_actuator = smooth.actuation(m, qpos, qvel, ctrl)
     qfrc_smooth = qfrc_passive + qfrc_actuator - qfrc_bias
-    qM_chol = torch.linalg.cholesky(qM)
+    # cholesky_ex: a diverged env's NaN factor flows on to a NaN state
+    # (engine.diverged's test, as JAX's cho_factor), where cholesky would
+    # raise for the whole batch and sync with the host to find out
+    qM_chol = torch.linalg.cholesky_ex(qM).L
     qacc_smooth = torch.cholesky_solve(qfrc_smooth[..., None], qM_chol)[..., 0]
-    cs = solver_mod.assemble(m, meta, qpos, qvel, cdof, contact)
+    cs = solver_mod.assemble(m, meta, qpos, qvel, cdof, contact,
+                             site_xpos=site_xpos)
     qfrc_constraint, f_rows, power_v = solver_mod.solve_apgd(
         m, cs, qM_chol, qacc_smooth, f0=warm_f, power_v0=warm_v)
     if need_qacc:
@@ -148,7 +152,7 @@ def _euler(m: M.Model, state: M.State, ctrl, warm_f=None, warm_v=None
                + d.qfrc_constraint)
     MhB = d.qM + h * torch.diag(m.dof_damping)
     qacc = torch.cholesky_solve(f_total[..., None],
-                                torch.linalg.cholesky(MhB))[..., 0]
+                                torch.linalg.cholesky_ex(MhB).L)[..., 0]
     qvel = state.qvel + h * qacc
     qpos = integrate_pos(m, state.qpos, qvel, h)
     return (M.State(qpos=qpos, qvel=qvel, time=state.time + h),

@@ -2,20 +2,23 @@
 
 Port of the part of mujoco_mbrl_tpu/physics/mjcf.py that the planar walker,
 cheetah and hopper, the contact-free reacher, point_mass, pendulum,
-cartpole, acrobot and swimmer and the humanoid reach: ``<compiler angle
-settotalmass>``, ``<option timestep gravity integrator density viscosity
-wind>`` (Euler or RK4) with its ``<flag contact gravity limit
-actuation>``, nested ``<default>`` classes with ``childclass``, bodies with
-``pos`` and orientation, hinge and slide joints with limits,
-``<freejoint>`` (which takes no default but its name), plane, sphere,
-capsule and box geoms (placed by ``pos`` + orientation or by ``fromto``;
-mass given or from density), sites (MuJoCo's default size 0.005), fixed
-tendons, and motors on a joint or a fixed tendon; and the fluid model's
-per-body equivalent inertia box and principal frame. Cameras and lights
-are visual only and skipped. Every other MJCF feature (ball joints,
-ellipsoid and cylinder geoms, sensors, equality constraints, spatial
-tendons, tendon limits, elliptic cones among them) raises
-``NotImplementedError`` naming the JAX function that handles it.
+cartpole, acrobot and swimmer, the humanoid, finger, ball_in_cup and lqr
+reach: ``<compiler angle settotalmass>``, ``<option timestep gravity
+integrator density viscosity wind cone impratio iterations>`` (Euler or
+RK4; pyramidal or elliptic cones) with its ``<flag contact gravity limit
+actuation>``, nested ``<default>`` classes with ``childclass``, bodies
+with ``pos`` and orientation, hinge and slide joints with limits and
+friction loss, ``<freejoint>`` (which takes no default but its name),
+plane, sphere, capsule, cylinder, ellipsoid and box geoms (placed by
+``pos`` + orientation or, capsules and cylinders, by ``fromto``; mass
+given or from density), sites (MuJoCo's default size 0.005), fixed
+tendons, two-site spatial tendons with their length limits (the limit
+row's invweight at qpos0), and motors on a joint or a fixed tendon; and
+the fluid model's per-body equivalent inertia box and principal frame.
+Cameras and lights are visual only and skipped. Every other MJCF feature
+(ball joints, sensors, equality constraints, via-point tendons, fixed
+tendon limits among them) raises ``NotImplementedError`` naming the JAX
+function that handles it.
 """
 
 from __future__ import annotations
@@ -90,6 +93,7 @@ _JOINT_TYPES = {'free': M.FREE, 'slide': M.SLIDE, 'hinge': M.HINGE}
 _QPOS_WIDTH = {M.FREE: 7, M.SLIDE: 1, M.HINGE: 1}
 _DOF_WIDTH = {M.FREE: 6, M.SLIDE: 1, M.HINGE: 1}
 _GEOM_TYPES = {'plane': M.PLANE, 'sphere': M.SPHERE, 'capsule': M.CAPSULE,
+               'ellipsoid': M.ELLIPSOID, 'cylinder': M.CYLINDER,
                'box': M.BOX}
 # a site's shape only bounds a touch zone; an unknown type reads as a
 # sphere, as in the JAX compiler
@@ -163,8 +167,12 @@ def _geom_volume(gtype: int, size) -> float:
         return 4.0 / 3.0 * math.pi * r ** 3
     if gtype == M.CAPSULE:
         return math.pi * r * r * (2 * size[1]) + 4.0 / 3.0 * math.pi * r ** 3
+    if gtype == M.CYLINDER:
+        return math.pi * r * r * 2 * size[1]
     if gtype == M.BOX:
         return 8.0 * size[0] * size[1] * size[2]
+    if gtype == M.ELLIPSOID:
+        return 4.0 / 3.0 * math.pi * size[0] * size[1] * size[2]
     return 0.0                                     # plane: massless
 
 
@@ -184,10 +192,17 @@ def _geom_inertia(gtype: int, size, mass: float) -> np.ndarray:
         ixy += sph_i + sphere_mass * height * (3 * r + 2 * height) / 8.0
         iz += sph_i
         return np.diag([ixy, ixy, iz])
+    if gtype == M.CYLINDER:
+        ixy = mass * (3 * r * r + (2 * size[1]) ** 2) / 12.0
+        return np.diag([ixy, ixy, mass * r * r / 2.0])
     if gtype == M.BOX:
         a2, b2, c2 = (2 * np.asarray(size)) ** 2
         return np.diag([mass * (b2 + c2) / 12.0, mass * (a2 + c2) / 12.0,
                         mass * (a2 + b2) / 12.0])
+    if gtype == M.ELLIPSOID:
+        a2, b2, c2 = np.asarray(size) ** 2
+        return np.diag([mass * (b2 + c2) / 5.0, mass * (a2 + c2) / 5.0,
+                        mass * (a2 + b2) / 5.0])
     return np.zeros((3, 3))
 
 
@@ -237,6 +252,7 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
     wind = np.zeros(3)
     solver_iterations = 30
     disableflags = 0
+    cone, impratio = 'pyramidal', 1.0
     opt_el = root.find('option')
     if opt_el is not None:
         timestep = float(opt_el.get('timestep', timestep))
@@ -247,10 +263,10 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
         if integ not in ('Euler', 'RK4'):
             raise _unsupported(f'integrator {integ!r}')
         integrator = M.RK4 if integ == 'RK4' else M.EULER
-        if opt_el.get('cone', 'pyramidal') != 'pyramidal':
-            raise _unsupported('elliptic friction cone')
-        if 'impratio' in opt_el.attrib:
-            raise _unsupported('option impratio')
+        cone = opt_el.get('cone', cone)
+        if cone not in ('pyramidal', 'elliptic'):
+            raise _unsupported(f'friction cone {cone!r}')
+        impratio = float(opt_el.get('impratio', impratio))
         viscosity = float(opt_el.get('viscosity', 0.0))
         density = float(opt_el.get('density', 0.0))
         if 'wind' in opt_el.attrib:
@@ -290,7 +306,7 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
         quat = _orientation(attrs, deg)
         pos = _floats(attrs['pos']) if 'pos' in attrs else np.zeros(3)
         if 'fromto' in attrs:
-            if gtype != M.CAPSULE:
+            if gtype not in (M.CAPSULE, M.CYLINDER):
                 raise _unsupported(f'fromto on geom type {gname!r}')
             ft = _floats(attrs['fromto'])
             p0, p1 = ft[:3], ft[3:]
@@ -431,8 +447,6 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
     jnt_qposadr, jnt_dofadr, dof_jnt = [], [], []
     nq = nv = 0
     for ji, j in enumerate(jnts):
-        if j['frictionloss'] != 0.0:
-            raise _unsupported('dof frictionloss rows')
         jnt_qposadr.append(nq)
         jnt_dofadr.append(nv)
         nq += _QPOS_WIDTH[j['type']]
@@ -470,10 +484,25 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
             body_inertia[i] = body_io[i] - bmass[i] * (cx @ cx.T)
     body_fluid_box, body_principal_mat = _fluid_boxes(bmass, body_inertia)
 
-    # fixed tendons: one moment row (d length / d qvel) each
-    tendon_names, tendons = {}, []
+    # fixed tendons: one moment row (d length / d qvel) each; spatial
+    # ones between two sites: (site1, site2, limited, lo, hi), their
+    # invweight0 appended by _with_invweight0
+    tendon_names, tendons, spatial = {}, [], []
     tendon_el = root.find('tendon')
     for tel in (tendon_el if tendon_el is not None else ()):
+        if tel.tag == 'spatial':
+            attrs = defaults.resolve('spatial', tel.attrib,
+                                     tel.attrib.get('class'))
+            ends = [site_names[x.get('site')] for x in tel.findall('site')]
+            if len(ends) != 2 or len(ends) != len(tel):
+                raise _unsupported('a spatial tendon with via points '
+                                   'or wrapping')
+            rng = (_floats(attrs['range']) if 'range' in attrs
+                   else np.zeros(2))
+            spatial.append((ends[0], ends[1],
+                            attrs.get('limited', 'false') in ('true', '1'),
+                            float(rng[0]), float(rng[1])))
+            continue
         if tel.tag != 'fixed':
             raise _unsupported(f'<tendon><{tel.tag}>')
         attrs = defaults.resolve('fixed', tel.attrib, tel.attrib.get('class'))
@@ -531,7 +560,8 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
                      viscosity=arr(viscosity, ()), density=arr(density, ()),
                      wind=arr(wind, (3,)), integrator=integrator,
                      disableflags=disableflags,
-                     solver_iterations=solver_iterations),
+                     solver_iterations=solver_iterations, cone=cone,
+                     impratio=impratio),
         nq=nq, nv=nv, nu=nu, nbody=nbody, njnt=njnt, ngeom=ng, nsite=ns,
         ntendon=ntendon,
         body_parent=tuple(body_parent),
@@ -596,7 +626,8 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
         tendon_moment=arr([t['row'] for t in tendons], (ntendon, nv)),
         tendon_stiffness=arr([t['stiffness'] for t in tendons], (ntendon,)),
         tendon_damping=arr([t['damping'] for t in tendons], (ntendon,)),
-        tendon_jnt=tuple(t['jnt'] for t in tendons))
+        tendon_jnt=tuple(t['jnt'] for t in tendons),
+        spatial_tendons=tuple(spatial))
     return _with_invweight0(model)
 
 
@@ -608,7 +639,7 @@ def _with_invweight0(model: M.Model) -> M.Model:
 
     meta = smooth.tree_meta(model)
     q0 = model.qpos0[None]
-    xpos, xquat, _, _, _, _, xanchor, xaxis = smooth.kinematics(
+    xpos, xquat, _, _, _, site_xpos, xanchor, xaxis = smooth.kinematics(
         model, q0, meta)
     xipos = smooth.com_positions(model, xpos, xquat)
     cdof = smooth.motion_subspace(model, xquat, xanchor, xaxis, meta)
@@ -663,8 +694,22 @@ def _with_invweight0(model: M.Model) -> M.Model:
         body_iw[bb] = (iw_t, np.trace(Jr.T @ Minv @ Jr) / 3.0)
     ten_moment = model.tendon_moment.double().numpy()
     ten_iw = np.array([r @ Minv @ r for r in ten_moment])
+    # a spatial tendon's limit row weighs r M^-1 r with r = dL/dq at
+    # qpos0, as the JAX compiler appends it
+    sxp = site_xpos[0].double().numpy()
+    spatial = []
+    for s1, s2, limited, lo, hi in model.spatial_tendons:
+        diff = sxp[s1] - sxp[s2]
+        u = diff / max(np.linalg.norm(diff), 1e-9)
+        r = np.zeros(model.nv)
+        for site, sgn in ((s1, 1.0), (s2, -1.0)):
+            Jt = (cdof_np[:, 3:] + np.cross(cdof_np[:, :3], sxp[site])) \
+                * amask[model.site_body[site]][:, None]
+            r += sgn * (Jt @ u)
+        spatial.append((s1, s2, limited, lo, hi, float(r @ Minv @ r)))
     dt = model.dtype
     return model.replace(dof_invweight0=torch.as_tensor(dof_iw, dtype=dt),
                          body_invweight0=torch.as_tensor(body_iw, dtype=dt),
                          tendon_invweight0=torch.as_tensor(
-                             ten_iw.reshape(model.ntendon), dtype=dt))
+                             ten_iw.reshape(model.ntendon), dtype=dt),
+                         spatial_tendons=tuple(spatial))

@@ -156,6 +156,10 @@ class Model:
     tendon_damping: Optional[torch.Tensor] = None    # (ntendon,)
     # static (joint, coef) pairs per fixed tendon, for its length
     tendon_jnt: Tuple[Tuple[Tuple[int, float], ...], ...] = ()
+    # spatial tendons (site-to-site strings): (site1, site2, limited,
+    # range_lo, range_hi, invweight0), the last at qpos0; they give
+    # length-limit rows only
+    spatial_tendons: Tuple[Tuple, ...] = ()
     # mj_setConst reference weights (constraint regularizers)
     dof_invweight0: Optional[torch.Tensor] = None   # (nv,)
     body_invweight0: Optional[torch.Tensor] = None  # (nbody, 2)
@@ -181,15 +185,15 @@ class Model:
 
 # Fields a task may set per env (JAX ``Task.apply_params`` under ``vmap``);
 # none of them is read by anything ``cached`` derives.
-ENV_FIELDS = ('geom_pos', 'tendon_moment')
+ENV_FIELDS = ('geom_pos', 'site_pos', 'tendon_moment')
 
 
 def with_env_fields(m: Model, **fields: torch.Tensor) -> Model:
     """`m` with per-env values of some fields, each with the env batch as
-    its leading dimension (geom_pos (B, ngeom, 3), tendon_moment (B,
-    ntendon, nv)); the functions that read them broadcast over it. The
-    result shares `m`'s ``cached`` memo: one model per batch, not one per
-    env."""
+    its leading dimension (geom_pos (B, ngeom, 3), site_pos (B, nsite, 3),
+    tendon_moment (B, ntendon, nv)); the functions that read them
+    broadcast over it. The result shares `m`'s ``cached`` memo: one
+    model per batch, not one per env."""
     bad = set(fields) - set(ENV_FIELDS)
     if bad:
         raise ValueError(f'no per-env override for {sorted(bad)}')

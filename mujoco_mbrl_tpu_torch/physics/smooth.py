@@ -8,8 +8,8 @@ model's tree, as in the JAX package. Fixed tendons (their passive force
 and tendon-driven motors), site positions and the inertia-box fluid
 force are ported; ball joints and activation and bias actuators raise
 ``NotImplementedError``. A model
-from ``model.with_env_fields`` carries per-env ``geom_pos`` and
-``tendon_moment`` with the env batch leading; ``kinematics`` and
+from ``model.with_env_fields`` carries per-env ``geom_pos``, ``site_pos``
+and ``tendon_moment`` with the env batch leading; ``kinematics`` and
 ``actuation`` broadcast over it.
 """
 

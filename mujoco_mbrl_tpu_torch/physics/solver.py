@@ -1,17 +1,19 @@
 """Soft-constraint assembly and the APGD dual solve (batched over envs).
 
-Port of mujoco_mbrl_tpu/physics/solver.py for joint limits and pyramidal
-frictional contacts of condim 1 (one non-negative row a point, the
-humanoid's geom-geom pairs) or 3 (four facet rows), in JAX's row order:
-limits, then the contacts grouped by condim. Each row has
+Port of mujoco_mbrl_tpu/physics/solver.py for dof friction loss (a box
+row a dof), spatial-tendon length limits, joint limits and frictional
+contacts, pyramidal of condim 1 (one non-negative row a point, the
+humanoid's geom-geom pairs) or 3 (four facet rows, grouped by condim) or
+elliptic (a normal and two tangent rows a point, finger), in JAX's row
+order: friction loss, tendon limits, joint limits, contacts. Each row has
 impedance d(pos) from solimp, reference acceleration aref = -b*vel - k*pos
 from solref, and regularizer R = (1-d)/d * invweight0; the dual
 min 1/2 f'(A+R)f - f'rhs is solved by ``solve_apgd`` through the batched
 iterate of ``ops.apgd_solve`` (CUDA kernel on the card, plain PyTorch on
-the CPU): the dense iterate up to 96 rows (walker: 62), the factored one
-past it (cheetah: 146; humanoid: 303), as the JAX solver selects them.
-The PGS ``solve``, dof friction loss, tendon rows and elliptic cones
-raise ``NotImplementedError``.
+the CPU): the dense iterate up to 96 rows (walker: 62; finger: 39), the
+factored one past it (cheetah: 146; humanoid: 303), as the JAX solver
+selects them. The PGS ``solve``, tendon-equality rows, condim above 3 and
+box rows in the factored regime raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -58,10 +60,13 @@ def kbi(solref, solimp, pos, timestep):
 class ConstraintSet:
     """Assembled rows, batched: J (B, nr, nv), aref/R/active (B, nr).
 
-    ``blocks`` (static) lists (kind, row); ``mu`` (n_pyramids,) holds each
-    contact's slide friction; ``pyramids`` (contact, first_row, n_dirs)."""
+    ``blocks`` (static) lists (kind, row); ``mu`` holds each pyramid's
+    (or, elliptic, each contact's) slide friction; ``friction_bounds``
+    each 'friction' row's box bound; ``pyramids`` (contact, first_row,
+    n_dirs)."""
 
-    def __init__(self, J, aref, R, active, blocks, mu, pyramids=()):
+    def __init__(self, J, aref, R, active, blocks, mu, pyramids=(),
+                 friction_bounds=None):
         self.J = J
         self.aref = aref
         self.R = R
@@ -69,6 +74,7 @@ class ConstraintSet:
         self.blocks = blocks
         self.mu = mu
         self.pyramids = pyramids
+        self.friction_bounds = friction_bounds
 
 
 def _limited_joints(m: M.Model) -> Tuple[int, ...]:
@@ -96,13 +102,28 @@ def _pair_condim(m: M.Model, g1: int, g2: int) -> int:
     return max(m.geom_condim[g1], m.geom_condim[g2])
 
 
+def _default_kbi(m: M.Model, pos):
+    """kbi at MuJoCo's default solref [.02, 1] and solimp [.9, .95, .001,
+    .5, 2], the parameters of friction-loss and tendon-limit rows."""
+    like = dict(dtype=pos.dtype, device=pos.device)
+    return kbi(torch.tensor([0.02, 1.0], **like),
+               torch.tensor([0.9, 0.95, 0.001, 0.5, 2.0], **like), pos,
+               m.opt.timestep)
+
+
+def _site_jacobian(cdof, body: int, point, amask):
+    """(B, nv, 3) translational Jacobian of `point` (B, 3) on `body`."""
+    Jt = cdof[..., 3:] + torch.linalg.cross(
+        cdof[..., :3], point[:, None].expand_as(cdof[..., 3:]))
+    return Jt * amask[body][:, None]
+
+
 def assemble(m: M.Model, meta, qpos, qvel, cdof,
-             contact: Optional[Contact]) -> Optional[ConstraintSet]:
-    """Limit rows then pyramidal contact rows, in the JAX row order."""
-    if m.opt.cone != 'pyramidal':
-        raise NotImplementedError(
-            'elliptic cones are not ported '
-            '(mujoco_mbrl_tpu.physics.solver.assemble)')
+             contact: Optional[Contact],
+             site_xpos: Optional[torch.Tensor] = None
+             ) -> Optional[ConstraintSet]:
+    """Friction-loss, tendon-limit, joint-limit and contact rows, in the
+    JAX row order."""
     B, nv, dt, dev = qpos.shape[0], m.nv, qpos.dtype, qpos.device
     h = m.opt.timestep
     rows_J: List[torch.Tensor] = []
@@ -111,6 +132,46 @@ def assemble(m: M.Model, meta, qpos, qvel, cdof,
     nrows = 0
     dof_iw = m.dof_invweight0
     body_iw = m.body_invweight0[:, 0]
+    amask_t = lambda: M.cached(m, 'ancestor_mask', lambda: torch.as_tensor(
+        ancestor_dof_mask(m, meta), dtype=dt, device=dev))
+
+    # ---- dof friction loss: a box row a dof (finger's spinner) ----------
+    fl = M.cached(m, 'frictionloss_dofs', lambda: tuple(
+        int(k) for k in np.nonzero(m.dof_frictionloss.cpu().numpy())[0]))
+    friction_bounds = None
+    if fl:
+        _, bb, dd = _default_kbi(m, torch.zeros((), dtype=dt, device=dev))
+        blocks += [('friction', nrows + i) for i in range(len(fl))]
+        nrows += len(fl)
+        rows_J.append(M.cached(m, 'frictionloss_rows', lambda: torch.eye(
+            nv, dtype=dt, device=dev)[list(fl)]).expand(B, len(fl), nv))
+        rows_aref.append(-bb * qvel[:, list(fl)])
+        rows_R.append(((1.0 - dd) / dd * dof_iw[list(fl)]).expand(
+            B, len(fl)))
+        rows_active.append(torch.ones((B, len(fl)), dtype=dt, device=dev))
+        friction_bounds = m.dof_frictionloss[list(fl)]
+
+    # ---- spatial-tendon length limits (ball_in_cup's string) ------------
+    for s1, s2, limited, lo, hi, iw in m.spatial_tendons:
+        if not limited or site_xpos is None:
+            continue
+        p1, p2 = site_xpos[:, s1], site_xpos[:, s2]
+        diff = p1 - p2
+        length = torch.linalg.vector_norm(diff, dim=-1)
+        u = diff / torch.clamp(length, min=1e-9)[:, None]
+        J1 = _site_jacobian(cdof, m.site_body[s1], p1, amask_t())
+        J2 = _site_jacobian(cdof, m.site_body[s2], p2, amask_t())
+        # J = -dL/dq: a positive force shortens the tendon
+        Jrow = -torch.einsum('bj,bvj->bv', u, J1 - J2)
+        pos = hi - length              # negative when over-stretched
+        posc = torch.clamp(pos, max=0.0)
+        kk, bb, dd = _default_kbi(m, posc)
+        blocks.append(('limit', nrows))
+        nrows += 1
+        rows_J.append(Jrow[:, None])
+        rows_aref.append((-bb * (Jrow * qvel).sum(1) - kk * posc)[:, None])
+        rows_R.append(((1.0 - dd) / dd * iw)[:, None])
+        rows_active.append((pos < 0.0).to(dt)[:, None])
 
     # ---- joint limits (batched over all limited joints) -----------------
     lim = _limited_joints(m)
@@ -135,15 +196,15 @@ def assemble(m: M.Model, meta, qpos, qvel, cdof,
         rows_R.append((1.0 - d) / d * dof_iw[dadr])
         rows_active.append((pos < 0.0).to(dt))
 
-    # ---- contacts (pyramidal facets, batched over contact points) -------
+    # ---- contacts (elliptic triples or pyramidal facets, batched over
+    # contact points) -----------------------------------------------------
     if contact is not None and len(contact.geom1):
         C = len(contact.geom1)
         body1 = [m.geom_body[g] for g in contact.geom1]
         body2 = [m.geom_body[g] for g in contact.geom2]
 
         def build_dmask():
-            amask = torch.as_tensor(ancestor_dof_mask(m, meta), dtype=dt,
-                                    device=dev)
+            amask = amask_t()
             return (amask[body2] - amask[body1])[:, :, None]   # (C, nv, 1)
 
         dmask = M.cached(m, ('contact_dmask', contact.geom1, contact.geom2),
@@ -166,46 +227,69 @@ def assemble(m: M.Model, meta, qpos, qvel, cdof,
                 '(mujoco_mbrl_tpu.physics.solver.assemble)')
         iw_pair = body_iw[body1] + body_iw[body2]          # (C,)
         mu1 = contact.friction[:, 0]
-        R_con = (1.0 - d) / d * iw_pair * 2.0 * mu1 * mu1 * (1.0 + mu1 * mu1)
-        for grp_dim in sorted(set(cdim.tolist())):
-            idx = np.nonzero(cdim == grp_dim)[0]
-            G = len(idx)
-            Jn = Jc[:, idx, 0]                             # (B, G, nv)
-            aref_n = -b[:, idx] * vel[:, idx, 0] - k[:, idx] * pos[:, idx]
-            if grp_dim == 1:
+        if m.opt.cone == 'elliptic':
+            # a (normal, t1, t2) triple a contact, in contact order; the
+            # tangents' regulariser is the normal's over impratio
+            blocks += [('contact', nrows + 3 * c) for c in range(C)]
+            mus.append(mu1 * torch.as_tensor(cdim >= 3, dtype=dt,
+                                             device=dev))
+            aref_con = torch.stack([-b * vel[..., 0] - k * pos,
+                                    -b * vel[..., 1], -b * vel[..., 2]], -1)
+            R_n = (1.0 - d) / d * iw_pair
+            R_t = R_n / m.opt.impratio
+            rows_J.append(Jc.reshape(B, 3 * C, nv))
+            rows_aref.append(aref_con.reshape(B, 3 * C))
+            rows_R.append(torch.stack([R_n, R_t, R_t], -1).reshape(B, 3 * C))
+            rows_active.append(active.repeat_interleave(3, dim=1))
+            nrows += 3 * C
+        else:
+            R_con = ((1.0 - d) / d * iw_pair * 2.0 * mu1 * mu1
+                     * (1.0 + mu1 * mu1))
+            for grp_dim in sorted(set(cdim.tolist())):
+                idx = np.nonzero(cdim == grp_dim)[0]
+                G = len(idx)
+                Jn = Jc[:, idx, 0]                         # (B, G, nv)
+                aref_n = (-b[:, idx] * vel[:, idx, 0]
+                          - k[:, idx] * pos[:, idx])
+                if grp_dim == 1:
+                    for gi, c in enumerate(idx):
+                        blocks.append(('limit', nrows + gi))
+                        pyramids.append((int(c), nrows + gi, 0))
+                    rows_J.append(Jn)
+                    rows_aref.append(aref_n)
+                    rows_R.append((1.0 - d[:, idx]) / d[:, idx]
+                                  * iw_pair[idx])
+                    rows_active.append(active[:, idx])
+                    mus.append(mu1[idx] * 0)
+                    nrows += G
+                    continue
+                facet_J, facet_aref = [], []
+                for t in (1, 2):        # (d0+, d0-, d1+, d1-) per contact
+                    Jd, mu_d = Jc[:, idx, t], mu1[idx]
+                    vd = vel[:, idx, t]
+                    facet_J += [Jn + mu_d[:, None] * Jd,
+                                Jn - mu_d[:, None] * Jd]
+                    facet_aref += [aref_n - b[:, idx] * mu_d * vd,
+                                   aref_n + b[:, idx] * mu_d * vd]
                 for gi, c in enumerate(idx):
-                    blocks.append(('limit', nrows + gi))
-                    pyramids.append((int(c), nrows + gi, 0))
-                rows_J.append(Jn)
-                rows_aref.append(aref_n)
-                rows_R.append((1.0 - d[:, idx]) / d[:, idx] * iw_pair[idx])
-                rows_active.append(active[:, idx])
-                mus.append(mu1[idx] * 0)
-                nrows += G
-                continue
-            facet_J, facet_aref = [], []
-            for t in (1, 2):            # (d0+, d0-, d1+, d1-) per contact
-                Jd, mu_d = Jc[:, idx, t], mu1[idx]
-                vd = vel[:, idx, t]
-                facet_J += [Jn + mu_d[:, None] * Jd, Jn - mu_d[:, None] * Jd]
-                facet_aref += [aref_n - b[:, idx] * mu_d * vd,
-                               aref_n + b[:, idx] * mu_d * vd]
-            for gi, c in enumerate(idx):
-                pyramids.append((int(c), nrows + 4 * gi, 2))
-                blocks += [('facet', nrows + 4 * gi + r_) for r_ in range(4)]
-            rows_J.append(torch.stack(facet_J, 2).reshape(B, 4 * G, nv))
-            rows_aref.append(torch.stack(facet_aref, 2).reshape(B, 4 * G))
-            rows_R.append(R_con[:, idx].repeat_interleave(4, dim=1))
-            rows_active.append(active[:, idx].repeat_interleave(4, dim=1))
-            mus.append(mu1[idx])
-            nrows += 4 * G
+                    pyramids.append((int(c), nrows + 4 * gi, 2))
+                    blocks += [('facet', nrows + 4 * gi + r_)
+                               for r_ in range(4)]
+                rows_J.append(torch.stack(facet_J, 2).reshape(B, 4 * G, nv))
+                rows_aref.append(
+                    torch.stack(facet_aref, 2).reshape(B, 4 * G))
+                rows_R.append(R_con[:, idx].repeat_interleave(4, dim=1))
+                rows_active.append(
+                    active[:, idx].repeat_interleave(4, dim=1))
+                mus.append(mu1[idx])
+                nrows += 4 * G
 
     if not rows_J:
         return None
     mu = torch.cat(mus) if mus else torch.zeros((0,), dtype=dt, device=dev)
     return ConstraintSet(torch.cat(rows_J, 1), torch.cat(rows_aref, 1),
                          torch.cat(rows_R, 1), torch.cat(rows_active, 1),
-                         blocks, mu, tuple(pyramids))
+                         blocks, mu, tuple(pyramids), friction_bounds)
 
 
 def _row_structure(cs: ConstraintSet):
@@ -265,14 +349,22 @@ def solve_apgd(m: M.Model, cs: Optional[ConstraintSet], qM_chol,
     rhs = (cs.aref - (cs.J @ qacc_smooth[..., None])[..., 0]) * cs.active
 
     nonneg, box_rows, con0 = _row_structure(cs)
-    if len(box_rows) or len(con0):
+    if use_factored and len(box_rows):
         raise NotImplementedError(
-            'friction-loss and elliptic-cone rows are not ported '
-            '(mujoco_mbrl_tpu.physics.solver.solve_apgd)')
-    # Jacobi preconditioning; rows with a vanishing diagonal are dropped
-    degenerate = d_all0 < 1e-9 * d_all0.max(dim=1, keepdim=True).values
+            'friction-loss rows in the factored regime: the factored '
+            'kernel takes no per-env box bounds (ROADMAP Queue 1; '
+            'mujoco_mbrl_tpu.physics.solver.solve_apgd)')
+    # Jacobi preconditioning; a cone's tangents take their normal row's
+    # scale, so the cone projection stays exact in the scaled variables;
+    # rows with a vanishing diagonal are dropped
+    d_all = d_all0
+    if len(con0):
+        d_all = d_all0.clone()
+        d_all[:, con0 + 1] = d_all0[:, con0]
+        d_all[:, con0 + 2] = d_all0[:, con0]
+    degenerate = d_all < 1e-9 * d_all.max(dim=1, keepdim=True).values
     s_inv = torch.where(degenerate, 0.0, 1.0 / torch.sqrt(
-        torch.where(degenerate, 1.0, d_all0)))
+        torch.where(degenerate, 1.0, d_all)))
     act_m = cs.active
     sa = s_inv * act_m
     if not use_factored:
@@ -283,6 +375,18 @@ def solve_apgd(m: M.Model, cs: Optional[ConstraintSet], qM_chol,
 
     dt, dev = qacc_smooth.dtype, qacc_smooth.device
     zeros_nr = torch.zeros((nr,), dtype=dt, device=dev)
+    # the cone rows' friction (nr,), and the box rows' bounds over their
+    # per-env scale (B, nr): the bounds are batched, as under JAX's vmap
+    mu_full = zeros_nr
+    if len(con0):
+        mu_full = zeros_nr.clone()
+        mu_full[con0] = cs.mu.to(dt)
+    bounds_full = zeros_nr
+    if len(box_rows):
+        s_box = s_inv[:, box_rows]
+        bounds_full = torch.zeros_like(rhs)
+        bounds_full[:, box_rows] = cs.friction_bounds.to(dt) / torch.where(
+            s_box > 0, s_box, 1.0)
     if f0 is None:
         f0s = torch.zeros_like(rhs)
     else:
@@ -290,7 +394,9 @@ def solve_apgd(m: M.Model, cs: Optional[ConstraintSet], qM_chol,
                           torch.where(s_inv > 0, s_inv, 1.0), 0.0)
     cold = power_v0 is None
     v0 = torch.zeros_like(rhs) if cold else power_v0
-    rows = dict(nonneg=tuple(int(i) for i in nonneg), box_rows=(), con0=(),
+    rows = dict(nonneg=tuple(int(i) for i in nonneg),
+                box_rows=tuple(int(i) for i in box_rows),
+                con0=tuple(int(i) for i in con0),
                 iterations=int(iterations), cold=cold)
     if use_factored:
         # Ad = J~ M^-1 J~' + diag(Rs), the row scale and active mask folded
@@ -302,13 +408,13 @@ def solve_apgd(m: M.Model, cs: Optional[ConstraintSet], qM_chol,
         Rs = s_inv * s_inv * cs.R * act_m
         diag_s = s_inv * s_inv * d_all0 * act_m
         f, v = _ker.apgd_iterate_factored(
-            J_s, Minv, Rs, diag_s, rhs, f0s, v0, act_m, zeros_nr, zeros_nr,
+            J_s, Minv, Rs, diag_s, rhs, f0s, v0, act_m, mu_full, zeros_nr,
             **rows)
         Adf = (J_s @ (Minv @ (J_s.transpose(1, 2) @ f[..., None])))[
             ..., 0] + Rs * f
     else:
         f, v = _ker.apgd_iterate_batched(
-            Ad, rhs, f0s, v0, act_m, zeros_nr, zeros_nr, eq_rows=eq_rows,
+            Ad, rhs, f0s, v0, act_m, mu_full, bounds_full, eq_rows=eq_rows,
             **rows)
         Adf = (Ad @ f[..., None])[..., 0]
     # divergence certificate: phi(f) = 1/2 f'Ad f - f'rhs <= phi(0) = 0
@@ -325,10 +431,17 @@ _PYRAMID_INDEX = {}
 
 def contact_forces(cs: Optional[ConstraintSet], f: Optional[torch.Tensor],
                    n_contacts: int, B: int, dtype, device) -> torch.Tensor:
-    """Per-contact (normal, t1, t2) forces (B, C, 3) from pyramid facets:
+    """Per-contact (normal, t1, t2) forces (B, C, 3): elliptic rows carry
+    them directly; pyramidal contacts rebuild them from their facets,
     fn = sum(facets), ft_i = mu * (f_i+ - f_i-)."""
     out = torch.zeros((B, n_contacts, 3), dtype=dtype, device=device)
-    if cs is None or f is None or not cs.pyramids:
+    if cs is None or f is None:
+        return out
+    i0 = [i for kind, i in cs.blocks if kind == 'contact']
+    if i0:
+        # the elliptic triples, one a contact in contact order
+        return f[:, i0[0]:i0[0] + 3 * len(i0)].reshape(B, len(i0), 3)
+    if not cs.pyramids:
         return out
     key = (cs.pyramids, str(device))
     if key not in _PYRAMID_INDEX:

@@ -1,27 +1,58 @@
 """Control-suite port: the walker, cheetah, hopper, reacher, point_mass,
-pendulum, cartpole, acrobot, swimmer and humanoid domains and the
-environment core.
+pendulum, cartpole, acrobot, swimmer, humanoid, finger, ball_in_cup and
+lqr domains and the environment core.
 
 Each domain module registers its tasks in its own ``SUITE``
 (``registry.TaggedTasks``), as in mujoco_mbrl_tpu/suite/__init__.py;
-``load`` looks the task up there.
+``load`` looks the task up there. ``all_tasks`` and ``benchmarking`` list
+the ported domains' tasks in the JAX package's domain order; a domain not
+ported is skipped, as the JAX loader skips one that fails to import.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 from ..device import resolve_device
-from . import (acrobot, cartpole, cheetah, control, hopper, humanoid,
-               pendulum, point_mass, reacher, registry, swimmer, walker)
+from . import (acrobot, ball_in_cup, cartpole, cheetah, control, finger,
+               hopper, humanoid, lqr, pendulum, point_mass, reacher,
+               registry, swimmer, walker)
 from .control import EnvState, Environment, TimeStep, flatten_observation
 
-_DOMAINS = {'acrobot': acrobot, 'cartpole': cartpole, 'cheetah': cheetah,
-            'hopper': hopper, 'humanoid': humanoid, 'pendulum': pendulum,
-            'point_mass': point_mass, 'reacher': reacher,
-            'swimmer': swimmer, 'walker': walker}
+# the JAX package's domain order (mujoco_mbrl_tpu/suite/__init__.py)
+_JAX_DOMAINS = ('acrobot', 'ball_in_cup', 'cartpole', 'cheetah', 'finger',
+                'fish', 'hopper', 'humanoid', 'humanoid_cmu', 'lqr',
+                'manipulator', 'pendulum', 'point_mass', 'quadruped',
+                'reacher', 'stacker', 'swimmer', 'walker')
+_DOMAINS = {'acrobot': acrobot, 'ball_in_cup': ball_in_cup,
+            'cartpole': cartpole, 'cheetah': cheetah, 'finger': finger,
+            'hopper': hopper, 'humanoid': humanoid, 'lqr': lqr,
+            'pendulum': pendulum, 'point_mass': point_mass,
+            'reacher': reacher, 'swimmer': swimmer, 'walker': walker}
 
 
-def load(domain: str, task: str, device=None, **kwargs) -> Environment:
-    """Environment for domain/task on `device` (default ``cuda``)."""
+def _get_tasks(tag: Optional[str]):
+    return tuple((d, t) for d in _JAX_DOMAINS if d in _DOMAINS
+                 for t in (_DOMAINS[d].SUITE if tag is None
+                           else _DOMAINS[d].SUITE.tagged(tag)))
+
+
+def all_tasks():
+    """(domain, task) of every ported task."""
+    return _get_tasks(None)
+
+
+def benchmarking():
+    """(domain, task) of every ported task tagged 'benchmarking'."""
+    return _get_tasks('benchmarking')
+
+
+def load(domain: str, task: str, task_kwargs: Optional[dict] = None,
+         environment_kwargs: Optional[dict] = None,
+         device=None) -> Environment:
+    """Environment for domain/task on `device` (default ``cuda``);
+    ``task_kwargs`` go to the task's factory (``time_limit``, lqr's
+    ``seed``), ``environment_kwargs`` to the Environment."""
     if domain not in _DOMAINS:
         raise NotImplementedError(
             f'domain {domain!r} is not ported (mujoco_mbrl_tpu.suite.load)')
@@ -29,10 +60,14 @@ def load(domain: str, task: str, device=None, **kwargs) -> Environment:
     if task not in suite:
         raise ValueError(
             f'Level {task!r} does not exist in domain {domain!r}.')
+    kwargs = dict(task_kwargs or {})
+    if environment_kwargs is not None:
+        kwargs['environment_kwargs'] = environment_kwargs
     return suite[task](device=resolve_device(device), **kwargs)
 
 
-__all__ = ['EnvState', 'Environment', 'TimeStep', 'acrobot', 'cartpole',
-           'cheetah', 'control', 'flatten_observation', 'hopper', 'humanoid',
-           'load', 'pendulum', 'point_mass', 'reacher', 'registry', 'swimmer',
+__all__ = ['EnvState', 'Environment', 'TimeStep', 'acrobot', 'all_tasks',
+           'ball_in_cup', 'benchmarking', 'cartpole', 'cheetah', 'control',
+           'finger', 'flatten_observation', 'hopper', 'humanoid', 'load',
+           'lqr', 'pendulum', 'point_mass', 'reacher', 'registry', 'swimmer',
            'walker']

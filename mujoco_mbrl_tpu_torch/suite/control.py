@@ -1,14 +1,15 @@
 """RL environment core over a batch of envs (dm_env TimeStep protocol).
 
 Port of mujoco_mbrl_tpu/suite/control.py: ``Environment.reset``,
-``_observe``, ``step``, ``step_with_data`` and ``observation_spec``, plus
-``flatten_observation`` and ``action_spec``. The JAX environment is one env under ``vmap``; here
-every method takes and returns the env batch as the leading dimension.
-A task's per-episode params (reacher's target, point_mass:hard's tendon
-directions) reach the physics through ``_model_with``, which applies the
-task's ``apply_params`` to the shared model as per-env fields
-(``physics.model.with_env_fields``). Auto-reset and reset retries are not
-ported.
+``_observe``, ``step`` and ``step_with_data`` (with a task's early
+termination), ``autoreset_step`` and ``observation_spec``, plus
+``flatten_observation`` and ``action_spec``. The JAX environment is one
+env under ``vmap``; here every method takes and returns the env batch as
+the leading dimension. A task's per-episode params (reacher's target,
+point_mass:hard's tendon directions, finger:turn's target site) reach the
+physics through ``_model_with``, which applies the task's
+``apply_params`` to the shared model as per-env fields
+(``physics.model.with_env_fields``). Reset retries are not ported.
 """
 
 from __future__ import annotations
@@ -75,6 +76,22 @@ def flatten_observation(obs: Dict[str, torch.Tensor]) -> torch.Tensor:
     return torch.cat(parts, dim=1)
 
 
+def _select(mask: torch.Tensor, a, b):
+    """`a` where the env's `mask` (B,) is set, else `b`, leaf by leaf over
+    dataclasses, dicts, tuples and tensors (JAX's tree_map of where)."""
+    if isinstance(a, torch.Tensor):
+        return torch.where(mask.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+    if dataclasses.is_dataclass(a):
+        return dataclasses.replace(a, **{
+            f.name: _select(mask, getattr(a, f.name), getattr(b, f.name))
+            for f in dataclasses.fields(a)})
+    if isinstance(a, dict):
+        return {k: _select(mask, a[k], b[k]) for k in a}
+    if isinstance(a, (tuple, list)):
+        return type(a)(_select(mask, x, y) for x, y in zip(a, b))
+    return a                        # static: the same in both
+
+
 def _pytree_order(obs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Observation keys in sorted order: a JAX caller receives the TimeStep
     from a jitted reset/step, and JAX pytrees sort dict keys, so that is
@@ -101,6 +118,10 @@ class Environment:
     @property
     def model(self) -> M.Model:
         return self._model
+
+    @property
+    def task(self):
+        return self._task
 
     def action_spec(self) -> BoundedArraySpec:
         return action_spec(self._model)
@@ -169,13 +190,31 @@ class Environment:
         is_last = step_count >= self._max_steps
         discount = torch.ones_like(phys.time)
         if hasattr(self._task, 'get_termination'):
-            raise NotImplementedError(
-                'early termination is not ported '
-                '(mujoco_mbrl_tpu.suite.control.Environment.step_with_data)')
+            # early termination ends the episode with the task's discount
+            terminated, term_discount = self._task.get_termination(
+                m, phys, data)
+            is_last = is_last | terminated
+            discount = torch.where(terminated, term_discount.to(
+                discount.dtype), discount)
         step_type = torch.where(is_last, LAST, MID).to(torch.int32)
         new_state = EnvState(physics=phys, params=state.params,
                              step_count=step_count, last=is_last)
         return new_state, TimeStep(step_type=step_type,
                                    reward=reward.to(phys.qpos.dtype),
                                    discount=discount, observation=obs), data
+
+    def autoreset_step(self, state: EnvState, action: torch.Tensor,
+                       generator: torch.Generator
+                       ) -> Tuple[EnvState, TimeStep]:
+        """`step` that restarts an env after its LAST step (time limit or
+        early termination) or once its physics diverged: that env's new
+        episode starts from a reset drawn from `generator` and returns
+        FIRST. Both branches run for every env and ``torch.where`` picks
+        (JAX control.py autoreset_step)."""
+        stepped_state, stepped_ts = self.step(state, action)
+        reset_state, reset_ts = self.reset(state.physics.qpos.shape[0],
+                                           generator)
+        was_last = state.last | engine.diverged(state.physics)
+        return (_select(was_last, reset_state, stepped_state),
+                _select(was_last, reset_ts, stepped_ts))
 

@@ -13,9 +13,9 @@ from __future__ import annotations
 
 import torch
 
-from ..physics import collision, make_state, mjcf, smooth
-from ..physics import model as M
+from ..physics import make_state, mjcf
 from . import base, control, randomizers, rewards, sensors
+from .randomizers import first_collision_free
 from .registry import TaggedTasks
 
 SUITE = TaggedTasks()
@@ -170,23 +170,6 @@ _XML = """
   </actuator>
 </mujoco>
 """
-
-
-def first_collision_free(model: M.Model, qposes: torch.Tensor
-                         ) -> torch.Tensor:
-    """qpos (B, nq) from attempts qposes (A, B, nq): each env takes its
-    first attempt with no penetrating contact, else attempt 0 (JAX
-    humanoid.py:185-205). One kinematics and one detect cover all A x B
-    configurations."""
-    A, B, nq = qposes.shape
-    pairs = M.cached(model, 'reset_pairs',
-                     lambda: collision.candidate_pairs(model))
-    kin = smooth.kinematics(model, qposes.reshape(A * B, nq),
-                            smooth.tree_meta(model))
-    dist = collision.detect(model, kin[3], kin[4], pairs).dist
-    ok = ~(dist < 0).any(-1).reshape(A, B)
-    idx = torch.where(ok.any(0), ok.to(torch.int8).argmax(0), 0)
-    return qposes[idx, torch.arange(B, device=qposes.device)]
 
 
 class Humanoid(base.Task):

@@ -5,6 +5,8 @@ joints: limited joints ~ Uniform(range), unlimited hinges ~ Uniform(-pi,
 pi), unlimited slides untouched, an unlimited free joint's quaternion
 uniform on S^3 (a normalized 4-d normal draw; its position untouched).
 The draws differ from ``jax.random``'s; the distribution is the same.
+``first_collision_free`` is the lockstep rejection rule of the humanoid,
+finger and ball_in_cup resets.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..physics import collision, smooth
 from ..physics import model as M
 
 
@@ -46,3 +49,20 @@ def randomize_limited_and_rotational_joints(
                        device=generator.device)
         out[:, adr] = (lo + (hi - lo) * u).to(qpos.device)
     return out
+
+
+def first_collision_free(model: M.Model, qposes: torch.Tensor
+                         ) -> torch.Tensor:
+    """qpos (B, nq) from attempts qposes (A, B, nq): each env takes its
+    first attempt with no penetrating contact, else attempt 0 (JAX
+    humanoid.py:185-205, finger.py:77-94, ball_in_cup.py:77-96). One
+    kinematics and one detect cover all A x B configurations."""
+    A, B, nq = qposes.shape
+    pairs = M.cached(model, 'reset_pairs',
+                     lambda: collision.candidate_pairs(model))
+    kin = smooth.kinematics(model, qposes.reshape(A * B, nq),
+                            smooth.tree_meta(model))
+    dist = collision.detect(model, kin[3], kin[4], pairs).dist
+    ok = ~(dist < 0).any(-1).reshape(A, B)
+    idx = torch.where(ok.any(0), ok.to(torch.int8).argmax(0), 0)
+    return qposes[idx, torch.arange(B, device=qposes.device)]

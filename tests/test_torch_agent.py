@@ -233,5 +233,9 @@ def test_unported_choices_raise(tmp_path, wrapper):
         envs.load('finger', 'spin', device='cpu')
     with pytest.raises(NotImplementedError, match='MLPDynamics base'):
         models.EnsembleDynamics(models.LinearDynamics(20, 6), 5)
-    with pytest.raises(NotImplementedError, match='task kwargs'):
-        envs.load('walker', 'walk', device='cpu', time_limit=5)
+    # task kwargs are ported: they reach the task's factory, as in JAX,
+    # and one the factory does not take raises there
+    assert envs.load('walker', 'walk', device='cpu',
+                     time_limit=5).env._max_steps == 200
+    with pytest.raises(TypeError, match='seed'):
+        envs.load('walker', 'walk', device='cpu', seed=3)

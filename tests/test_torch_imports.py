@@ -117,10 +117,12 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
         assert '"ok"' not in out.stdout
 
 
-_XML_COPIES = [(d, None) for d in ('acrobot', 'cheetah', 'hopper', 'humanoid',
+_XML_COPIES = [(d, None) for d in ('acrobot', 'ball_in_cup', 'cheetah',
+                                   'finger', 'hopper', 'humanoid',
                                    'pendulum', 'point_mass', 'reacher',
                                    'walker')] + [
-    ('cartpole', n) for n in (1, 2, 3)] + [('swimmer', n) for n in (6, 15)]
+    ('cartpole', n) for n in (1, 2, 3)] + [('swimmer', n) for n in (6, 15)] + [
+    ('lqr', n) for n in ((2, 1), (6, 2))]
 
 
 @pytest.mark.parametrize('domain,n', _XML_COPIES)
@@ -132,5 +134,9 @@ def test_model_xml_is_the_jax_modules_copy(domain, n):
     ref = importlib.import_module(f'mujoco_mbrl_tpu.suite.{domain}')
     if n is None:
         assert ours._XML == ref._XML
+    elif domain == 'lqr':
+        import numpy as np
+        assert ours._make_model_xml(*n, np.random.RandomState(3)) == \
+            ref._make_model_xml(*n, np.random.RandomState(3))
     else:
         assert ours._make_model_xml(n) == ref._make_model_xml(n)

@@ -755,3 +755,40 @@ def test_bf16_rollout_costs_matches_plain_bf16(dev, sd, hid):
     ref = lambda **kw: cem_rollout.mlp_rollout_costs_reference(
         params, s0T.T, aT.transpose(1, 2), goal, w, norms, **kw)
     _hold_bf16(costs, ref(compute_dtype=bf), ref())
+
+
+# finger's row layout: a box row (per-env bounds, as JAX's vmapped
+# iterate takes them once each env's row scale divides them), two
+# non-negative limit rows, then cone triples (3, 4, 5) ... (36, 37, 38)
+# across the warp path's lane and slot boundary, to its 400-iteration
+# cap; and the same per-env bounds at the block path's 80 rows
+@pytest.mark.parametrize('nr,path', [(39, 'warp'), (80, 'block')])
+@pytest.mark.parametrize('cold', [True, False])
+def test_apgd_kernel_per_env_bounds(dev, nr, path, cold):
+    B = 64
+    Ad, rhs, f0, v0, act, _, _ = _problem(dev, B, nr, seed=39 + int(cold))
+    cones = tuple(range(3, nr - 2, 3))
+    mu = torch.zeros(nr, device=dev)
+    mu[list(cones)] = 1.0
+    g = torch.Generator(device=dev).manual_seed(40)
+    bounds = torch.zeros((B, nr), device=dev)
+    bounds[:, 0] = 0.05 + torch.rand(B, generator=g, device=dev)
+    args = (Ad, 3.0 * rhs, f0, v0, act, mu, bounds)
+    kw = dict(nonneg=(1, 2), box_rows=(0,), con0=cones, iterations=400,
+              cold=cold, eq_rows=())
+    before = ops.launch_counts['apgd_solve']
+    f, v = apgd_solve.apgd_iterate_batched(*args, **kw)
+    assert ops.launch_counts['apgd_solve'] == before + 1
+    f_p, v_p = apgd_solve.apgd_iterate_plain(*args, **kw)
+    torch.testing.assert_close(f, f_p, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(v, v_p, rtol=2e-4, atol=2e-4)
+    # each env's box row stays in its own bound, and some sit on it
+    assert bool((f[:, 0].abs() <= bounds[:, 0] * (1 + 1e-6)).all())
+    on = (f[:, 0].abs() - bounds[:, 0]).abs() < 1e-5 * bounds[:, 0]
+    assert int(on.sum()) >= 4
+    # one bound shared by every env reads the same as it broadcast
+    shared = args[:6] + (bounds[0].contiguous(),)
+    f_s, _ = apgd_solve.apgd_iterate_batched(*shared, **kw)
+    f_b, _ = apgd_solve.apgd_iterate_batched(
+        *args[:6], bounds[:1].expand(B, nr).contiguous(), **kw)
+    torch.testing.assert_close(f_s, f_b, rtol=0, atol=0)
