@@ -202,10 +202,43 @@ Run from the repository root:  python3 chip_smoke.py
       ``suite.lqr_solver`` drives states of norm sqrt(2) 1e-6 until the
       envs terminate (LAST, discount 0) and ``autoreset_step`` restarts
       them (FIRST); no launch;
-13. prints one ``{"kernels": [...]}`` line (one entry per TPU kernel, and
-   one per bf16 mode of #2-#6), a ``{"paths": ...}`` line with the
-   cheetah, contact-free, humanoid, slice-10, slice-11, bench and
-   slice-13 paths' times, the card line, and last ``{"ok": true,
+13. manipulator, stacker and fish (slice 14: tendon-equality rows, box
+   contacts, per-env body poses, #1's global path), each path through
+   ``suite.load`` or ``envs.load`` at 1024 envs with exact launch counts:
+   a. (34) manipulator bring_ball from a card reset, random actions: 10
+      substeps and the observation's forward (touch reads its solve), so
+      11 #1 launches a control step, each checked to take the global path
+      (Ad in device memory) with 452 rows (the equality row, 7 limits,
+      148 cone triples) and the 60 cap; the card's step against the CPU's
+      on the first 128 envs; then the global path on solves captured at
+      the reset states and at drawn poses in contact, cold and warm, held
+      under the one APGD rule and timed beside the bound of the active
+      submatrices it reads (and of every row of Ad), with the ns of one
+      APGD iteration;
+   b. (35) GoalStateAgent on the Manipulator wrapper: an MLP over the
+      29-dim featured state, CEM 1000 x 30 x 3 through #2's (5, 7, 4)
+      instantiation (run-time loop bounds), 1024 + 1024 rollouts of 5
+      control steps, one fit (exact #1 and #2 counts); #2 at the loop's
+      shapes on a random MLP, held at rtol 1e-4 and timed, and on the
+      fitted params with the replay's normalizers folded in, reported
+      (the near-constant touch dims make those costs ill-conditioned in
+      float32);
+   c. (36) stacker stack_4 (977 rows) and manipulator insert_peg (833),
+      as in (a), with the box pair kernels on the card against the CPU
+      on the reset's 8 x 1024 draws, and the global path on captured
+      stack_4 solves;
+   d. (37) fish swim: control steps and the card's step against the
+      CPU's (no constraint row, no launch);
+   e. the other four tasks (manipulator bring_peg and insert_ball,
+      stacker stack_2, fish upright): a card reset and a control step
+      each, with exact launch counts;
+   ptxas of ``apgd_global_kernel`` and the (5, 7, 4) instantiation go
+   into the kernel line;
+14. prints one ``{"kernels": [...]}`` line (one entry per TPU kernel, one
+   per bf16 mode of #2-#6, and entries for #1's global path and #2's
+   (5, 7, 4) instantiation), a ``{"paths": ...}`` line with the cheetah,
+   contact-free, humanoid, slice-10, slice-11, bench, slice-13 and
+   slice-14 paths' times, the card line, and last ``{"ok": true,
    "device": {...}}``.
 
 The H100 peaks of the bounds come from the port's bench.py, whose mfu_*
@@ -2894,10 +2927,13 @@ def suite_control_steps(dev, torch, env, state0, label, rows=None):
                                   env.model.nu), generator=g, device=dev) - 1
     warm, _ = env.step(state0, act())
     torch.cuda.synchronize()
-    seen, real = [], A.apgd_iterate_batched
+    real = A.apgd_iterate_batched
 
     def watch(*args, **kw):
-        seen.append((args, kw))
+        # checked at the call: keeping the calls' inputs would keep every
+        # Ad of the steps alive (3.6 GB each at stack_4's 977 rows)
+        if rows is not None:
+            rows(args, kw)
         return real(*args, **kw)
 
     ops.reset_launch_counts()
@@ -2915,9 +2951,6 @@ def suite_control_steps(dev, torch, env, state0, label, rows=None):
     for name, x in (('qpos', state.physics.qpos),
                     ('qvel', state.physics.qvel), ('reward', ts.reward)):
         check(bool(torch.isfinite(x).all()), (label, name))
-    if rows is not None:
-        for args, kw in seen:
-            rows(args, kw)
     out = dict(ms_per_step=1e3 * wall / STEPS, wall_s=wall)
     print(f'{label}: {STEPS} control steps x {state0.physics.qpos.shape[0]} '
           f'envs in {wall:.3f} s = {out["ms_per_step"]:.2f} ms per control '
@@ -3165,6 +3198,407 @@ def lqr_phase(dev, torch):
     return counts, out
 
 
+# ---- slice 14: manipulator, stacker, fish (34-37) -----------------------
+
+MANIP_SOLVES = 11            # 10 substeps + the observation's forward
+MANIP_T = 5                  # control steps of each agent-loop collection
+CPU_ENVS = 128               # envs of the card-vs-CPU steps past 452 rows
+MANIP_ROWS = {('manipulator', 'bring_ball'): 452,
+              ('manipulator', 'insert_peg'): 833,
+              ('stacker', 'stack_4'): 977}
+
+
+def head_state(torch, s, n):
+    """The first n envs of an EnvState."""
+    import dataclasses
+    cut = lambda x: x[:n] if isinstance(x, torch.Tensor) else x
+    return dataclasses.replace(s, physics=dataclasses.replace(
+        s.physics, qpos=s.physics.qpos[:n], qvel=s.physics.qvel[:n],
+        time=s.physics.time[:n]), params=cut(s.params),
+        step_count=s.step_count[:n], last=s.last[:n])
+
+
+def global_rows(B_, nr):
+    """The check of each #1 call on the manipulator and the stacker: nr
+    rows (the equality row, 7 arm limits, cone triples) on #1's global
+    path, the 60 cap."""
+    from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
+
+    def rows(args, kw):
+        check(args[0].shape == (B_, nr, nr) and A.dense_route(nr) ==
+              'global', (args[0].shape, A.dense_route(nr)))
+        check((kw['eq_rows'], kw['nonneg'], kw['box_rows'], kw['con0'],
+               kw['iterations']) == ((0,), tuple(range(1, 8)), (),
+                                     tuple(range(8, nr, 3)), 60), kw)
+    return rows
+
+
+def dense_control_step_phase(dev, torch, domain, task, seed):
+    """(34, 36) domain/task through suite.load at 1024 envs from a card
+    reset (8 attempts an env, the first without penetration), random
+    actions: 10 substeps and the observation's forward (the touch sensors
+    read its solve), so 11 #1 launches a control step, each checked to
+    take the global path with the task's rows; the card's step against
+    the CPU's on the first CPU_ENVS envs."""
+    from mujoco_mbrl_tpu_torch import suite
+
+    nr = MANIP_ROWS[domain, task]
+    env = suite.load(domain, task, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state0, _ = env.reset(B, torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t0
+    label = f'{domain} {task} control step'
+    counts, out, warm = suite_control_steps(dev, torch, env, state0, label,
+                                            rows=global_rows(B, nr))
+    exact_counts(label, counts, apgd_solve=MANIP_SOLVES * STEPS)
+    out.update(reset_s=reset_s, rows=nr, card_vs_cpu_envs=CPU_ENVS,
+               card_vs_cpu=card_vs_cpu_step(
+                   dev, torch, domain, task, head_state(torch, warm,
+                                                        CPU_ENVS),
+                   by_rounding=True))
+    return counts, out, env, state0
+
+
+def penetrating_state(dev, torch, env, n, seed):
+    """n states of the task's reset draws that penetrate by under 1 cm
+    (the draws the reset rejects: arm, fingers, props, floor and walls in
+    contact), small random velocities, with their params."""
+    from types import SimpleNamespace
+
+    from mujoco_mbrl_tpu_torch.physics import collision, smooth
+    from mujoco_mbrl_tpu_torch.physics.model import State
+
+    m = env.model
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qposes, params = env.task.attempts(m, 4 * n, g)
+    q, p = qposes.reshape(-1, m.nq), params.reshape(-1, params.shape[-1])
+    kin = smooth.kinematics(m, q, smooth.tree_meta(m))
+    dist = collision.detect(m, kin[3], kin[4],
+                            collision.candidate_pairs(m)).dist
+    keep = ((dist < 0).any(1) & (dist > -0.01).all(1)).nonzero()[:, 0]
+    check(len(keep) >= n, ('penetrating pool', len(keep)))
+    qvel = 0.2 * torch.randn((n, m.nv), generator=g, device=dev)
+    return SimpleNamespace(physics=State(
+        qpos=q[keep[:n]].contiguous(), qvel=qvel,
+        time=torch.zeros(n, device=dev)), params=p[keep[:n]])
+
+
+def global_apgd_phase(dev, torch, label, env, reset_state, contact_state):
+    """(34, 36) #1's global path against its plain version on solves
+    captured from the port at 1024 envs, at the reset states and in
+    contact, cold and warm, under the one APGD rule (rtol = atol = 2e-4,
+    at most 1% of envs decided by rounding); device time beside the bound
+    of what this run's data needs (each env's active submatrix read once,
+    or its matvecs at the FP32 peak) and the bytes of every row of Ad,
+    the largest iteration count, us per dependent step, ns per APGD
+    iteration."""
+    from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
+
+    cases = (capture_solves(dev, torch, env, reset_state, f'{label}-reset',
+                            'apgd_iterate_batched')
+             + capture_solves(dev, torch, env, contact_state,
+                              f'{label}-contact', 'apgd_iterate_batched'))
+    for tag, args, kw in cases:
+        act = args[4]
+        na = act.sum(1)
+        n_con = int((act[:, 8:].sum(1) > 0).sum())
+        check(A.dense_route(args[0].shape[1]) == 'global', tag)
+        print(f'apgd {tag} cold={kw["cold"]}: nr {args[0].shape[1]}, active '
+              f'rows a env mean {float(na.mean()):.1f} max '
+              f'{int(na.max())}, {n_con} of {act.shape[0]} envs in contact; '
+              f'cap {kw["iterations"]}')
+        if tag.endswith('contact'):
+            check(n_con >= act.shape[0] // 2, (tag, n_con))
+    worst, rounding_envs = hold_apgd(
+        torch, f'apgd {label}', A.apgd_iterate_batched, A.apgd_iterate_plain,
+        lambda args: args[0], cases)
+    # what the run's data needs: each env's active submatrix once and its
+    # vectors; a matvec is 2 na^2 of its FLOP
+    times = time_apgd(
+        torch, f'apgd {label}', A.apgd_iterate_batched, A.apgd_iterate_plain,
+        cases, lambda a: 2.0 * a[4].sum(1).double() ** 2,
+        lambda a: 4.0 * (float((a[4].sum(1).double() ** 2).sum())
+                         + 7 * a[1].numel() + a[5].numel()),
+        trace_bound=False)
+    for tag, args, kw in cases:
+        t = times[tag + ('-cold' if kw['cold'] else '-warm')]
+        t['bound_every_row_ms'] = 1e3 * 4.0 * args[0].numel() / PEAK_BYTES
+        t['mean_active_rows'] = float(args[4].sum(1).mean())
+    tag, args, kw = cases[-1]
+    check(tag.endswith('contact') and not kw['cold'], tag)
+    cap = lambda n: device_ms(lambda: A.apgd_iterate_batched(
+        *args, **dict(kw, iterations=n, tol2=0.0)), 20)
+    t1, t41 = cap(1), cap(41)
+    iteration_ns = 1e6 * (t41 - t1) / 40
+    print(f'apgd {label} {tag}-warm, tol2 = 0: {t1:.4f} ms at 1 iteration, '
+          f'{t41:.4f} ms at 41: {iteration_ns:.0f} ns per APGD iteration; '
+          f'bound with every row of Ad read '
+          f'{times[tag + "-warm"]["bound_every_row_ms"]:.4f} ms (bytes)')
+    return worst, rounding_envs, times, iteration_ns
+
+
+def box_pairs_card_vs_cpu(dev, torch, env, label):
+    """(36) The box pair kernels on the card against the CPU on the
+    reset's 8 x 1024 draws: every contact distance within 1e-5 and, but
+    where two of a pair's points tie within 1e-5 (their order is then
+    rounding's), every point and frame within 1e-4."""
+    from mujoco_mbrl_tpu_torch import suite
+    from mujoco_mbrl_tpu_torch.physics import collision, smooth
+    from mujoco_mbrl_tpu_torch.physics import model as M
+
+    m = env.model
+    m_cpu = suite.load(*label.split(), device='cpu').model
+    qposes, _ = env.task.attempts(m, B, torch.Generator(
+        device=dev).manual_seed(41))
+    q = qposes.reshape(-1, m.nq)
+    out = []
+    for mm, qq in ((m, q), (m_cpu, q.cpu())):
+        kin = smooth.kinematics(mm, qq, smooth.tree_meta(mm))
+        out.append(collision.detect(mm, kin[3], kin[4],
+                                    collision.candidate_pairs(mm)))
+    card, cpu = out
+    pairs = collision.candidate_pairs(m_cpu)
+    box = [i for i, (g1, g2) in enumerate(pairs)
+           if M.BOX in (m.geom_type[g1], m.geom_type[g2])]
+    npts = [collision._PAIR_POINTS[(m.geom_type[g1], m.geom_type[g2])]
+            for g1, g2 in pairs]
+    off = [sum(npts[:i]) for i in range(len(pairs))]
+    rows = [off[i] + k for i in box for k in range(npts[i])]
+    d_card, d_cpu = card.dist.cpu()[:, rows], cpu.dist[:, rows]
+    tie = torch.zeros_like(d_cpu, dtype=torch.bool)
+    col = 0
+    for i in box:
+        k = npts[i]
+        d = d_cpu[:, col:col + k]
+        near = (d[:, :, None] - d[:, None, :]).abs() < 1e-5
+        tie[:, col:col + k] = near.sum(2) > 1
+        col += k
+    dd = float((d_card - d_cpu).abs().max())
+    dp = float((card.pos.cpu()[:, rows] - cpu.pos[:, rows]).abs()
+               .amax(-1)[~tie].max())
+    df = float((card.frame.cpu()[:, rows] - cpu.frame[:, rows]).abs()
+               .amax((-2, -1))[~tie].max())
+    kinds = sorted({(m.geom_type[pairs[i][0]], m.geom_type[pairs[i][1]])
+                    for i in box})
+    print(f'{label} box pairs {kinds} ({len(box)} pairs, {len(rows)} points)'
+          f' card vs CPU on {q.shape[0]} poses: max|ddist| {dd:.2e}, '
+          f'max|dpos| {dp:.2e}, max|dframe| {df:.2e}; '
+          f'{int(tie.sum())} tied points; '
+          f'{int((d_cpu < 0).sum())} penetrating')
+    check(dd < 1e-5 and dp < 1e-4 and df < 1e-4, (label, dd, dp, df))
+    return dict(max_ddist=dd, max_dpos=dp, max_dframe=df,
+                points=len(rows), poses=q.shape[0])
+
+
+def manipulator_agent_phase(dev, torch, tmp):
+    """(35) GoalStateAgent.train() on the Manipulator wrapper (bring_ball)
+    at full width: the single MLP (hidden 50) over the 29-dim featured
+    state and 5 actions, CEM 1000 x 30 x 3 through #2's (5, 7, 4)
+    instantiation (run-time loop bounds), 1024 seed + 1024 policy rollouts of MANIP_T control
+    steps, one fit of AGENT_EPOCHS epochs at batch 512; then #2 at the
+    loop's shapes (``manipulator_sampler_cases``)."""
+    from mujoco_mbrl_tpu_torch import agents, data, envs, models, ops
+    from mujoco_mbrl_tpu_torch import planners
+    from mujoco_mbrl_tpu_torch.models import train as Mt
+    from mujoco_mbrl_tpu_torch.ops import cem_rollout as C
+    from mujoco_mbrl_tpu_torch.utils import MetricsWriter
+
+    env = envs.load('manipulator', 'bring_ball', device=dev)
+    check((env.state_dim, env.action_dim) == (29, 5),
+          (env.state_dim, env.action_dim))
+    taken = C.sampler_instantiation(K, H, 29, 5, 50)
+    print(f'manipulator sampler instantiation at sd 29, ad 5, hidden 50: '
+          f'{taken}')
+    check(taken == (5, 7, 4, False, True), taken)
+    model = models.MLPDynamics(env.state_dim, env.action_dim,
+                               hidden_units=50)
+    dataset = data.init_replay(2 * B, MANIP_T, env.state_dim,
+                               env.observation_dim, env.action_dim,
+                               device=dev)
+    writer = MetricsWriter(tmp)
+    agent = agents.GoalStateAgent(
+        environment=env, planner=planners.CEMPlanner, model=model,
+        horizon=H, optimizer=Mt.adam(0.01), rollout_length=MANIP_T,
+        num_rollouts_per_iteration=B, num_train_iterations=1, writer=writer,
+        base_path=tmp, dataset=dataset,
+        planner_kwargs=dict(num_candidates=K, num_elites=K // 10,
+                            num_iterations=ITERS),
+        train_epochs=AGENT_EPOCHS, train_batch_size=AGENT_BATCH,
+        num_initial_rollouts=B, seed=0)
+    check(not agent.obs_only and agent.plan_dim == 29,
+          (agent.obs_only, agent.plan_dim))
+    phases = []
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            phases.append((name, time.perf_counter() - t0, out))
+            return out
+        return run
+
+    agent.add_rollouts = timed('collect', agent.add_rollouts)
+    agent.fit_model = timed('fit', agent.fit_model)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    agent.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.launch_counts)
+    writer.close()
+    check([p[0] for p in phases] == ['collect', 'fit', 'collect'],
+          [p[0] for p in phases])
+    # per collection: the reset's and the first featured state's
+    # forwards, then 10 substeps and the observation's forward a control
+    # step, one 452-row solve each; 3 CEM iterations per policy step
+    exact_counts('manipulator agent loop', counts,
+                 cem_sample_rollout=ITERS * MANIP_T,
+                 apgd_solve=2 * (2 + MANIP_SOLVES * MANIP_T))
+    buf = agent.dataset
+    check(buf.filled == 2 * B, buf.filled)
+    for name in ('states', 'observations', 'actions', 'rewards'):
+        check(bool(torch.isfinite(getattr(buf, name)).all()), name)
+    losses = phases[1][2].losses
+    n_up = losses.shape[0]
+    check(n_up == AGENT_EPOCHS * (2 * B * MANIP_T // AGENT_BATCH), n_up)
+    check(bool(torch.isfinite(losses).all()), 'non-finite training loss')
+    first, last = float(losses[:n_up // 10].mean()), float(
+        losses[-(n_up // 10):].mean())
+    check(last < first, ('training loss did not decrease', first, last))
+    times = {'seed_collect_s': phases[0][1], 'fit_s': phases[1][1],
+             'policy_collect_s': phases[2][1], 'train_s': wall,
+             'policy_collect_ms_per_control_step':
+                 1e3 * phases[2][1] / MANIP_T}
+    print(f'manipulator agent loop (bring_ball, MLP over the 29-dim '
+          f'featured state, {B} + {B} rollouts of {MANIP_T} control steps, '
+          f'fit {AGENT_EPOCHS} epochs = {n_up} updates): '
+          + ', '.join(f'{k} {v:.3f}' for k, v in times.items())
+          + f'; loss {first:.4f} -> {last:.4f}; launches {counts}')
+    states = phases[2][2].states[:, -1].contiguous()
+    check(states.shape == (B, 29), states.shape)
+    held = manipulator_sampler_cases(dev, torch, agent, states)
+    return counts, times, held
+
+
+def manipulator_sampler_cases(dev, torch, agent, states):
+    """#2's (5, 7, 4) instantiation at the agent loop's shapes (B 1024 x K
+    1000 x H 30, the policy collection's last featured states, the
+    agent's goal and cost weights): held on a random MLP, every candidate
+    within rtol 1e-4 of the plain cost of its own actions, and timed; then
+    on the fitted params with the replay's normalizers folded in,
+    reported and not held: the 5-step replay leaves the touch dims near
+    constant, so their folded W1 columns reach ~1 / (std + 1e-6) and the
+    costs are ill-conditioned in float32 (the kernel's 3xTF32 and the
+    float32 plain against float64 arithmetic are printed, and the action
+    range and antithetic identity checked)."""
+    from mujoco_mbrl_tpu_torch import models
+    from mujoco_mbrl_tpu_torch.ops import cem_rollout as C
+
+    params = models.MLPDynamics(29, 5, hidden_units=50).init(
+        torch.Generator().manual_seed(48), device=dev)
+    g = torch.Generator(device=dev).manual_seed(48)
+    out = sampler_shape_case(
+        dev, torch, 'manipulator sampler (5, 7, 4), random MLP', params,
+        states, agent.training_goal_state, agent.state_cost_weights, K, H,
+        g, 49, (5, 7, 4, False, True))
+    p, kw = agent.params, dict(normalizers=agent._normalizers(),
+                               alpha_action=agent.action_cost_alpha)
+    goal, weights = agent.training_goal_state, agent.state_cost_weights
+    mean = (0.3 * torch.randn((B, H, 5), generator=g, device=dev)).clamp(
+        -0.9, 0.9)
+    std = 0.2 + torch.rand((B, H, 5), generator=g, device=dev)
+    with torch.no_grad():
+        costs, acts = C.mlp_sample_rollout_costs(
+            p, 21, states, mean, std, goal, weights, K, **kw)
+        ref = C.rollout_costs_of_actions(p, states, acts, goal, weights,
+                                         **kw)
+        r64 = folded_costs64(torch, C, p, kw['normalizers'], torch.float64,
+                             states, acts, goal, weights,
+                             kw['alpha_action'])
+        r64_w32 = folded_costs64(torch, C, p, kw['normalizers'],
+                                 torch.float32, states, acts, goal, weights,
+                                 kw['alpha_action'])
+        check(bool(torch.isfinite(costs).all())
+              and float(acts.abs().max()) <= 1.0, 'manipulator fitted')
+        a1, a2 = acts[..., :K // 2], acts[..., K // 2:]
+        free = (a1.abs() < 1.0) & (a2.abs() < 1.0)
+        check(float((a1 + a2 - 2.0 * mean[..., None]).abs()[free].max())
+              < 1e-5, 'manipulator fitted antithetic')
+    rel = lambda x: (x.double() - r64_w32).abs() / (r64_w32.abs() + 1e-4)
+    sens = (r64_w32 - r64).abs() / (r64.abs() + 1e-4)
+    w1 = C._fold_normalizers(p, kw['normalizers'])[0].detach()
+    fitted = dict(
+        max_w1=float(w1.abs().max()),
+        weight_rounding_decided=int((sens > 1e-5).sum()),
+        beyond_rtol_1e4_of_plain=int((~torch.isclose(
+            costs, ref, rtol=1e-4, atol=1e-4)).sum()),
+        kernel_rel_err_vs_float64_mean=float(rel(costs).mean()),
+        kernel_rel_err_vs_float64_max=float(rel(costs).max()),
+        plain_rel_err_vs_float64_mean=float(rel(ref).mean()),
+        plain_rel_err_vs_float64_max=float(rel(ref).max()))
+    print(f'manipulator fitted sampler (reported, not held; B={B} K={K} '
+          f'H={H}): {fitted}')
+    out['fitted_reported'] = fitted
+    return out
+
+
+def other_tasks_phase(dev, torch):
+    """(36, 37) The slice's other four tasks through suite.load at 1024
+    envs: a card reset and one control step of random actions each, with
+    exact launch counts (11 #1 launches on the global path for
+    manipulator bring_peg / insert_ball and stacker stack_2, none for fish
+    upright) and finite states and rewards."""
+    from mujoco_mbrl_tpu_torch import ops, suite
+
+    out = {}
+    for domain, task, solves in (('manipulator', 'bring_peg', MANIP_SOLVES),
+                                 ('manipulator', 'insert_ball', MANIP_SOLVES),
+                                 ('stacker', 'stack_2', MANIP_SOLVES),
+                                 ('fish', 'upright', 0)):
+        env = suite.load(domain, task, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(50)
+        state, _ = env.reset(B, gen)
+        act = 2 * torch.rand((B, env.model.nu), generator=gen,
+                             device=dev) - 1
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, ts = env.step(state, act)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        label = f'{domain} {task} control step'
+        exact_counts(label, dict(ops.launch_counts), apgd_solve=solves)
+        for name, x in (('qpos', state.physics.qpos), ('reward', ts.reward)):
+            check(bool(torch.isfinite(x).all()), (label, name))
+        out[f'{domain}_{task}'] = dict(ms_per_step=1e3 * wall,
+                                       apgd_solve=solves)
+        print(f'{label}: one control step x {B} envs from a card reset in '
+              f'{1e3 * wall:.2f} ms; {solves} #1 launches; mean reward '
+              f'{float(ts.reward.mean()):.4f}')
+    return out
+
+
+def fish_phase(dev, torch):
+    """(37) fish swim through suite.load at 1024 envs: control steps of
+    random actions (10 substeps; contacts and limits off, so no constraint
+    row and no launch), the card's step against the CPU's."""
+    from mujoco_mbrl_tpu_torch import ops, suite
+
+    env = suite.load('fish', 'swim', device=dev)
+    state0, _ = env.reset(B, torch.Generator(device=dev).manual_seed(42))
+    counts, out, warm = suite_control_steps(dev, torch, env, state0,
+                                            'fish swim control step')
+    exact_counts('fish swim control step', counts)
+    ops.reset_launch_counts()
+    out['card_vs_cpu'] = card_vs_cpu_step(dev, torch, 'fish', 'swim', warm)
+    exact_counts('fish card vs CPU', dict(ops.launch_counts))
+    return counts, out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3391,6 +3825,30 @@ def main() -> int:
         cup_contact_state(dev, torch, B), per_env_bounds=False)
     lq_counts, lq_out = lqr_phase(dev, torch)
 
+    # ---- slice 14: manipulator, stacker, fish (34-37) --------------------
+    mp_counts, mp_out, mp_env, mp_state0 = dense_control_step_phase(
+        dev, torch, 'manipulator', 'bring_ball', 43)
+    mp_err, mp_rounding, mp_t, mp_iter_ns = global_apgd_phase(
+        dev, torch, 'bring_ball', mp_env, mp_state0,
+        penetrating_state(dev, torch, mp_env, B, 44))
+    with tempfile.TemporaryDirectory() as tmp:
+        ma_counts, ma_times, ma_fit = manipulator_agent_phase(dev, torch,
+                                                              tmp)
+    st_counts, st_out, st_env, st_state0 = dense_control_step_phase(
+        dev, torch, 'stacker', 'stack_4', 45)
+    st_out['box_pairs'] = box_pairs_card_vs_cpu(dev, torch, st_env,
+                                                'stacker stack_4')
+    st_err, st_rounding, st_t, st_iter_ns = global_apgd_phase(
+        dev, torch, 'stack_4', st_env, st_state0,
+        penetrating_state(dev, torch, st_env, B, 46))
+    del st_env, st_state0
+    ip_counts, ip_out, ip_env, _ = dense_control_step_phase(
+        dev, torch, 'manipulator', 'insert_peg', 47)
+    ip_out['box_pairs'] = box_pairs_card_vs_cpu(dev, torch, ip_env,
+                                                'manipulator insert_peg')
+    fi_counts, fi_out = fish_phase(dev, torch)
+    ot_out = other_tasks_phase(dev, torch)
+
     sampler_entry = lambda tiles: ptxas_info(
         'cem_sample_rollout', 'cem_sample_rollout_kernelI' + ''.join(
             f'Li{t}E' for t in tiles[:3]) + ''.join(
@@ -3417,7 +3875,11 @@ def main() -> int:
                  'cem_sample_rollout',
                  'cem_sample_rollout_bf16_kernelILi8ELi8ELi16ELb0ELb0E'),
              'apgd_block_kernel': ptxas_info('apgd_solve',
-                                             '17apgd_block_kernel')}
+                                             '17apgd_block_kernel'),
+             'apgd_global_kernel': ptxas_info('apgd_solve',
+                                              '18apgd_global_kernel'),
+             'cem_sample_rollout_kernel<5,7,4,false,true>': sampler_entry(
+                 (5, 7, 4, False, True))}
     print(f'ptxas: {ptxas}')
     samp_t['cases']['reacher256_b256_k500_h20_sd6'] = samp_r256
     samp_t['cases']['reacher_agent_b1024_sd6_fitted'] = ra_fit
@@ -3448,7 +3910,12 @@ def main() -> int:
              'finger_spin_control_step': fs_counts,
              'finger_turn_hard_control_step': ft_counts,
              'ball_in_cup_control_step': cu_counts,
-             'lqr_6_2_drive': lq_counts}
+             'lqr_6_2_drive': lq_counts,
+             'manipulator_bring_ball_control_step': mp_counts,
+             'manipulator_agent_loop': ma_counts,
+             'stacker_stack_4_control_step': st_counts,
+             'manipulator_insert_peg_control_step': ip_counts,
+             'fish_swim_control_step': fi_counts}
     by_path = lambda key: {p: c[key] for p, c in paths.items() if c[key]}
     src = lambda f: f'mujoco_mbrl_tpu_torch/csrc/{f}'
     tpu = lambda f, line, fn: f'mujoco_mbrl_tpu/ops/{f}:{line} ({fn})'
@@ -3587,6 +4054,43 @@ def main() -> int:
              humanoid=dict(h_fact_t['humanoid-moving-warm'],
                            iteration_ns=h_iter_ns,
                            rounding_decided_envs=h_rounding)),
+        dict(name='apgd_iterate_batched[global]', route='cuda',
+             source=src('apgd_solve.cu'),
+             replaces=tpu('apgd_solve.py', 60, '_apgd_kernel'),
+             launches=mp_counts['apgd_solve'],
+             launches_note='the path of #1 past the rows whose Ad fits in '
+                           'shared memory (apgd_global_kernel)',
+             launches_by_path={p: paths[p]['apgd_solve'] for p in (
+                 'manipulator_bring_ball_control_step',
+                 'manipulator_agent_loop', 'stacker_stack_4_control_step',
+                 'manipulator_insert_peg_control_step')},
+             max_abs_err=max(mp_err, st_err), library_ms=None,
+             **pick(mp_t['bring_ball-contact-warm']),
+             call_ms=mp_t['bring_ball-contact-warm']['call_ms'],
+             max_iterations=mp_t['bring_ball-contact-warm'][
+                 'max_iterations'],
+             us_per_dependent_step=mp_t['bring_ball-contact-warm'][
+                 'us_per_dependent_step'],
+             bound_every_row_ms=mp_t['bring_ball-contact-warm'][
+                 'bound_every_row_ms'],
+             iteration_ns=mp_iter_ns,
+             rounding_decided_envs=mp_rounding + st_rounding,
+             cases=dict(mp_t, **st_t),
+             stack_4=dict(st_t['stack_4-contact-warm'],
+                          iteration_ns=st_iter_ns, rows=977),
+             rows=452, ptxas=ptxas['apgd_global_kernel']),
+        dict(name='mlp_sample_rollout_costs[5,7,4]', route='cuda',
+             source=src('cem_sample_rollout.cu'),
+             replaces=tpu('cem_rollout.py', 364, '_sample_kernel_multi'),
+             launches=ma_counts['cem_sample_rollout'],
+             launches_note='the instantiation of mlp_sample_rollout_costs '
+                           'at the manipulator\'s featured state (sd 29, ad '
+                           '5; run-time loop bounds)',
+             launches_by_path={'manipulator_agent_loop':
+                               ma_counts['cem_sample_rollout']},
+             max_abs_err=ma_fit['max_abs_err'], library_ms=None,
+             **pick_s(ma_fit), fitted_reported=ma_fit['fitted_reported'],
+             ptxas=ptxas['cem_sample_rollout_kernel<5,7,4,false,true>']),
         bf16_entry('mlp_sample_rollout_costs[bf16]', 'cem_sample_rollout.cu',
                    tpu('cem_rollout.py', 364, '_sample_kernel_multi'),
                    'cem_sample_rollout_bf16',
@@ -3635,6 +4139,11 @@ def main() -> int:
         finger_spin_control_step=fs_out,
         finger_turn_hard_control_step=ft_out,
         ball_in_cup_control_step=cu_out, lqr_6_2=lq_out,
+        manipulator_bring_ball_control_step=mp_out,
+        manipulator_agent_loop=ma_times,
+        stacker_stack_4_control_step=st_out,
+        manipulator_insert_peg_control_step=ip_out,
+        fish_swim_control_step=fi_out, slice14_other_tasks=ot_out,
         bench_cli={a: dict(record=r['record'], seconds=r['seconds'])
                    for a, r in bench_out.items()},
         bf16_ptxas={k: v for k, v in ptxas.items() if 'bf16' in k})}))

@@ -751,13 +751,15 @@ inline Cfg make_cfg(int B, int K, int n, int H, int sd, int ad, int hid,
 // shared memory beside the warps' scratch where they fit: with exact tile
 // counts (no run-time guard in the unrolled loops) for the walker (sd
 // 19-24, ad 6), cheetah (sd 17), hopper (the featured state's 17 + 4, the
-// observation's 15 + 4: two state tiles) and swimmer (18 + 5) models and
-// the small models of the contact-free domains (sd + ad <= 8: reacher
+// observation's 15 + 4: two state tiles) and swimmer (18 + 5) models
+// and the small models of the contact-free domains (sd + ad <= 8: reacher
 // 6 + 2, point_mass 4 + 2, pendulum 3 + 1, cartpole 5 + 1); with run-time
 // loop bounds for the humanoid's (sd + ad 81..88: the bench's 67-dim
-// observation, 9 state tiles; the CLI's 60-dim featured state, 8), whose
-// exact unrolled loops spill at 255 registers
-// where these take 168-176 and spill none; hidden 50 in all. Any other
+// observation, 9 state tiles; the CLI's 60-dim featured state, 8) and the
+// manipulator's (the featured state's 29 + 5: five [s; a] tiles, four
+// state tiles), whose exact unrolled loops spill at 255 registers (the
+// manipulator's at one block an SM or two) where these spill none; hidden
+// 50 in all. Any other
 // shape: the guarded instantiation (up to 16 / 16 tiles), weights read
 // from global memory.
 // bf16: sized for the tile counts of the bench's presets and the walker
@@ -772,6 +774,7 @@ inline bool sized_tiles(const Layout& L) {
                          (L.ni == 6 && L.nso == 9));
   return L.nh == 7 && (((L.ni == 4 || L.ni == 3) && L.nso == 3) ||
                        (L.ni == 3 && L.nso == 2) ||
+                       (L.ni == 5 && L.nso == 4) ||
                        (L.ni == 1 && L.nso == 1) ||
                        (L.ni == 11 && (L.nso == 9 || L.nso == 8)));
 }
@@ -787,7 +790,8 @@ inline bool is_large(const Layout& L) {
 // Blocks an SM must hold (__launch_bounds__): two for the narrow exact
 // tiles (128 registers a thread); one for the hopper observation's
 // (3, 7, 2) tiles, which spill at 128 registers and take none at one block
-// an SM; one for the humanoid's wide tiles, whose weights and scratch fill
+// an SM, and for the manipulator's (5, 7, 4), which spill at two; one for
+// the humanoid's wide tiles, whose weights and scratch fill
 // an SM's shared memory, and for the guarded instantiation (up to 255
 // registers).
 constexpr int min_blocks(int ni, int nso, bool smem) {
@@ -815,6 +819,7 @@ inline int dispatch(const Layout& L, size_t scratch, const F& f) {
   if (L.ni == 4) return f.template run<4, 7, 3, true, true>();
   if (L.ni == 3 && L.nso == 2) return f.template run<3, 7, 2, true, true>();
   if (L.ni == 3) return f.template run<3, 7, 3, true, true>();
+  if (L.ni == 5) return f.template run<5, 7, 4, false, true>();
   if (L.ni == 1) return f.template run<1, 7, 1, true, true>();
   if (L.nso == 9) return f.template run<11, 7, 9, false, true>();
   return f.template run<11, 7, 8, false, true>();

@@ -1,8 +1,8 @@
 """MBRL env wrappers: featured state, goals, batched rollout collection.
 
 Port of the EnvWrapper base and the Walker, Cheetah, Hopper, Reacher,
-PointMass, Pendulum, Cartpole, Swimmer and Humanoid wrappers of
-mujoco_mbrl_tpu/envs/wrappers.py. The
+PointMass, Pendulum, Cartpole, Swimmer, Humanoid and Manipulator wrappers
+of mujoco_mbrl_tpu/envs/wrappers.py. The
 featured state's [qpos, qvel] part is nq + nv wide (the humanoid's free
 root gives nq 28, nv 27). The JAX wrapper collects under
 ``vmap`` + ``lax.scan``; here the env batch is the leading dimension and
@@ -39,6 +39,7 @@ from .. import suite as _suite
 from ..data import Rollouts
 from ..physics import engine
 from ..suite import hopper as _hopper
+from ..suite import manipulator as _manipulator
 from ..suite import sensors
 from ..suite.control import EnvState, flatten_observation
 
@@ -614,10 +615,46 @@ class Humanoid(EnvWrapper):
         return torch.zeros(self.state_dim, device=self.device)
 
 
+class Manipulator(EnvWrapper):
+    """wrappers.py:729-768: [qpos, qvel], the grasp site's x and z and the
+    five log1p touches (which read the observation forward's solve)."""
+    state_dim = 22 + 7
+    observation_dim = 37
+
+    def get_state(self, env_state, data=None):
+        m = self._env.model
+        phys = env_state.physics
+        base = torch.cat([phys.qpos, phys.qvel], 1)
+        if data is None:
+            return torch.cat([base, base.new_zeros((base.shape[0], 7))], 1)
+        grasp = data.site_xpos[:, m.name2id('site', 'grasp')]
+        return torch.cat([base, grasp[:, [0, 2]],
+                          _manipulator.touch(m, data)], 1)
+
+    def get_goal_weights(self):
+        w = torch.zeros(self.state_dim, device=self.device)
+        w[8:10] = 10 * self._state_penalty
+        w[10:21] = self._state_penalty / 4
+        w[-7:-5] = 10 * self._state_penalty
+        w[-5:] = self._state_penalty / 20
+        return w
+
+    def set_goal(self, generator):
+        """The ball over a random target (x, z) in [-0.4, 0.4), the grasp
+        site on it, every touch at 0.5 (the task's own params carry the
+        target body's pose)."""
+        g = torch.zeros(self.state_dim, device=self.device)
+        target = self._uniform(generator, (2,), -.4, .4)
+        g[8:10] = target
+        g[-7:-5] = target
+        g[-5:] = 0.5
+        return g
+
+
 _WRAPPERS = {'Cartpole': Cartpole, 'Cheetah': Cheetah, 'Hopper': Hopper,
-             'Humanoid': Humanoid, 'Pendulum': Pendulum,
-             'PointMass': PointMass, 'Reacher': Reacher, 'Swimmer': Swimmer,
-             'Walker': Walker}
+             'Humanoid': Humanoid, 'Manipulator': Manipulator,
+             'Pendulum': Pendulum, 'PointMass': PointMass,
+             'Reacher': Reacher, 'Swimmer': Swimmer, 'Walker': Walker}
 
 
 def load(env_name: str, task_name: str, device=None,

@@ -2,13 +2,17 @@
 
 ``apgd_iterate_batched`` replaces the TPU kernel
 mujoco_mbrl_tpu/ops/apgd_solve.py:_apgd_kernel. For CUDA tensors it
-launches ``csrc/apgd_solve.cu`` (one warp per env up to 64 rows with Ad
-in registers, one thread block per env past that; a real per-env early
-exit; box bounds shared (nr,) or per env (B, nr), as JAX's vmapped
-iterate takes them once each env's row scale divides them, finger's
-friction-loss row) and raises on inputs the kernel does not take; for
-CPU tensors it runs ``apgd_iterate_plain``, the batched PyTorch form of
-physics/solver.py's ``_apgd_dispatch.impl``.
+launches ``csrc/apgd_solve.cu`` on the path ``dense_route`` picks by
+shared-memory need: one warp per env up to 64 rows with Ad in registers,
+one thread block per env with Ad in shared memory while it fits (238
+rows), then one block per env reading the active submatrix of Ad from
+device memory (to 1024 rows: the manipulator's and stacker's dense
+solves, kept dense by their equality row); a real per-env early exit; box
+bounds shared (nr,) or per env (B, nr), as JAX's vmapped iterate takes
+them once each env's row scale divides them, finger's friction-loss row.
+It raises on inputs the kernel does not take; for CPU tensors it runs
+``apgd_iterate_plain``, the batched PyTorch form of physics/solver.py's
+``_apgd_dispatch.impl``.
 
 ``apgd_iterate_factored`` replaces ``_apgd_factored_kernel``, the regime
 past 96 rows where Ad = J~ M^-1 J~' + diag(Rs) is never materialized. For
@@ -41,13 +45,41 @@ MAX_SHARED_BYTES = 232448
 # with 5 rows a lane, then one block per env with a thread a row
 FACTORED_WARP_MAX_NR, FACTORED_WARP_MAX_NV = 160, 16
 FACTORED_MAX_NR = 1024
+# the dense kernel's paths (csrc/apgd_solve.cu): one env per warp, then
+# one block per env with Ad in shared memory, then with Ad in device memory
+DENSE_WARP_MAX_NR, DENSE_MAX_NR = 64, 1024
+DENSE_PATHS = ('warp', 'block', 'global')
+_RED_SLOTS = 96             # apgd_common.cuh kRedSlots
 _NONNEG, _BOX, _CONE = 1, 2, 4
 _SIGNATURES = {
     'apgd_smem_bytes': (ctypes.c_size_t, [ctypes.c_int]),
     'apgd_iterate_batched': (ctypes.c_int, [ctypes.c_void_p] * 9
-                             + [ctypes.c_int] * 7 + [ctypes.c_float]
+                             + [ctypes.c_int] * 8 + [ctypes.c_float]
                              + [ctypes.c_void_p] * 4),
 }
+
+
+def block_smem_bytes(nr: int) -> int:
+    """Shared memory of the dense block path's block at nr rows: Ad at row
+    stride nr | 1, three nr-float buffers, the reduction slots and the row
+    types (``apgd_smem_bytes`` in csrc/apgd_solve.cu)."""
+    return 4 * (nr * (nr | 1) + 3 * nr + 2 * _RED_SLOTS) + 4 * nr
+
+
+def dense_route(nr: int) -> str:
+    """The path of the dense kernel that takes an nr-row solve: 'warp'
+    (one env per warp) up to 64 rows, 'block' (one block per env, Ad in
+    shared memory) while ``block_smem_bytes(nr)`` fits in a block's
+    shared memory (to 238 rows), else 'global' (one block per env, Ad read
+    from device memory) up to 1024 rows, a thread a row."""
+    if nr > DENSE_MAX_NR:
+        raise ValueError(f'apgd_iterate_batched: nr={nr} is past the '
+                         f'{DENSE_MAX_NR} rows a block takes (a thread a '
+                         'row)')
+    if nr <= DENSE_WARP_MAX_NR:
+        return 'warp'
+    return 'block' if block_smem_bytes(nr) <= MAX_SHARED_BYTES else 'global'
+
 _FACTORED_SIGNATURES = {
     'apgd_factored_smem_bytes': (ctypes.c_size_t, [ctypes.c_int] * 2),
     'apgd_iterate_factored': (ctypes.c_int, [ctypes.c_void_p] * 11
@@ -196,8 +228,10 @@ def apgd_iterate_batched(Ad, rhs, f0, v0, active, mu_full, bounds_full, *,
     iterations each env ran (B,), as the plain version does.
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on
-    the current stream (no synchronisation, outputs allocated here): one
-    warp per env up to 64 rows, one block per env past that.
+    the current stream (no synchronisation, outputs allocated here), on
+    the path ``dense_route`` picks. The global path reads only the active
+    rows and columns of Ad: it takes Ad zero in every inactive row and
+    column, as ``physics.solver.solve_apgd`` masks it.
     """
     if not Ad.is_cuda:
         return apgd_iterate_plain(
@@ -214,10 +248,8 @@ def apgd_iterate_batched(Ad, rhs, f0, v0, active, mu_full, bounds_full, *,
             bounds_full.shape not in ((nr,), (B, nr)) or any(
                 t.shape != (B, nr) for t in (f0, v0, active)):
         raise ValueError('apgd_iterate_batched: inconsistent shapes')
+    path = DENSE_PATHS.index(dense_route(nr))
     lib = _build.library('apgd_solve', _SIGNATURES)
-    if nr > 1024 or lib.apgd_smem_bytes(nr) > MAX_SHARED_BYTES:
-        raise ValueError(f'apgd_iterate_batched: nr={nr} does not fit in '
-                         'shared memory')
     types, eq = _row_tables(nr, tuple(nonneg), tuple(box_rows), tuple(con0),
                             tuple(eq_rows), Ad.device)
     f = torch.empty_like(rhs)
@@ -227,8 +259,9 @@ def apgd_iterate_batched(Ad, rhs, f0, v0, active, mu_full, bounds_full, *,
     rc = lib.apgd_iterate_batched(
         Ad.data_ptr(), rhs.data_ptr(), f0.data_ptr(), v0.data_ptr(),
         active.data_ptr(), mu_full.data_ptr(), bounds_full.data_ptr(),
-        types.data_ptr(), eq.data_ptr(), len(eq_rows), B, nr,
-        nr if bounds_full.dim() == 2 else 0, int(iterations), int(bool(cold)), int(bool(len(con0))),
+        types.data_ptr(), eq.data_ptr(), len(eq_rows), B, nr, path,
+        nr if bounds_full.dim() == 2 else 0, int(iterations),
+        int(bool(cold)), int(bool(len(con0))),
         float(tol2), f.data_ptr(), v.data_ptr(),
         its.data_ptr() if its is not None else 0,
         torch.cuda.current_stream(Ad.device).cuda_stream)

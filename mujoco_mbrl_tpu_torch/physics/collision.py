@@ -1,13 +1,17 @@
 """Collision detection: static candidate pairs -> fixed-size contact set.
 
 Port of mujoco_mbrl_tpu/physics/collision.py for plane-capsule pairs (2
-points each) and plane-sphere, sphere-sphere, sphere-capsule and
-capsule-capsule pairs (1 point each): the walker's 7 plane-capsule pairs
-(14 contacts), the cheetah's 8 plane-capsule and 19 capsule-capsule pairs
-(35 contacts) and the humanoid's 161 pairs of all five kinds (177
-contacts). The candidate list is static per model; inactive contacts are
-masked by distance downstream. Any other geom pair type raises
-``NotImplementedError``.
+points each), plane-sphere, sphere-sphere, sphere-capsule and
+capsule-capsule pairs (1 point each), and the box pairs: plane-box (the 4
+deepest corners), sphere-box (1), capsule-box (the 2 deepest of the axis'
+ends and midpoint) and box-box (each box's 4 deepest corners against the
+other, 8), on the signed point-box distance ``_point_box``: the walker's 7
+plane-capsule pairs (14 contacts), the cheetah's 8 plane-capsule and 19
+capsule-capsule pairs (35 contacts), the humanoid's 161 pairs of the first
+five kinds (177 contacts), manipulator insert_peg's 203 pairs (275
+contacts) and stacker stack_4's 175 (323). The candidate list is static
+per model; inactive contacts are masked by distance downstream. The
+ellipsoid and heightfield pairs raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -202,11 +206,115 @@ def _k_capsule_capsule(p1, R1, s1, p2, R2, s2):
     return _sphere_pair(c1, s1[:, 0], c2, s2[:, 0])
 
 
+def _mat_t_vec(R, v):
+    """R' v for rotations R (..., 3, 3) and vectors v (..., 3)."""
+    return torch.einsum('...ji,...j->...i', R, v)
+
+
+def _mat_vec(R, v):
+    return torch.einsum('...ij,...j->...i', R, v)
+
+
+def _point_box(p_loc, size):
+    """Signed distance of points p_loc (..., 3) to the surface of boxes
+    of half-sizes ``size`` in their frames (JAX ``_point_box``): (dist,
+    outward normal n_loc) with dist < 0 inside, where the normal is the
+    nearest face's (the first of equally near ones)."""
+    c = torch.minimum(torch.maximum(p_loc, -size), size)
+    out_vec = p_loc - c
+    out_d = torch.linalg.vector_norm(out_vec, dim=-1)
+    outside = out_d > 1e-9
+    face_d = size - p_loc.abs()                 # >= 0 inside
+    fmin, ax = face_d.min(-1)
+    eye = torch.eye(3, dtype=p_loc.dtype, device=p_loc.device)
+    n_in = eye[ax] * torch.sign(p_loc.gather(-1, ax[..., None]))
+    n = torch.where(outside[..., None],
+                    out_vec / torch.clamp(out_d, min=1e-12)[..., None], n_in)
+    return torch.where(outside, out_d, -fmin), n
+
+
+def _deepest(d, pos, n, k):
+    """The k points of smallest distance, in a stable order (JAX's
+    argsort): d (..., q), pos / n (..., q, 3)."""
+    order = torch.argsort(d, dim=-1, stable=True)[..., :k]
+    take = lambda x: x.gather(-2, order[..., None].expand(
+        order.shape + (3,)))
+    return d.gather(-1, order), take(pos), take(n)
+
+
+# box corners, sign patterns in x-major order
+_BOX_SIGNS = [[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1)
+              for sz in (-1, 1)]
+
+
+def _box_corners(p, R, size):
+    """World corners (B, P, 8, 3) of boxes at p (B, P, 3), R, size (P, 3)."""
+    signs = torch.tensor(_BOX_SIGNS, dtype=p.dtype, device=p.device)
+    local = signs * size[:, None, :]                     # (P, 8, 3)
+    return p[:, :, None, :] + torch.einsum('pkj,bpij->bpki', local, R)
+
+
+def _k_plane_box(p1, R1, s1, p2, R2, s2):
+    """The box's 4 deepest corners against the plane (JAX
+    ``_k_plane_box``). Returns (dist, pos, normal), (B, P, 4, ...)."""
+    n = R1[..., :, 2][:, :, None, :]                     # (B, P, 1, 3)
+    world = _box_corners(p2, R2, s2)
+    ds = ((world - p1[:, :, None, :]) * n).sum(-1)       # (B, P, 8)
+    d, w, _ = _deepest(ds, world, world, 4)
+    return d, w - 0.5 * d[..., None] * n, n.expand(w.shape)
+
+
+def _k_sphere_box(p1, R1, s1, p2, R2, s2):
+    """The sphere's centre against the box (JAX ``_k_sphere_box``); the
+    normal points from the sphere to the box. (B, P, 1, ...)."""
+    r = s1[:, 0]
+    d_pt, n_loc = _point_box(_mat_t_vec(R2, p1 - p2), s2)
+    d = d_pt - r
+    n = -_mat_vec(R2, n_loc)
+    pos = p1 + n * (r + 0.5 * d)[..., None]
+    return d[..., None], pos[:, :, None], n[:, :, None]
+
+
+def _k_capsule_box(p1, R1, s1, p2, R2, s2):
+    """The 2 deepest of the capsule axis' ends and midpoint, each a sphere
+    against the box (JAX ``_k_capsule_box``). (B, P, 2, ...)."""
+    r = s1[:, 0][:, None]                                # (P, 1)
+    e0, e1 = _segment(p1, R1, s1[:, 1:2])
+    pts = torch.stack([e0, 0.5 * (e0 + e1), e1], 2)      # (B, P, 3, 3)
+    R2e = R2[:, :, None]
+    d_pt, n_loc = _point_box(_mat_t_vec(R2e, pts - p2[:, :, None]),
+                             s2[:, None, :])
+    d = d_pt - r
+    n = -_mat_vec(R2e, n_loc)
+    return _deepest(d, pts + n * (r + 0.5 * d)[..., None], n, 2)
+
+
+def _k_box_box(p1, R1, s1, p2, R2, s2):
+    """Each box's 4 deepest corners against the other box, the second
+    box's first (JAX ``_k_box_box``); the normal points from the first
+    box to the second. (B, P, 8, ...)."""
+    def corners_vs(pa, Ra, sa, pb, Rb, sb, sign):
+        w = _box_corners(pb, Rb, sb)                     # (B, P, 8, 3)
+        Rae = Ra[:, :, None]
+        d, n_loc = _point_box(_mat_t_vec(Rae, w - pa[:, :, None]),
+                              sa[:, None, :])
+        n = sign * _mat_vec(Rae, n_loc)
+        return _deepest(d, w - 0.5 * d[..., None] * n, n, 4)
+
+    a = corners_vs(p1, R1, s1, p2, R2, s2, 1.0)
+    b = corners_vs(p2, R2, s2, p1, R1, s1, -1.0)
+    return tuple(torch.cat([x, y], 2) for x, y in zip(a, b))
+
+
 _KERNELS = {(M.PLANE, M.SPHERE): _k_plane_sphere,
             (M.PLANE, M.CAPSULE): _k_plane_capsule,
+            (M.PLANE, M.BOX): _k_plane_box,
             (M.SPHERE, M.SPHERE): _k_sphere_sphere,
             (M.SPHERE, M.CAPSULE): _k_sphere_capsule,
-            (M.CAPSULE, M.CAPSULE): _k_capsule_capsule}
+            (M.SPHERE, M.BOX): _k_sphere_box,
+            (M.CAPSULE, M.CAPSULE): _k_capsule_capsule,
+            (M.CAPSULE, M.BOX): _k_capsule_box,
+            (M.BOX, M.BOX): _k_box_box}
 
 
 def detect(m: M.Model, geom_xpos, geom_xmat,
@@ -220,8 +328,7 @@ def detect(m: M.Model, geom_xpos, geom_xmat,
     for key in keys:
         if key not in _KERNELS:
             raise NotImplementedError(
-                'only plane-sphere, plane-capsule, sphere-sphere, '
-                'sphere-capsule and capsule-capsule contacts are ported '
+                'the ellipsoid and heightfield contacts are not ported '
                 '(mujoco_mbrl_tpu.physics.collision.detect)')
 
     def build():

@@ -2,23 +2,27 @@
 
 Port of the part of mujoco_mbrl_tpu/physics/mjcf.py that the planar walker,
 cheetah and hopper, the contact-free reacher, point_mass, pendulum,
-cartpole, acrobot and swimmer, the humanoid, finger, ball_in_cup and lqr
-reach: ``<compiler angle settotalmass>``, ``<option timestep gravity
-integrator density viscosity wind cone impratio iterations>`` (Euler or
-RK4; pyramidal or elliptic cones) with its ``<flag contact gravity limit
-actuation>``, nested ``<default>`` classes with ``childclass``, bodies
-with ``pos`` and orientation, hinge and slide joints with limits and
-friction loss, ``<freejoint>`` (which takes no default but its name),
-plane, sphere, capsule, cylinder, ellipsoid and box geoms (placed by
-``pos`` + orientation or, capsules and cylinders, by ``fromto``; mass
-given or from density), sites (MuJoCo's default size 0.005), fixed
-tendons, two-site spatial tendons with their length limits (the limit
-row's invweight at qpos0), and motors on a joint or a fixed tendon; and
-the fluid model's per-body equivalent inertia box and principal frame.
-Cameras and lights are visual only and skipped. Every other MJCF feature
-(ball joints, sensors, equality constraints, via-point tendons, fixed
-tendon limits among them) raises ``NotImplementedError`` naming the JAX
-function that handles it.
+cartpole, acrobot and swimmer, the humanoid, finger, ball_in_cup, lqr,
+manipulator, stacker and fish reach: ``<compiler angle settotalmass>``,
+``<option timestep gravity integrator density viscosity wind cone impratio
+iterations>`` (Euler or RK4; pyramidal or elliptic cones) with its ``<flag
+contact gravity limit actuation>``, nested ``<default>`` classes with
+``childclass``, bodies with ``pos`` and orientation and an optional
+``<inertial>``, hinge and slide joints with limits and friction loss,
+``<freejoint>`` (which takes no default but its name), plane, sphere,
+capsule, cylinder, ellipsoid and box geoms (placed by ``pos`` +
+orientation or, capsules and cylinders, by ``fromto``; mass given or from
+density), sites (MuJoCo's default size 0.005), fixed tendons, two-site
+spatial tendons with their length limits (the limit row's invweight at
+qpos0), ``<equality><tendon>`` couplings (a fixed tendon held at length 0
+by a soft row with its own solref and solimp), motors and ``<position>``
+servos (kp into gainprm[0], -kp into biasprm[1]: an affine bias) on a
+joint or a fixed tendon; and the fluid model's per-body equivalent inertia
+box and principal frame. Cameras and lights are visual only and skipped.
+Every other MJCF feature (ball joints, sensors, ``<contact>``, other
+equality constraints, via-point tendons, fixed tendon limits, velocity and
+general actuators among them) raises ``NotImplementedError`` naming the
+JAX function that handles it.
 """
 
 from __future__ import annotations
@@ -231,7 +235,7 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
     root = ET.fromstring(xml_string)
     if root.tag != 'mujoco':
         raise ValueError('not an MJCF document (root tag is not <mujoco>)')
-    for tag in ('equality', 'contact', 'sensor'):
+    for tag in ('contact', 'sensor'):
         if root.find(tag) is not None:
             raise _unsupported(f'<{tag}>')
     asset = root.find('asset')
@@ -401,6 +405,23 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
             frictionloss=float(attrs.get('frictionloss', 0.0)),
             margin=float(attrs.get('margin', 0.0))))
 
+    def add_inertial(attrs, body_id):
+        # an explicit inertial replaces what the body's geoms gave so far,
+        # as the JAX compiler does
+        mass = float(attrs['mass'])
+        ipos = _floats(attrs.get('pos', '0 0 0'))
+        if 'diaginertia' in attrs:
+            inert = np.diag(_floats(attrs['diaginertia']))
+        else:
+            f = _floats(attrs.get('fullinertia', '1 1 1 0 0 0'))
+            inert = np.array([[f[0], f[3], f[4]], [f[3], f[1], f[5]],
+                              [f[4], f[5], f[2]]])
+        R = _nquat_to_mat(_orientation(attrs, deg))
+        cx = _skew(ipos)
+        body_mass[body_id] = mass
+        body_fm[body_id] = mass * ipos
+        body_io[body_id] = R @ inert @ R.T + mass * (cx @ cx.T)
+
     def add_child(child, body_id, cls):
         tag = child.tag
         cattrs = defaults.resolve(tag, child.attrib,
@@ -415,6 +436,8 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
             add_geom(cattrs, body_id)
         elif tag == 'site':
             add_site(cattrs, body_id)
+        elif tag == 'inertial':
+            add_inertial(cattrs, body_id)
         elif tag == 'body':
             walk_body(child, body_id, cls)
         elif tag in ('camera', 'light'):
@@ -521,12 +544,33 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
                             damping=float(attrs.get('damping', 0.0))))
     ntendon = len(tendons)
 
+    # tendon equality: (tendon, solref, solimp), a row holding the fixed
+    # tendon's length at 0 (the manipulator's finger coupling)
+    eq_tendon = []
+    for eel in (root.find('equality') if root.find('equality') is not None
+                else ()):
+        if eel.tag != 'tendon':
+            raise _unsupported(f'<equality><{eel.tag}>')
+        attrs = defaults.resolve('equality', eel.attrib, None)
+        if 'tendon2' in attrs:
+            raise _unsupported('a two-tendon equality')
+        solref = _DEFAULT_SOLREF.copy()
+        if 'solref' in attrs:
+            solref[:] = _floats(attrs['solref'])[:2]
+        solimp = _DEFAULT_SOLIMP.copy()
+        if 'solimp' in attrs:
+            si = _floats(attrs['solimp'])
+            solimp[:len(si)] = si
+        eq_tendon.append((tendon_names[attrs['tendon1']],
+                          tuple(solref.tolist()), tuple(solimp.tolist())))
+
     act_names, acts = {}, []
     actuator_el = root.find('actuator')
     for ael in (actuator_el if actuator_el is not None else ()):
-        if ael.tag != 'motor':
+        if ael.tag not in ('motor', 'position'):
             raise _unsupported(f'actuator <{ael.tag}>')
-        attrs = defaults.resolve('motor', ael.attrib, ael.attrib.get('class'))
+        attrs = defaults.resolve(ael.tag, ael.attrib,
+                                 ael.attrib.get('class'))
         if attrs.get('dyntype', 'none') != 'none':
             raise _unsupported('activation dynamics')
         if 'joint' in attrs:
@@ -537,6 +581,11 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
             raise ValueError(f'actuator {attrs} needs joint or tendon')
         if attrs.get('name'):
             act_names[attrs['name']] = len(acts)
+        gainprm, biasprm, biastype = [1.0, 0.0, 0.0], [0.0] * 3, M.BIAS_NONE
+        if ael.tag == 'position':
+            kp = float(attrs.get('kp', 1.0))
+            gainprm, biasprm = [kp, 0.0, 0.0], [0.0, -kp, 0.0]
+            biastype = M.BIAS_AFFINE
         acts.append(dict(
             trntype=trntype, trnid=trnid,
             gear=float(_floats(attrs.get('gear', '1'))[0]),
@@ -545,7 +594,8 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
                        else np.zeros(2)),
             forcelimited=attrs.get('forcelimited', 'false') in ('true', '1'),
             forcerange=(_floats(attrs['forcerange'])
-                        if 'forcerange' in attrs else np.zeros(2))))
+                        if 'forcerange' in attrs else np.zeros(2)),
+            gainprm=gainprm, biasprm=biasprm, biastype=biastype))
     nu = len(acts)
 
     def arr(x, shape):
@@ -615,11 +665,11 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
         body_principal_mat=arr(body_principal_mat, (nbody, 3, 3)),
         actuator_gear=arr([a['gear'] for a in acts], (nu,)),
         actuator_ctrlrange=arr([a['ctrlrange'] for a in acts], (nu, 2)),
-        actuator_gainprm=arr([[1.0, 0.0, 0.0] for _ in acts], (nu, 3)),
-        actuator_biasprm=arr([[0.0, 0.0, 0.0] for _ in acts], (nu, 3)),
+        actuator_gainprm=arr([a['gainprm'] for a in acts], (nu, 3)),
+        actuator_biasprm=arr([a['biasprm'] for a in acts], (nu, 3)),
         actuator_forcerange=arr([a['forcerange'] for a in acts], (nu, 2)),
         actuator_forcelimited=tuple(a['forcelimited'] for a in acts),
-        actuator_biastype=tuple(M.BIAS_NONE for _ in acts),
+        actuator_biastype=tuple(a['biastype'] for a in acts),
         qpos0=arr(qpos0, (nq,)), qpos_spring=arr(qpos_spring, (nq,)),
         actuator_dyntype=tuple(M.DYN_NONE for _ in acts),
         actuator_actadr=tuple(-1 for _ in acts),
@@ -627,7 +677,7 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
         tendon_stiffness=arr([t['stiffness'] for t in tendons], (ntendon,)),
         tendon_damping=arr([t['damping'] for t in tendons], (ntendon,)),
         tendon_jnt=tuple(t['jnt'] for t in tendons),
-        spatial_tendons=tuple(spatial))
+        spatial_tendons=tuple(spatial), eq_tendon=tuple(eq_tendon))
     return _with_invweight0(model)
 
 

@@ -49,12 +49,19 @@ def _to(obj, device):
 _CONSTS: 'weakref.WeakKeyDictionary' = weakref.WeakKeyDictionary()
 
 
+def shared(m: 'Model') -> 'Model':
+    """The model that `m` was made from by ``with_env_fields`` (else `m`):
+    the one whose shared fields a memo entry may be built from."""
+    return getattr(m, '_memo_owner', m)
+
+
 def cached(m: 'Model', key: str, build: Callable[[], Any]) -> Any:
     """Per-model memo for static derived data (tree tables, index and mask
     tensors on the model's device): built once, not on every forward. A
     model with per-env fields (``with_env_fields``) shares the memo of the
-    model it was made from."""
-    d = _CONSTS.setdefault(getattr(m, '_memo_owner', m), {})
+    model it was made from, so a ``build`` that reads a per-env field
+    reads it from ``shared(m)``."""
+    d = _CONSTS.setdefault(shared(m), {})
     if key not in d:
         d[key] = build()
     return d[key]
@@ -160,6 +167,9 @@ class Model:
     # range_lo, range_hi, invweight0), the last at qpos0; they give
     # length-limit rows only
     spatial_tendons: Tuple[Tuple, ...] = ()
+    # tendon equality constraints: (tendon, solref (2,), solimp (5,)), a
+    # soft row holding the fixed tendon's length at 0
+    eq_tendon: Tuple[Tuple, ...] = ()
     # mj_setConst reference weights (constraint regularizers)
     dof_invweight0: Optional[torch.Tensor] = None   # (nv,)
     body_invweight0: Optional[torch.Tensor] = None  # (nbody, 2)
@@ -184,21 +194,25 @@ class Model:
 
 
 # Fields a task may set per env (JAX ``Task.apply_params`` under ``vmap``);
-# none of them is read by anything ``cached`` derives.
-ENV_FIELDS = ('geom_pos', 'site_pos', 'tendon_moment')
+# none of them is read by anything ``cached`` derives, but the body pose:
+# ``smooth.kinematics`` skips the identity-quaternion and zero-position
+# fast paths of the shared model when it is set per env.
+ENV_FIELDS = ('geom_pos', 'site_pos', 'tendon_moment', 'body_pos',
+              'body_quat')
 
 
 def with_env_fields(m: Model, **fields: torch.Tensor) -> Model:
     """`m` with per-env values of some fields, each with the env batch as
     its leading dimension (geom_pos (B, ngeom, 3), site_pos (B, nsite, 3),
-    tendon_moment (B, ntendon, nv)); the functions that read them
+    tendon_moment (B, ntendon, nv), body_pos (B, nbody, 3), body_quat
+    (B, nbody, 4)); the functions that read them
     broadcast over it. The result shares `m`'s ``cached`` memo: one
     model per batch, not one per env."""
     bad = set(fields) - set(ENV_FIELDS)
     if bad:
         raise ValueError(f'no per-env override for {sorted(bad)}')
     out = m.replace(**fields)
-    object.__setattr__(out, '_memo_owner', getattr(m, '_memo_owner', m))
+    object.__setattr__(out, '_memo_owner', shared(m))
     return out
 
 

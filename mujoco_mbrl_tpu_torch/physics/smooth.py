@@ -6,11 +6,11 @@ then body-local rotations). Every function takes the env batch as the
 leading dimension; the loops over bodies are static Python loops over the
 model's tree, as in the JAX package. Fixed tendons (their passive force
 and tendon-driven motors), site positions and the inertia-box fluid
-force are ported; ball joints and activation and bias actuators raise
-``NotImplementedError``. A model
-from ``model.with_env_fields`` carries per-env ``geom_pos``, ``site_pos``
-and ``tendon_moment`` with the env batch leading; ``kinematics`` and
-``actuation`` broadcast over it.
+force are ported, and the affine bias of position servos; ball joints
+and activation dynamics raise ``NotImplementedError``. A model from
+``model.with_env_fields`` carries per-env ``geom_pos``, ``site_pos``,
+``tendon_moment``, ``body_pos`` and ``body_quat`` with the env batch
+leading; ``kinematics`` and ``actuation`` broadcast over it.
 """
 
 from __future__ import annotations
@@ -48,8 +48,10 @@ def check_joints(m: M.Model, fn: str):
 
 
 def tree_meta(m: M.Model) -> TreeMeta:
-    """Static tree tables, built once per model (host copies only here)."""
-    return M.cached(m, 'tree_meta', lambda: _tree_meta(m))
+    """Static tree tables, built once per model (host copies only here)
+    from the shared model's body and joint poses: a per-env pose never
+    decides a fast path."""
+    return M.cached(m, 'tree_meta', lambda: _tree_meta(M.shared(m)))
 
 
 def _tree_meta(m: M.Model) -> TreeMeta:
@@ -103,6 +105,10 @@ def kinematics(m: M.Model, qpos: torch.Tensor, meta: TreeMeta):
     xquat = [torch.tensor([1.0, 0, 0, 0], dtype=dt, device=dev).expand(B, 4)]
     xanchor = [None] * m.njnt
     xaxis = [None] * m.njnt
+    # a body pose set per env takes the general path for every body: the
+    # fast-path predicates are the shared model's (JAX takes it when the
+    # pose is traced, tests/test_stacker.py)
+    env_pose = m.body_pos.dim() == 3 or m.body_quat.dim() == 3
     for b in range(1, m.nbody):
         p = m.body_parent[b]
         joints = meta.body_joints[b]
@@ -115,10 +121,10 @@ def kinematics(m: M.Model, qpos: torch.Tensor, meta: TreeMeta):
             xpos.append(pos)
             xquat.append(quat)
             continue
-        quat = (xquat[p] if meta.identity_body_quat[b]
-                else pm.quat_mul(xquat[p], m.body_quat[b]))
-        pos = (xpos[p] if meta.zero_body_pos[b]
-               else xpos[p] + pm.quat_rot(xquat[p], m.body_pos[b]))
+        quat = (xquat[p] if meta.identity_body_quat[b] and not env_pose
+                else pm.quat_mul(xquat[p], m.body_quat[..., b, :]))
+        pos = (xpos[p] if meta.zero_body_pos[b] and not env_pose
+               else xpos[p] + pm.quat_rot(xquat[p], m.body_pos[..., b, :]))
         for j in meta.body_joints[b]:
             adr = m.jnt_qposadr[j]
             zero_anchor = meta.zero_jnt_pos[j]
@@ -380,20 +386,21 @@ def fluid_force(m: M.Model, xipos, xquat, cvel, cdof,
 
 
 def actuation(m: M.Model, qpos, qvel, ctrl):
-    """(actuator_force, qfrc_actuator): motors on joints and on fixed
-    tendons (qfrc += tendon_moment' gear force).
+    """(actuator_force, qfrc_actuator): motors and position servos on
+    joints and on fixed tendons (qfrc += tendon_moment' gear force).
 
-    The JAX ``actuation`` also covers affine bias and activation
-    dynamics; no ported domain uses them. A motor's transmission length
-    and velocity feed only the affine bias, so they are not formed here.
+    A servo's affine bias is biasprm0 + biasprm1 * length + biasprm2 *
+    velocity, with the transmission's length and velocity (gear times the
+    joint's qpos and qvel, or the tendon's length and moment . qvel; JAX
+    smooth.py:547-552). Activation dynamics (``m.na``) raise.
     """
     B, dt, dev = qpos.shape[0], qpos.dtype, qpos.device
     if m.nu == 0 or (m.opt.disableflags & M.DSBL_ACTUATION):
         return (torch.zeros((B, m.nu), dtype=dt, device=dev),
                 torch.zeros((B, m.nv), dtype=dt, device=dev))
-    if m.na or any(bt != M.BIAS_NONE for bt in m.actuator_biastype):
+    if m.na:
         raise NotImplementedError(
-            'bias/stateful actuators are not ported '
+            'stateful actuators are not ported '
             '(mujoco_mbrl_tpu.physics.smooth.actuation)')
 
     def clip_where(x, key, limited, rng):
@@ -405,20 +412,41 @@ def actuation(m: M.Model, qpos, qvel, ctrl):
 
     c = clip_where(ctrl, 'ctrl_limited', m.actuator_ctrllimited,
                    m.actuator_ctrlrange)
-    force = clip_where(m.actuator_gainprm[:, 0] * c, 'force_limited',
-                       m.actuator_forcelimited, m.actuator_forcerange)
     joint_us = [u for u in range(m.nu)
                 if m.actuator_trntype[u] == M.TRN_JOINT]
-    qfrc = torch.zeros((B, m.nv), dtype=dt, device=dev)
+    tendon_us = [u for u in range(m.nu) if u not in joint_us]
     if joint_us:
         uj, dadr = M.cached(m, 'actuator_dofadr', lambda: (
             torch.as_tensor(joint_us, device=dev),
             torch.as_tensor([m.jnt_dofadr[m.actuator_trnid[u]]
                              for u in joint_us], device=dev)))
+    force = m.actuator_gainprm[:, 0] * c
+    if any(bt == M.BIAS_AFFINE for bt in m.actuator_biastype):
+        length, velocity = [None] * m.nu, [None] * m.nu
+        for u in joint_us:
+            j = m.actuator_trnid[u]
+            length[u] = qpos[:, m.jnt_qposadr[j]]
+            velocity[u] = qvel[:, m.jnt_dofadr[j]]
+        for u in tendon_us:
+            t = m.actuator_trnid[u]
+            length[u] = fixed_tendon_length(m, qpos, t)
+            velocity[u] = (_tendon_row(m, t) * qvel).sum(-1)
+        affine = M.cached(m, 'bias_affine', lambda: torch.as_tensor(
+            [bt == M.BIAS_AFFINE for bt in m.actuator_biastype],
+            dtype=dt, device=dev))
+        force = force + affine * (
+            m.actuator_biasprm[:, 0]
+            + m.actuator_biasprm[:, 1] * (m.actuator_gear
+                                          * torch.stack(length, 1))
+            + m.actuator_biasprm[:, 2] * (m.actuator_gear
+                                          * torch.stack(velocity, 1)))
+    force = clip_where(force, 'force_limited', m.actuator_forcelimited,
+                       m.actuator_forcerange)
+    qfrc = torch.zeros((B, m.nv), dtype=dt, device=dev)
+    if joint_us:
         gf = m.actuator_gear * force
         qfrc.index_add_(1, dadr, gf if len(joint_us) == m.nu else gf[:, uj])
-    for u in range(m.nu):
-        if m.actuator_trntype[u] != M.TRN_JOINT:
-            qfrc = qfrc + _tendon_row(m, m.actuator_trnid[u]) * (
-                m.actuator_gear[u] * force[:, u:u + 1])
+    for u in tendon_us:
+        qfrc = qfrc + _tendon_row(m, m.actuator_trnid[u]) * (
+            m.actuator_gear[u] * force[:, u:u + 1])
     return force, qfrc

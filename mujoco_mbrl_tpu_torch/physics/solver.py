@@ -1,19 +1,24 @@
 """Soft-constraint assembly and the APGD dual solve (batched over envs).
 
 Port of mujoco_mbrl_tpu/physics/solver.py for dof friction loss (a box
-row a dof), spatial-tendon length limits, joint limits and frictional
-contacts, pyramidal of condim 1 (one non-negative row a point, the
-humanoid's geom-geom pairs) or 3 (four facet rows, grouped by condim) or
-elliptic (a normal and two tangent rows a point, finger), in JAX's row
-order: friction loss, tendon limits, joint limits, contacts. Each row has
+row a dof), tendon equality (a free row holding a fixed tendon's length
+at 0, the manipulator's and stacker's finger coupling), spatial-tendon
+length limits, joint limits and frictional contacts, pyramidal of condim
+1 (one non-negative row a point, the humanoid's geom-geom pairs) or 3
+(four facet rows, grouped by condim) or elliptic (a normal and two
+tangent rows a point, finger), in JAX's row order: friction loss, tendon
+equality, tendon limits, joint limits, contacts. Each row has
 impedance d(pos) from solimp, reference acceleration aref = -b*vel - k*pos
 from solref, and regularizer R = (1-d)/d * invweight0; the dual
 min 1/2 f'(A+R)f - f'rhs is solved by ``solve_apgd`` through the batched
 iterate of ``ops.apgd_solve`` (CUDA kernel on the card, plain PyTorch on
-the CPU): the dense iterate up to 96 rows (walker: 62; finger: 39), the
-factored one past it (cheetah: 146; humanoid: 303), as the JAX solver
-selects them. The PGS ``solve``, tendon-equality rows, condim above 3 and
-box rows in the factored regime raise ``NotImplementedError``.
+the CPU): the dense iterate up to 96 rows (walker: 62; finger: 39), and
+at any row count once an equality row is present, since its Gauss-Seidel
+polish reads rows of Ad (manipulator bring_ball: 452 rows; stacker
+stack_4: 977), the factored one past 96 rows otherwise (cheetah: 146;
+humanoid: 303), as the JAX solver selects them. The PGS ``solve``, condim
+above 3 and box rows in the factored regime raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -122,8 +127,8 @@ def assemble(m: M.Model, meta, qpos, qvel, cdof,
              contact: Optional[Contact],
              site_xpos: Optional[torch.Tensor] = None
              ) -> Optional[ConstraintSet]:
-    """Friction-loss, tendon-limit, joint-limit and contact rows, in the
-    JAX row order."""
+    """Friction-loss, tendon-equality, tendon-limit, joint-limit and
+    contact rows, in the JAX row order."""
     B, nv, dt, dev = qpos.shape[0], m.nv, qpos.dtype, qpos.device
     h = m.opt.timestep
     rows_J: List[torch.Tensor] = []
@@ -150,6 +155,26 @@ def assemble(m: M.Model, meta, qpos, qvel, cdof,
             B, len(fl)))
         rows_active.append(torch.ones((B, len(fl)), dtype=dt, device=dev))
         friction_bounds = m.dof_frictionloss[list(fl)]
+
+    # ---- tendon equality: the fixed tendon's length held at 0 ------------
+    if m.eq_tendon:
+        from .smooth import fixed_tendon_length
+        eq_params = M.cached(m, 'eq_tendon_params', lambda: [
+            (t, torch.tensor(ref, dtype=dt, device=dev),
+             torch.tensor(imp, dtype=dt, device=dev))
+            for t, ref, imp in m.eq_tendon])
+        for t, solref, solimp in eq_params:
+            length = fixed_tendon_length(m, qpos, t)
+            Jrow = m.tendon_moment[..., t, :].expand(B, nv)
+            kk, bb, dd = kbi(solref, solimp, length, h)
+            blocks.append(('equality', nrows))
+            nrows += 1
+            rows_J.append(Jrow[:, None])
+            rows_aref.append((-bb * (Jrow * qvel).sum(1) - kk * length
+                              )[:, None])
+            rows_R.append(((1.0 - dd) / dd * m.tendon_invweight0[t]
+                           )[:, None])
+            rows_active.append(torch.ones((B, 1), dtype=dt, device=dev))
 
     # ---- spatial-tendon length limits (ball_in_cup's string) ------------
     for s1, s2, limited, lo, hi, iw in m.spatial_tendons:
@@ -344,8 +369,11 @@ def solve_apgd(m: M.Model, cs: Optional[ConstraintSet], qM_chol,
     if use_factored:
         d_all0 = torch.einsum('brv,bvr->br', cs.J, MinvJT) + cs.R
     else:
-        Ad = cs.J @ MinvJT + torch.diag_embed(cs.R)
-        d_all0 = torch.diagonal(Ad, dim1=1, dim2=2)
+        # in place where it can be: at stack_4's 977 rows a (B, nr, nr)
+        # batch is 3.9 GB at 1024 envs
+        Ad = cs.J @ MinvJT
+        Ad.diagonal(dim1=1, dim2=2).add_(cs.R)
+        d_all0 = torch.diagonal(Ad, dim1=1, dim2=2).clone()
     rhs = (cs.aref - (cs.J @ qacc_smooth[..., None])[..., 0]) * cs.active
 
     nonneg, box_rows, con0 = _row_structure(cs)
@@ -370,7 +398,7 @@ def solve_apgd(m: M.Model, cs: Optional[ConstraintSet], qM_chol,
     if not use_factored:
         # scale, then mask Ad to the active submatrix so the step size is
         # the ACTIVE set's spectral radius (JAX solver.py:543-555)
-        Ad = Ad * sa[:, :, None] * sa[:, None, :]
+        Ad.mul_(sa[:, :, None]).mul_(sa[:, None, :])
     rhs = rhs * s_inv
 
     dt, dev = qacc_smooth.dtype, qacc_smooth.device

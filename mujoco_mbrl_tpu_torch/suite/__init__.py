@@ -1,6 +1,6 @@
 """Control-suite port: the walker, cheetah, hopper, reacher, point_mass,
-pendulum, cartpole, acrobot, swimmer, humanoid, finger, ball_in_cup and
-lqr domains and the environment core.
+pendulum, cartpole, acrobot, swimmer, humanoid, finger, ball_in_cup, lqr,
+manipulator, stacker and fish domains and the environment core.
 
 Each domain module registers its tasks in its own ``SUITE``
 (``registry.TaggedTasks``), as in mujoco_mbrl_tpu/suite/__init__.py;
@@ -15,8 +15,8 @@ from typing import Optional
 
 from ..device import resolve_device
 from . import (acrobot, ball_in_cup, cartpole, cheetah, control, finger,
-               hopper, humanoid, lqr, pendulum, point_mass, reacher,
-               registry, swimmer, walker)
+               fish, hopper, humanoid, lqr, manipulator, pendulum,
+               point_mass, reacher, registry, stacker, swimmer, walker)
 from .control import EnvState, Environment, TimeStep, flatten_observation
 
 # the JAX package's domain order (mujoco_mbrl_tpu/suite/__init__.py)
@@ -26,9 +26,10 @@ _JAX_DOMAINS = ('acrobot', 'ball_in_cup', 'cartpole', 'cheetah', 'finger',
                 'reacher', 'stacker', 'swimmer', 'walker')
 _DOMAINS = {'acrobot': acrobot, 'ball_in_cup': ball_in_cup,
             'cartpole': cartpole, 'cheetah': cheetah, 'finger': finger,
-            'hopper': hopper, 'humanoid': humanoid, 'lqr': lqr,
-            'pendulum': pendulum, 'point_mass': point_mass,
-            'reacher': reacher, 'swimmer': swimmer, 'walker': walker}
+            'fish': fish, 'hopper': hopper, 'humanoid': humanoid,
+            'lqr': lqr, 'manipulator': manipulator, 'pendulum': pendulum,
+            'point_mass': point_mass, 'reacher': reacher,
+            'stacker': stacker, 'swimmer': swimmer, 'walker': walker}
 
 
 def _get_tasks(tag: Optional[str]):
@@ -68,6 +69,6 @@ def load(domain: str, task: str, task_kwargs: Optional[dict] = None,
 
 __all__ = ['EnvState', 'Environment', 'TimeStep', 'acrobot', 'all_tasks',
            'ball_in_cup', 'benchmarking', 'cartpole', 'cheetah', 'control',
-           'finger', 'flatten_observation', 'hopper', 'humanoid', 'load',
-           'lqr', 'pendulum', 'point_mass', 'reacher', 'registry', 'swimmer',
-           'walker']
+           'finger', 'fish', 'flatten_observation', 'hopper', 'humanoid',
+           'load', 'lqr', 'manipulator', 'pendulum', 'point_mass', 'reacher',
+           'registry', 'stacker', 'swimmer', 'walker']

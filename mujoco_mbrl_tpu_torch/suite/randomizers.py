@@ -6,7 +6,7 @@ pi), unlimited slides untouched, an unlimited free joint's quaternion
 uniform on S^3 (a normalized 4-d normal draw; its position untouched).
 The draws differ from ``jax.random``'s; the distribution is the same.
 ``first_collision_free`` is the lockstep rejection rule of the humanoid,
-finger and ball_in_cup resets.
+finger, ball_in_cup, manipulator and stacker resets.
 """
 
 from __future__ import annotations
@@ -51,12 +51,13 @@ def randomize_limited_and_rotational_joints(
     return out
 
 
-def first_collision_free(model: M.Model, qposes: torch.Tensor
-                         ) -> torch.Tensor:
-    """qpos (B, nq) from attempts qposes (A, B, nq): each env takes its
-    first attempt with no penetrating contact, else attempt 0 (JAX
-    humanoid.py:185-205, finger.py:77-94, ball_in_cup.py:77-96). One
-    kinematics and one detect cover all A x B configurations."""
+def first_collision_free_index(model: M.Model, qposes: torch.Tensor
+                               ) -> torch.Tensor:
+    """(B,) the attempt each env keeps of qposes (A, B, nq): its first
+    with no penetrating contact, else attempt 0 (JAX humanoid.py:185-205,
+    finger.py:77-94, ball_in_cup.py:77-96, manipulator.py:298-301,
+    stacker.py:107-110). One kinematics and one detect cover all A x B
+    configurations."""
     A, B, nq = qposes.shape
     pairs = M.cached(model, 'reset_pairs',
                      lambda: collision.candidate_pairs(model))
@@ -64,5 +65,12 @@ def first_collision_free(model: M.Model, qposes: torch.Tensor
                             smooth.tree_meta(model))
     dist = collision.detect(model, kin[3], kin[4], pairs).dist
     ok = ~(dist < 0).any(-1).reshape(A, B)
-    idx = torch.where(ok.any(0), ok.to(torch.int8).argmax(0), 0)
-    return qposes[idx, torch.arange(B, device=qposes.device)]
+    return torch.where(ok.any(0), ok.to(torch.int8).argmax(0), 0)
+
+
+def first_collision_free(model: M.Model, qposes: torch.Tensor
+                         ) -> torch.Tensor:
+    """qpos (B, nq) from attempts qposes (A, B, nq), each env's
+    ``first_collision_free_index``."""
+    idx = first_collision_free_index(model, qposes)
+    return qposes[idx, torch.arange(qposes.shape[1], device=qposes.device)]

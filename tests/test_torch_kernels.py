@@ -792,3 +792,88 @@ def test_apgd_kernel_per_env_bounds(dev, nr, path, cold):
     f_b, _ = apgd_solve.apgd_iterate_batched(
         *args[:6], bounds[:1].expand(B, nr).contiguous(), **kw)
     torch.testing.assert_close(f_s, f_b, rtol=0, atol=0)
+
+
+def _dense_problem(dev, B, nr, seed):
+    """A dense solve laid out as the manipulator's and stacker's: a box row
+    with per-env bounds (B, nr), the equality row, seven non-negative limit
+    rows, then cone triples (9, 10, 11), ... across every warp boundary;
+    the box and equality rows always active, a third of the limits and a
+    sixth of the triples active, and Ad zero in the inactive rows and
+    columns, as solve_apgd masks it."""
+    Ad, rhs, f0, v0, _, _, _ = _problem(dev, B, nr, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1000)
+    cones = tuple(range(9, nr - 2, 3))
+    act = torch.zeros((B, nr), device=dev)
+    act[:, :2] = 1.0
+    act[:, 2:9] = (torch.rand((B, 7), generator=g, device=dev) < 0.33).float()
+    tri = (torch.rand((B, len(cones)), generator=g, device=dev) < 0.17)
+    act[:, 9:9 + 3 * len(cones)] = tri.float().repeat_interleave(3, dim=1)
+    Ad = (Ad * act[:, :, None] * act[:, None, :]).contiguous()
+    mu = torch.zeros(nr, device=dev)
+    mu[list(cones)] = 0.7
+    bounds = torch.zeros((B, nr), device=dev)
+    bounds[:, 0] = 0.05 + torch.rand(B, generator=g, device=dev)
+    kw = dict(nonneg=tuple(range(2, 9)) + tuple(range(9 + 3 * len(cones),
+                                                      nr)),
+              box_rows=(0,), con0=cones, eq_rows=(1,), iterations=60)
+    return (Ad, 3.0 * rhs, f0, v0, act, mu, bounds), kw
+
+
+# #1's global path (Ad in device memory, the active submatrix only) past
+# the row count where the block path's shared memory runs out (238 | 239),
+# at the manipulator's bring_ball (452) and the stacker's stack_4 (977)
+# rows: equality polish, cone triples across warp boundaries, a box row
+# with per-env bounds, cold and warm
+@pytest.mark.parametrize('nr,path', [(238, 'block'), (239, 'global'),
+                                     (452, 'global'), (977, 'global')])
+@pytest.mark.parametrize('cold', [True, False])
+def test_apgd_kernel_global_path(dev, nr, path, cold):
+    assert apgd_solve.dense_route(nr) == path
+    lib = apgd_solve._build.library('apgd_solve', apgd_solve._SIGNATURES)
+    assert lib.apgd_smem_bytes(nr) == apgd_solve.block_smem_bytes(nr)
+    assert (lib.apgd_smem_bytes(nr) <= apgd_solve.MAX_SHARED_BYTES) == (
+        path == 'block')
+    args, kw = _dense_problem(dev, 48, nr, seed=nr + int(cold))
+    before = ops.launch_counts['apgd_solve']
+    f, v, its = apgd_solve.apgd_iterate_batched(*args, cold=cold, **kw,
+                                                return_iterations=True)
+    assert ops.launch_counts['apgd_solve'] == before + 1
+    f_p, v_p, its_p = apgd_solve.apgd_iterate_plain(
+        *args, cold=cold, **kw, return_iterations=True)
+    torch.testing.assert_close(f, f_p, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(v, v_p, rtol=2e-4, atol=2e-4)
+    # the global path sums each row over the active columns lane by lane
+    # and by shuffles, the plain version by bmm: an env near the exit
+    # test may stop an iteration or two apart, f agreeing as held above
+    assert int((its.long() - its_p).abs().max()) <= 2
+    act, bounds = args[4], args[6]
+    assert float((f * (1 - act)).abs().max()) == 0.0
+    assert bool((f[:, 0].abs() <= bounds[:, 0] * (1 + 1e-6)).all())
+    assert float(f[:, 1].abs().max()) > 1e-3       # the equality row works
+
+
+def test_apgd_kernel_refuses_past_1024_rows(dev):
+    args, kw = _dense_problem(dev, 2, 1025, seed=0)
+    with pytest.raises(ValueError, match='1024'):
+        apgd_solve.apgd_iterate_batched(*args, cold=True, **kw)
+
+
+# The manipulator's featured state (sd 29, ad 5) takes the sized (5, 7, 4)
+# instantiation with run-time loop bounds (the exact one spills)
+@pytest.mark.parametrize('sampler', ['normal', 'spline4'])
+def test_sampler_kernel_manipulator_tiles(dev, sampler):
+    B, K, H, sd, ad = 9, 200, 12, 29, 5
+    assert cem_rollout.sampler_instantiation(K, H, sd, ad, 50) == (
+        5, 7, 4, False, True)
+    params = MLPDynamics(sd, ad, hidden_units=50).init(
+        torch.Generator().manual_seed(3), device=dev)
+    g, mean, std = _proposal(dev, B, H, ad, 16)
+    s0 = torch.randn((B, sd), generator=g, device=dev)
+    goal = torch.randn(sd, generator=g, device=dev)
+    w = torch.rand(sd, generator=g, device=dev)
+    costs, acts = cem_rollout.mlp_sample_rollout_costs(
+        params, 5, s0, mean, std, goal, w, K, sampler=sampler)
+    ref = cem_rollout.rollout_costs_of_actions(params, s0, acts, goal, w)
+    torch.testing.assert_close(costs, ref, rtol=1e-4, atol=1e-4)
+    assert float(acts.abs().max()) <= 1.0
