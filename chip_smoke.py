@@ -234,12 +234,35 @@ Run from the repository root:  python3 chip_smoke.py
       each, with exact launch counts;
    ptxas of ``apgd_global_kernel`` and the (5, 7, 4) instantiation go
    into the kernel line;
-14. prints one ``{"kernels": [...]}`` line (one entry per TPU kernel, one
-   per bf16 mode of #2-#6, and entries for #1's global path and #2's
-   (5, 7, 4) instantiation), a ``{"paths": ...}`` line with the cheetah,
-   contact-free, humanoid, slice-10, slice-11, bench, slice-13 and
-   slice-14 paths' times, the card line, and last ``{"ok": true,
-   "device": {...}}``.
+14. quadruped (slice 15: filtered actuators, ellipsoid and heightfield
+   contacts, condim-6 pyramids, the IMU and force-torque sensors), each
+   path through ``suite.load`` at 1024 envs from a card reset with exact
+   launch counts:
+   a. (38) walk, random actions: 4 substeps and the observation's
+      forward (the sensors read its solve), so 5 #1 launches a control
+      step, each checked to take the global path with 240 rows (4
+      equality rows, then non-negative rows only) and the 60 cap; the
+      activations seen to move; force_torque nonzero wherever a toe's
+      contact carries force; the card's step against the CPU's on the
+      first 128 envs in qpos, qvel, act and reward; then the global path
+      on solves captured at the reset states and once the robots have
+      landed, held under the one APGD rule (a converged env that differs
+      along a pyramid's flat facet direction counts as decided by
+      rounding: ``hold_apgd(..., energy_valley=True)``) and timed as in
+      13a;
+   b. (39) escape, as (a) at 356 rows on each env's own terrain, with the
+      rangefinder in [-1, 1] and the 1024 terrains against the law of
+      the bowl times the resized uniform bumps;
+   c. (40) fetch, as (a) at 914 rows (the ball's condim-6 pyramids of 10
+      facets; Ad 3.4 GB at 1024 envs), its landed states with the ball
+      resting on the floor;
+   d. (41) run: one control step from a card reset (5 launches);
+15. prints one ``{"kernels": [...]}`` line (one entry per TPU kernel, one
+   per bf16 mode of #2-#6, and entries for #1's global path, with the
+   quadruped's cases, and #2's (5, 7, 4) instantiation), a ``{"paths":
+   ...}`` line with the cheetah, contact-free, humanoid, slice-10,
+   slice-11, bench, slice-13, slice-14 and slice-15 paths' times, the
+   card line, and last ``{"ok": true, "device": {...}}``.
 
 The H100 peaks of the bounds come from the port's bench.py, whose mfu_*
 shares use the same ones.
@@ -326,7 +349,7 @@ def device_ms(fn, reps: int) -> float:
 
 
 def hold_apgd(torch, label, run_k, run_p, dense_Ad, cases,
-              joint_force=None):
+              joint_force=None, energy_valley=False):
     """Each case's kernel (run_k) against its plain version (run_p) at
     rtol = atol = 2e-4 on f and v; returns (largest difference, envs
     decided by rounding). ``dense_Ad(args)`` gives the cases' Ad for the
@@ -335,7 +358,12 @@ def hold_apgd(torch, label, run_k, run_p, dense_Ad, cases,
     ``joint_force(args, f)`` (the factored regime's J~' f) admits, as
     decided by rounding, a converged env whose f differs while its dual
     objective (to 1e-6 relative) and its joint-space constraint force
-    (rtol = atol = 2e-4 of its largest entry) agree."""
+    (rtol = atol = 2e-4 of its largest entry) agree. ``energy_valley``
+    does the same for a dense solve, whose J is not at hand, in Ad's
+    energy norm: the objectives agree to 1e-6 and (f_k - f_p)' Ad (f_k -
+    f_p) <= (2e-4)^2 (1 + f_p' Ad f_p), i.e. the two differ along a
+    direction J' nearly annihilates (a pyramid's four facets span three
+    directions, so their rows leave a flat valley held up by R alone)."""
     worst, rounding_envs = 0.0, 0
     for tag, args, kw in cases:
         Bs = args[4].shape[0]
@@ -369,6 +397,11 @@ def hold_apgd(torch, label, run_k, run_p, dense_Ad, cases,
             phi = lambda f: 0.5 * quad(f) - (f[odd].double() * rhs).sum(1)
             phi_k, phi_p = phi(f_k), phi(f_p)
             flat = torch.zeros_like(odd)
+            if energy_valley:
+                dfk = (f_k - f_p)[odd].double()
+                quad_d = (dfk * (Ad @ dfk[..., None])[..., 0]).sum(1)
+                flat[odd] = (((phi_k - phi_p).abs() <= 1e-6 * phi_p.abs())
+                             & (quad_d <= 4e-8 * (1.0 + quad(f_p))))
             if joint_force is not None:
                 # A dual with far more rows than dofs (cheetah: 146 over 9)
                 # is strictly convex only through the small Rs, so its
@@ -643,7 +676,10 @@ def capture_solves(dev, torch, env, state, label, kernel):
         captured.append((label, tuple(a.clone() for a in args), dict(kw)))
         return real(*args, **kw)
 
-    m = env.model
+    # the episodes' per-env params (escape's terrain) applied, as a step
+    params = getattr(state, 'params', ())
+    m = (env._model_with(params) if hasattr(env, '_model_with')
+         and isinstance(params, torch.Tensor) else env.model)
     zero = torch.zeros((state.physics.qpos.shape[0], m.nu), device=dev)
     setattr(A, kernel, capture)
     try:
@@ -1375,9 +1411,10 @@ def control_step(dev, torch, run, params, state0, gen, label, envs=B):
 
 
 def card_vs_cpu_step(dev, torch, domain, task, start, by_rounding=False,
-                     task_kwargs=None):
+                     task_kwargs=None, fields=('qpos',)):
     """One env.step of random actions from `start`, on the card and with
-    the plain versions on the CPU: qpos and reward within 1e-3. With
+    the plain versions on the CPU: the state's `fields` (qpos; the
+    quadruped's qvel and act too) and the reward within 1e-3. With
     ``by_rounding`` (the hopper, whose contact solves run to the iteration
     cap in some envs), an env beyond that is admitted when rounding
     decides it: the CPU's float32 step itself moves by more than 1e-3
@@ -1392,16 +1429,22 @@ def card_vs_cpu_step(dev, torch, domain, task, start, by_rounding=False,
     nu, n = env.model.nu, start.physics.qpos.shape[0]
     acts = 2 * torch.rand((n, nu), generator=torch.Generator().manual_seed(
         5)) - 1
-    to_cpu = lambda s: type(s)(physics=type(s.physics)(
-        qpos=s.physics.qpos.cpu(), qvel=s.physics.qvel.cpu(),
-        time=s.physics.time.cpu()), params=(
-            s.params.cpu() if isinstance(s.params, torch.Tensor) else ()),
-        step_count=s.step_count.cpu(), last=s.last.cpu())
+    cast = lambda x, dt=None: None if x is None else x.cpu().to(
+        dt or x.dtype)
+    to_cpu = lambda s, dt=None: type(s)(physics=type(s.physics)(
+        qpos=cast(s.physics.qpos, dt), qvel=cast(s.physics.qvel, dt),
+        time=cast(s.physics.time, dt), act=cast(s.physics.act, dt)),
+        params=(s.params.cpu() if isinstance(s.params, torch.Tensor)
+                else ()), step_count=s.step_count.cpu(), last=s.last.cpu())
     s_gpu, ts_gpu = env.step(start, acts.to(dev))
     s_cpu, ts_cpu = env_cpu.step(to_cpu(start), acts)
-    apart = lambda s, ts, s_ref, ts_ref: torch.maximum(
-        (s.physics.qpos.cpu().double() - s_ref.physics.qpos).abs().amax(1),
-        (ts.reward.cpu().double() - ts_ref.reward).abs())
+    diff = lambda s, ts, s_ref, ts_ref, f: (
+        (ts.reward.cpu().double() - ts_ref.reward).abs() if f == 'reward'
+        else (getattr(s.physics, f).cpu().double()
+              - getattr(s_ref.physics, f)).abs().amax(1))
+    keys = tuple(fields) + ('reward',)
+    apart = lambda s, ts, s_ref, ts_ref: torch.stack(
+        [diff(s, ts, s_ref, ts_ref, f) for f in keys]).amax(0)
     off = apart(s_gpu, ts_gpu, s_cpu, ts_cpu) >= 1e-3
     decided = torch.zeros_like(off)
     if by_rounding and bool(off.any()):
@@ -1410,25 +1453,23 @@ def card_vs_cpu_step(dev, torch, domain, task, start, by_rounding=False,
             f.name: getattr(o, f.name).double() for f in dataclasses.fields(o)
             if isinstance(getattr(o, f.name), torch.Tensor)})
         env_cpu._model = f64(m).replace(opt=f64(m.opt))
-        start64 = to_cpu(start)
-        start64 = type(start64)(physics=type(start64.physics)(
-            qpos=start64.physics.qpos.double(),
-            qvel=start64.physics.qvel.double(),
-            time=start64.physics.time.double()), params=start64.params,
-            step_count=start64.step_count, last=start64.last)
+        start64 = to_cpu(start, torch.float64)
+        if isinstance(start64.params, torch.Tensor):
+            start64 = dataclasses.replace(start64,
+                                          params=start64.params.double())
         s64, ts64 = env_cpu.step(start64, acts.double())
         decided = apart(s_cpu, ts_cpu, s64, ts64) >= 1e-3
     keep, n_dec = ~decided, int(decided.sum())
-    dq = float((s_gpu.physics.qpos.cpu() - s_cpu.physics.qpos)[keep].abs()
-               .max())
-    dr = float((ts_gpu.reward.cpu() - ts_cpu.reward)[keep].abs().max())
+    out = {f'max_d{f}': float(diff(s_gpu, ts_gpu, s_cpu, ts_cpu, f)[keep]
+                              .max()) for f in keys}
+    shown = ', '.join(f'max|d{f}| {v:.2e}' for f, v in zip(keys,
+                                                            out.values()))
     print(f'{domain}_{task} physics step, card vs plain CPU at {n} envs: '
-          f'max|dqpos| {dq:.2e}, max|dreward| {dr:.2e} over {n - n_dec} '
-          f'envs; {n_dec} decided by rounding (the float32 CPU step beyond '
-          f'1e-3 of the float64 one there)')
-    check(dq < 1e-3 and dr < 1e-3, (domain, dq, dr))
+          f'{shown} over {n - n_dec} envs; {n_dec} decided by rounding (the '
+          f'float32 CPU step beyond 1e-3 of the float64 one there)')
+    check(max(out.values()) < 1e-3, (domain, out))
     check(n_dec <= n // 100, (domain, n_dec))
-    return dict(max_dqpos=dq, max_dreward=dr, rounding_decided_envs=n_dec)
+    return dict(out, rounding_decided_envs=n_dec)
 
 
 FULL_T, FULL_EPOCHS, FULL_BATCH = 10, 50, 512
@@ -3214,7 +3255,8 @@ def head_state(torch, s, n):
     cut = lambda x: x[:n] if isinstance(x, torch.Tensor) else x
     return dataclasses.replace(s, physics=dataclasses.replace(
         s.physics, qpos=s.physics.qpos[:n], qvel=s.physics.qvel[:n],
-        time=s.physics.time[:n]), params=cut(s.params),
+        time=s.physics.time[:n], act=cut(s.physics.act)),
+        params=cut(s.params),
         step_count=s.step_count[:n], last=s.last[:n])
 
 
@@ -3285,15 +3327,19 @@ def penetrating_state(dev, torch, env, n, seed):
         time=torch.zeros(n, device=dev)), params=p[keep[:n]])
 
 
-def global_apgd_phase(dev, torch, label, env, reset_state, contact_state):
-    """(34, 36) #1's global path against its plain version on solves
-    captured from the port at 1024 envs, at the reset states and in
+def global_apgd_phase(dev, torch, label, env, reset_state, contact_state,
+                      first_contact=8, energy_valley=False):
+    """(34, 36, 38-40) #1's global path against its plain version on
+    solves captured from the port at 1024 envs, at the reset states and in
     contact, cold and warm, under the one APGD rule (rtol = atol = 2e-4,
     at most 1% of envs decided by rounding); device time beside the bound
     of what this run's data needs (each env's active submatrix read once,
     or its matvecs at the FP32 peak) and the bytes of every row of Ad,
     the largest iteration count, us per dependent step, ns per APGD
-    iteration."""
+    iteration. Contact rows start at `first_contact` (8 on the
+    manipulator and the stacker, 20 on the quadruped); ``energy_valley``
+    goes to ``hold_apgd`` (the quadruped's pyramid facets, four or ten
+    rows over three or six directions, leave flat valleys)."""
     from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
 
     cases = (capture_solves(dev, torch, env, reset_state, f'{label}-reset',
@@ -3303,7 +3349,7 @@ def global_apgd_phase(dev, torch, label, env, reset_state, contact_state):
     for tag, args, kw in cases:
         act = args[4]
         na = act.sum(1)
-        n_con = int((act[:, 8:].sum(1) > 0).sum())
+        n_con = int((act[:, first_contact:].sum(1) > 0).sum())
         check(A.dense_route(args[0].shape[1]) == 'global', tag)
         print(f'apgd {tag} cold={kw["cold"]}: nr {args[0].shape[1]}, active '
               f'rows a env mean {float(na.mean()):.1f} max '
@@ -3313,7 +3359,8 @@ def global_apgd_phase(dev, torch, label, env, reset_state, contact_state):
             check(n_con >= act.shape[0] // 2, (tag, n_con))
     worst, rounding_envs = hold_apgd(
         torch, f'apgd {label}', A.apgd_iterate_batched, A.apgd_iterate_plain,
-        lambda args: args[0], cases)
+        lambda args: args[0], cases,
+        energy_valley=energy_valley)
     # what the run's data needs: each env's active submatrix once and its
     # vectors; a matvec is 2 na^2 of its FLOP
     times = time_apgd(
@@ -3599,6 +3646,185 @@ def fish_phase(dev, torch):
     return counts, out
 
 
+# ---- slice 15: quadruped walk, escape, fetch, run (38-41) ---------------
+
+QUAD_SOLVES = 5              # 4 substeps + the observation's forward
+QUAD_CPU_ENVS = 128          # envs of the quadruped's card-vs-CPU steps
+QUAD_ROWS = {'walk': 240, 'run': 240, 'escape': 356, 'fetch': 914}
+
+
+def quad_rows(B_, nr):
+    """The check of each #1 call on the quadruped: nr rows on #1's global
+    path (the 4 tendon-equality rows, then non-negative rows only: joint
+    limits, frictionless leg contacts, pyramid facets), the 60 cap."""
+    from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
+
+    def rows(args, kw):
+        check(args[0].shape == (B_, nr, nr) and A.dense_route(nr) ==
+              'global', (args[0].shape, A.dense_route(nr)))
+        check((kw['eq_rows'], kw['nonneg'], kw['box_rows'], kw['con0'],
+               kw['iterations']) == ((0, 1, 2, 3), tuple(range(4, nr)), (),
+                                     (), 60), kw)
+    return rows
+
+
+def quad_contact_state(dev, torch, env, state0, seed, steps=10):
+    """The reset states after `steps` control steps of random actions: the
+    robot, dropped from 1 cm above the floor, lands (toes, legs or torso
+    in contact); on fetch the ball is first set resting 1 mm into the
+    floor where it was drawn, so its condim-6 rows are active."""
+    import dataclasses
+
+    m = env.model
+    g = torch.Generator(device=dev).manual_seed(seed)
+    state = state0
+    if 'ball_root' in m.names['joint']:
+        qa = m.jnt_qposadr[m.name2id('joint', 'ball_root')]
+        qpos = state0.physics.qpos.clone()
+        qpos[:, qa + 2] = 0.149
+        state = dataclasses.replace(state0, physics=state0.physics.replace(
+            qpos=qpos, qvel=torch.zeros_like(state0.physics.qvel)))
+    for _ in range(steps):
+        act = 2 * torch.rand((state.physics.qpos.shape[0], m.nu),
+                             generator=g, device=dev) - 1
+        state, _ = env.step(state, act)
+    return state
+
+
+def quad_observation_checks(dev, torch, env, state, label):
+    """One more control step (not counted) from `state`: imu, force_torque
+    and torso_velocity finite; force_torque nonzero in every env where a
+    toe's contact carries a normal force (the count of envs with a toe
+    pressed in by over 1 mm beside it); escape's rangefinder finite in
+    [-1, 1]."""
+    from mujoco_mbrl_tpu_torch.suite import sensors
+
+    m = env.model
+    n = state.physics.qpos.shape[0]
+    g = torch.Generator(device=dev).manual_seed(39)
+    act = 2 * torch.rand((n, m.nu), generator=g, device=dev) - 1
+    _, ts, data = env.step_with_data(state, act)
+    obs = ts.observation
+    for key in ('imu', 'force_torque', 'torso_velocity'):
+        check(bool(torch.isfinite(obs[key]).all()), (label, key))
+    toes = {m.name2id('geom', f'toe_{leg}') for leg in
+            ('front_left', 'front_right', 'back_right', 'back_left')}
+    rows = [c for c, pair in enumerate(sensors.contact_layout(m))
+            if toes & set(pair)]
+    # a toe's solved normal force reaches the sensor in every env (a toe
+    # pressed in but leaving the ground, as after escape's drop onto its
+    # terrain, carries none)
+    pushed = (data.contact_force[:, rows, 0] > 0).any(1)
+    pressed = (data.contact_dist[:, rows] < -1e-3).any(1)
+    ft_on = obs['force_torque'].abs().amax(1) > 0
+    check(int(pushed.sum()) > 0 and bool(ft_on[pushed].all()),
+          (label, 'force_torque zero in envs', int(pushed.sum()),
+           (pushed & ~ft_on).nonzero()[:, 0].tolist()[:20]))
+    out = dict(toe_pressed_envs=int(pressed.sum()),
+               toe_pushed_envs=int(pushed.sum()),
+               pressed_with_force_torque_envs=int((pressed & ft_on).sum()),
+               force_torque_nonzero_envs=int(ft_on.sum()))
+    if 'rangefinder' in obs:
+        rf = obs['rangefinder']
+        check(bool((torch.isfinite(rf) & (rf >= -1) & (rf <= 1)).all()),
+              (label, 'rangefinder'))
+        out['rangefinder_hit_share'] = float((rf < 1).double().mean())
+    print(f'{label}: observation checks on {n} envs: {out}')
+    return out
+
+
+def terrain_law_check(torch, terrain, label):
+    """Escape's per-env terrains (B, 201, 201) against the bowl times
+    uniform bumps on [0.15, 1) resized by the Keys cubic: the grid-mean of
+    the envs' mean against 0.575 bowl, and of their variance against
+    0.85^2 / 12 bowl^2 times the squared weights' sums."""
+    from mujoco_mbrl_tpu_torch.suite import quadruped
+
+    t = terrain.double()
+    bowl = quadruped.terrain_bowl(torch.float64, t.device)
+    W = torch.as_tensor(quadruped.keys_cubic_weights(30, 201),
+                        device=t.device)
+    s2 = (W ** 2).sum(0)
+    var = 0.85 ** 2 / 12 * bowl ** 2 * s2[:, None] * s2[None, :]
+    mean_ratio = float(t.mean(0).mean() / (0.575 * bowl.mean()))
+    var_ratio = float(t.var(0).mean() / var.mean())
+    print(f'{label}: {t.shape[0]} terrains, mean / law {mean_ratio:.5f}, '
+          f'variance / law {var_ratio:.5f}')
+    check(abs(mean_ratio - 1) < 5e-3 and abs(var_ratio - 1) < 0.03,
+          (label, mean_ratio, var_ratio))
+    return dict(mean_over_law=mean_ratio, variance_over_law=var_ratio)
+
+
+def quadruped_phase(dev, torch, task, seed):
+    """(38-40) quadruped `task` through suite.load at 1024 envs from a card
+    reset, random actions: 4 substeps and the observation's forward (the
+    IMU and the toes' force-torque sensors read its solve), so 5 #1
+    launches a control step, each checked to take the global path with
+    the task's rows; the activations seen to move; the observation
+    checks; the card's step against the CPU's on the first QUAD_CPU_ENVS
+    envs (qpos, qvel, act, reward); then #1 against its plain version on
+    solves captured at the reset states and once the robots have landed
+    (``quad_contact_state``)."""
+    from mujoco_mbrl_tpu_torch import suite
+
+    nr = QUAD_ROWS[task]
+    env = suite.load('quadruped', task, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state0, _ = env.reset(B, torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t0
+    label = f'quadruped {task} control step'
+    counts, out, warm = suite_control_steps(dev, torch, env, state0, label,
+                                            rows=quad_rows(B, nr))
+    exact_counts(label, counts, apgd_solve=QUAD_SOLVES * STEPS)
+    moved = (warm.physics.act - state0.physics.act).abs().amax(1)
+    check(bool((moved > 0).all()), (label, 'act still in',
+                                    int((moved == 0).sum()), 'envs'))
+    out.update(reset_s=reset_s, rows=nr, act_moved_envs=int(
+        (moved > 0).sum()), observation=quad_observation_checks(
+            dev, torch, env, warm, label))
+    if task == 'escape':
+        out['terrain'] = terrain_law_check(torch, state0.params, label)
+    out.update(card_vs_cpu_envs=QUAD_CPU_ENVS, card_vs_cpu=card_vs_cpu_step(
+        dev, torch, 'quadruped', task, head_state(torch, warm,
+                                                  QUAD_CPU_ENVS),
+        by_rounding=True, fields=('qpos', 'qvel', 'act')))
+    held = global_apgd_phase(
+        dev, torch, task, env, state0,
+        quad_contact_state(dev, torch, env, state0, seed + 1),
+        first_contact=20, energy_valley=True)
+    return (counts, out) + held
+
+
+def quadruped_run_phase(dev, torch):
+    """(41) quadruped run (walk's model, a faster target) through
+    suite.load at 1024 envs: a card reset and one control step of random
+    actions, 5 #1 launches on the global path at 240 rows."""
+    from mujoco_mbrl_tpu_torch import ops, suite
+
+    env = suite.load('quadruped', 'run', device=dev)
+    gen = torch.Generator(device=dev).manual_seed(55)
+    state, _ = env.reset(B, gen)
+    act = 2 * torch.rand((B, env.model.nu), generator=gen, device=dev) - 1
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, ts = env.step(state, act)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    label = 'quadruped run control step'
+    exact_counts(label, dict(ops.launch_counts), apgd_solve=QUAD_SOLVES)
+    for name, x in (('qpos', state.physics.qpos), ('act', state.physics.act),
+                    ('reward', ts.reward)):
+        check(bool(torch.isfinite(x).all()), (label, name))
+    print(f'{label}: one control step x {B} envs from a card reset in '
+          f'{1e3 * wall:.2f} ms; {QUAD_SOLVES} #1 launches; mean reward '
+          f'{float(ts.reward.mean()):.4f}')
+    return {'quadruped_run': dict(ms_per_step=1e3 * wall,
+                                  apgd_solve=QUAD_SOLVES)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3849,6 +4075,11 @@ def main() -> int:
     fi_counts, fi_out = fish_phase(dev, torch)
     ot_out = other_tasks_phase(dev, torch)
 
+    # ---- slice 15: quadruped walk, escape, fetch, run (38-41) -----------
+    quad = {task: quadruped_phase(dev, torch, task, seed)
+            for task, seed in (('walk', 60), ('escape', 62), ('fetch', 64))}
+    qr_out = quadruped_run_phase(dev, torch)
+
     sampler_entry = lambda tiles: ptxas_info(
         'cem_sample_rollout', 'cem_sample_rollout_kernelI' + ''.join(
             f'Li{t}E' for t in tiles[:3]) + ''.join(
@@ -3915,7 +4146,9 @@ def main() -> int:
              'manipulator_agent_loop': ma_counts,
              'stacker_stack_4_control_step': st_counts,
              'manipulator_insert_peg_control_step': ip_counts,
-             'fish_swim_control_step': fi_counts}
+             'fish_swim_control_step': fi_counts,
+             **{f'quadruped_{t}_control_step': q[0]
+                for t, q in quad.items()}}
     by_path = lambda key: {p: c[key] for p, c in paths.items() if c[key]}
     src = lambda f: f'mujoco_mbrl_tpu_torch/csrc/{f}'
     tpu = lambda f, line, fn: f'mujoco_mbrl_tpu/ops/{f}:{line} ({fn})'
@@ -4063,8 +4296,13 @@ def main() -> int:
              launches_by_path={p: paths[p]['apgd_solve'] for p in (
                  'manipulator_bring_ball_control_step',
                  'manipulator_agent_loop', 'stacker_stack_4_control_step',
-                 'manipulator_insert_peg_control_step')},
-             max_abs_err=max(mp_err, st_err), library_ms=None,
+                 'manipulator_insert_peg_control_step',
+                 'quadruped_walk_control_step',
+                 'quadruped_escape_control_step',
+                 'quadruped_fetch_control_step')},
+             max_abs_err=max([mp_err, st_err]
+                             + [q[2] for q in quad.values()]),
+             library_ms=None,
              **pick(mp_t['bring_ball-contact-warm']),
              call_ms=mp_t['bring_ball-contact-warm']['call_ms'],
              max_iterations=mp_t['bring_ball-contact-warm'][
@@ -4074,10 +4312,21 @@ def main() -> int:
              bound_every_row_ms=mp_t['bring_ball-contact-warm'][
                  'bound_every_row_ms'],
              iteration_ns=mp_iter_ns,
-             rounding_decided_envs=mp_rounding + st_rounding,
-             cases=dict(mp_t, **st_t),
+             rounding_decided_envs=(mp_rounding + st_rounding
+                                    + sum(q[3] for q in quad.values())),
+             cases=dict(mp_t, **st_t,
+                        **{k: v for q in quad.values()
+                           for k, v in q[4].items()}),
              stack_4=dict(st_t['stack_4-contact-warm'],
                           iteration_ns=st_iter_ns, rows=977),
+             quadruped={t: dict(
+                 q[4][f'{t}-contact-warm'], iteration_ns=q[5],
+                 rounding_decided_envs=q[3], rows=QUAD_ROWS[t],
+                 launches_per_control_step=QUAD_SOLVES,
+                 reset_cold=q[4][f'{t}-reset-cold'],
+                 reset_warm=q[4][f'{t}-reset-warm'],
+                 contact_cold=q[4][f'{t}-contact-cold'])
+                 for t, q in quad.items()},
              rows=452, ptxas=ptxas['apgd_global_kernel']),
         dict(name='mlp_sample_rollout_costs[5,7,4]', route='cuda',
              source=src('cem_sample_rollout.cu'),
@@ -4144,6 +4393,8 @@ def main() -> int:
         stacker_stack_4_control_step=st_out,
         manipulator_insert_peg_control_step=ip_out,
         fish_swim_control_step=fi_out, slice14_other_tasks=ot_out,
+        **{f'quadruped_{t}_control_step': q[1] for t, q in quad.items()},
+        slice15_other_tasks=qr_out,
         bench_cli={a: dict(record=r['record'], seconds=r['seconds'])
                    for a, r in bench_out.items()},
         bf16_ptxas={k: v for k, v in ptxas.items() if 'bf16' in k})}))

@@ -85,14 +85,14 @@ def env_state(qpos, qvel, act=None, time=None, step_count=None,
     step_count (B,)."""
     qpos = tensor(qpos, device)
     B = qpos.shape[0]
-    if act is not None and np.asarray(act).size:
-        raise NotImplementedError('activation state is not ported')
+    act = (tensor(act, device) if act is not None and np.asarray(act).size
+           else None)
     time = (torch.zeros((B,), device=device) if time is None
             else tensor(time, device))
     steps = (torch.zeros((B,), dtype=torch.int32, device=device)
              if step_count is None
              else tensor(step_count, device, torch.int32))
     return EnvState(physics=State(qpos=qpos, qvel=tensor(qvel, device),
-                                  time=time),
+                                  time=time, act=act),
                     params=(), step_count=steps,
                     last=torch.zeros((B,), dtype=torch.bool, device=device))

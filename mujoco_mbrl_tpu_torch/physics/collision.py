@@ -2,16 +2,20 @@
 
 Port of mujoco_mbrl_tpu/physics/collision.py for plane-capsule pairs (2
 points each), plane-sphere, sphere-sphere, sphere-capsule and
-capsule-capsule pairs (1 point each), and the box pairs: plane-box (the 4
+capsule-capsule pairs (1 point each), the box pairs: plane-box (the 4
 deepest corners), sphere-box (1), capsule-box (the 2 deepest of the axis'
 ends and midpoint) and box-box (each box's 4 deepest corners against the
-other, 8), on the signed point-box distance ``_point_box``: the walker's 7
+other, 8), on the signed point-box distance ``_point_box``; plane-ellipsoid
+(the support point along the plane's normal), and the heightfield pairs
+against the terrain's local tangent plane (``hfield_height_normal``:
+bilinear heights, a central-difference normal): hfield-sphere (1),
+hfield-capsule (the end caps, 2) and hfield-ellipsoid (1). The walker's 7
 plane-capsule pairs (14 contacts), the cheetah's 8 plane-capsule and 19
 capsule-capsule pairs (35 contacts), the humanoid's 161 pairs of the first
 five kinds (177 contacts), manipulator insert_peg's 203 pairs (275
-contacts) and stacker stack_4's 175 (323). The candidate list is static
-per model; inactive contacts are masked by distance downstream. The
-ellipsoid and heightfield pairs raise ``NotImplementedError``.
+contacts), stacker stack_4's 175 (323), quadruped walk's 133 contacts and
+escape's 162 (its terrain per env). The candidate list is static per
+model; inactive contacts are masked by distance downstream.
 """
 
 from __future__ import annotations
@@ -264,6 +268,26 @@ def _k_plane_box(p1, R1, s1, p2, R2, s2):
     return d, w - 0.5 * d[..., None] * n, n.expand(w.shape)
 
 
+def _support(R2, s2, n):
+    """The ellipsoid's extent r along unit normals n (B, P, 3) and its
+    point p_loc (in its frame) deepest against them: with n~ = R2' n in
+    the frame, r = |diag(s) n~| and p_loc = -diag(s^2) n~ / r."""
+    scaled = s2 * _mat_t_vec(R2, n)
+    r = torch.sqrt((scaled * scaled).sum(-1) + 1e-24)
+    return r, -(s2 * scaled) / r[..., None]
+
+
+def _k_plane_ellipsoid(p1, R1, s1, p2, R2, s2):
+    """The ellipsoid's support point along the plane's normal (JAX
+    ``_k_plane_ellipsoid``): dist = n.(centre - plane_pos) - r. (B, P, 1,
+    ...)."""
+    n = R1[..., :, 2]
+    r, p_loc = _support(R2, s2, n)
+    d = ((p2 - p1) * n).sum(-1) - r
+    pos = p2 + _mat_vec(R2, p_loc) - 0.5 * d[..., None] * n
+    return d[..., None], pos[:, :, None], n[:, :, None]
+
+
 def _k_sphere_box(p1, R1, s1, p2, R2, s2):
     """The sphere's centre against the box (JAX ``_k_sphere_box``); the
     normal points from the sphere to the box. (B, P, 1, ...)."""
@@ -306,9 +330,103 @@ def _k_box_box(p1, R1, s1, p2, R2, s2):
     return tuple(torch.cat([x, y], 2) for x, y in zip(a, b))
 
 
+# ---- the heightfield (quadruped escape): one per model, its data shared
+# (nrow, ncol) or per env (B, nrow, ncol) -------------------------------
+
+
+def hfield_height(m: M.Model, x, y):
+    """Terrain height at world (x, y), each (B, ...): the bilinear
+    interpolation of the env's grid (JAX ``hfield_height_normal``'s
+    ``sample``), the grid clamped to its last cell."""
+    rx, ry, z_top = m.hfield_size[0], m.hfield_size[1], m.hfield_size[2]
+    px, py, pz = m.hfield_pos[0], m.hfield_pos[1], m.hfield_pos[2]
+    nrow, ncol = m.hfield_nrow, m.hfield_ncol
+    u = (x - px + rx) / (2.0 * rx) * (ncol - 1)
+    v = (y - py + ry) / (2.0 * ry) * (nrow - 1)
+    u = torch.clamp(u, 0.0, ncol - 1.001)
+    v = torch.clamp(v, 0.0, nrow - 1.001)
+    u0, v0 = torch.floor(u), torch.floor(v)
+    fu, fv = u - u0, v - v0
+    i00 = v0.long() * ncol + u0.long()
+    data = m.hfield_data
+    if data.dim() == 2:
+        flat = data.reshape(-1)
+        at = lambda i: flat[i]
+    else:
+        flat = data.reshape(data.shape[0], -1)
+        at = lambda i: torch.gather(flat, 1, i.reshape(i.shape[0], -1)
+                                    ).reshape(i.shape)
+    h00, h01 = at(i00), at(i00 + 1)
+    h10, h11 = at(i00 + ncol), at(i00 + ncol + 1)
+    h = ((1 - fv) * ((1 - fu) * h00 + fu * h01)
+         + fv * ((1 - fu) * h10 + fu * h11))
+    return h * z_top + pz
+
+
+def hfield_height_normal(m: M.Model, x, y):
+    """Terrain height (B, ...) and outward unit normal (B, ..., 3) at
+    world (x, y): the normal from central differences one grid cell wide
+    (JAX ``hfield_height_normal``)."""
+    rx, ry = m.hfield_size[0], m.hfield_size[1]
+    eps_x = 2.0 * rx / (m.hfield_ncol - 1)
+    eps_y = 2.0 * ry / (m.hfield_nrow - 1)
+    # the five samples in one gather: the point and its four neighbours
+    xs = torch.stack([x, x + eps_x, x - eps_x, x, x], -1)
+    ys = torch.stack([y, y, y, y + eps_y, y - eps_y], -1)
+    hs = hfield_height(m, xs, ys)
+    dhdx = (hs[..., 1] - hs[..., 2]) / (2 * eps_x)
+    dhdy = (hs[..., 3] - hs[..., 4]) / (2 * eps_y)
+    n = torch.stack([-dhdx, -dhdy, torch.ones_like(dhdx)], -1)
+    return hs[..., 0], n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)
+
+
+def _hf_point(m, point, radius):
+    """Spheres of `radius` at points (B, ..., 3) against the terrain's
+    tangent plane under them (JAX ``_hf_point``)."""
+    h, n = hfield_height_normal(m, point[..., 0], point[..., 1])
+    q = torch.stack([point[..., 0], point[..., 1], h], -1)
+    dist = (n * (point - q)).sum(-1) - radius
+    return dist, point - n * (radius + 0.5 * dist)[..., None], n
+
+
+def _k_hfield_sphere(m):
+    def kernel(p1, R1, s1, p2, R2, s2):
+        d, pos, n = _hf_point(m, p2, s2[:, 0])
+        return d[..., None], pos[:, :, None], n[:, :, None]
+    return kernel
+
+
+def _k_hfield_capsule(m):
+    """The capsule's two end caps against the terrain. (B, P, 2, ...)."""
+    def kernel(p1, R1, s1, p2, R2, s2):
+        ends = torch.stack(_segment(p2, R2, s2[:, 1:2]), 2)   # (B, P, 2, 3)
+        return _hf_point(m, ends, s2[:, 0:1])
+    return kernel
+
+
+def _k_hfield_ellipsoid(m):
+    """The ellipsoid's support point against the tangent plane under its
+    centre. (B, P, 1, ...)."""
+    def kernel(p1, R1, s1, p2, R2, s2):
+        h, n = hfield_height_normal(m, p2[..., 0], p2[..., 1])
+        r, p_loc = _support(R2, s2, n)
+        q = torch.stack([p2[..., 0], p2[..., 1], h], -1)
+        d = (n * (p2 - q)).sum(-1) - r
+        pos = p2 + _mat_vec(R2, p_loc) - 0.5 * d[..., None] * n
+        return d[..., None], pos[:, :, None], n[:, :, None]
+    return kernel
+
+
+# heightfield kernels are made per call from the model: its data may be
+# the env batch's own
+_HFIELD_KERNELS = {(M.HFIELD, M.SPHERE): _k_hfield_sphere,
+                   (M.HFIELD, M.CAPSULE): _k_hfield_capsule,
+                   (M.HFIELD, M.ELLIPSOID): _k_hfield_ellipsoid}
+
 _KERNELS = {(M.PLANE, M.SPHERE): _k_plane_sphere,
             (M.PLANE, M.CAPSULE): _k_plane_capsule,
             (M.PLANE, M.BOX): _k_plane_box,
+            (M.PLANE, M.ELLIPSOID): _k_plane_ellipsoid,
             (M.SPHERE, M.SPHERE): _k_sphere_sphere,
             (M.SPHERE, M.CAPSULE): _k_sphere_capsule,
             (M.SPHERE, M.BOX): _k_sphere_box,
@@ -325,11 +443,6 @@ def detect(m: M.Model, geom_xpos, geom_xmat,
     batched evaluation; the rows go back into the candidate order (each
     pair's points contiguous), as the JAX ``detect`` emits them."""
     keys = [(m.geom_type[g1], m.geom_type[g2]) for g1, g2 in pairs]
-    for key in keys:
-        if key not in _KERNELS:
-            raise NotImplementedError(
-                'the ellipsoid and heightfield contacts are not ported '
-                '(mujoco_mbrl_tpu.physics.collision.detect)')
 
     def build():
         npts = [_PAIR_POINTS[k] for k in keys]
@@ -343,7 +456,7 @@ def detect(m: M.Model, geom_xpos, geom_xmat,
         for key, members in groups.items():
             ga = np.array([pairs[i][0] for i in members])
             gb = np.array([pairs[i][1] for i in members])
-            evals.append((_KERNELS[key], idx(ga), idx(gb), m.geom_size[ga],
+            evals.append((key, idx(ga), idx(gb), m.geom_size[ga],
                           m.geom_size[gb]))
             rows += [offsets[i] + q for i in members
                      for q in range(_PAIR_POINTS[key])]
@@ -361,7 +474,9 @@ def detect(m: M.Model, geom_xpos, geom_xmat,
      solimp) = M.cached(m, ('detect', tuple(pairs)), build)
     B = geom_xpos.shape[0]
     dist, pos, nrm = [], [], []
-    for fn, ga, gb, s1, s2 in evals:
+    for key, ga, gb, s1, s2 in evals:
+        fn = (_HFIELD_KERNELS[key](m) if key in _HFIELD_KERNELS
+              else _KERNELS[key])
         d, p, n = fn(geom_xpos[:, ga], geom_xmat[:, ga], s1,
                      geom_xpos[:, gb], geom_xmat[:, gb], s2)
         dist.append(d.reshape(B, -1))

@@ -7,7 +7,9 @@ joint damping, ``_rk4`` (four forward passes, each with a cold constraint
 solve), ``integrate_pos``, ``step``, ``step_warm`` and ``substep`` (with
 Euler, the constraint row forces and the APGD power vector carried from
 one substep's solve into the next), ``n_substeps`` and ``diverged``.
-Every function takes the env batch as the leading dimension.
+Stateful actuators' activations advance by forward Euler, h * act_dot,
+under both integrators. Every function takes the env batch as the
+leading dimension.
 """
 
 from __future__ import annotations
@@ -90,9 +92,11 @@ def _forward(m: M.Model, state: M.State, ctrl: torch.Tensor,
         z = torch.zeros_like(qvel)
         return M.Data(qfrc_actuator=z, qfrc_constraint=z, qacc=z,
                       actuator_force=zeros(m.nu),
-                      contact_force=zeros(n_con, 3), **common)
+                      contact_force=zeros(n_con, 3), act_dot=zeros(m.na),
+                      **common)
 
-    actuator_force, qfrc_actuator = smooth.actuation(m, qpos, qvel, ctrl)
+    actuator_force, qfrc_actuator, act_dot = smooth.actuation(
+        m, qpos, qvel, ctrl, state.act)
     qfrc_smooth = qfrc_passive + qfrc_actuator - qfrc_bias
     # cholesky_ex: a diverged env's NaN factor flows on to a NaN state
     # (engine.diverged's test, as JAX's cho_factor), where cholesky would
@@ -110,7 +114,7 @@ def _forward(m: M.Model, state: M.State, ctrl: torch.Tensor,
         qacc = qacc_smooth     # _euler recomputes the velocity update
     return M.Data(
         qfrc_actuator=qfrc_actuator, qfrc_constraint=qfrc_constraint,
-        qacc=qacc, actuator_force=actuator_force,
+        qacc=qacc, actuator_force=actuator_force, act_dot=act_dot,
         contact_force=solver_mod.contact_forces(cs, f_rows, n_con, B, dt,
                                                 dev),
         efc_force=f_rows, efc_power_v=power_v, **common)
@@ -155,8 +159,16 @@ def _euler(m: M.Model, state: M.State, ctrl, warm_f=None, warm_v=None
                                 torch.linalg.cholesky_ex(MhB).L)[..., 0]
     qvel = state.qvel + h * qacc
     qpos = integrate_pos(m, state.qpos, qvel, h)
-    return (M.State(qpos=qpos, qvel=qvel, time=state.time + h),
+    return (M.State(qpos=qpos, qvel=qvel, time=state.time + h,
+                    act=_advance_act(m, state, d.act_dot, h)),
             d.efc_force, d.efc_power_v)
+
+
+def _advance_act(m: M.Model, state: M.State, act_dot, h):
+    """act + h act_dot for stateful actuators (JAX engine.py:223-224)."""
+    if m.na and state.act is not None:
+        return state.act + h * act_dot
+    return state.act
 
 
 _RK4_A = ((0.5,), (0.0, 0.5), (0.0, 0.0, 1.0))
@@ -170,7 +182,8 @@ def _rk4(m: M.Model, state: M.State, ctrl) -> M.State:
     h = m.opt.timestep.to(state.qpos.dtype)
     q0, v0 = state.qpos, state.qvel
     vels = [v0]
-    accs = [_forward(m, state, ctrl).qacc]
+    d0 = _forward(m, state, ctrl)
+    accs = [d0.qacc]
     for arow in _RK4_A:
         dv = sum(a * acc for a, acc in zip(arow, accs) if a != 0.0)
         dq_vel = sum(a * vel for a, vel in zip(arow, vels) if a != 0.0)
@@ -181,8 +194,11 @@ def _rk4(m: M.Model, state: M.State, ctrl) -> M.State:
                              ctrl).qacc)
     vel_w = sum(bw * vel for bw, vel in zip(_RK4_B, vels))
     acc_w = sum(bw * acc for bw, acc in zip(_RK4_B, accs))
+    # the stages carry no activation (their gain reads the ctrl, as in
+    # JAX); the activation advances by Euler from the first pass's rate
     return M.State(qpos=integrate_pos(m, q0, vel_w, h), qvel=v0 + h * acc_w,
-                   time=state.time + h)
+                   time=state.time + h,
+                   act=_advance_act(m, state, d0.act_dot, h))
 
 
 def step(m: M.Model, state: M.State, ctrl: torch.Tensor) -> M.State:

@@ -16,13 +16,16 @@ density), sites (MuJoCo's default size 0.005), fixed tendons, two-site
 spatial tendons with their length limits (the limit row's invweight at
 qpos0), ``<equality><tendon>`` couplings (a fixed tendon held at length 0
 by a soft row with its own solref and solimp), motors and ``<position>``
-servos (kp into gainprm[0], -kp into biasprm[1]: an affine bias) on a
-joint or a fixed tendon; and the fluid model's per-body equivalent inertia
-box and principal frame. Cameras and lights are visual only and skipped.
-Every other MJCF feature (ball joints, sensors, ``<contact>``, other
-equality constraints, via-point tendons, fixed tendon limits, velocity and
-general actuators among them) raises ``NotImplementedError`` naming the
-JAX function that handles it.
+servos (kp into gainprm[0], -kp into biasprm[1]: an affine bias) and
+``<general>`` actuators (gainprm, biasprm: affine once given; dyntype
+none, integrator or filter with dynprm, one activation slot each) on a
+joint or a fixed tendon; one ``<asset><hfield>`` (nrow, ncol, size; its
+data zeros until a task writes it) and the hfield geom placed on it; and
+the fluid model's per-body equivalent inertia box and principal frame.
+Cameras and lights are visual only and skipped. Every other MJCF feature
+(ball joints, sensors, ``<contact>``, other equality constraints,
+via-point tendons, fixed tendon limits, velocity actuators among them)
+raises ``NotImplementedError`` naming the JAX function that handles it.
 """
 
 from __future__ import annotations
@@ -96,9 +99,11 @@ def _skew(p):
 _JOINT_TYPES = {'free': M.FREE, 'slide': M.SLIDE, 'hinge': M.HINGE}
 _QPOS_WIDTH = {M.FREE: 7, M.SLIDE: 1, M.HINGE: 1}
 _DOF_WIDTH = {M.FREE: 6, M.SLIDE: 1, M.HINGE: 1}
-_GEOM_TYPES = {'plane': M.PLANE, 'sphere': M.SPHERE, 'capsule': M.CAPSULE,
-               'ellipsoid': M.ELLIPSOID, 'cylinder': M.CYLINDER,
-               'box': M.BOX}
+_GEOM_TYPES = {'plane': M.PLANE, 'hfield': M.HFIELD, 'sphere': M.SPHERE,
+               'capsule': M.CAPSULE, 'ellipsoid': M.ELLIPSOID,
+               'cylinder': M.CYLINDER, 'box': M.BOX}
+_DYN_TYPES = {'none': M.DYN_NONE, 'integrator': M.DYN_INTEGRATOR,
+              'filter': M.DYN_FILTER}
 # a site's shape only bounds a touch zone; an unknown type reads as a
 # sphere, as in the JAX compiler
 _SITE_TYPES = {'sphere': M.SPHERE, 'capsule': M.CAPSULE,
@@ -238,9 +243,16 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
     for tag in ('contact', 'sensor'):
         if root.find(tag) is not None:
             raise _unsupported(f'<{tag}>')
-    asset = root.find('asset')
-    if asset is not None and asset.find('hfield') is not None:
-        raise _unsupported('<hfield>')
+    # the heightfield asset (at most one; quadruped escape)
+    hfield_nrow = hfield_ncol = 0
+    hfield_size = None
+    for ael in (root.find('asset') if root.find('asset') is not None
+                else ()):
+        if ael.tag != 'hfield':
+            raise _unsupported(f'<asset><{ael.tag}>')
+        hfield_nrow = int(ael.get('nrow', 0))
+        hfield_ncol = int(ael.get('ncol', 0))
+        hfield_size = _floats(ael.get('size'))
 
     compiler = root.find('compiler')
     deg, settotalmass = True, None
@@ -567,12 +579,10 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
     act_names, acts = {}, []
     actuator_el = root.find('actuator')
     for ael in (actuator_el if actuator_el is not None else ()):
-        if ael.tag not in ('motor', 'position'):
+        if ael.tag not in ('motor', 'position', 'general'):
             raise _unsupported(f'actuator <{ael.tag}>')
         attrs = defaults.resolve(ael.tag, ael.attrib,
                                  ael.attrib.get('class'))
-        if attrs.get('dyntype', 'none') != 'none':
-            raise _unsupported('activation dynamics')
         if 'joint' in attrs:
             trntype, trnid = M.TRN_JOINT, jnt_names[attrs['joint']]
         elif 'tendon' in attrs:
@@ -586,6 +596,19 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
             kp = float(attrs.get('kp', 1.0))
             gainprm, biasprm = [kp, 0.0, 0.0], [0.0, -kp, 0.0]
             biastype = M.BIAS_AFFINE
+        elif ael.tag == 'general':
+            # a given biasprm makes the bias affine, as in the JAX compiler
+            if 'gainprm' in attrs:
+                gp = _floats(attrs['gainprm'])[:3]
+                gainprm[:len(gp)] = gp
+            if 'biasprm' in attrs:
+                bp = _floats(attrs['biasprm'])[:3]
+                biasprm[:len(bp)] = bp
+                biastype = M.BIAS_AFFINE
+        dynprm = [1.0, 0.0, 0.0]
+        if 'dynprm' in attrs:
+            dp = _floats(attrs['dynprm'])[:3]
+            dynprm[:len(dp)] = dp
         acts.append(dict(
             trntype=trntype, trnid=trnid,
             gear=float(_floats(attrs.get('gear', '1'))[0]),
@@ -595,8 +618,19 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
             forcelimited=attrs.get('forcelimited', 'false') in ('true', '1'),
             forcerange=(_floats(attrs['forcerange'])
                         if 'forcerange' in attrs else np.zeros(2)),
-            gainprm=gainprm, biasprm=biasprm, biastype=biastype))
+            gainprm=gainprm, biasprm=biasprm, biastype=biastype,
+            dyntype=_DYN_TYPES[attrs.get('dyntype', 'none')],
+            dynprm=dynprm))
     nu = len(acts)
+    # one activation slot per stateful actuator, in actuator order
+    actadr, na = [], 0
+    for a in acts:
+        actadr.append(na if a['dyntype'] != M.DYN_NONE else -1)
+        na += a['dyntype'] != M.DYN_NONE
+    hfield_pos = np.zeros(3)
+    for g in geoms:
+        if g['type'] == M.HFIELD:
+            hfield_pos = g['pos']
 
     def arr(x, shape):
         a = np.asarray(x, dtype=np.float64)
@@ -671,8 +705,15 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
         actuator_forcelimited=tuple(a['forcelimited'] for a in acts),
         actuator_biastype=tuple(a['biastype'] for a in acts),
         qpos0=arr(qpos0, (nq,)), qpos_spring=arr(qpos_spring, (nq,)),
-        actuator_dyntype=tuple(M.DYN_NONE for _ in acts),
-        actuator_actadr=tuple(-1 for _ in acts),
+        na=na, actuator_dyntype=tuple(a['dyntype'] for a in acts),
+        actuator_actadr=tuple(actadr),
+        actuator_dynprm=arr([a['dynprm'] for a in acts], (nu, 3)),
+        hfield_nrow=hfield_nrow, hfield_ncol=hfield_ncol,
+        hfield_data=(torch.zeros((hfield_nrow, hfield_ncol), dtype=dtype)
+                     if hfield_nrow else None),
+        hfield_size=(arr(hfield_size, (4,)) if hfield_size is not None
+                     else None),
+        hfield_pos=arr(hfield_pos, (3,)) if hfield_nrow else None,
         tendon_moment=arr([t['row'] for t in tendons], (ntendon, nv)),
         tendon_stiffness=arr([t['stiffness'] for t in tendons], (ntendon,)),
         tendon_damping=arr([t['damping'] for t in tendons], (ntendon,)),

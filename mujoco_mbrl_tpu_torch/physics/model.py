@@ -153,9 +153,12 @@ class Model:
     qpos0: torch.Tensor             # (nq,)
     qpos_spring: torch.Tensor       # (nq,)
     site_type: Tuple[int, ...] = ()   # geom type codes of the site shapes
+    # activation state: na slots, actuator_actadr[u] the slot of a
+    # stateful actuator (filter, integrator) or -1; dynprm[:, 0] is tau
     na: int = 0
     actuator_dyntype: Tuple[int, ...] = ()
     actuator_actadr: Tuple[int, ...] = ()
+    actuator_dynprm: Optional[torch.Tensor] = None   # (nu, 3)
     contact_excludes: Tuple[Tuple[int, int], ...] = ()
     # fixed tendons: linear couplings over scalar joints
     tendon_moment: Optional[torch.Tensor] = None     # (ntendon, nv)
@@ -174,6 +177,14 @@ class Model:
     dof_invweight0: Optional[torch.Tensor] = None   # (nv,)
     body_invweight0: Optional[torch.Tensor] = None  # (nbody, 2)
     tendon_invweight0: Optional[torch.Tensor] = None  # (ntendon,)
+    # one heightfield (quadruped escape): heights in [0, 1] scaled by
+    # hfield_size[2] (rx, ry, z_top, z_base) about the geom's position;
+    # a task writes its data per env
+    hfield_nrow: int = 0
+    hfield_ncol: int = 0
+    hfield_data: Optional[torch.Tensor] = None   # (nrow, ncol) or (B, ...)
+    hfield_size: Optional[torch.Tensor] = None   # (4,)
+    hfield_pos: Optional[torch.Tensor] = None    # (3,)
 
     def name2id(self, kind: str, name: str) -> int:
         return self.names[kind][name]
@@ -198,15 +209,15 @@ class Model:
 # ``smooth.kinematics`` skips the identity-quaternion and zero-position
 # fast paths of the shared model when it is set per env.
 ENV_FIELDS = ('geom_pos', 'site_pos', 'tendon_moment', 'body_pos',
-              'body_quat')
+              'body_quat', 'hfield_data')
 
 
 def with_env_fields(m: Model, **fields: torch.Tensor) -> Model:
     """`m` with per-env values of some fields, each with the env batch as
     its leading dimension (geom_pos (B, ngeom, 3), site_pos (B, nsite, 3),
     tendon_moment (B, ntendon, nv), body_pos (B, nbody, 3), body_quat
-    (B, nbody, 4)); the functions that read them
-    broadcast over it. The result shares `m`'s ``cached`` memo: one
+    (B, nbody, 4), hfield_data (B, nrow, ncol)); the functions that read
+    them broadcast over it. The result shares `m`'s ``cached`` memo: one
     model per batch, not one per env."""
     bad = set(fields) - set(ENV_FIELDS)
     if bad:
@@ -218,7 +229,8 @@ def with_env_fields(m: Model, **fields: torch.Tensor) -> Model:
 
 @dataclasses.dataclass(frozen=True)
 class State:
-    """Batched dynamic state: qpos (B, nq), qvel (B, nv), time (B,)."""
+    """Batched dynamic state: qpos (B, nq), qvel (B, nv), time (B,) and,
+    for a model with stateful actuators, act (B, na)."""
     qpos: torch.Tensor
     qvel: torch.Tensor
     time: torch.Tensor
@@ -252,6 +264,7 @@ class Data:
     contact_dist: torch.Tensor    # (B, C)
     contact_pos: torch.Tensor     # (B, C, 3)
     contact_force: torch.Tensor   # (B, C, 3)
+    act_dot: Optional[torch.Tensor] = None        # (B, na)
     cdof_dot: Optional[torch.Tensor] = None
     contact_frame: Optional[torch.Tensor] = None  # (B, C, 3, 3)
     efc_force: Optional[torch.Tensor] = None      # (B, nr)
@@ -261,8 +274,10 @@ class Data:
 def make_state(model: Model, qpos: Optional[torch.Tensor] = None,
                qvel: Optional[torch.Tensor] = None,
                time: Optional[torch.Tensor] = None,
-               batch: Optional[int] = None) -> State:
-    """Batched State, defaulting to qpos0 / zero velocity / time 0."""
+               batch: Optional[int] = None,
+               act: Optional[torch.Tensor] = None) -> State:
+    """Batched State, defaulting to qpos0 / zero velocity / time 0 and,
+    where the model has stateful actuators, zero activations."""
     dev, dt = model.device, model.dtype
     if qpos is None:
         qpos = model.qpos0.expand(batch or 1, model.nq).clone()
@@ -271,8 +286,7 @@ def make_state(model: Model, qpos: Optional[torch.Tensor] = None,
         qvel = torch.zeros((B, model.nv), dtype=dt, device=dev)
     if time is None:
         time = torch.zeros((B,), dtype=dt, device=dev)
-    if model.na:
-        raise NotImplementedError(
-            'activation state (mujoco_mbrl_tpu.physics.model.make_state '
-            'act) is not ported')
-    return State(qpos=qpos.to(dt), qvel=qvel.to(dt), time=time.to(dt))
+    if act is None and model.na:
+        act = torch.zeros((B, model.na), dtype=dt, device=dev)
+    return State(qpos=qpos.to(dt), qvel=qvel.to(dt), time=time.to(dt),
+                 act=act.to(dt) if act is not None else None)

@@ -385,23 +385,24 @@ def fluid_force(m: M.Model, xipos, xquat, cvel, cdof,
     return torch.einsum('nkj,nkj->nk', cdof, f[:, list(meta.dof_body)])
 
 
-def actuation(m: M.Model, qpos, qvel, ctrl):
-    """(actuator_force, qfrc_actuator): motors and position servos on
-    joints and on fixed tendons (qfrc += tendon_moment' gear force).
+def actuation(m: M.Model, qpos, qvel, ctrl, act=None):
+    """(actuator_force, qfrc_actuator, act_dot): motors, position servos
+    and general actuators on joints and on fixed tendons (qfrc +=
+    tendon_moment' gear force).
 
     A servo's affine bias is biasprm0 + biasprm1 * length + biasprm2 *
     velocity, with the transmission's length and velocity (gear times the
     joint's qpos and qvel, or the tendon's length and moment . qvel; JAX
-    smooth.py:547-552). Activation dynamics (``m.na``) raise.
+    smooth.py:547-552). A stateful actuator's gain reads its activation
+    ``act`` (B, na) in place of the ctrl, and ``act_dot`` is (ctrl -
+    act) / tau for a filter, the ctrl for an integrator (JAX
+    smooth.py:530-545); it is None for a model with no activation state
+    or when ``act`` is None (RK4's stage passes, as in JAX).
     """
     B, dt, dev = qpos.shape[0], qpos.dtype, qpos.device
     if m.nu == 0 or (m.opt.disableflags & M.DSBL_ACTUATION):
         return (torch.zeros((B, m.nu), dtype=dt, device=dev),
-                torch.zeros((B, m.nv), dtype=dt, device=dev))
-    if m.na:
-        raise NotImplementedError(
-            'stateful actuators are not ported '
-            '(mujoco_mbrl_tpu.physics.smooth.actuation)')
+                torch.zeros((B, m.nv), dtype=dt, device=dev), None)
 
     def clip_where(x, key, limited, rng):
         if not any(limited):
@@ -420,7 +421,25 @@ def actuation(m: M.Model, qpos, qvel, ctrl):
             torch.as_tensor(joint_us, device=dev),
             torch.as_tensor([m.jnt_dofadr[m.actuator_trnid[u]]
                              for u in joint_us], device=dev)))
-    force = m.actuator_gainprm[:, 0] * c
+    gain_in, act_dot = c, None
+    if m.na and act is not None:
+        # the slot of each stateful actuator, and the actuator of each slot
+        stateful, slot_of, slot_u, is_filter = M.cached(
+            m, 'activation_slots', lambda: (
+                torch.as_tensor([t != M.DYN_NONE
+                                 for t in m.actuator_dyntype], device=dev),
+                torch.as_tensor([max(a, 0) for a in m.actuator_actadr],
+                                device=dev),
+                [u for u in range(m.nu) if m.actuator_dyntype[u]
+                 != M.DYN_NONE],
+                torch.as_tensor([t == M.DYN_FILTER for t in
+                                 m.actuator_dyntype if t != M.DYN_NONE],
+                                device=dev)))
+        gain_in = torch.where(stateful, act[:, slot_of], c)
+        tau = torch.clamp(m.actuator_dynprm[slot_u, 0], min=1e-8)
+        c_slot = c[:, slot_u]
+        act_dot = torch.where(is_filter, (c_slot - act) / tau, c_slot)
+    force = m.actuator_gainprm[:, 0] * gain_in
     if any(bt == M.BIAS_AFFINE for bt in m.actuator_biastype):
         length, velocity = [None] * m.nu, [None] * m.nu
         for u in joint_us:
@@ -449,4 +468,4 @@ def actuation(m: M.Model, qpos, qvel, ctrl):
     for u in tendon_us:
         qfrc = qfrc + _tendon_row(m, m.actuator_trnid[u]) * (
             m.actuator_gear[u] * force[:, u:u + 1])
-    return force, qfrc
+    return force, qfrc, act_dot

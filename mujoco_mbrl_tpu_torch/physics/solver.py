@@ -4,10 +4,12 @@ Port of mujoco_mbrl_tpu/physics/solver.py for dof friction loss (a box
 row a dof), tendon equality (a free row holding a fixed tendon's length
 at 0, the manipulator's and stacker's finger coupling), spatial-tendon
 length limits, joint limits and frictional contacts, pyramidal of condim
-1 (one non-negative row a point, the humanoid's geom-geom pairs) or 3
-(four facet rows, grouped by condim) or elliptic (a normal and two
-tangent rows a point, finger), in JAX's row order: friction loss, tendon
-equality, tendon limits, joint limits, contacts. Each row has
+1 (one non-negative row a point, the humanoid's geom-geom pairs), 3 (four
+facet rows), 4 (six: the torsional direction on the rotational Jacobian)
+or 6 (ten: torsion and two rolling directions, quadruped fetch's ball),
+grouped by condim, or elliptic (a normal and two tangent rows a point,
+finger), in JAX's row order: friction loss, tendon equality, tendon
+limits, joint limits, contacts. Each row has
 impedance d(pos) from solimp, reference acceleration aref = -b*vel - k*pos
 from solref, and regularizer R = (1-d)/d * invweight0; the dual
 min 1/2 f'(A+R)f - f'rhs is solved by ``solve_apgd`` through the batched
@@ -16,8 +18,9 @@ the CPU): the dense iterate up to 96 rows (walker: 62; finger: 39), and
 at any row count once an equality row is present, since its Gauss-Seidel
 polish reads rows of Ad (manipulator bring_ball: 452 rows; stacker
 stack_4: 977), the factored one past 96 rows otherwise (cheetah: 146;
-humanoid: 303), as the JAX solver selects them. The PGS ``solve``, condim
-above 3 and box rows in the factored regime raise
+humanoid: 303), as the JAX solver selects them (the quadruped's 240, 356
+and 914 rows stay dense: it has four equality rows). The PGS ``solve``,
+elliptic cones past condim 3 and box rows in the factored regime raise
 ``NotImplementedError``.
 """
 
@@ -246,9 +249,11 @@ def assemble(m: M.Model, meta, qpos, qvel, cdof,
         active = (contact.dist < 0.0).to(dt)
         cdim = np.array([_pair_condim(m, g1, g2)
                          for g1, g2 in zip(contact.geom1, contact.geom2)])
-        if (cdim > 3).any() or ((cdim != 1) & (cdim != 3)).any():
+        if not set(cdim.tolist()) <= {1, 3, 4, 6} or (
+                m.opt.cone == 'elliptic' and (cdim > 3).any()):
             raise NotImplementedError(
-                'condim other than 1 or 3 is not ported '
+                f'condim {sorted(set(cdim.tolist()))} under a '
+                f'{m.opt.cone} cone is not ported '
                 '(mujoco_mbrl_tpu.physics.solver.assemble)')
         iw_pair = body_iw[body1] + body_iw[body2]          # (C,)
         mu1 = contact.friction[:, 0]
@@ -268,8 +273,13 @@ def assemble(m: M.Model, meta, qpos, qvel, cdof,
             rows_active.append(active.repeat_interleave(3, dim=1))
             nrows += 3 * C
         else:
+            if (cdim > 3).any():
+                # the rotational Jacobian in the contact frame, (B, C, 3, nv)
+                Jr = torch.einsum('ncij,ncvj->nciv', contact.frame,
+                                  cdof[:, None, :, :3] * dmask)
             R_con = ((1.0 - d) / d * iw_pair * 2.0 * mu1 * mu1
                      * (1.0 + mu1 * mu1))
+            fr = contact.friction
             for grp_dim in sorted(set(cdim.tolist())):
                 idx = np.nonzero(cdim == grp_dim)[0]
                 G = len(idx)
@@ -288,26 +298,36 @@ def assemble(m: M.Model, meta, qpos, qvel, cdof,
                     mus.append(mu1[idx] * 0)
                     nrows += G
                     continue
+                # friction directions: the two tangents (slide), then the
+                # normal's torsion (condim 4) and the tangents' rolling
+                # (condim 6), each with its own coefficient
+                dirs = [(Jc[:, idx, t], mu1[idx], vel[:, idx, t])
+                        for t in (1, 2)]
+                rot = [(0, 1)] if grp_dim == 4 else (
+                    [(0, 1), (1, 2), (2, 2)] if grp_dim == 6 else [])
+                for t, f_col in rot:
+                    Jd = Jr[:, idx, t]
+                    dirs.append((Jd, fr[idx, f_col],
+                                 (Jd * qvel[:, None]).sum(-1)))
+                nf = 2 * len(dirs)
                 facet_J, facet_aref = [], []
-                for t in (1, 2):        # (d0+, d0-, d1+, d1-) per contact
-                    Jd, mu_d = Jc[:, idx, t], mu1[idx]
-                    vd = vel[:, idx, t]
+                for Jd, mu_d, vd in dirs:   # (d0+, d0-, d1+, ...) a contact
                     facet_J += [Jn + mu_d[:, None] * Jd,
                                 Jn - mu_d[:, None] * Jd]
                     facet_aref += [aref_n - b[:, idx] * mu_d * vd,
                                    aref_n + b[:, idx] * mu_d * vd]
                 for gi, c in enumerate(idx):
-                    pyramids.append((int(c), nrows + 4 * gi, 2))
-                    blocks += [('facet', nrows + 4 * gi + r_)
-                               for r_ in range(4)]
-                rows_J.append(torch.stack(facet_J, 2).reshape(B, 4 * G, nv))
+                    pyramids.append((int(c), nrows + nf * gi, len(dirs)))
+                    blocks += [('facet', nrows + nf * gi + r_)
+                               for r_ in range(nf)]
+                rows_J.append(torch.stack(facet_J, 2).reshape(B, nf * G, nv))
                 rows_aref.append(
-                    torch.stack(facet_aref, 2).reshape(B, 4 * G))
-                rows_R.append(R_con[:, idx].repeat_interleave(4, dim=1))
+                    torch.stack(facet_aref, 2).reshape(B, nf * G))
+                rows_R.append(R_con[:, idx].repeat_interleave(nf, dim=1))
                 rows_active.append(
-                    active[:, idx].repeat_interleave(4, dim=1))
+                    active[:, idx].repeat_interleave(nf, dim=1))
                 mus.append(mu1[idx])
-                nrows += 4 * G
+                nrows += nf * G
 
     if not rows_J:
         return None
@@ -460,8 +480,9 @@ _PYRAMID_INDEX = {}
 def contact_forces(cs: Optional[ConstraintSet], f: Optional[torch.Tensor],
                    n_contacts: int, B: int, dtype, device) -> torch.Tensor:
     """Per-contact (normal, t1, t2) forces (B, C, 3): elliptic rows carry
-    them directly; pyramidal contacts rebuild them from their facets,
-    fn = sum(facets), ft_i = mu * (f_i+ - f_i-)."""
+    them directly; pyramidal contacts rebuild them from their facets of
+    any number of directions, fn = sum(facets), ft_i = mu * (f_i+ - f_i-)
+    for the two slide tangents (JAX solver.py:936-946)."""
     out = torch.zeros((B, n_contacts, 3), dtype=dtype, device=device)
     if cs is None or f is None:
         return out
@@ -473,21 +494,26 @@ def contact_forces(cs: Optional[ConstraintSet], f: Optional[torch.Tensor],
         return out
     key = (cs.pyramids, str(device))
     if key not in _PYRAMID_INDEX:
-        py = cs.pyramids
-        k2 = [k for k, p in enumerate(py) if p[2] == 2]
-        k0 = [k for k, p in enumerate(py) if p[2] == 0]
+        # per pyramid size: (pyramid positions, contacts, facet rows)
         t = lambda a: torch.as_tensor(a, dtype=torch.long, device=device)
-        _PYRAMID_INDEX[key] = (
-            t(k2), t([py[k][0] for k in k2]),
-            t([[py[k][1] + r for r in range(4)] for k in k2]).reshape(-1, 4),
-            t([py[k][0] for k in k0]), t([py[k][1] for k in k0]))
-    k2, c2, rows2, c0, rows0 = _PYRAMID_INDEX[key]
-    if len(k2):
-        facets = f[:, rows2]                               # (B, P, 4)
-        mu = cs.mu[k2]
-        out[:, c2] = torch.stack([facets.sum(-1),
-                                  mu * (facets[..., 0] - facets[..., 1]),
-                                  mu * (facets[..., 2] - facets[..., 3])], -1)
-    if len(c0):
-        out[:, c0, 0] = f[:, rows0]
+        groups = {}
+        for k, (c, i0, ndir) in enumerate(cs.pyramids):
+            groups.setdefault(ndir, []).append((k, c, i0))
+        _PYRAMID_INDEX[key] = [
+            (ndir, t([k for k, _, _ in g]), t([c for _, c, _ in g]),
+             t([[i0 + r for r in range(max(2 * ndir, 1))]
+                for _, _, i0 in g]))
+            for ndir, g in sorted(groups.items())]
+    for ndir, ks, cs_, rows in _PYRAMID_INDEX[key]:
+        facets = f[:, rows]                       # (B, P, max(2 ndir, 1))
+        if ndir == 0:
+            out[:, cs_, 0] = facets[..., 0]
+            continue
+        # fn = the sum of all facets; a slide tangent's force is mu times
+        # its two facets' difference
+        mu = cs.mu[ks]
+        out[:, cs_] = torch.stack([facets.sum(-1),
+                                   mu * (facets[..., 0] - facets[..., 1]),
+                                   mu * (facets[..., 2] - facets[..., 3])],
+                                  -1)
     return out

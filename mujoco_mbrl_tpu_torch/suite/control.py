@@ -6,10 +6,12 @@ termination), ``autoreset_step`` and ``observation_spec``, plus
 ``flatten_observation`` and ``action_spec``. The JAX environment is one
 env under ``vmap``; here every method takes and returns the env batch as
 the leading dimension. A task's per-episode params (reacher's target,
-point_mass:hard's tendon directions, finger:turn's target site) reach the
-physics through ``_model_with``, which applies the task's
-``apply_params`` to the shared model as per-env fields
-(``physics.model.with_env_fields``). Reset retries are not ported.
+point_mass:hard's tendon directions, finger:turn's target site,
+quadruped:escape's terrain) reach the physics through ``_model_with``,
+which applies the task's ``apply_params`` to the shared model as per-env
+fields (``physics.model.with_env_fields``). Stateful actuators'
+activations (``State.act``) travel with the physics state through reset,
+step and autoreset. Reset retries are not ported.
 """
 
 from __future__ import annotations

@@ -95,14 +95,22 @@ def assert_model_matches(jm, tm, held_apart=()):
 
 
 def tracks_mujoco_fixture(domain, task, model, min_steps, tol):
-    """The port alone from the oracle's post-reset state, the recorded
-    ctrl held over the substeps: at least ``min_steps`` physics steps
-    within ``tol`` of MuJoCo's qpos."""
+    """The port alone from the oracle's post-reset state (its activations
+    too, where the model has them; the episode's terrain, where it has a
+    heightfield), the recorded ctrl held over the substeps: at least
+    ``min_steps`` physics steps within ``tol`` of MuJoCo's qpos."""
     fix = np.load(os.path.join(FIXTURES, 'parity', f'{domain}_{task}.npz'))
     ctrl = np.repeat(fix['ctrl'], int(fix['n_sub_steps']), axis=0)
+    if model.hfield_nrow:
+        model = model.replace(hfield_data=torch.tensor(
+            fix['ep_hfield_data'], dtype=torch.float32).reshape(
+                model.hfield_nrow, model.hfield_ncol))
+    act = fix['init_act'] if 'init_act' in fix.files else np.zeros(0)
     s = State(qpos=torch.tensor(fix['init_qpos'], dtype=torch.float32)[None],
               qvel=torch.tensor(fix['init_qvel'], dtype=torch.float32)[None],
-              time=torch.zeros(1))
+              time=torch.zeros(1),
+              act=(torch.tensor(act, dtype=torch.float32)[None] if act.size
+                   else None))
     qpos = [fix['init_qpos']]
     for u in ctrl[:min_steps]:
         s = engine.step(model, s, torch.tensor(u, dtype=torch.float32)[None])

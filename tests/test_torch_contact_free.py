@@ -109,7 +109,9 @@ def _port_state(jstate):
     phys = jstate.physics
     return EnvState(physics=State(qpos=_to_torch(phys.qpos),
                                   qvel=_to_torch(phys.qvel),
-                                  time=_to_torch(phys.time)),
+                                  time=_to_torch(phys.time),
+                                  act=(None if phys.act is None
+                                       else _to_torch(phys.act))),
                     params=params, step_count=_to_torch(jstate.step_count),
                     last=_to_torch(jstate.last))
 

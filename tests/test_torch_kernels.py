@@ -853,6 +853,56 @@ def test_apgd_kernel_global_path(dev, nr, path, cold):
     assert float(f[:, 1].abs().max()) > 1e-3       # the equality row works
 
 
+def _quadruped_problem(dev, B, nr, seed):
+    """A masked batch of the quadruped's row layout at nr rows: 4
+    tendon-equality rows (active), then only non-negative rows: 16 joint
+    limits and 104 frictionless leg contacts (each active 1 time in 5),
+    then pyramids of 4 facets (and, at fetch's 914 rows, 21 of 10, the
+    ball's condim 6), a pyramid active or not as one contact (1 in 5);
+    Ad zero in the inactive rows and columns, as solve_apgd masks it."""
+    Ad, rhs, f0, v0, _, _, _ = _problem(dev, B, nr, seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1000)
+    sizes = [4] * ((nr - 124) // 4) if nr != 914 else [4] * 145 + [10] * 21
+    assert 124 + sum(sizes) == nr
+    act = torch.ones((B, nr), device=dev)
+    act[:, 4:124] = (torch.rand((B, 120), generator=g, device=dev)
+                     < 0.2).float()
+    on = (torch.rand((B, len(sizes)), generator=g, device=dev) < 0.2).float()
+    act[:, 124:] = on.repeat_interleave(torch.tensor(sizes, device=dev),
+                                        dim=1)
+    Ad = (Ad * act[:, :, None] * act[:, None, :]).contiguous()
+    zeros = torch.zeros(nr, device=dev)
+    kw = dict(nonneg=tuple(range(4, nr)), box_rows=(), con0=(),
+              eq_rows=(0, 1, 2, 3), iterations=60)
+    return (Ad, 3.0 * rhs, f0, v0, act, zeros, zeros), kw
+
+
+# #1's global path at the quadruped's rows: walk and run (240), escape
+# (356, its terrain's pyramids) and fetch (914, the condim-6 ball's ten
+# facets a contact), four equality rows polished, cold and warm
+@pytest.mark.parametrize('nr', [240, 356, 914])
+@pytest.mark.parametrize('cold', [True, False])
+def test_apgd_kernel_global_path_quadruped_rows(dev, nr, cold):
+    assert apgd_solve.dense_route(nr) == 'global'
+    args, kw = _quadruped_problem(dev, 40, nr, seed=nr + int(cold))
+    before = ops.launch_counts['apgd_solve']
+    f, v, its = apgd_solve.apgd_iterate_batched(*args, cold=cold, **kw,
+                                                return_iterations=True)
+    assert ops.launch_counts['apgd_solve'] == before + 1
+    f_p, v_p, its_p = apgd_solve.apgd_iterate_plain(
+        *args, cold=cold, **kw, return_iterations=True)
+    torch.testing.assert_close(f, f_p, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(v, v_p, rtol=2e-4, atol=2e-4)
+    # an env creeping toward the exit test near the cap may stop a few
+    # iterations apart (3 at 914 rows warm on the card), f agreeing as
+    # held above
+    assert int((its.long() - its_p).abs().max()) <= 4
+    act = args[4]
+    assert float((f * (1 - act)).abs().max()) == 0.0
+    assert float(f[:, 4:].min()) >= 0.0
+    assert float(f[:, :4].abs().max()) > 1e-3      # the equality rows work
+
+
 def test_apgd_kernel_refuses_past_1024_rows(dev):
     args, kw = _dense_problem(dev, 2, 1025, seed=0)
     with pytest.raises(ValueError, match='1024'):

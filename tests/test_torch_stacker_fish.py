@@ -349,13 +349,13 @@ def test_fish_affine_bias_matches_jax():
     jf, jq, _ = (np.asarray(x) if x is not None else None
                  for x in jax.jit(jax.vmap(
                      lambda a, b, c: js.actuation(jm, a, b, c)))(q, v, u))
-    f, qf = smooth.actuation(tm, torch.as_tensor(q), torch.as_tensor(v),
-                             torch.as_tensor(u))
+    f, qf, _ = smooth.actuation(tm, torch.as_tensor(q), torch.as_tensor(v),
+                                torch.as_tensor(u))
     np.testing.assert_allclose(f.numpy(), jf, rtol=1e-5, atol=1e-9)
     np.testing.assert_allclose(qf.numpy(), jq, rtol=1e-5, atol=1e-9)
     # the bias is on: a zero ctrl still pushes the joints toward 0
-    f0, _ = smooth.actuation(tm, torch.as_tensor(q), torch.as_tensor(v),
-                             torch.zeros(B, tm.nu))
+    f0, _, _ = smooth.actuation(tm, torch.as_tensor(q), torch.as_tensor(v),
+                                torch.zeros(B, tm.nu))
     assert float(f0.abs().min()) > 0
 
 
