@@ -257,12 +257,37 @@ Run from the repository root:  python3 chip_smoke.py
       facets; Ad 3.4 GB at 1024 envs), its landed states with the ball
       resting on the floor;
    d. (41) run: one control step from a card reset (5 launches);
-15. prints one ``{"kernels": [...]}`` line (one entry per TPU kernel, one
+15. humanoid_cmu (slice 16: contact excludes, 4,352 rows over 62 dofs,
+   #1's dense iterate on factors), each path through ``suite.load`` at
+   1024 envs from a card reset (the first of 10 draws without
+   penetration, else the last) with exact launch counts:
+   a. (42) stand, random actions: 10 substeps, so 10 launches of
+      ``apgd_dense_factors_kernel`` a control step, each checked to take
+      J~ (1024, 4,352, 62), every row non-negative, the 60 cap; the peak
+      device memory of a control step; the card's step of states dropped
+      onto the floor against the CPU's on their first 8 envs (qpos, qvel,
+      reward); then the kernel against its plain version on solves
+      captured at the reset states, landed, and fallen (the landed
+      states after 30 control steps of random actions, lying), cold and
+      warm, held under the one APGD rule with ``energy_valley`` (Ad
+      formed only for the envs that differ) and timed beside the bound of
+      what the run's data needs (the active rows of J~ and of rhs, Rs and
+      f0, M^-1, `active` and a warm v0 read, f and v written; 4 k nv + 2
+      nv^2 FLOP a matvec and the row sums of the stale envs), with the
+      active-row counts and the ns of one APGD iteration;
+   b. (43) run: one control step from a card reset (10 launches);
+16. prints one ``{"kernels": [...]}`` line (one entry per TPU kernel, one
    per bf16 mode of #2-#6, and entries for #1's global path, with the
-   quadruped's cases, and #2's (5, 7, 4) instantiation), a ``{"paths":
-   ...}`` line with the cheetah, contact-free, humanoid, slice-10,
-   slice-11, bench, slice-13, slice-14 and slice-15 paths' times, the
-   card line, and last ``{"ok": true, "device": {...}}``.
+   quadruped's cases, #1's dense iterate on factors and #2's (5, 7, 4)
+   instantiation), a ``{"paths": ...}`` line with the cheetah,
+   contact-free, humanoid, slice-10, slice-11, bench, slice-13, slice-14,
+   slice-15 and slice-16 paths' times, the card line, and last ``{"ok":
+   true, "device": {...}}``.
+
+Every card-vs-CPU step runs the card at the path's whole batch and the
+CPU on its first CPU_CHECK_ENVS = 256 envs at most (the plain CPU step
+is the slow side), which are compared; ``[clock]`` lines give the
+elapsed time at each slice's start.
 
 The H100 peaks of the bounds come from the port's bench.py, whose mfu_*
 shares use the same ones.
@@ -286,6 +311,15 @@ B, K, H, ITERS, STEPS = 1024, 1000, 30, 3, 3
 # (PEAK_BF16_FLOPS, PEAK_TF32_FLOPS, PEAK_FP32_FLOPS, PEAK_BYTES), which
 # its mfu_* shares use too
 PEAK_BF16_FLOPS = PEAK_TF32_FLOPS = PEAK_FP32_FLOPS = PEAK_BYTES = None
+
+
+T_START = time.perf_counter()
+
+
+def clock(label) -> None:
+    """The script's elapsed time at the start of a slice's paths."""
+    print(f'[clock] {label}: {time.perf_counter() - T_START:.1f} s since '
+          'the start', flush=True)
 
 
 def check(ok: bool, detail) -> None:
@@ -348,8 +382,15 @@ def device_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / (5 * reps)
 
 
+def rhs_act_of(args):
+    """The rhs and active rows of a case's args: the factored iterate's
+    (J~, M^-1, Rs, diag_s, rhs, f0, v0, active, mu, bounds) or the dense
+    one's (Ad, rhs, f0, v0, active, mu, bounds)."""
+    return (args[4], args[7]) if len(args) == 10 else (args[1], args[4])
+
+
 def hold_apgd(torch, label, run_k, run_p, dense_Ad, cases,
-              joint_force=None, energy_valley=False):
+              joint_force=None, energy_valley=False, rhs_act=rhs_act_of):
     """Each case's kernel (run_k) against its plain version (run_p) at
     rtol = atol = 2e-4 on f and v; returns (largest difference, envs
     decided by rounding). ``dense_Ad(args)`` gives the cases' Ad for the
@@ -363,7 +404,8 @@ def hold_apgd(torch, label, run_k, run_p, dense_Ad, cases,
     energy norm: the objectives agree to 1e-6 and (f_k - f_p)' Ad (f_k -
     f_p) <= (2e-4)^2 (1 + f_p' Ad f_p), i.e. the two differ along a
     direction J' nearly annihilates (a pyramid's four facets span three
-    directions, so their rows leave a flat valley held up by R alone)."""
+    directions, so their rows leave a flat valley held up by R alone).
+    ``rhs_act(args)`` gives a case's rhs and active rows."""
     worst, rounding_envs = 0.0, 0
     for tag, args, kw in cases:
         Bs = args[4].shape[0]
@@ -393,7 +435,7 @@ def hold_apgd(torch, label, run_k, run_p, dense_Ad, cases,
             quad = lambda v: (v[odd].double() * (Ad @ v[odd].double()[
                 ..., None])[..., 0]).sum(1)
             # the dual objective 1/2 f'Ad f - f'rhs of each answer
-            rhs = (args[4] if len(args) == 10 else args[1])[odd].double()
+            rhs = rhs_act(args)[0][odd].double()
             phi = lambda f: 0.5 * quad(f) - (f[odd].double() * rhs).sum(1)
             phi_k, phi_p = phi(f_k), phi(f_p)
             flat = torch.zeros_like(odd)
@@ -414,7 +456,7 @@ def hold_apgd(torch, label, run_k, run_p, dense_Ad, cases,
                               <= 1e-6 * phi_p.abs())
                              & ((jf_k - jf_p).abs()
                                 <= 2e-4 * (1.0 + scale)).all(1))
-            act = args[7] if len(args) == 10 else args[4]
+            act = rhs_act(args)[1]
             for i, e in enumerate(odd.nonzero()[:, 0].tolist()[:12]):
                 why = (f'kernel {int(its_k[e])}, '
                        + ('at the cap' if bool(excused[e]) else
@@ -451,12 +493,13 @@ def hold_apgd(torch, label, run_k, run_p, dense_Ad, cases,
 
 
 def time_apgd(torch, label, run_k, run_p, cases, matvec_flops, n_bytes,
-              trace_bound):
+              trace_bound, stale_flops=None):
     """Kernel and plain times of each case, beside the bound: the bytes
     ``n_bytes(args)`` once at the HBM rate, or the matvecs that this
     case's envs run, (25 cold | 10 warm + APGD iterations) x
     ``matvec_flops(args)`` per env, at the FP32 peak (warm solves add the
-    staleness bound's pass, ``trace_bound`` or the row sums). The kernel
+    staleness bound's pass, ``trace_bound`` or the row sums, or
+    ``stale_flops(args)`` where the pass runs only in stale envs). The kernel
     time is its device time (``device_ms``); the wrapper call's time, host
     work included, stands beside it (``call_ms``). Also the largest APGD
     iteration count among the kernel's envs (the slowest env sets the
@@ -472,7 +515,8 @@ def time_apgd(torch, label, run_k, run_p, cases, matvec_flops, n_bytes,
         n_mv = (25 if kw['cold'] else 10) + its.double()
         flops = float((matvec_flops(args) * n_mv).sum())
         if not kw['cold']:
-            flops += Bs * (nr if trace_bound else 2.0 * nr * nr)
+            flops += (stale_flops(args) if stale_flops is not None else
+                      Bs * (nr if trace_bound else 2.0 * nr * nr))
         bms, by = bound_ms(n_bytes(args), flops)
         k_ms = device_ms(lambda: run_k(*args, **kw), 20)
         c_ms = time_ms(lambda: run_k(*args, **kw), 20)
@@ -1410,11 +1454,17 @@ def control_step(dev, torch, run, params, state0, gen, label, envs=B):
     return counts, out, state, warm_state
 
 
+CPU_CHECK_ENVS = 256         # envs a card-vs-CPU step compares at most
+
+
 def card_vs_cpu_step(dev, torch, domain, task, start, by_rounding=False,
-                     task_kwargs=None, fields=('qpos',)):
-    """One env.step of random actions from `start`, on the card and with
-    the plain versions on the CPU: the state's `fields` (qpos; the
-    quadruped's qvel and act too) and the reward within 1e-3. With
+                     task_kwargs=None, fields=('qpos',),
+                     cpu_envs=CPU_CHECK_ENVS):
+    """One env.step of random actions from `start`: on the card at the
+    path's whole batch, and with the plain versions on the CPU from the
+    first `cpu_envs` of its envs, which are compared: the state's
+    `fields` (qpos; the quadruped's qvel and act too) and the reward
+    within 1e-3. With
     ``by_rounding`` (the hopper, whose contact solves run to the iteration
     cap in some envs), an env beyond that is admitted when rounding
     decides it: the CPU's float32 step itself moves by more than 1e-3
@@ -1424,11 +1474,14 @@ def card_vs_cpu_step(dev, torch, domain, task, start, by_rounding=False,
 
     from mujoco_mbrl_tpu_torch import suite
 
+    t0 = time.perf_counter()
     env = suite.load(domain, task, task_kwargs=task_kwargs, device=dev)
     env_cpu = suite.load(domain, task, task_kwargs=task_kwargs, device='cpu')
-    nu, n = env.model.nu, start.physics.qpos.shape[0]
-    acts = 2 * torch.rand((n, nu), generator=torch.Generator().manual_seed(
-        5)) - 1
+    n_all = start.physics.qpos.shape[0]
+    n = min(n_all, cpu_envs)
+    acts_all = 2 * torch.rand((n_all, env.model.nu),
+                              generator=torch.Generator().manual_seed(5)) - 1
+    acts = acts_all[:n]
     cast = lambda x, dt=None: None if x is None else x.cpu().to(
         dt or x.dtype)
     to_cpu = lambda s, dt=None: type(s)(physics=type(s.physics)(
@@ -1436,7 +1489,10 @@ def card_vs_cpu_step(dev, torch, domain, task, start, by_rounding=False,
         time=cast(s.physics.time, dt), act=cast(s.physics.act, dt)),
         params=(s.params.cpu() if isinstance(s.params, torch.Tensor)
                 else ()), step_count=s.step_count.cpu(), last=s.last.cpu())
-    s_gpu, ts_gpu = env.step(start, acts.to(dev))
+    s_gpu, ts_gpu = env.step(start, acts_all.to(dev))
+    s_gpu = head_state(torch, s_gpu, n)
+    ts_gpu = dataclasses.replace(ts_gpu, reward=ts_gpu.reward[:n])
+    start = head_state(torch, start, n)
     s_cpu, ts_cpu = env_cpu.step(to_cpu(start), acts)
     diff = lambda s, ts, s_ref, ts_ref, f: (
         (ts.reward.cpu().double() - ts_ref.reward).abs() if f == 'reward'
@@ -1464,9 +1520,11 @@ def card_vs_cpu_step(dev, torch, domain, task, start, by_rounding=False,
                               .max()) for f in keys}
     shown = ', '.join(f'max|d{f}| {v:.2e}' for f, v in zip(keys,
                                                             out.values()))
-    print(f'{domain}_{task} physics step, card vs plain CPU at {n} envs: '
-          f'{shown} over {n - n_dec} envs; {n_dec} decided by rounding (the '
-          f'float32 CPU step beyond 1e-3 of the float64 one there)')
+    print(f'{domain}_{task} physics step, card at {n_all} envs vs plain CPU '
+          f'at its first {n}: {shown} over {n - n_dec} envs; {n_dec} '
+          f'decided by rounding (the '
+          f'float32 CPU step beyond 1e-3 of the float64 one there); '
+          f'{time.perf_counter() - t0:.1f} s')
     check(max(out.values()) < 1e-3, (domain, out))
     check(n_dec <= n // 100, (domain, n_dec))
     return dict(out, rounding_decided_envs=n_dec)
@@ -2955,39 +3013,51 @@ FINGER_CONE_ROWS = tuple(range(3, 39, 3))
 LQR_DRIVE_CAP = 1500         # control steps to drive lqr_6_2 toward 0
 
 
-def suite_control_steps(dev, torch, env, state0, label, rows=None):
-    """A warm-up control step of random actions from `state0`, then
-    STEPS timed ones with every launch count zeroed just before and read
-    just after; `rows(args, kw)` checks each #1 call of the timed steps.
-    Returns (counts, times, the state after the warm-up)."""
+@contextlib.contextmanager
+def watching(kernel, rows=None):
+    """Every launch count zeroed on entry, and each call of the
+    ops.apgd_solve wrapper `kernel` checked by `rows(args, kw)` as it
+    happens: keeping the calls' inputs would keep every Ad of the steps
+    alive (3.6 GB each at stack_4's 977 rows)."""
     from mujoco_mbrl_tpu_torch import ops
     from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
+
+    real = getattr(A, kernel)
+
+    def watch(*args, **kw):
+        if rows is not None:
+            rows(args, kw)
+        return real(*args, **kw)
+
+    ops.reset_launch_counts()
+    setattr(A, kernel, watch)
+    try:
+        yield
+    finally:
+        setattr(A, kernel, real)
+
+
+def suite_control_steps(dev, torch, env, state0, label, rows=None,
+                        kernel='apgd_iterate_batched'):
+    """A warm-up control step of random actions from `state0`, then
+    STEPS timed ones with every launch count zeroed just before and read
+    just after; `rows(args, kw)` checks each call of the wrapper `kernel`
+    (#1's) in the timed steps. Returns (counts, times, the state after the
+    warm-up)."""
+    from mujoco_mbrl_tpu_torch import ops
 
     g = torch.Generator(device=dev).manual_seed(31)
     act = lambda: 2 * torch.rand((state0.physics.qpos.shape[0],
                                   env.model.nu), generator=g, device=dev) - 1
     warm, _ = env.step(state0, act())
     torch.cuda.synchronize()
-    real = A.apgd_iterate_batched
-
-    def watch(*args, **kw):
-        # checked at the call: keeping the calls' inputs would keep every
-        # Ad of the steps alive (3.6 GB each at stack_4's 977 rows)
-        if rows is not None:
-            rows(args, kw)
-        return real(*args, **kw)
-
-    ops.reset_launch_counts()
-    A.apgd_iterate_batched = watch
-    try:
+    with watching(kernel, rows):
         t0 = time.perf_counter()
         state = warm
         for _ in range(STEPS):
             state, ts = env.step(state, act())
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        A.apgd_iterate_batched = real
     counts = dict(ops.launch_counts)
     for name, x in (('qpos', state.physics.qpos),
                     ('qvel', state.physics.qvel), ('reward', ts.reward)):
@@ -3297,9 +3367,8 @@ def dense_control_step_phase(dev, torch, domain, task, seed):
     exact_counts(label, counts, apgd_solve=MANIP_SOLVES * STEPS)
     out.update(reset_s=reset_s, rows=nr, card_vs_cpu_envs=CPU_ENVS,
                card_vs_cpu=card_vs_cpu_step(
-                   dev, torch, domain, task, head_state(torch, warm,
-                                                        CPU_ENVS),
-                   by_rounding=True))
+                   dev, torch, domain, task, warm, by_rounding=True,
+                   cpu_envs=CPU_ENVS))
     return counts, out, env, state0
 
 
@@ -3787,9 +3856,8 @@ def quadruped_phase(dev, torch, task, seed):
     if task == 'escape':
         out['terrain'] = terrain_law_check(torch, state0.params, label)
     out.update(card_vs_cpu_envs=QUAD_CPU_ENVS, card_vs_cpu=card_vs_cpu_step(
-        dev, torch, 'quadruped', task, head_state(torch, warm,
-                                                  QUAD_CPU_ENVS),
-        by_rounding=True, fields=('qpos', 'qvel', 'act')))
+        dev, torch, 'quadruped', task, warm, by_rounding=True,
+        fields=('qpos', 'qvel', 'act'), cpu_envs=QUAD_CPU_ENVS))
     held = global_apgd_phase(
         dev, torch, task, env, state0,
         quad_contact_state(dev, torch, env, state0, seed + 1),
@@ -3823,6 +3891,250 @@ def quadruped_run_phase(dev, torch):
           f'{float(ts.reward.mean()):.4f}')
     return {'quadruped_run': dict(ms_per_step=1e3 * wall,
                                   apgd_solve=QUAD_SOLVES)}
+
+
+CMU_SOLVES = 10              # 10 substeps; the observation needs no solve
+CMU_ROWS = 4352              # 56 joint limits, 1,074 contact points x 4
+CMU_NV = 62
+CMU_CPU_ENVS = 8             # envs of the card-vs-CPU step (the plain CPU
+                             # step takes seconds an env at 4,352 rows)
+CMU_LAND_STEPS = 1           # control steps after the drop onto the floor
+                             # (~70% of the envs still in contact; they
+                             # bounce off by the third)
+CMU_FALL_STEPS = 30          # control steps (0.6 s) of random actions from
+                             # the landed states to fallen, lying ones
+
+
+def cmu_rows(B_):
+    """The check of each call of #1's dense iterate on factors on
+    humanoid_cmu: J~ (B, 4,352, 62), past the 1024 rows of #1's dense
+    paths, every row non-negative, the 60 cap."""
+    from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
+
+    def rows(args, kw):
+        check(args[0].shape == (B_, CMU_ROWS, CMU_NV)
+              and CMU_ROWS > A.DENSE_MAX_NR, args[0].shape)
+        check(kw['nonneg'] == tuple(range(CMU_ROWS))
+              and kw['iterations'] == 60, kw['iterations'])
+    return rows
+
+
+def cmu_landed_state(dev, torch, env, state0, seed):
+    """The reset states dropped onto the floor: each env lowered until its
+    lowest geom is 2 mm into it, then CMU_LAND_STEPS control step of
+    random actions (feet, hands, knees or the torso in contact)."""
+    import dataclasses
+
+    from mujoco_mbrl_tpu_torch.physics import collision, smooth
+
+    m = env.model
+    kin = smooth.kinematics(m, state0.physics.qpos, smooth.tree_meta(m))
+    con = collision.detect(m, kin[3], kin[4], collision.candidate_pairs(m))
+    floor = m.name2id('geom', 'floor')
+    cols = [c for c, pair in enumerate(zip(con.geom1, con.geom2))
+            if floor in pair]
+    qpos = state0.physics.qpos.clone()
+    qpos[:, 2] -= con.dist[:, cols].amin(1) + 0.002
+    state = dataclasses.replace(state0, physics=state0.physics.replace(
+        qpos=qpos))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for _ in range(CMU_LAND_STEPS):
+        act = 2 * torch.rand((qpos.shape[0], m.nu), generator=g,
+                             device=dev) - 1
+        state, _ = env.step(state, act)
+    return state
+
+
+class FactorAd:
+    """Ad = J~ M^-1 J~' + diag(Rs) of a dense-on-factors case, formed in
+    float64 only for the envs a mask selects (76 MB an env in float32 at
+    4,352 rows: the batch's would not fit on the card)."""
+
+    def __init__(self, args):
+        self.args = args
+
+    def __getitem__(self, sel):
+        J, Minv, Rs = (a[sel].double() for a in self.args[:3])
+        Ad = J @ Minv @ J.transpose(1, 2)
+        Ad.diagonal(dim1=1, dim2=2).add_(Rs)
+        return Ad
+
+
+def cmu_fallen_state(dev, torch, env, landed, seed):
+    """The landed states after CMU_FALL_STEPS control steps of random
+    actions, fallen and lying on the floor: what an episode that has lost
+    its balance solves."""
+    state = landed
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for _ in range(CMU_FALL_STEPS):
+        act = 2 * torch.rand((state.physics.qpos.shape[0], env.model.nu),
+                             generator=g, device=dev) - 1
+        state, _ = env.step(state, act)
+    return state
+
+
+def cmu_stale_flops(torch, args):
+    """FLOP of the row-sum bound in the envs whose warm start the Rayleigh
+    guard finds stale (ops.apgd_solve.dense_factors_warm_stale): P_i =
+    J~_i M^-1 and its products with every active row, 2 k nv^2 + 2 k^2
+    nv. Returns (FLOP, stale envs)."""
+    from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
+
+    J, Minv, Rs, _, _, v0, act = args
+    stale = A.dense_factors_warm_stale(J, Minv, Rs, v0)
+    k = act.sum(1).double()[stale]
+    return float((2 * k * CMU_NV ** 2 + 2 * k * k * CMU_NV).sum()), int(
+        stale.sum())
+
+
+def dense_factors_apgd_phase(dev, torch, env, states):
+    """(42) #1's dense iterate on factors against its plain version on
+    solves captured from humanoid_cmu at 1024 envs from each of `states`
+    (tag -> state: the reset states, landed, fallen), cold and warm, under
+    the one APGD rule (rtol = atol = 2e-4, at most 1% of envs decided by
+    rounding; a converged env that differs along a pyramid's flat facet
+    direction counts as decided by rounding); device time beside the bound
+    of what this run's data needs (each env's active rows of J~ and of
+    rhs, Rs and f0, M^-1, `active` and, warm, v0 read once, f and v
+    written; or 4 k nv + 2 nv^2 FLOP a matvec and, where the warm start is
+    stale, the row sums at the FP32 peak), the largest iteration count, us
+    per dependent step, ns per APGD iteration."""
+    from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
+
+    kern = 'apgd_iterate_dense_factors'
+    cases = [c for tag, state in states.items()
+             for c in capture_solves(dev, torch, env, state, 'cmu-' + tag,
+                                     kern)]
+    stale = {}
+    for tag, args, kw in cases:
+        act = args[6]
+        k = act.sum(1)
+        n_con = int((act[:, 56:].sum(1) > 0).sum())
+        past = sum(int(x) > A.dense_factors_stage_rows(int(x), CMU_NV)
+                   for x in k.tolist())
+        if not kw['cold']:
+            stale[tag] = cmu_stale_flops(torch, args)
+        print(f'apgd dense factors {tag} cold={kw["cold"]}: nr '
+              f'{args[0].shape[1]}, nv {args[0].shape[2]}, active rows a '
+              f'env mean {float(k.mean()):.1f} max {int(k.max())}, {n_con} '
+              f'of {act.shape[0]} envs in contact, {past} envs past the '
+              f'rows staged in shared memory'
+              + (f', {stale[tag][1]} envs with a stale warm start'
+                 if tag in stale else ''))
+        if tag.endswith(('landed', 'fallen')):
+            check(n_con >= act.shape[0] // 2, (tag, n_con))
+    worst, rounding_envs = hold_apgd(
+        torch, 'apgd dense factors humanoid_cmu',
+        A.apgd_iterate_dense_factors, A.apgd_iterate_dense_factors_plain,
+        FactorAd, cases, energy_valley=True,
+        rhs_act=lambda a: (a[3], a[6]))
+    ks = lambda a: a[6].sum(1).double()
+    times = {}
+    for cold in (True, False):
+        # floats an env: J~'s active rows and rhs, Rs, f0 there; M^-1;
+        # `active` and f, v out over all nr rows, and v0 on a warm start
+        n_bytes = lambda a, nr_vecs=3 + (not cold): 4.0 * (
+            float(ks(a).sum()) * (CMU_NV + 3) + a[1].numel()
+            + nr_vecs * a[3].numel())
+        times.update(time_apgd(
+            torch, 'apgd dense factors humanoid_cmu',
+            A.apgd_iterate_dense_factors, A.apgd_iterate_dense_factors_plain,
+            [c for c in cases if c[2]['cold'] == cold],
+            lambda a: 4.0 * ks(a) * CMU_NV + 2.0 * CMU_NV ** 2, n_bytes,
+            trace_bound=False,
+            stale_flops=lambda a: cmu_stale_flops(torch, a)[0]))
+    for tag, args, kw in cases:
+        t = times[tag + ('-cold' if kw['cold'] else '-warm')]
+        t['mean_active_rows'] = float(ks(args).mean())
+        t['max_active_rows'] = int(ks(args).max())
+        if tag in stale and not kw['cold']:
+            t['stale_envs'] = stale[tag][1]
+    tag, args, kw = cases[-1]
+    check(not kw['cold'], tag)
+    cap = lambda n: device_ms(lambda: A.apgd_iterate_dense_factors(
+        *args, **dict(kw, iterations=n, tol2=0.0)), 20)
+    t1, t41 = cap(1), cap(41)
+    iteration_ns = 1e6 * (t41 - t1) / 40
+    print(f'apgd dense factors {tag}-warm, tol2 = 0: {t1:.4f} ms at 1 '
+          f'iteration, {t41:.4f} ms at 41: {iteration_ns:.0f} ns per APGD '
+          f'iteration')
+    return worst, rounding_envs, times, iteration_ns
+
+
+def humanoid_cmu_phase(dev, torch):
+    """(42) humanoid_cmu stand through suite.load at 1024 envs from a card
+    reset (10 draws an env, the first without penetration, else the
+    last), random actions: 10 substeps, so 10 launches of #1's dense
+    iterate on factors a control step, each checked to take 4,352 rows
+    over nv 62; the peak device memory of a control step; the card's step
+    against the CPU's on the first CMU_CPU_ENVS envs of the landed states
+    (qpos, qvel, reward); then the kernel against its plain version on
+    solves captured at the reset states and landed."""
+    from mujoco_mbrl_tpu_torch import suite
+
+    env = suite.load('humanoid_cmu', 'stand', device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state0, _ = env.reset(B, torch.Generator(device=dev).manual_seed(70))
+    torch.cuda.synchronize()
+    reset_s = time.perf_counter() - t0
+    label = 'humanoid_cmu stand control step'
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    counts, out, _ = suite_control_steps(
+        dev, torch, env, state0, label, rows=cmu_rows(B),
+        kernel='apgd_iterate_dense_factors')
+    peak = torch.cuda.max_memory_allocated()
+    exact_counts(label, counts, apgd_dense_factors=CMU_SOLVES * STEPS)
+    print(f'{label}: peak device memory {peak / 1e9:.3f} GB, '
+          f'{(peak - base) / 1e9:.3f} GB of it the control step\'s')
+    landed = cmu_landed_state(dev, torch, env, state0, 71)
+    out.update(reset_s=reset_s, rows=CMU_ROWS, peak_memory_gb=peak / 1e9,
+               step_memory_gb=(peak - base) / 1e9,
+               card_vs_cpu_envs=CMU_CPU_ENVS, card_vs_cpu=card_vs_cpu_step(
+                   dev, torch, 'humanoid_cmu', 'stand', landed,
+                   by_rounding=True, fields=('qpos', 'qvel'),
+                   cpu_envs=CMU_CPU_ENVS))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fallen = cmu_fallen_state(dev, torch, env, landed, 72)
+    torch.cuda.synchronize()
+    out['fall_s'] = time.perf_counter() - t0
+    print(f'humanoid_cmu: {CMU_FALL_STEPS} control steps x {B} envs to the '
+          f'fallen states in {out["fall_s"]:.1f} s; root height mean '
+          f'{float(fallen.physics.qpos[:, 2].mean()):.3f} m, largest '
+          f'{float(fallen.physics.qpos[:, 2].max()):.3f} m')
+    held = dense_factors_apgd_phase(dev, torch, env, {
+        'reset': state0, 'landed': landed, 'fallen': fallen})
+    return (counts, out) + held
+
+
+def humanoid_cmu_run_phase(dev, torch):
+    """(43) humanoid_cmu run through suite.load at 1024 envs: a card reset
+    and one control step of random actions, 10 launches of #1's dense
+    iterate on factors, each checked to take 4,352 rows."""
+    from mujoco_mbrl_tpu_torch import ops, suite
+
+    env = suite.load('humanoid_cmu', 'run', device=dev)
+    gen = torch.Generator(device=dev).manual_seed(75)
+    state, _ = env.reset(B, gen)
+    act = 2 * torch.rand((B, env.model.nu), generator=gen, device=dev) - 1
+    torch.cuda.synchronize()
+    with watching('apgd_iterate_dense_factors', cmu_rows(B)):
+        t0 = time.perf_counter()
+        state, ts = env.step(state, act)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    label = 'humanoid_cmu run control step'
+    exact_counts(label, dict(ops.launch_counts),
+                 apgd_dense_factors=CMU_SOLVES)
+    for name, x in (('qpos', state.physics.qpos),
+                    ('qvel', state.physics.qvel), ('reward', ts.reward)):
+        check(bool(torch.isfinite(x).all()), (label, name))
+    print(f'{label}: one control step x {B} envs from a card reset in '
+          f'{1e3 * wall:.2f} ms; {CMU_SOLVES} launches; mean reward '
+          f'{float(ts.reward.mean()):.4f}')
+    return dict(ms_per_step=1e3 * wall, apgd_dense_factors=CMU_SOLVES)
 
 
 def main() -> int:
@@ -3890,6 +4202,7 @@ def main() -> int:
     ens_err, ens_t = ensemble_phase(dev, torch, obs0)
 
     # ---- slice 1's main path: the walker MPC control step over the MLP --
+    clock('slice 1')
     counts, w_out, state, warm_state = control_step(
         dev, torch, run, params, state0, gen, 'walker control step')
     exact_counts('walker control step', counts,
@@ -3899,6 +4212,7 @@ def main() -> int:
     profile_phase(torch, run, params, state, gen, w_out['wall_s'])
 
     # ---- slice 3: walker_ens control step, agent loop, CLI -------------
+    clock('slice 3')
     ens_counts, _ = ens_control_step_phase(dev, torch)
     with tempfile.TemporaryDirectory() as tmp:
         agent_counts, _, agent_fit = agent_phase(dev, torch, tmp)
@@ -3909,6 +4223,7 @@ def main() -> int:
     ens_err = max(ens_err, agent_fit['max_abs_err'])
 
     # ---- slice 4: cheetah_run (factored APGD, given-action costs) ------
+    clock('slice 4')
     c_run, (c_params, c_state0, c_gen) = build_bench(
         'cheetah_run', B, K, H, ITERS, STEPS, device=dev)
     c_counts, c_out, c_state, c_warm = control_step(
@@ -3955,6 +4270,7 @@ def main() -> int:
         c_cli_counts = cheetah_cli_phase(dev, torch, tmp)
 
     # ---- slice 8: the contact-free domains -----------------------------
+    clock('slice 8')
     lim_err, lim_rounding, lim_t = limit_apgd_phase(dev, torch)
     r_counts, r_out, samp_r256 = reacher256_phase(dev, torch)
     samp_guarded = guarded_sampler_case(dev, torch)
@@ -3971,6 +4287,7 @@ def main() -> int:
     pend_counts = pendulum_phase(dev, torch)
 
     # ---- slice 9: the humanoid ------------------------------------------
+    clock('slice 9')
     h_counts, h_out, h_params, h_state0, h_warm = humanoid_control_step_phase(
         dev, torch)
     h_err, h_rounding, h_fact_t, h_iter_ns = humanoid_factored_phase(
@@ -3983,6 +4300,7 @@ def main() -> int:
             apgd_factored=HUMANOID_SUBSTEPS * 2 * 10)
 
     # ---- slice 10: cartpole, hopper, swimmer, acrobot --------------------
+    clock('slice 10')
     cp_counts, cp_out = cartpole_control_step_phase(dev, torch)
     with tempfile.TemporaryDirectory() as tmp:
         cpc_counts, cpc_wall, cpc_fit = cli_fitted_phase(
@@ -4009,6 +4327,7 @@ def main() -> int:
     ac_counts, ac_out = acrobot_phase(dev, torch)
 
     # ---- slice 11: per-env planners, the other models, RewardAgent -----
+    clock('slice 11')
     with tempfile.TemporaryDirectory() as tmp:
         rs_counts, rs_out, rs_agent = walker_rs_cli_phase(dev, torch, tmp)
     pc_cem_counts, pc_cem_out = walker_cem_policy_phase(dev, torch, rs_agent)
@@ -4026,6 +4345,7 @@ def main() -> int:
                                                   r_agent)
 
     # ---- slice 12: the bf16 kernels (29), the bench CLI (30) -----------
+    clock('slice 12')
     h_env = suite.load('humanoid', 'walk', device=dev)
     h_obs = suite.flatten_observation(h_env._observe(
         h_env.model, h_warm.physics, ()))
@@ -4038,6 +4358,7 @@ def main() -> int:
     bf16_launches = lambda key: sum(bench_counts(key).values())
 
     # ---- slice 13: finger, ball_in_cup, lqr (31-33) ---------------------
+    clock('slice 13')
     fs_counts, fs_out, f_state0 = finger_control_step_phase(dev, torch,
                                                             'spin')
     ft_counts, ft_out, _ = finger_control_step_phase(dev, torch,
@@ -4052,6 +4373,7 @@ def main() -> int:
     lq_counts, lq_out = lqr_phase(dev, torch)
 
     # ---- slice 14: manipulator, stacker, fish (34-37) --------------------
+    clock('slice 14')
     mp_counts, mp_out, mp_env, mp_state0 = dense_control_step_phase(
         dev, torch, 'manipulator', 'bring_ball', 43)
     mp_err, mp_rounding, mp_t, mp_iter_ns = global_apgd_phase(
@@ -4076,9 +4398,17 @@ def main() -> int:
     ot_out = other_tasks_phase(dev, torch)
 
     # ---- slice 15: quadruped walk, escape, fetch, run (38-41) -----------
+    clock('slice 15')
     quad = {task: quadruped_phase(dev, torch, task, seed)
             for task, seed in (('walk', 60), ('escape', 62), ('fetch', 64))}
     qr_out = quadruped_run_phase(dev, torch)
+
+    # ---- slice 16: humanoid_cmu stand, run (42-43) ----------------------
+    clock('slice 16')
+    (cmu_counts, cmu_out, cmu_err, cmu_rounding, cmu_t,
+     cmu_iter_ns) = humanoid_cmu_phase(dev, torch)
+    cmu_run_out = humanoid_cmu_run_phase(dev, torch)
+    clock('end of the paths')
 
     sampler_entry = lambda tiles: ptxas_info(
         'cem_sample_rollout', 'cem_sample_rollout_kernelI' + ''.join(
@@ -4109,6 +4439,8 @@ def main() -> int:
                                              '17apgd_block_kernel'),
              'apgd_global_kernel': ptxas_info('apgd_solve',
                                               '18apgd_global_kernel'),
+             'apgd_dense_factors_kernel': ptxas_info(
+                 'apgd_factored', '25apgd_dense_factors_kernel'),
              'cem_sample_rollout_kernel<5,7,4,false,true>': sampler_entry(
                  (5, 7, 4, False, True))}
     print(f'ptxas: {ptxas}')
@@ -4148,7 +4480,8 @@ def main() -> int:
              'manipulator_insert_peg_control_step': ip_counts,
              'fish_swim_control_step': fi_counts,
              **{f'quadruped_{t}_control_step': q[0]
-                for t, q in quad.items()}}
+                for t, q in quad.items()},
+             'humanoid_cmu_stand_control_step': cmu_counts}
     by_path = lambda key: {p: c[key] for p, c in paths.items() if c[key]}
     src = lambda f: f'mujoco_mbrl_tpu_torch/csrc/{f}'
     tpu = lambda f, line, fn: f'mujoco_mbrl_tpu/ops/{f}:{line} ({fn})'
@@ -4340,6 +4673,29 @@ def main() -> int:
              max_abs_err=ma_fit['max_abs_err'], library_ms=None,
              **pick_s(ma_fit), fitted_reported=ma_fit['fitted_reported'],
              ptxas=ptxas['cem_sample_rollout_kernel<5,7,4,false,true>']),
+        dict(name='apgd_iterate_dense_factors', route='cuda',
+             source=src('apgd_factored.cu'),
+             replaces=tpu('apgd_solve.py', 60, '_apgd_kernel'),
+             launches=cmu_counts['apgd_dense_factors'],
+             launches_note='#1\'s dense iterate (the semantics of '
+                           '_apgd_kernel, run by JAX as its XLA twin) past '
+                           '1024 rows, Ad applied through J~ and M^-1 '
+                           '(apgd_dense_factors_kernel)',
+             launches_by_path={
+                 'humanoid_cmu_stand_control_step':
+                     cmu_counts['apgd_dense_factors'],
+                 'humanoid_cmu_run_control_step':
+                     cmu_run_out['apgd_dense_factors']},
+             max_abs_err=cmu_err, library_ms=None,
+             **pick(cmu_t['cmu-fallen-warm']),
+             call_ms=cmu_t['cmu-fallen-warm']['call_ms'],
+             max_iterations=cmu_t['cmu-fallen-warm']['max_iterations'],
+             us_per_dependent_step=cmu_t['cmu-fallen-warm'][
+                 'us_per_dependent_step'],
+             iteration_ns=cmu_iter_ns, rounding_decided_envs=cmu_rounding,
+             rows=CMU_ROWS, nv=CMU_NV,
+             launches_per_control_step=CMU_SOLVES, cases=cmu_t,
+             ptxas=ptxas['apgd_dense_factors_kernel']),
         bf16_entry('mlp_sample_rollout_costs[bf16]', 'cem_sample_rollout.cu',
                    tpu('cem_rollout.py', 364, '_sample_kernel_multi'),
                    'cem_sample_rollout_bf16',
@@ -4395,6 +4751,8 @@ def main() -> int:
         fish_swim_control_step=fi_out, slice14_other_tasks=ot_out,
         **{f'quadruped_{t}_control_step': q[1] for t, q in quad.items()},
         slice15_other_tasks=qr_out,
+        humanoid_cmu_stand_control_step=cmu_out,
+        humanoid_cmu_run_control_step=cmu_run_out,
         bench_cli={a: dict(record=r['record'], seconds=r['seconds'])
                    for a, r in bench_out.items()},
         bf16_ptxas={k: v for k, v in ptxas.items() if 'bf16' in k})}))

@@ -61,6 +61,43 @@
 // stage but double the block's shared memory (~70 KB at the humanoid's
 // size, three blocks an SM: two waves at B = 512).
 
+// Dense iterate on factors (apgd_dense_factors_kernel; launched by
+// ops/apgd_solve.py apgd_iterate_dense_factors). It replaces the same TPU
+// kernel's semantics, mujoco_mbrl_tpu/ops/apgd_solve.py:_apgd_kernel,
+// where JAX runs its XLA twin instead: a dense-regime solve past the 1024
+// rows that apgd_solve.cu's one-thread-a-row paths take, with no
+// equality row (humanoid_cmu: nr = 4,352, nv = 62; factored_fits is False,
+// so JAX forms Ad, 76 MB an env). It computes JAX's dense iterate
+// (_apgd_dispatch.impl: the flat power start over all nr rows, 24 cold or
+// 6 + 2 warm power steps, the Rayleigh guard and its ROW-SUM fallback
+// max(max_i sum_j |Ad_ij|, 1), Nesterov APGD with restart, the per-env exit
+// and the cap) on Ad = J~ M^-1 J~' + diag(Rs), never formed. Every row is
+// non-negative (joint limits, pyramid facets; the wrapper refuses others).
+// solve_apgd masks Ad to the active rows and columns (J~ and Rs are zero
+// elsewhere) and an inactive row's force stays 0, so the kernel lists the
+// env's k active rows once (the ballot compaction of apgd_solve.cu's
+// global path, over chunks of the block) and works on them alone; f and v
+// are written with zeros on the inactive rows.
+// One block of 512 threads per env, with a block's whole shared memory:
+// M^-1, then the k active rows' index and six vectors (f, y, v, the
+// matvec's result, rhs, Rs), then as many of J~'s active rows (stride
+// nv | 1) as fit (747 at nv 62 when all are staged, 346 at k = 4,352);
+// the rest are read from device memory in the same kernel, so a
+// contact-rich env still runs. A matvec is the block path's three stages
+// over the active rows: t = J~_a' y (a thread a column and row group, then
+// the groups' sum), u = M^-1 t (a thread a row of M^-1), z = J~_a u + Rs y
+// (a thread an active row); four barriers. The row-sum bound is formed
+// only when the guard finds the start stale: a warp an active row i takes
+// P_i = J~_i M^-1, then its lanes sum |P_i . J~_j + delta_ij Rs_i| over the
+// active j (k^2 nv FMAs).
+// Bound: the active rows of J~, M^-1 and rhs, Rs and f0 on the active
+// rows are read once, `active` (and a warm v0) over all nr rows, and f and
+// v are written over all nr rows (k nv + nv^2 + 3 k + 3 nr floats an env,
+// + nr warm); a matvec is 4 k nv + 2 nv^2 FLOP.
+// Like the other paths it is a chain of ~85 dependent matvecs per env,
+// latency-bound far above both; one block an SM (the shared memory is
+// sized for the worst k), eight waves at 1024 envs.
+
 #include "apgd_common.cuh"
 
 namespace {
@@ -408,6 +445,249 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
   if (its_out != nullptr && i == 0) its_out[b] = n_it;
 }
 
+
+constexpr int kDFThreads = 512;
+constexpr int kDFWarps = kDFThreads / 32;
+
+// The fixed part of the dense-on-factors block's shared memory, in
+// words: M^-1 (stride nv | 1), the matvec's partial column sums (groups
+// x ncol), t and u (ncol each), the reduction slots, a row of P a warp
+// (ncol each) and the compaction's 32 counts (ints).
+struct DFLayout {
+  int ldm, ncol, groups;
+  size_t fixed;
+};
+
+__host__ __device__ inline DFLayout df_layout(int nv) {
+  DFLayout l;
+  l.ldm = nv | 1;
+  l.ncol = (nv + 31) / 32 * 32;
+  l.groups = kDFThreads / l.ncol;
+  l.fixed = (size_t)nv * l.ldm + (size_t)(l.groups + 2 + kDFWarps) * l.ncol +
+            2 * kRedSlots + 32;
+  return l;
+}
+
+__global__ void __launch_bounds__(kDFThreads, 1)
+    apgd_dense_factors_kernel(
+        const float* __restrict__ J_g, const float* __restrict__ Minv_g,
+        const float* __restrict__ Rs_g, const float* __restrict__ rhs_g,
+        const float* __restrict__ f0_g, const float* __restrict__ v0_g,
+        const float* __restrict__ act_g, int nr, int nv, int iterations,
+        int cold, float tol2, int smem_words, float* __restrict__ f_out,
+        float* __restrict__ v_out, int* __restrict__ its_out) {
+  extern __shared__ float sm[];
+  const DFLayout lay = df_layout(nv);
+  const int ldm = lay.ldm, ldj = nv | 1, ncol = lay.ncol;
+  const int groups = lay.groups;
+  float* Mi = sm;                          // nv * ldm
+  float* part = Mi + nv * ldm;             // groups * ncol
+  float* tv = part + groups * ncol;        // t = J~_a' y
+  float* uv = tv + ncol;                   // u = M^-1 t
+  float* red = uv + ncol;                  // 2 * kRedSlots
+  float* Pw = red + 2 * kRedSlots;         // kDFWarps * ncol
+  int* cnt = reinterpret_cast<int*>(Pw + kDFWarps * ncol);  // 32
+  int* idx = cnt + 32;                     // the k active rows, ascending
+
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const size_t off = (size_t)b * nr;
+  const float* Jb = J_g + off * nv;
+  const float* act_b = act_g + off;
+  int parity = 0;
+
+  // ---- the active rows, compacted in row order, a chunk at a time -----
+  int k = 0;
+  for (int c0 = 0; c0 < nr; c0 += kDFThreads) {
+    const int i = c0 + tid;
+    const bool live = i < nr && act_b[i] != 0.f;
+    const unsigned ballot = __ballot_sync(kFull, live);
+    if (lane == 0) cnt[warp] = __popc(ballot);
+    __syncthreads();
+    int pos = k + __popc(ballot & ((1u << lane) - 1u)), total = 0;
+    for (int w = 0; w < kDFWarps; ++w) {
+      if (w < warp) pos += cnt[w];
+      total += cnt[w];
+    }
+    if (live) idx[pos] = i;
+    k += total;
+    __syncthreads();  // cnt is rewritten by the next chunk
+  }
+  float* f = reinterpret_cast<float*>(idx + k);
+  float* y = f + k;
+  float* v = y + k;
+  float* w = v + k;                        // the matvec's result
+  float* rhs = w + k;
+  float* rs = rhs + k;
+  float* Js = rs + k;                      // staged rows of J~_a
+  const long long room = (long long)smem_words - (long long)lay.fixed -
+                        7LL * k;
+  const int staged = room <= 0 ? 0 : (room / ldj < k ? (int)(room / ldj) : k);
+  auto jrow = [&](int q) -> const float* {
+    return q < staged ? Js + (size_t)q * ldj : Jb + (size_t)idx[q] * nv;
+  };
+
+  // ---- stage M^-1, the active rows of J~ and the row vectors ---------
+  const float* Mb = Minv_g + (size_t)b * nv * nv;
+  for (int e = tid; e < nv * nv; e += kDFThreads) {
+    const int r = e / nv;
+    Mi[r * ldm + (e - r * nv)] = Mb[e];
+  }
+  for (int e = tid; e < staged * nv; e += kDFThreads) {
+    const int q = e / nv;
+    Js[q * ldj + (e - q * nv)] = Jb[(size_t)idx[q] * nv + (e - q * nv)];
+  }
+  // a warm v0 is normalised over all nr rows, inactive ones included
+  float nrm = 0.f;
+  if (!cold) {
+    float s2 = 0.f;
+    for (int i = tid; i < nr; i += kDFThreads) {
+      const float x = v0_g[off + i];
+      s2 = fmaf(x, x, s2);
+    }
+    nrm = sqrtf(block_sum(s2, red, parity));
+  }
+  const float flat = 1.f / sqrtf((float)nr);
+  for (int q = tid; q < k; q += kDFThreads) {
+    const int i = idx[q];
+    rhs[q] = rhs_g[off + i];
+    rs[q] = Rs_g[off + i];
+    f[q] = fmaxf(f0_g[off + i], 0.f);  // the projection (act = 1 here)
+    y[q] = f[q];
+    v[q] = cold || !(nrm > 1e-12f) ? flat : v0_g[off + i] / fmaxf(nrm,
+                                                                  1e-12f);
+  }
+
+  // z = Ad x on the active rows (by active position)
+  auto matvec = [&](const float* x, float* z) {
+    __syncthreads();  // x written, the previous call's readers done
+    {
+      const int c = tid % ncol, g = tid / ncol;
+      if (c < nv && g < groups) {
+        float a = 0.f;
+        for (int q = g; q < k; q += groups) a = fmaf(jrow(q)[c], x[q], a);
+        part[g * ncol + c] = a;
+      }
+    }
+    __syncthreads();
+    if (tid < nv) {
+      float t = 0.f;
+      for (int g = 0; g < groups; ++g) t += part[g * ncol + tid];
+      tv[tid] = t;
+    }
+    __syncthreads();
+    if (tid < nv) {
+      float u = 0.f;
+      for (int c = 0; c < nv; ++c) u = fmaf(Mi[tid * ldm + c], tv[c], u);
+      uv[tid] = u;
+    }
+    __syncthreads();
+    for (int q = tid; q < k; q += kDFThreads) {
+      const float* jr = jrow(q);
+      float a0 = rs[q] * x[q], a1 = 0.f;
+      int c = 0;
+      for (; c + 1 < nv; c += 2) {
+        a0 = fmaf(jr[c], uv[c], a0);
+        a1 = fmaf(jr[c + 1], uv[c + 1], a1);
+      }
+      if (c < nv) a0 = fmaf(jr[c], uv[c], a0);
+      z[q] = a0 + a1;
+    }
+  };
+  auto power_step = [&]() {
+    matvec(v, w);
+    float s2 = 0.f;
+    for (int q = tid; q < k; q += kDFThreads) s2 = fmaf(w[q], w[q], s2);
+    const float inv = 1.f / fmaxf(sqrtf(block_sum(s2, red, parity)), 1e-12f);
+    for (int q = tid; q < k; q += kDFThreads) v[q] = w[q] * inv;
+  };
+  auto rayleigh = [&]() -> float {
+    matvec(v, w);
+    float r = 0.f;
+    for (int q = tid; q < k; q += kDFThreads) r = fmaf(v[q], w[q], r);
+    return block_sum(r, red, parity);
+  };
+
+  // ---- step size from the preconditioned spectral radius -------------
+  float L;
+  if (cold) {
+    for (int s = 0; s < 24; ++s) power_step();
+    L = 1.5f * fmaxf(rayleigh(), 1.f);
+  } else {
+    for (int s = 0; s < 6; ++s) power_step();
+    const float r6 = rayleigh();
+    for (int s = 0; s < 2; ++s) power_step();
+    const float r8 = rayleigh();
+    const bool stale = (r8 - r6) > 0.02f * fmaxf(r8, 1e-12f);
+    if (stale) {  // block-uniform
+      // max_i sum_j |Ad_ij| over the active submatrix: a warp a row i
+      float rowabs = 0.f;
+      float* P = Pw + warp * ncol;
+      for (int qi = warp; qi < k; qi += kDFWarps) {
+        const float* ji = jrow(qi);
+        for (int c = lane; c < nv; c += 32) {
+          float p = 0.f;
+          for (int r = 0; r < nv; ++r) p = fmaf(ji[r], Mi[r * ldm + c], p);
+          P[c] = p;
+        }
+        __syncwarp();
+        float sum = 0.f;
+        for (int qj = lane; qj < k; qj += 32) {
+          const float* jj = jrow(qj);
+          float a = qj == qi ? rs[qi] : 0.f;
+          for (int c = 0; c < nv; ++c) a = fmaf(P[c], jj[c], a);
+          sum += fabsf(a);
+        }
+        rowabs = fmaxf(rowabs, warp_sum(sum));
+        __syncwarp();  // P is rewritten for the next row
+      }
+      L = fmaxf(block_max(rowabs, red), 1.f);
+      __syncthreads();  // block_max's slots before the next block_sums
+    } else {
+      L = 1.5f * fmaxf(r8, 1.f);
+    }
+  }
+
+  // ---- Nesterov APGD with adaptive restart, per-env exit ------------
+  float theta = 1.f;
+  const float inv_L = 1.f / L;
+  int n_it = 0;
+  for (int it = 0; it < iterations; ++it) {
+    matvec(y, w);
+    float dir = 0.f, d2 = 0.f, n2 = 0.f;
+    for (int q = tid; q < k; q += kDFThreads) {
+      const float fn = fmaxf(y[q] - (w[q] - rhs[q]) * inv_L, 0.f);
+      const float df = fn - f[q];
+      dir = fmaf(y[q] - fn, df, dir);
+      d2 = fmaf(df, df, d2);
+      n2 = fmaf(fn, fn, n2);
+      w[q] = fn;
+    }
+    block_sums(dir, d2, n2, red, parity);
+    const float th_new = 0.5f * (1.f + sqrtf(1.f + 4.f * theta * theta));
+    const bool restart = dir > 0.f;
+    const float beta = restart ? 0.f : (theta - 1.f) / th_new;
+    for (int q = tid; q < k; q += kDFThreads) {
+      const float fn = w[q];
+      y[q] = fn + beta * (fn - f[q]);
+      f[q] = fn;
+    }
+    theta = restart ? 1.f : th_new;
+    ++n_it;
+    if (d2 <= tol2 * (1e-12f + n2)) break;  // block-uniform
+  }
+  for (int i = tid; i < nr; i += kDFThreads)
+    if (act_b[i] == 0.f) {
+      f_out[off + i] = 0.f;
+      v_out[off + i] = 0.f;
+    }
+  for (int q = tid; q < k; q += kDFThreads) {
+    f_out[off + idx[q]] = f[q];
+    v_out[off + idx[q]] = v[q];
+  }
+  if (its_out != nullptr && tid == 0) its_out[b] = n_it;
+}
+
 template <int NV, bool EXACT>
 int launch_warp(const float* J, const float* Minv, const float* Rs,
                 const float* diag, const float* rhs, const float* f0,
@@ -487,4 +767,35 @@ extern "C" int apgd_iterate_factored(
       J, Minv, Rs, diag, rhs, f0, v0, active, mu, bounds, rowtype, B, nr,
       nv, threads, iterations, cold, has_cone, tol2, f_out, v_out, its_out,
       st);
+}
+
+
+// Shared memory of the dense-on-factors block that does not grow with the
+// active rows (ops/apgd_solve.py dense_factors_stage_rows reads it).
+extern "C" size_t apgd_dense_factors_fixed_bytes(int nv) {
+  return sizeof(float) * df_layout(nv).fixed;
+}
+
+// The dense iterate on factors, one block per env with the whole of a
+// block's shared memory; refused where M^-1 and 7 words a row do not fit
+// (the worst case, every row active).
+extern "C" int apgd_iterate_dense_factors(
+    const float* J, const float* Minv, const float* Rs, const float* rhs,
+    const float* f0, const float* v0, const float* active, int B, int nr,
+    int nv, int iterations, int cold, float tol2, float* f_out,
+    float* v_out, int* its_out, void* stream) {
+  constexpr int kMaxShared = 232448;
+  if (nr < 1 || nv < 1 || nv > kDFThreads ||
+      sizeof(float) * (df_layout(nv).fixed + 7 * (size_t)nr) > kMaxShared)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      apgd_dense_factors_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  if (B <= 0) return 0;
+  apgd_dense_factors_kernel<<<B, kDFThreads, kMaxShared,
+                              (cudaStream_t)stream>>>(
+      J, Minv, Rs, rhs, f0, v0, active, nr, nv, iterations, cold, tol2,
+      kMaxShared / (int)sizeof(float), f_out, v_out, its_out);
+  return (int)cudaGetLastError();
 }

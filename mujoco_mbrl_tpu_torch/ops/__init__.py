@@ -6,6 +6,7 @@ where it launches its kernel and nowhere else.
 """
 
 launch_counts = {'apgd_solve': 0, 'apgd_factored': 0,
+                 'apgd_dense_factors': 0,
                  'cem_sample_rollout': 0, 'cem_sample_rollout_ens': 0,
                  'cem_rollout_costs': 0, 'cem_sample_rollout_bf16': 0,
                  'cem_sample_rollout_ens_bf16': 0,

@@ -25,8 +25,19 @@ per env with J~ and M^-1 in shared memory, two barriers a matvec. Each
 env is a chain of ~85 dependent matvecs, so the kernel is latency-bound
 far above its bytes and FP32 bound. For CPU tensors it runs
 ``apgd_iterate_factored_plain``, the plain iterate with the trace
-staleness bound on Ad applied in its factors and in float64. There is no
-fallback from a kernel to its plain version.
+staleness bound on Ad applied in its factors and in float64.
+
+``apgd_iterate_dense_factors`` takes what JAX keeps dense past the 1024
+rows that ``apgd_iterate_batched``'s one-thread-a-row paths take
+(humanoid_cmu's 4,352 x 62, where a (B, nr, nr) Ad would be 76 MB an
+env): it runs the dense iterate of ``_apgd_dispatch.impl``, with its
+row-sum staleness bound, on Ad = J~ M^-1 J~' + diag(Rs) applied through
+its factors and never formed. For CUDA tensors it launches
+``csrc/apgd_factored.cu``'s ``apgd_dense_factors_kernel`` (one block per
+env over its active rows, J~'s active rows staged in shared memory as far
+as they fit); for CPU tensors it runs
+``apgd_iterate_dense_factors_plain``. There is no fallback from a kernel
+to its plain version.
 """
 
 from __future__ import annotations
@@ -49,6 +60,9 @@ FACTORED_MAX_NR = 1024
 # one block per env with Ad in shared memory, then with Ad in device memory
 DENSE_WARP_MAX_NR, DENSE_MAX_NR = 64, 1024
 DENSE_PATHS = ('warp', 'block', 'global')
+# the dense iterate on factors (csrc/apgd_factored.cu): a block of 512
+# threads per env, any row count whose vectors fit in shared memory
+DENSE_FACTORS_THREADS = 512
 _RED_SLOTS = 96             # apgd_common.cuh kRedSlots
 _NONNEG, _BOX, _CONE = 1, 2, 4
 _SIGNATURES = {
@@ -85,6 +99,10 @@ _FACTORED_SIGNATURES = {
     'apgd_iterate_factored': (ctypes.c_int, [ctypes.c_void_p] * 11
                               + [ctypes.c_int] * 7 + [ctypes.c_float]
                               + [ctypes.c_void_p] * 4),
+    'apgd_dense_factors_fixed_bytes': (ctypes.c_size_t, [ctypes.c_int]),
+    'apgd_iterate_dense_factors': (ctypes.c_int, [ctypes.c_void_p] * 7
+                                   + [ctypes.c_int] * 5 + [ctypes.c_float]
+                                   + [ctypes.c_void_p] * 4),
 }
 
 
@@ -117,6 +135,31 @@ def apgd_iterate_plain(Ad, rhs, f0, v0, active, mu_full, bounds_full, *,
                     return_iterations=return_iterations)
 
 
+def _power(matvec, v):
+    w = matvec(v)
+    nrm = torch.linalg.vector_norm(w, dim=1, keepdim=True)
+    return w / torch.clamp(nrm, min=1e-12)
+
+
+def _warm_guard(matvec, v0):
+    """The warm power start and its Rayleigh guard: v0 normalised over all
+    its rows (the flat start 1/sqrt(nr) where it is 0), 6 power steps and
+    the Rayleigh quotient r6, 2 more and r8. Returns (v, r8, stale), stale
+    (B,) where r8 - r6 > 0.02 r8: the start was not near the top
+    eigenvector, so the staleness bound replaces 1.5 r8."""
+    nr = v0.shape[1]
+    nrm = torch.linalg.vector_norm(v0, dim=1, keepdim=True)
+    v = torch.where(nrm > 1e-12, v0 / torch.clamp(nrm, min=1e-12),
+                    torch.full_like(v0, 1.0 / nr ** 0.5))
+    for _ in range(6):
+        v = _power(matvec, v)
+    r6 = (v * matvec(v)).sum(1)
+    for _ in range(2):
+        v = _power(matvec, v)
+    r8 = (v * matvec(v)).sum(1)
+    return v, r8, (r8 - r6) > 0.02 * torch.clamp(r8, min=1e-12)
+
+
 def _iterate(matvec, safe_l, Ad, rhs, f0, v0, active, mu_full, bounds_full,
              *, nonneg, box_rows, con0, iterations, cold, tol2, eq_rows,
              return_iterations):
@@ -125,29 +168,15 @@ def _iterate(matvec, safe_l, Ad, rhs, f0, v0, active, mu_full, bounds_full,
     1; ``Ad`` is read only by the equality polish of ``eq_rows``."""
     B, nr = rhs.shape
     dt = rhs.dtype
-
-    def power(v):
-        w = matvec(v)
-        nrm = torch.linalg.vector_norm(w, dim=1, keepdim=True)
-        return w / torch.clamp(nrm, min=1e-12)
-
-    v_flat = torch.full((B, nr), 1.0 / nr ** 0.5, dtype=dt, device=rhs.device)
     if cold:
-        v = v_flat
+        v = torch.full((B, nr), 1.0 / nr ** 0.5, dtype=dt,
+                       device=rhs.device)
         for _ in range(24):
-            v = power(v)
+            v = _power(matvec, v)
         L = 1.5 * torch.clamp((v * matvec(v)).sum(1), min=1.0)
     else:
-        nrm = torch.linalg.vector_norm(v0, dim=1, keepdim=True)
-        v = torch.where(nrm > 1e-12, v0 / torch.clamp(nrm, min=1e-12), v_flat)
-        for _ in range(6):
-            v = power(v)
-        r6 = (v * matvec(v)).sum(1)
-        for _ in range(2):
-            v = power(v)
-        r8 = (v * matvec(v)).sum(1)
+        v, r8, stale = _warm_guard(matvec, v0)
         safe_L = torch.clamp(safe_l(), min=1.0)
-        stale = (r8 - r6) > 0.02 * torch.clamp(r8, min=1e-12)
         L = torch.where(stale, safe_L, 1.5 * torch.clamp(r8, min=1.0))
     L = L[:, None]
 
@@ -367,4 +396,151 @@ def apgd_iterate_factored(J_s, Minv, Rs, diag_s, rhs, f0, v0, active,
         torch.cuda.current_stream(J_s.device).cuda_stream)
     _build.check(rc, 'apgd_iterate_factored')
     launch_counts['apgd_factored'] += 1
+    return (f, v, its) if return_iterations else (f, v)
+
+
+def _dense_factors_fixed_bytes(nv: int) -> int:
+    """The part of ``apgd_dense_factors_kernel``'s shared memory that does
+    not grow with the active rows, from the built library (its
+    ``df_layout``). Needs nvcc and the card."""
+    lib = _build.library('apgd_factored', _FACTORED_SIGNATURES)
+    return int(lib.apgd_dense_factors_fixed_bytes(nv))
+
+
+def dense_factors_stage_rows(k: int, nv: int) -> int:
+    """Active rows of J~ that ``apgd_dense_factors_kernel`` stages in
+    shared memory for an env with k active rows: what is left of a block's
+    shared memory after the fixed part and 7 words an active row (its
+    index and six vectors), at row stride nv | 1; it reads the others
+    from device memory. Needs nvcc and the card."""
+    words = (MAX_SHARED_BYTES - _dense_factors_fixed_bytes(nv)) // 4 - 7 * k
+    return max(0, min(k, words // (nv | 1)))
+
+
+def _active_row_sum_bound(J64, JMinv, R64, active):
+    """(B,) max_i sum_j |Ad_ij| over each env's active rows and columns,
+    Ad = J~ M^-1 J~' + diag(Rs), formed a few envs at a time on the
+    active rows only (J~ and Rs are zero on the others)."""
+    B = J64.shape[0]
+    k = active.ne(0).sum(1)
+    kmax = int(k.max()) if B else 0
+    out = torch.zeros((B,), dtype=J64.dtype, device=J64.device)
+    if kmax == 0:
+        return out
+    # each env's active rows first, in row order
+    order = torch.argsort(active.eq(0).to(torch.int8), dim=1,
+                          stable=True)[:, :kmax]
+    chunk = max(1, (1 << 25) // (kmax * kmax))
+    for b0 in range(0, B, chunk):
+        o = order[b0:b0 + chunk]
+        take = lambda X: torch.gather(
+            X[b0:b0 + chunk], 1, o[..., None].expand(-1, -1, X.shape[2]))
+        A = take(JMinv) @ take(J64).transpose(1, 2)
+        A.diagonal(dim1=1, dim2=2).add_(torch.gather(R64[b0:b0 + chunk],
+                                                     1, o))
+        out[b0:b0 + chunk] = A.abs().sum(2).max(1).values
+    return out
+
+
+def _factor_matvec(J_s, Minv, Rs):
+    """x (B, nr) -> Ad x for Ad = J~ M^-1 J~' + diag(Rs), applied in its
+    factors and in float64 and rounded to x's dtype; and the float64
+    factors (J~, J~ M^-1, Rs)."""
+    J64 = J_s.double()
+    JMinv = J64 @ Minv.double()
+    R64 = Rs.double()
+
+    def matvec(x):
+        ax = (JMinv @ (J64.transpose(1, 2) @ x.double()[..., None]))[..., 0]
+        return (ax + R64 * x).to(x.dtype)
+    return matvec, (J64, JMinv, R64)
+
+
+def dense_factors_warm_stale(J_s, Minv, Rs, v0):
+    """(B,) bool: the envs whose warm start v0 the plain dense iterate on
+    factors finds stale (its Rayleigh guard), so that it takes the
+    row-sum bound. For tests and measurements that must know which path
+    a warm solve takes."""
+    return _warm_guard(_factor_matvec(J_s, Minv, Rs)[0], v0)[2]
+
+
+def _check_nonneg_only(nr: int, nonneg) -> None:
+    if len(nonneg) != nr or set(int(i) for i in nonneg) != set(range(nr)):
+        raise ValueError(
+            'apgd_iterate_dense_factors takes non-negative rows only (joint '
+            'limits and pyramid facets): cone, box and equality rows are '
+            'not ported past 1024 rows, and no model there has them')
+
+
+def apgd_iterate_dense_factors_plain(J_s, Minv, Rs, rhs, f0, v0, active, *,
+                                     nonneg, iterations: int, cold: bool,
+                                     tol2: float = 1e-12,
+                                     return_iterations: bool = False):
+    """Plain dense iterate on factors: physics/solver.py's
+    ``_apgd_dispatch(nonneg, (), (), iterations, cold).impl``, batched, on
+    Ad = J~ M^-1 J~' + diag(Rs), which it never forms: the operator is
+    applied in its factors and in float64, its result rounded to the
+    iterate's dtype (as ``apgd_iterate_factored_plain`` applies it), and
+    the warm staleness fallback is JAX's row-sum bound max(max_i sum_j
+    |Ad_ij|, 1) over the active submatrix, formed only on the active rows.
+    The flat power start is 1/sqrt(nr) over all nr rows and a warm v0 is
+    normalised over all of them, as in JAX."""
+    _check_nonneg_only(rhs.shape[1], nonneg)
+    matvec, (J64, JMinv, R64) = _factor_matvec(J_s, Minv, Rs)
+    row_sums = lambda: _active_row_sum_bound(J64, JMinv, R64,
+                                             active).to(rhs.dtype)
+    zeros_nr = torch.zeros((rhs.shape[1],), dtype=rhs.dtype,
+                           device=rhs.device)
+    return _iterate(matvec, row_sums, None, rhs, f0, v0, active, zeros_nr,
+                    zeros_nr, nonneg=tuple(nonneg), box_rows=(), con0=(),
+                    iterations=iterations, cold=cold, tol2=tol2, eq_rows=(),
+                    return_iterations=return_iterations)
+
+
+def apgd_iterate_dense_factors(J_s, Minv, Rs, rhs, f0, v0, active, *,
+                               nonneg, iterations: int, cold: bool,
+                               tol2: float = 1e-12,
+                               return_iterations: bool = False):
+    """Batched dense APGD iterate on factors (the output contract of
+    ``apgd_iterate_batched``): J_s (B, nr, nv) scaled and active-masked
+    Jacobian, Minv (B, nv, nv), Rs / rhs / f0 / v0 (B, nr), active (B, nr)
+    0/1. Every row must be non-negative (``ValueError`` otherwise).
+    Returns (f, v), each (B, nr) and zero on inactive rows, and with
+    ``return_iterations`` also the APGD iterations each env ran (B,).
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on
+    the current stream (no synchronisation, outputs allocated here).
+    """
+    if not J_s.is_cuda:
+        return apgd_iterate_dense_factors_plain(
+            J_s, Minv, Rs, rhs, f0, v0, active, nonneg=nonneg,
+            iterations=iterations, cold=cold, tol2=tol2,
+            return_iterations=return_iterations)
+    B, nr, nv = J_s.shape
+    _check_nonneg_only(nr, nonneg)
+    tensors = (J_s, Minv, Rs, rhs, f0, v0, active)
+    for t in tensors:
+        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError('apgd_iterate_dense_factors kernel takes '
+                             'contiguous float32 CUDA tensors')
+    if Minv.shape != (B, nv, nv) or any(t.shape != (B, nr)
+                                        for t in tensors[2:]):
+        raise ValueError('apgd_iterate_dense_factors: inconsistent shapes')
+    if nv > DENSE_FACTORS_THREADS or \
+            _dense_factors_fixed_bytes(nv) + 28 * nr > MAX_SHARED_BYTES:
+        raise ValueError(f'apgd_iterate_dense_factors: nr={nr}, nv={nv}: '
+                         'M^-1 and 7 words a row do not fit in a block\'s '
+                         'shared memory')
+    lib = _build.library('apgd_factored', _FACTORED_SIGNATURES)
+    f = torch.empty_like(rhs)
+    v = torch.empty_like(rhs)
+    its = (torch.empty((B,), dtype=torch.int32, device=rhs.device)
+           if return_iterations else None)
+    rc = lib.apgd_iterate_dense_factors(
+        *(t.data_ptr() for t in tensors), B, nr, nv, int(iterations),
+        int(bool(cold)), float(tol2), f.data_ptr(), v.data_ptr(),
+        its.data_ptr() if its is not None else 0,
+        torch.cuda.current_stream(J_s.device).cuda_stream)
+    _build.check(rc, 'apgd_iterate_dense_factors')
+    launch_counts['apgd_dense_factors'] += 1
     return (f, v, its) if return_iterations else (f, v)

@@ -2,10 +2,11 @@
 
 Port of the part of mujoco_mbrl_tpu/physics/mjcf.py that the planar walker,
 cheetah and hopper, the contact-free reacher, point_mass, pendulum,
-cartpole, acrobot and swimmer, the humanoid, finger, ball_in_cup, lqr,
-manipulator, stacker and fish reach: ``<compiler angle settotalmass>``,
-``<option timestep gravity integrator density viscosity wind cone impratio
-iterations>`` (Euler or RK4; pyramidal or elliptic cones) with its ``<flag
+cartpole, acrobot and swimmer, the humanoid and humanoid_cmu, finger,
+ball_in_cup, lqr, manipulator, stacker, fish and quadruped reach:
+``<compiler angle settotalmass>``, ``<option timestep gravity integrator
+density viscosity wind cone impratio iterations>`` (Euler or RK4;
+pyramidal or elliptic cones) with its ``<flag
 contact gravity limit actuation>``, nested ``<default>`` classes with
 ``childclass``, bodies with ``pos`` and orientation and an optional
 ``<inertial>``, hinge and slide joints with limits and friction loss,
@@ -21,9 +22,10 @@ servos (kp into gainprm[0], -kp into biasprm[1]: an affine bias) and
 none, integrator or filter with dynprm, one activation slot each) on a
 joint or a fixed tendon; one ``<asset><hfield>`` (nrow, ncol, size; its
 data zeros until a task writes it) and the hfield geom placed on it; and
-the fluid model's per-body equivalent inertia box and principal frame.
+the fluid model's per-body equivalent inertia box and principal frame;
+``<contact><exclude body1 body2>`` pairs (humanoid_cmu's five).
 Cameras and lights are visual only and skipped. Every other MJCF feature
-(ball joints, sensors, ``<contact>``, other equality constraints,
+(ball joints, sensors, ``<contact><pair>``, other equality constraints,
 via-point tendons, fixed tendon limits, velocity actuators among them)
 raises ``NotImplementedError`` naming the JAX function that handles it.
 """
@@ -240,9 +242,12 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
     root = ET.fromstring(xml_string)
     if root.tag != 'mujoco':
         raise ValueError('not an MJCF document (root tag is not <mujoco>)')
-    for tag in ('contact', 'sensor'):
-        if root.find(tag) is not None:
-            raise _unsupported(f'<{tag}>')
+    if root.find('sensor') is not None:
+        raise _unsupported('<sensor>')
+    contact_el = root.find('contact')
+    for cel in (contact_el if contact_el is not None else ()):
+        if cel.tag != 'exclude':
+            raise _unsupported(f'<contact><{cel.tag}>')
     # the heightfield asset (at most one; quadruped escape)
     hfield_nrow = hfield_ncol = 0
     hfield_size = None
@@ -576,6 +581,11 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
         eq_tendon.append((tendon_names[attrs['tendon1']],
                           tuple(solref.tolist()), tuple(solimp.tolist())))
 
+    # explicit contact excludes: (body1, body2) pairs no contact joins
+    contact_excludes = tuple(
+        (body_names[cel.get('body1')], body_names[cel.get('body2')])
+        for cel in (contact_el if contact_el is not None else ()))
+
     act_names, acts = {}, []
     actuator_el = root.find('actuator')
     for ael in (actuator_el if actuator_el is not None else ()):
@@ -718,7 +728,8 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
         tendon_stiffness=arr([t['stiffness'] for t in tendons], (ntendon,)),
         tendon_damping=arr([t['damping'] for t in tendons], (ntendon,)),
         tendon_jnt=tuple(t['jnt'] for t in tendons),
-        spatial_tendons=tuple(spatial), eq_tendon=tuple(eq_tendon))
+        spatial_tendons=tuple(spatial), eq_tendon=tuple(eq_tendon),
+        contact_excludes=contact_excludes)
     return _with_invweight0(model)
 
 

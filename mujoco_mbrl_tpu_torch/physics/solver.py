@@ -19,9 +19,13 @@ at any row count once an equality row is present, since its Gauss-Seidel
 polish reads rows of Ad (manipulator bring_ball: 452 rows; stacker
 stack_4: 977), the factored one past 96 rows otherwise (cheetah: 146;
 humanoid: 303), as the JAX solver selects them (the quadruped's 240, 356
-and 914 rows stay dense: it has four equality rows). The PGS ``solve``,
-elliptic cones past condim 3 and box rows in the factored regime raise
-``NotImplementedError``.
+and 914 rows stay dense: it has four equality rows). Past 1024 rows
+without an equality row, where JAX's dense regime holds but the dense
+kernel takes no solve (humanoid_cmu: 4,352 x 62, outside JAX's
+``factored_fits``), the dense iterate runs on Ad applied through J~ and
+M^-1 (``apgd_iterate_dense_factors``), which is never formed. The PGS
+``solve``, elliptic cones past condim 3 and box rows in the factored
+regime raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -383,10 +387,13 @@ def solve_apgd(m: M.Model, cs: Optional[ConstraintSet], qM_chol,
     eq_rows = tuple(int(i0) for kind, i0 in cs.blocks if kind == 'equality')
     # the factored regime (JAX solver.py:505-513): Ad is never formed
     use_factored = nr > MAX_NR and factored_fits(nr, nv) and not eq_rows
+    # JAX's dense regime past the dense kernel's rows (humanoid_cmu's
+    # 4,352): its dense iterate, Ad applied through J~ and M^-1
+    on_factors = use_factored or (nr > _ker.DENSE_MAX_NR and not eq_rows)
 
     JT = cs.J.transpose(1, 2)
     MinvJT = torch.cholesky_solve(JT, qM_chol)             # (B, nv, nr)
-    if use_factored:
+    if on_factors:
         d_all0 = torch.einsum('brv,bvr->br', cs.J, MinvJT) + cs.R
     else:
         # in place where it can be: at stack_4's 977 rows a (B, nr, nr)
@@ -415,7 +422,7 @@ def solve_apgd(m: M.Model, cs: Optional[ConstraintSet], qM_chol,
         torch.where(degenerate, 1.0, d_all)))
     act_m = cs.active
     sa = s_inv * act_m
-    if not use_factored:
+    if not on_factors:
         # scale, then mask Ad to the active submatrix so the step size is
         # the ACTIVE set's spectral radius (JAX solver.py:543-555)
         Ad.mul_(sa[:, :, None]).mul_(sa[:, None, :])
@@ -446,7 +453,7 @@ def solve_apgd(m: M.Model, cs: Optional[ConstraintSet], qM_chol,
                 box_rows=tuple(int(i) for i in box_rows),
                 con0=tuple(int(i) for i in con0),
                 iterations=int(iterations), cold=cold)
-    if use_factored:
+    if on_factors:
         # Ad = J~ M^-1 J~' + diag(Rs), the row scale and active mask folded
         # into J~ (JAX solver.py:583-597)
         J_s = (cs.J * sa[..., None]).contiguous()
@@ -454,10 +461,15 @@ def solve_apgd(m: M.Model, cs: Optional[ConstraintSet], qM_chol,
                                                         nv)
         Minv = torch.cholesky_solve(eye, qM_chol).contiguous()
         Rs = s_inv * s_inv * cs.R * act_m
-        diag_s = s_inv * s_inv * d_all0 * act_m
-        f, v = _ker.apgd_iterate_factored(
-            J_s, Minv, Rs, diag_s, rhs, f0s, v0, act_m, mu_full, zeros_nr,
-            **rows)
+        if use_factored:
+            diag_s = s_inv * s_inv * d_all0 * act_m
+            f, v = _ker.apgd_iterate_factored(
+                J_s, Minv, Rs, diag_s, rhs, f0s, v0, act_m, mu_full,
+                zeros_nr, **rows)
+        else:
+            f, v = _ker.apgd_iterate_dense_factors(
+                J_s, Minv, Rs, rhs, f0s, v0, act_m, nonneg=rows['nonneg'],
+                iterations=rows['iterations'], cold=cold)
         Adf = (J_s @ (Minv @ (J_s.transpose(1, 2) @ f[..., None])))[
             ..., 0] + Rs * f
     else:

@@ -1,6 +1,7 @@
 """Control-suite port: the walker, cheetah, hopper, reacher, point_mass,
-pendulum, cartpole, acrobot, swimmer, humanoid, finger, ball_in_cup, lqr,
-manipulator, stacker, fish and quadruped domains and the environment core.
+pendulum, cartpole, acrobot, swimmer, humanoid, humanoid_cmu, finger,
+ball_in_cup, lqr, manipulator, stacker, fish and quadruped domains (all 18
+of the JAX package's) and the environment core.
 
 Each domain module registers its tasks in its own ``SUITE``
 (``registry.TaggedTasks``), as in mujoco_mbrl_tpu/suite/__init__.py;
@@ -15,9 +16,9 @@ from typing import Optional
 
 from ..device import resolve_device
 from . import (acrobot, ball_in_cup, cartpole, cheetah, control, finger,
-               fish, hopper, humanoid, lqr, manipulator, pendulum,
-               point_mass, quadruped, reacher, registry, stacker, swimmer,
-               walker)
+               fish, hopper, humanoid, humanoid_cmu, lqr, manipulator,
+               pendulum, point_mass, quadruped, reacher, registry, stacker,
+               swimmer, walker)
 from .control import EnvState, Environment, TimeStep, flatten_observation
 
 # the JAX package's domain order (mujoco_mbrl_tpu/suite/__init__.py)
@@ -28,7 +29,7 @@ _JAX_DOMAINS = ('acrobot', 'ball_in_cup', 'cartpole', 'cheetah', 'finger',
 _DOMAINS = {'acrobot': acrobot, 'ball_in_cup': ball_in_cup,
             'cartpole': cartpole, 'cheetah': cheetah, 'finger': finger,
             'fish': fish, 'hopper': hopper, 'humanoid': humanoid,
-            'lqr': lqr, 'manipulator': manipulator, 'pendulum': pendulum,
+            'humanoid_cmu': humanoid_cmu, 'lqr': lqr, 'manipulator': manipulator, 'pendulum': pendulum,
             'point_mass': point_mass, 'quadruped': quadruped,
             'reacher': reacher,
             'stacker': stacker, 'swimmer': swimmer, 'walker': walker}
@@ -72,5 +73,5 @@ def load(domain: str, task: str, task_kwargs: Optional[dict] = None,
 __all__ = ['EnvState', 'Environment', 'TimeStep', 'acrobot', 'all_tasks',
            'ball_in_cup', 'benchmarking', 'cartpole', 'cheetah', 'control',
            'finger', 'fish', 'flatten_observation', 'hopper', 'humanoid',
-           'load', 'lqr', 'manipulator', 'pendulum', 'point_mass',
+           'humanoid_cmu', 'load', 'lqr', 'manipulator', 'pendulum', 'point_mass',
            'quadruped', 'reacher', 'registry', 'stacker', 'swimmer', 'walker']

@@ -6,7 +6,8 @@ pi), unlimited slides untouched, an unlimited free joint's quaternion
 uniform on S^3 (a normalized 4-d normal draw; its position untouched).
 The draws differ from ``jax.random``'s; the distribution is the same.
 ``first_collision_free`` is the lockstep rejection rule of the humanoid,
-finger, ball_in_cup, manipulator and stacker resets.
+finger, ball_in_cup, manipulator and stacker resets (attempt 0 where none
+is free) and of humanoid_cmu's (the last attempt).
 """
 
 from __future__ import annotations
@@ -51,13 +52,14 @@ def randomize_limited_and_rotational_joints(
     return out
 
 
-def first_collision_free_index(model: M.Model, qposes: torch.Tensor
-                               ) -> torch.Tensor:
+def first_collision_free_index(model: M.Model, qposes: torch.Tensor,
+                               fallback: int = 0) -> torch.Tensor:
     """(B,) the attempt each env keeps of qposes (A, B, nq): its first
-    with no penetrating contact, else attempt 0 (JAX humanoid.py:185-205,
-    finger.py:77-94, ball_in_cup.py:77-96, manipulator.py:298-301,
-    stacker.py:107-110). One kinematics and one detect cover all A x B
-    configurations."""
+    with no penetrating contact, else attempt ``fallback`` (0: JAX
+    humanoid.py:185-205, finger.py:77-94, ball_in_cup.py:77-96,
+    manipulator.py:298-301, stacker.py:107-110; -1, the last:
+    humanoid_cmu.py:285-305). One kinematics and one detect cover all
+    A x B configurations."""
     A, B, nq = qposes.shape
     pairs = M.cached(model, 'reset_pairs',
                      lambda: collision.candidate_pairs(model))
@@ -65,12 +67,13 @@ def first_collision_free_index(model: M.Model, qposes: torch.Tensor
                             smooth.tree_meta(model))
     dist = collision.detect(model, kin[3], kin[4], pairs).dist
     ok = ~(dist < 0).any(-1).reshape(A, B)
-    return torch.where(ok.any(0), ok.to(torch.int8).argmax(0), 0)
+    return torch.where(ok.any(0), ok.to(torch.int8).argmax(0),
+                       fallback % A)
 
 
-def first_collision_free(model: M.Model, qposes: torch.Tensor
-                         ) -> torch.Tensor:
+def first_collision_free(model: M.Model, qposes: torch.Tensor,
+                         fallback: int = 0) -> torch.Tensor:
     """qpos (B, nq) from attempts qposes (A, B, nq), each env's
     ``first_collision_free_index``."""
-    idx = first_collision_free_index(model, qposes)
+    idx = first_collision_free_index(model, qposes, fallback)
     return qposes[idx, torch.arange(qposes.shape[1], device=qposes.device)]

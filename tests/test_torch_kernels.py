@@ -927,3 +927,79 @@ def test_sampler_kernel_manipulator_tiles(dev, sampler):
     ref = cem_rollout.rollout_costs_of_actions(params, s0, acts, goal, w)
     torch.testing.assert_close(costs, ref, rtol=1e-4, atol=1e-4)
     assert float(acts.abs().max()) <= 1.0
+
+
+def _dense_factors_problem(dev, ks, nr=4352, nv=62, seed=0):
+    """A dense-regime solve past 1024 rows shaped like solve_apgd's
+    humanoid_cmu solves: scaled and active-masked J~ (B, nr, nv), a dense
+    PSD M^-1, Rs and rhs zero off the active rows; env b has ks[b] active
+    rows, spread over all nr."""
+    B = len(ks)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    J = torch.randn((B, nr, nv), generator=g, device=dev)
+    G = torch.randn((B, nv + 2, nv), generator=g, device=dev)
+    Minv = (torch.einsum('bij,bik->bjk', G, G) / nv
+            + 0.1 * torch.eye(nv, device=dev)).contiguous()
+    R = 0.05 + 0.25 * torch.rand((B, nr), generator=g, device=dev)
+    active = torch.zeros((B, nr), device=dev)
+    for b, k in enumerate(ks):
+        rows = torch.randperm(nr, generator=g, device=dev)[:k]
+        active[b, rows] = 1.0
+    d = torch.einsum('brv,bvw,brw->br', J, Minv, J) + R
+    s = d.rsqrt()
+    J_s = (J * (s * active)[:, :, None]).contiguous()
+    vec = lambda: torch.randn((B, nr), generator=g, device=dev)
+    return (J_s, Minv, s * s * R * active, vec() * active, 0.3 * vec(),
+            vec(), active)
+
+
+# The dense iterate on factors at humanoid_cmu's 4,352 x 62: no active
+# row, tens, several hundred (all of J~'s active rows staged in shared
+# memory), past the 747 that fit (the rest read from device memory) and
+# every row; cold, warm from a converged power vector and warm from a
+# random one, which the Rayleigh guard finds stale in envs where the
+# staging runs out (the row-sum bound over staged rows and rows in device
+# memory)
+@pytest.mark.parametrize('start', ['cold', 'warm', 'stale'])
+def test_apgd_dense_factors_kernel_matches_plain(dev, start):
+    ks = [0, 37, 400, 748, 1500, 4352]
+    assert apgd_solve.dense_factors_stage_rows(400, 62) == 400
+    assert apgd_solve.dense_factors_stage_rows(748, 62) < 748
+    J_s, Minv, Rs, rhs, f0, v0, act = _dense_factors_problem(dev, ks)
+    kw = dict(nonneg=tuple(range(4352)), iterations=60)
+    if start == 'warm':
+        _, v0 = apgd_solve.apgd_iterate_dense_factors_plain(
+            J_s, Minv, Rs, rhs, f0, v0, act, cold=True, **kw)
+    args = (J_s, Minv, Rs, rhs, f0, v0, act)
+    stale = apgd_solve.dense_factors_warm_stale(J_s, Minv, Rs, v0)
+    if start == 'stale':
+        assert bool(stale[3:].any())
+    elif start == 'warm':
+        assert not bool(stale.any())
+    before = ops.launch_counts['apgd_dense_factors']
+    f, v, its = apgd_solve.apgd_iterate_dense_factors(
+        *args, cold=start == 'cold', **kw, return_iterations=True)
+    assert ops.launch_counts['apgd_dense_factors'] == before + 1
+    f_p, v_p, its_p = apgd_solve.apgd_iterate_dense_factors_plain(
+        *args, cold=start == 'cold', **kw, return_iterations=True)
+    torch.testing.assert_close(f, f_p, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(v, v_p, rtol=2e-4, atol=2e-4)
+    assert its.dtype == torch.int32 and its.shape == (len(ks),)
+    assert int((its.long() - its_p).abs().max()) <= 1
+    assert float((f * (1 - act)).abs().max()) == 0.0
+    assert float((v * (1 - act)).abs().max()) == 0.0
+
+
+def test_apgd_dense_factors_kernel_rejects_what_it_does_not_take(dev):
+    args = _dense_factors_problem(dev, [10, 20], nr=1100, nv=9)
+    kw = dict(nonneg=tuple(range(1100)), iterations=5, cold=True)
+    with pytest.raises(ValueError, match='float32'):
+        apgd_solve.apgd_iterate_dense_factors(*[a.double() for a in args],
+                                              **kw)
+    with pytest.raises(ValueError, match='non-negative'):
+        apgd_solve.apgd_iterate_dense_factors(
+            *args, **dict(kw, nonneg=tuple(range(1099))))
+    big = _dense_factors_problem(dev, [10], nr=9000, nv=9)
+    with pytest.raises(ValueError, match='shared memory'):
+        apgd_solve.apgd_iterate_dense_factors(
+            *big, **dict(kw, nonneg=tuple(range(9000))))
