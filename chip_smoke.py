@@ -210,7 +210,7 @@ Run from the repository root:  python3 chip_smoke.py
       11 #1 launches a control step, each checked to take the global path
       (Ad in device memory) with 452 rows (the equality row, 7 limits,
       148 cone triples) and the 60 cap; the card's step against the CPU's
-      on the first 128 envs; then the global path on solves captured at
+      on the first 100 envs; then the global path on solves captured at
       the reset states and at drawn poses in contact, cold and warm, held
       under the one APGD rule and timed beside the bound of the active
       submatrices it reads (and of every row of Ad), with the ns of one
@@ -276,13 +276,42 @@ Run from the repository root:  python3 chip_smoke.py
       nv^2 FLOP a matvec and the row sums of the stale envs), with the
       active-row counts and the ns of one APGD iteration;
    b. (43) run: one control step from a card reset (10 launches);
-16. prints one ``{"kernels": [...]}`` line (one entry per TPU kernel, one
+16. the tools around the engine (slice 17), each with exact launch
+   counts:
+   a. (44) the builder: walker's XML through ``builder.RootElement.
+      from_xml_string(...).compile(device='cuda')`` equals the
+      ``mjcf.parse`` Model field by field, and one control step of 1024
+      envs from the same state on each is bitwise equal in qpos, qvel and
+      reward (10 #1 launches on the built model's); ``named`` and
+      ``schema.bind`` read the batched card state as index arithmetic
+      does; two pendulums attached as ``a/`` and ``b/`` run 1024 envs
+      for 200 steps (one #1 launch a step: their masses can touch),
+      finite, b's gear twice a's;
+   b. (45) IK: ``qpos_from_site_pose`` places swimmer6's head site at
+      targets drawn from random poses, 100 steps x 1024 envs, every env
+      within 2e-3, card vs CPU within 1e-4 in qpos on 8 envs (no launch);
+   c. (46) pixels: ``PixelWrapper`` at 64 x 64 through camera 0 on
+      walker walk (trackcom) and cartpole swingup (fixed), reset and one
+      control step of 1024 envs (10 / 4 #1 launches), the render time of
+      the batch and its share of the step, the step's peak device
+      memory, the camera's segmentation, depth and RGB card vs CPU on 8
+      envs (at most 0.5% of pixels decided by rounding, on an edge of the
+      image; the rest within 1e-4); a ``MovableCamera`` the same way;
+      ``record_rollout`` of one walker env for 10 steps into a temp dir,
+      a GIF of 10 frames (200 #1 launches: the rollout and its replay);
+   d. (47) distributed on one card: ``distributed_init`` with NCCL at
+      world size 1 (no fallback to gloo); inside ``profiling.trace``,
+      ``sharded_collect`` of cartpole swingup (1024 x 5, 20 #1 launches)
+      equal to the unsharded collect, and ``dp_train_step`` of an
+      MLPDynamics within 1e-6 of the one-process step; the trace file
+      written;
+17. prints one ``{"kernels": [...]}`` line (one entry per TPU kernel, one
    per bf16 mode of #2-#6, and entries for #1's global path, with the
    quadruped's cases, #1's dense iterate on factors and #2's (5, 7, 4)
    instantiation), a ``{"paths": ...}`` line with the cheetah,
    contact-free, humanoid, slice-10, slice-11, bench, slice-13, slice-14,
-   slice-15 and slice-16 paths' times, the card line, and last ``{"ok":
-   true, "device": {...}}``.
+   slice-15, slice-16 and slice-17 paths' times, the card line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Every card-vs-CPU step runs the card at the path's whole batch and the
 CPU on its first CPU_CHECK_ENVS = 256 envs at most (the plain CPU step
@@ -3313,7 +3342,7 @@ def lqr_phase(dev, torch):
 
 MANIP_SOLVES = 11            # 10 substeps + the observation's forward
 MANIP_T = 5                  # control steps of each agent-loop collection
-CPU_ENVS = 128               # envs of the card-vs-CPU steps past 452 rows
+CPU_ENVS = 100               # envs of the card-vs-CPU steps past 452 rows
 MANIP_ROWS = {('manipulator', 'bring_ball'): 452,
               ('manipulator', 'insert_peg'): 833,
               ('stacker', 'stack_4'): 977}
@@ -4137,6 +4166,473 @@ def humanoid_cmu_run_phase(dev, torch):
     return dict(ms_per_step=1e3 * wall, apgd_dense_factors=CMU_SOLVES)
 
 
+# ---- slice 17: the tools around the engine (paths 44-47) ----------------
+
+WALKER_SOLVES = 10           # walker: 10 substeps; its observation needs none
+PAIR_STEPS = 200             # steps of the attached pendulum pair
+IK_STEPS = 100               # damped least-squares steps of path 45
+IK_REACH, IK_CPU_TOL = 2e-3, 1e-4
+PIX = 64                     # pixel observations, PIX x PIX
+PIX_CPU_ENVS = 8             # envs whose pixels the CPU renders too
+PIX_SHARE, PIX_TOL, PIX_DEPTH_RTOL = 0.005, 1e-4, 1e-5
+RECORD_T = 10                # record_rollout's steps (and frames)
+DP_TOL = 1e-6                # dp_train_step against the one-process step
+
+
+def same_model(torch, a, b, path='model'):
+    """Every field of two Models (or Options) equal: tensors exactly."""
+    import dataclasses
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        where = f'{path}.{f.name}'
+        if isinstance(x, torch.Tensor):
+            check(x.shape == y.shape and x.dtype == y.dtype
+                  and x.device == y.device and bool(torch.equal(x, y)), where)
+        elif dataclasses.is_dataclass(x):
+            same_model(torch, x, y, where)
+        else:
+            check(x == y, where)
+
+
+def named_reads(torch, m, state, data, ctrl, label):
+    """``named`` and ``schema.bind`` on the batched card state against
+    index arithmetic on the same tensors, exactly; returns the reads."""
+    from mujoco_mbrl_tpu_torch.physics import named, schema
+
+    view = named.NamedView(m)
+    d = named.indexer(m).bind(state=state, data=data, ctrl=ctrl)
+    n = 0
+    for jname, j in m.names['joint'].items():
+        q, v = m.jnt_qposadr[j], m.jnt_dofadr[j]
+        check(torch.equal(view.qpos(state, jname), state.qpos[:, q]),
+              (label, jname))
+        check(torch.equal(d.qvel[jname], state.qvel[:, v]), (label, jname))
+        check(torch.equal(schema.bind(m, 'joint', jname).qpos(state),
+                          state.qpos[:, q:q + 1]), (label, jname))
+        n += 3
+    for bname, b in m.names['body'].items():
+        check(torch.equal(d.xpos[bname, 'z'], data.xpos[:, b, 2]),
+              (label, bname))
+        check(torch.equal(schema.bind(m, 'body', bname).xpos(data),
+                          data.xpos[:, b]), (label, bname))
+        check(torch.equal(d.xmat[bname, 'zx'], data.ximat[:, b, 2, 0]),
+              (label, bname))
+        n += 3
+    for gname, g in m.names['geom'].items():
+        check(torch.equal(view.geom_xpos(data, gname), data.geom_xpos[:, g]),
+              (label, gname))
+        n += 1
+    for aname, a in m.names['actuator'].items():
+        check(torch.equal(d.ctrl[aname], ctrl[:, a]), (label, aname))
+        check(torch.equal(schema.bind(m, 'actuator', aname).force(data),
+                          data.actuator_force[:, a]), (label, aname))
+        n += 2
+    check(state.qpos.device == m.device, label)
+    return n
+
+
+def builder_phase(dev, torch):
+    """(44) The builder on the card: walker's XML through
+    ``RootElement.from_xml_string(...).compile(device='cuda')`` gives the
+    Model ``mjcf.parse`` gives; one control step of 1024 envs from the
+    same state on both is bitwise equal in qpos, qvel and reward, with 10
+    launches of #1 on the built model's; ``named`` and ``schema.bind``
+    read the batched card state as index arithmetic does. Then two
+    pendulums attached as ``a/`` and ``b/`` run 1024 envs for 200 steps:
+    finite, and b's gear twice a's."""
+    from mujoco_mbrl_tpu_torch import ops, suite
+    from mujoco_mbrl_tpu_torch.physics import builder, engine, mjcf
+    from mujoco_mbrl_tpu_torch.physics import model as M
+    from mujoco_mbrl_tpu_torch.suite import control, walker
+
+    t0 = time.perf_counter()
+    root = builder.RootElement.from_xml_string(walker._XML)
+    check(root.schema_warnings == [], root.schema_warnings)
+    built = root.compile(device=dev)
+    direct = mjcf.parse(walker._XML).to(dev)
+    same_model(torch, built, direct)
+    check(built.ncam == 2, built.ncam)
+    env_d = suite.load('walker', 'walk', device=dev)
+    env_d._model = direct
+    env_b = control.Environment(built, env_d.task,
+                                control_timestep=env_d._control_timestep)
+    gen = torch.Generator(device=dev).manual_seed(80)
+    state0, _ = env_d.reset(B, gen)
+    act = 2 * torch.rand((B, 6), generator=gen, device=dev) - 1
+    s_d, ts_d = env_d.step(state0, act)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    s_b, ts_b, data_b = env_b.step_with_data(state0, act)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t1)
+    counts = dict(ops.launch_counts)
+    exact_counts('builder walker control step', counts,
+                 apgd_solve=WALKER_SOLVES)
+    for name, x, y in (('qpos', s_b.physics.qpos, s_d.physics.qpos),
+                       ('qvel', s_b.physics.qvel, s_d.physics.qvel),
+                       ('reward', ts_b.reward, ts_d.reward)):
+        check(bool(torch.equal(x, y)), ('builder vs parse', name))
+        check(bool(torch.isfinite(x).all()), ('builder walker', name))
+    ctrl = env_b.task.before_step(act, built)
+    reads = named_reads(torch, built, s_b.physics, data_b, ctrl,
+                        'builder walker')
+    print(f'builder walker: compiled Model equal to mjcf.parse\'s field by '
+          f'field; one control step x {B} envs bitwise equal in qpos, qvel '
+          f'and reward ({step_ms:.2f} ms; launches {counts}); {reads} named '
+          'and schema.bind reads equal to index arithmetic')
+
+    pair = builder.RootElement(model='pair')
+    pair.option(timestep=0.002)
+    pair.worldbody.add('body', name='mount_a', pos=[0, 0, 1]).attach(
+        _pendulum_root(builder, 1.0), 'a/')
+    pair.worldbody.add('body', name='mount_b', pos=[1, 0, 1]).attach(
+        _pendulum_root(builder, 2.0), 'b/')
+    pm = pair.compile(device=dev)
+    ua, ub = pm.names['actuator']['a/torque'], pm.names['actuator']['b/torque']
+    check(float(pm.actuator_gear[ub]) == 2 * float(pm.actuator_gear[ua]),
+          'b/ gear')
+    state = M.make_state(pm, batch=B)
+    u = torch.ones((B, pm.nu), device=dev)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    for _ in range(PAIR_STEPS):
+        state = engine.step(pm, state, u)
+    torch.cuda.synchronize()
+    pair_s = time.perf_counter() - t1
+    pair_counts = dict(ops.launch_counts)
+    exact_counts('attached pendulum pair', pair_counts,
+                 apgd_solve=PAIR_STEPS)
+    for name, x in (('qpos', state.qpos), ('qvel', state.qvel)):
+        check(bool(torch.isfinite(x).all()), ('pendulum pair', name))
+    a, b = (float(state.qpos[0, pm.jnt_qposadr[pm.names['joint'][j]]])
+            for j in ('a/hinge', 'b/hinge'))
+    check(abs(a) > 1e-3 and abs(b) > 1e-3, ('the pair swung', a, b))
+    data = engine.forward(pm, state, u, acc_stage=False)
+    reads += named_reads(torch, pm, state, data, u, 'pendulum pair')
+    print(f'builder pendulum pair (a/, b/, gear 1 and 2): {PAIR_STEPS} steps '
+          f'x {B} envs in {pair_s:.2f} s, finite; hinges at {a:.4f} / '
+          f'{b:.4f} rad; launches {pair_counts}; '
+          f'{time.perf_counter() - t0:.1f} s in all')
+    return counts, pair_counts, dict(step_ms=step_ms, pair_s=pair_s,
+                                     named_reads=reads)
+
+
+def _pendulum_root(builder, gear):
+    root = builder.RootElement(model='pendulum')
+    root.option(timestep=0.002)
+    body = root.worldbody.add('body', name='pole', pos=[0, 0, 1])
+    body.add('joint', name='hinge', type='hinge', axis=[0, 1, 0],
+             damping=0.05)
+    body.add('geom', name='mass', type='sphere', size=[0.05], mass=1,
+             pos=[0.5, 0, 0])
+    root.actuator.add('motor', name='torque', joint='hinge', gear=gear)
+    return root
+
+
+def ik_phase(dev, torch):
+    """(45) IK on the card: swimmer6's head site placed by
+    ``qpos_from_site_pose`` (100 steps) at the head positions of poses
+    the script draws (root within 0.2 m, hinges N(0, 0.3)), one pose an
+    env for 1024 envs: every env within 2e-3 of its target, and the
+    card's qpos within 1e-4 of the CPU's on the first 8 envs."""
+    import numpy as np
+
+    from mujoco_mbrl_tpu_torch import ops
+    from mujoco_mbrl_tpu_torch.physics import ik, mjcf, smooth
+    from mujoco_mbrl_tpu_torch.suite import swimmer
+
+    m_cpu = mjcf.parse(swimmer._make_model_xml(6))
+    m = m_cpu.to(dev)
+    rng = np.random.default_rng(90)
+    pose = np.tile(m_cpu.qpos0.numpy(), (B, 1))
+    pose[:, :2] += rng.uniform(-0.2, 0.2, (B, 2))
+    pose[:, 3:] += rng.normal(0, 0.3, (B, m.nq - 3))
+    pose = torch.tensor(pose, dtype=torch.float32, device=dev)
+    sid = m.name2id('site', 'head')
+    head = lambda mm, q: smooth.kinematics(mm, q, smooth.tree_meta(mm))[5][
+        :, sid]
+    target = head(m, pose)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    q, err = ik.qpos_from_site_pose(m, 'head', target, max_steps=IK_STEPS)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = dict(ops.launch_counts)
+    exact_counts('ik', counts)
+    reach = (head(m, q) - target).norm(dim=-1)
+    check(bool(torch.isfinite(q).all()), 'ik qpos')
+    n_far = int((reach > IK_REACH).sum())
+    check(n_far == 0, ('ik: envs not within 2e-3', n_far,
+                       float(reach.max())))
+    n = PIX_CPU_ENVS
+    q_cpu, _ = ik.qpos_from_site_pose(m_cpu, 'head', target[:n].cpu(),
+                                      max_steps=IK_STEPS)
+    dq = float((q[:n].cpu() - q_cpu).abs().max())
+    check(dq < IK_CPU_TOL, ('ik card vs CPU', dq))
+    print(f'ik: swimmer6 head, {IK_STEPS} steps x {B} envs in '
+          f'{1e3 * solve_s:.1f} ms; every env within {IK_REACH} (largest '
+          f'{float(reach.max()):.2e} m, last-step error norm '
+          f'{float(err.max()):.2e}); card vs CPU on {n} envs max|dqpos| '
+          f'{dq:.2e}; launches {counts}')
+    return counts, dict(solve_ms=1e3 * solve_s, max_reach_m=float(
+        reach.max()), max_dqpos_cpu=dq)
+
+
+def pixel_edges(np, seg, rgb):
+    """Pixels with a 4-neighbour of another segmentation id or shade."""
+    out = np.zeros(seg.shape, bool)
+    for axis in (-1, -2):
+        step = ((np.diff(seg, axis=axis) != 0)
+                | (np.abs(np.diff(rgb, axis=axis - 1)).max(-1) > 1e-2))
+        lo = [slice(None)] * seg.ndim
+        hi = [slice(None)] * seg.ndim
+        lo[axis], hi[axis] = slice(None, -1), slice(1, None)
+        out[tuple(lo)] |= step
+        out[tuple(hi)] |= step
+    return out
+
+
+def hold_pixels(label, ours, ref):
+    """Card (seg, depth, rgb) against the CPU's: a pixel whose id
+    differs, or whose depth or shade differs while it lies on an edge of
+    the CPU's image (a silhouette grazed, a box edge's tied normals), is
+    decided by rounding, at most 0.5% of them; every other pixel within
+    1e-4 in depth (1e-5 relative past 10 m) and RGB. Returns the share
+    decided."""
+    import numpy as np
+    seg, depth, rgb = (np.asarray(x) for x in ours)
+    cseg, cdepth, crgb = (np.asarray(x) for x in ref)
+    same = seg == cseg
+    with np.errstate(invalid='ignore'):
+        close_d = (np.isinf(depth) & np.isinf(cdepth)) | (
+            np.abs(depth - cdepth) <= PIX_TOL + PIX_DEPTH_RTOL
+            * np.abs(cdepth))
+    close_c = np.abs(rgb - crgb).max(-1) <= PIX_TOL
+    off = ~(same & close_d & close_c)
+    inner = off & same & ~pixel_edges(np, cseg, crgb)
+    check(not inner.any(), (label, 'off an edge', np.argwhere(inner)[:5]))
+    check(off.sum() <= PIX_SHARE * seg.size, (label, int(off.sum())))
+    fin = ~off & np.isfinite(cdepth)
+    return dict(decided_share=float(off.sum() / seg.size),
+                seg_differs=int((~same).sum()),
+                max_ddepth=float(np.abs(depth[fin] - cdepth[fin]).max(
+                    initial=0.0)),
+                max_drgb=float(np.abs(rgb[~off] - crgb[~off]).max(
+                    initial=0.0)))
+
+
+def camera_card_vs_cpu(torch, cam, cam_cpu, m_cpu, qpos, label):
+    """The camera's seg, depth and RGB of the first PIX_CPU_ENVS envs,
+    card against CPU (the CPU's forward of the same qpos)."""
+    from mujoco_mbrl_tpu_torch.physics import engine
+    from mujoco_mbrl_tpu_torch.physics import model as M
+
+    n = PIX_CPU_ENVS
+    q = qpos[:n]
+    out = []
+    for mm, cc, qq in ((cam._m, cam, q), (m_cpu, cam_cpu, q.cpu())):
+        data = engine.forward(mm, M.make_state(mm, qpos=qq), torch.zeros(
+            (n, mm.nu), device=qq.device), acc_stage=False)
+        out.append(tuple(x.cpu().numpy() for x in (
+            cc.render(data, segmentation=True), cc.render(data, depth=True),
+            cc.render(data))))
+    return hold_pixels(label, out[0], out[1])
+
+
+def pixel_step_phase(dev, torch, domain, task, seed, solves):
+    """(46) PixelWrapper on suite.load(domain, task) at 64 x 64 through
+    camera 0: reset and one control step of 1024 envs (launches of #1
+    counted), the render time of the batch, its share of the control
+    step, the step's peak device memory, and card vs CPU on 8 envs."""
+    from mujoco_mbrl_tpu_torch import ops, suite
+    from mujoco_mbrl_tpu_torch.suite import wrappers
+    from mujoco_mbrl_tpu_torch.utils.raycast import Camera
+
+    env = suite.load(domain, task, device=dev)
+    px = wrappers.PixelWrapper(env, height=PIX, width=PIX)
+    check(px._camera is not None, (domain, 'camera 0'))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    act = 2 * torch.rand((B, env.model.nu), generator=gen, device=dev) - 1
+    px.reset(B, gen)                              # warm-up
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, ts = px.reset(B, gen)
+    torch.cuda.synchronize()
+    reset_ms = 1e3 * (time.perf_counter() - t0)
+    reset_counts = dict(ops.launch_counts)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, ts = px.step(state, act)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    counts = dict(ops.launch_counts)
+    label = f'{domain} {task} pixels'
+    exact_counts(label + ' reset', reset_counts)
+    exact_counts(label + ' control step', counts, apgd_solve=solves)
+    pix = ts.observation['pixels']
+    check(tuple(pix.shape) == (B, PIX, PIX, 3), (label, tuple(pix.shape)))
+    check(bool(torch.isfinite(pix).all()) and float(pix.min()) >= 0
+          and float(pix.max()) <= 1, (label, 'range'))
+    render_ms = time_ms(lambda: px.render(state), 3)
+    env_cpu = suite.load(domain, task, device='cpu')
+    cam_cpu = Camera(env_cpu.model, PIX, PIX, 0)
+    held = camera_card_vs_cpu(torch, px._camera, cam_cpu, env_cpu.model,
+                              state.physics.qpos, label)
+    out = dict(reset_ms=reset_ms, step_ms=step_ms, render_ms=render_ms,
+               render_share=render_ms / step_ms, peak_memory_gb=peak / 1e9,
+               step_memory_gb=(peak - base) / 1e9, **held)
+    print(f'{label}: {PIX} x {PIX} through camera 0 ({env.model.cam_mode[0]})'
+          f' x {B} envs; reset {reset_ms:.2f} ms (launches {reset_counts}), '
+          f'control step with pixels {step_ms:.2f} ms (launches {counts}); '
+          f'render of the batch {render_ms:.2f} ms = '
+          f'{100 * out["render_share"]:.1f}% of the step; peak device '
+          f'memory {peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} GB the '
+          f'step\'s); card vs CPU on {PIX_CPU_ENVS} envs: {held}')
+    return counts, out, env, state
+
+
+def movable_camera_phase(dev, torch, env, state):
+    """(46) A MovableCamera over the walker batch, card vs CPU on 8."""
+    from mujoco_mbrl_tpu_torch import suite
+    from mujoco_mbrl_tpu_torch.utils.raycast import MovableCamera
+
+    pose = dict(lookat=(0.0, 0.0, 1.0), distance=3.0, azimuth=60.0,
+                elevation=-20.0)
+    cam = MovableCamera(env.model, PIX, PIX, **pose)
+    m_cpu = suite.load('walker', 'walk', device='cpu').model
+    held = camera_card_vs_cpu(torch, cam, MovableCamera(m_cpu, PIX, PIX,
+                                                        **pose),
+                              m_cpu, state.physics.qpos, 'movable camera')
+    print(f'walker movable camera {pose}: card vs CPU on {PIX_CPU_ENVS} '
+          f'envs: {held}')
+    return held
+
+
+def record_phase(dev, torch, tmp):
+    """(46) ``record_rollout`` of one walker env for 10 steps into a temp
+    dir: the GIF exists and holds 10 frames (one a replayed step)."""
+    from mujoco_mbrl_tpu_torch import envs, ops
+    from mujoco_mbrl_tpu_torch.utils import recorder
+
+    w = envs.load('walker', 'walk', device=dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rolls = w.record_rollout(torch.Generator(device=dev).manual_seed(95),
+                             RECORD_T, mp4path=os.path.join(tmp, 'walker'))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ops.launch_counts)
+    # the rollout's 10 steps and their replay, 10 solves each
+    exact_counts('record_rollout', counts,
+                 apgd_solve=2 * RECORD_T * WALKER_SOLVES)
+    path = os.path.join(tmp, 'walker.gif')
+    frames = recorder.gif_frame_count(path)
+    check(frames == RECORD_T, ('record_rollout frames', frames))
+    check(tuple(rolls.actions.shape) == (1, RECORD_T, 6),
+          tuple(rolls.actions.shape))
+    print(f'record_rollout: walker, {RECORD_T} steps, {frames} frames '
+          f'({os.path.getsize(path)} bytes of GIF) in {wall:.2f} s; '
+          f'launches {counts}')
+    return counts, dict(seconds=wall, frames=frames)
+
+
+def distributed_phase(dev, torch, tmp):
+    """(47) Distributed on one card: ``distributed_init`` with NCCL,
+    world size 1 (a group that does not form fails the phase); inside
+    ``profiling.trace``: ``sharded_collect`` of cartpole swingup, 1024
+    rollouts x 5 steps, equal to the unsharded collect from the same
+    seed, and ``dp_train_step`` of an MLPDynamics within 1e-6 of the
+    one-process step; the trace file written."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    from mujoco_mbrl_tpu_torch import envs, ops, parallel
+    from mujoco_mbrl_tpu_torch.models import MLPDynamics, train
+    from mujoco_mbrl_tpu_torch.utils import profiling
+
+    with socket.socket() as sock:
+        sock.bind(('localhost', 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    parallel.distributed_init(f'localhost:{port}', 1, 0, device=dev)
+    backend = dist.get_backend()
+    check(backend == ('nccl' if dev.type == 'cuda' else 'gloo'), backend)
+    try:
+        mesh = parallel.make_mesh(('env',))
+        check(mesh.device_type == dev.type, mesh.device_type)
+        logdir = os.path.join(tmp, 'trace')
+        w = envs.load('cartpole', 'swingup', device=dev)
+        timer = profiling.PhaseTimer()
+        with profiling.trace(logdir):
+            ops.reset_launch_counts()
+            with timer.phase('sharded_collect', sync=True):
+                rolls = parallel.sharded_collect(mesh, w, B, 5)(
+                    torch.Generator(device=dev).manual_seed(97))
+            counts = dict(ops.launch_counts)
+            with timer.phase('collect', sync=True):
+                ref = w.get_rollouts(torch.Generator(device=dev)
+                                     .manual_seed(97), B, 5)
+            for f in ('states', 'observations', 'actions', 'rewards'):
+                x = getattr(rolls, f)
+                check(isinstance(x, DTensor)
+                      and list(x.placements) == [Shard(0)], f)
+                check(bool(torch.equal(x.full_tensor(), getattr(ref, f))),
+                      ('sharded collect', f))
+            model = MLPDynamics(rolls.states.shape[-1],
+                                rolls.actions.shape[-1])
+            batch = dict(states=rolls.states.to_local()[:, :-1],
+                         actions=rolls.actions.to_local(),
+                         rewards=rolls.rewards.to_local(),
+                         next_states=rolls.states.to_local()[:, 1:])
+            steps = {}
+            for name in ('dp', 'one'):
+                params = model.init(torch.Generator().manual_seed(7),
+                                    device=dev)
+                with timer.phase(f'{name}_train_step', sync=True):
+                    if name == 'dp':
+                        step = parallel.dp_train_step(mesh, model,
+                                                      train.adam(1e-3))
+                        params, _, loss = step(params, None, batch)
+                    else:
+                        leaves = train.param_leaves(params)
+                        for leaf in leaves:
+                            leaf.requires_grad_(True)
+                        opt = train.adam(1e-3)(leaves)
+                        loss = model.loss(params, batch)
+                        loss.backward()
+                        opt.step()
+                steps[name] = (float(loss.detach()),
+                               train.param_leaves(params))
+            dp_err = max(float((a - b).detach().abs().max())
+                         for a, b in zip(steps['dp'][1], steps['one'][1]))
+            check(abs(steps['dp'][0] - steps['one'][0]) <= DP_TOL
+                  and dp_err <= DP_TOL, ('dp_train_step', steps['dp'][0],
+                                         steps['one'][0], dp_err))
+        traces = [f for f in os.listdir(logdir) if f.endswith('.json')]
+        check(len(traces) == 1 and os.path.getsize(
+            os.path.join(logdir, traces[0])) > 0, ('trace', traces))
+    finally:
+        dist.destroy_process_group()
+    phases = {k: v['total_s'] for k, v in timer.summary().items()}
+    print(f'distributed ({backend}, world size 1): sharded_collect of '
+          f'cartpole '
+          f'swingup, {B} x 5, equal to the unsharded collect (launches '
+          f'{counts}); dp_train_step within {dp_err:.1e} of the one-process '
+          f'step (loss {steps["dp"][0]:.6f}); trace {traces[0]} '
+          f'({os.path.getsize(os.path.join(logdir, traces[0]))} bytes); '
+          f'phases {phases}; {time.perf_counter() - t0:.1f} s')
+    return counts, dict(phases_s=phases, dp_max_abs_err=dp_err)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4408,6 +4904,24 @@ def main() -> int:
     (cmu_counts, cmu_out, cmu_err, cmu_rounding, cmu_t,
      cmu_iter_ns) = humanoid_cmu_phase(dev, torch)
     cmu_run_out = humanoid_cmu_run_phase(dev, torch)
+
+    # ---- slice 17: builder, IK, pixels, distributed (44-47) -------------
+    clock('slice 17, path 44')
+    bw_counts, pair_counts, b_out = builder_phase(dev, torch)
+    clock('path 45')
+    ik_counts, ik_out = ik_phase(dev, torch)
+    clock('path 46')
+    wpx_counts, wpx_out, wpx_env, wpx_state = pixel_step_phase(
+        dev, torch, 'walker', 'walk', 91, WALKER_SOLVES)
+    cpx_counts, cpx_out, _, _ = pixel_step_phase(
+        dev, torch, 'cartpole', 'swingup', 92, RK4_SOLVES)
+    mv_out = movable_camera_phase(dev, torch, wpx_env, wpx_state)
+    del wpx_env, wpx_state
+    with tempfile.TemporaryDirectory() as tmp:
+        rec_counts, rec_out = record_phase(dev, torch, tmp)
+    clock('path 47')
+    with tempfile.TemporaryDirectory() as tmp:
+        dist_counts, dist_out = distributed_phase(dev, torch, tmp)
     clock('end of the paths')
 
     sampler_entry = lambda tiles: ptxas_info(
@@ -4481,7 +4995,13 @@ def main() -> int:
              'fish_swim_control_step': fi_counts,
              **{f'quadruped_{t}_control_step': q[0]
                 for t, q in quad.items()},
-             'humanoid_cmu_stand_control_step': cmu_counts}
+             'humanoid_cmu_stand_control_step': cmu_counts,
+             'builder_walker_control_step': bw_counts,
+             'builder_pendulum_pair': pair_counts, 'ik_swimmer6': ik_counts,
+             'walker_pixels_control_step': wpx_counts,
+             'cartpole_pixels_control_step': cpx_counts,
+             'walker_record_rollout': rec_counts,
+             'cartpole_sharded_collect': dist_counts}
     by_path = lambda key: {p: c[key] for p, c in paths.items() if c[key]}
     src = lambda f: f'mujoco_mbrl_tpu_torch/csrc/{f}'
     tpu = lambda f, line, fn: f'mujoco_mbrl_tpu/ops/{f}:{line} ({fn})'
@@ -4753,6 +5273,9 @@ def main() -> int:
         slice15_other_tasks=qr_out,
         humanoid_cmu_stand_control_step=cmu_out,
         humanoid_cmu_run_control_step=cmu_run_out,
+        builder=b_out, ik_swimmer6=ik_out, walker_pixels=wpx_out,
+        cartpole_pixels=cpx_out, movable_camera=mv_out,
+        walker_record_rollout=rec_out, distributed=dist_out,
         bench_cli={a: dict(record=r['record'], seconds=r['seconds'])
                    for a, r in bench_out.items()},
         bf16_ptxas={k: v for k, v in ptxas.items() if 'bf16' in k})}))

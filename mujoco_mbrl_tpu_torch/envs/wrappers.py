@@ -25,6 +25,10 @@ are in task order. ``collect_from`` reproduces both.
 ``get_rollouts`` takes the per-env policies (``agents.MPCPolicy``) with
 the batched protocol: the port's policy plans for all B envs in one call,
 each as JAX's vmapped one-env policy would.
+
+``record_rollout`` collects one rollout, replays its actions from the
+same reset and writes the replay as a GIF: camera 0 through the ray
+caster where the model has a camera, else the orthographic rasterizer.
 """
 
 from __future__ import annotations
@@ -38,10 +42,14 @@ import torch
 from .. import suite as _suite
 from ..data import Rollouts
 from ..physics import engine
+from ..physics.model import make_state
 from ..suite import hopper as _hopper
 from ..suite import manipulator as _manipulator
 from ..suite import sensors
 from ..suite.control import EnvState, flatten_observation
+from ..utils import render as render_mod
+from ..utils.raycast import Camera
+from ..utils.recorder import Recorder
 
 
 class EnvWrapper:
@@ -238,6 +246,71 @@ class EnvWrapper:
         return self.collect_from(env_state, num_steps,
                                  policy or self.random_policy, generator,
                                  policy_init, sorted_later_obs=False)
+
+    def render_frames(self, qposes: torch.Tensor, params=(),
+                      height: int = 128, width: int = 128,
+                      plane: str = 'xz', extent: float = 2.5) -> np.ndarray:
+        """(T, H, W, 3) uint8 frames of the configurations qposes (T, nq),
+        rendered as one batch: through camera 0 (the ray caster) when the
+        model has a camera, else through the orthographic rasterizer with
+        the `plane` / `extent` framing."""
+        m = self._env._model_with(params)
+        state = make_state(m, qpos=qposes)
+        data = engine.forward(m, state, torch.zeros(
+            (qposes.shape[0], m.nu), dtype=qposes.dtype,
+            device=qposes.device), acc_stage=False)
+        if m.ncam > 0:
+            imgs = Camera(m, height=height, width=width,
+                          camera_id=0).render(data)
+        else:
+            imgs = render_mod.render(m, data, height, width, plane=plane,
+                                     extent=extent)
+        return render_mod.render_to_uint8(imgs)
+
+    def record_rollout(self, generator: torch.Generator, num_steps: int,
+                       policy: Optional[Callable] = None,
+                       mp4path: Optional[str] = None,
+                       goal_state=None, initial_state=None,
+                       policy_init=None, height: int = 128,
+                       width: int = 128, plane: str = 'xz',
+                       extent: float = 2.5) -> Rollouts:
+        """Collect one rollout and write it as a GIF (JAX
+        envs/wrappers.py:198-273; the reference's mp4 of camera 0).
+
+        The rollout's featured states need not hold qpos, so its physics
+        is re-simulated: the reset is drawn again from a copy of
+        ``generator``'s state taken before the rollout, and the recorded
+        actions are replayed. One frame is rendered per replayed step,
+        all of them as one batch after the run (``render_frames``), and
+        written to ``<mp4path>.gif`` when a path is given.
+        """
+        replay = torch.Generator(device=generator.device)
+        replay.set_state(generator.get_state())
+        rolls = self.get_rollouts(
+            generator, 1, num_steps, policy, goal_state=goal_state,
+            initial_states=(None if initial_state is None
+                            else initial_state.reshape(1, -1)),
+            policy_init=policy_init)
+        env_state = self.reset(1, replay, goal_state)
+        if initial_state is not None:
+            qpos, qvel = self.state_to_physics(
+                initial_state.reshape(1, -1).to(env_state.physics.qpos))
+            env_state = dataclasses.replace(env_state, physics=(
+                dataclasses.replace(env_state.physics,
+                                    qpos=qpos.contiguous(),
+                                    qvel=qvel.contiguous())))
+        qposes = []
+        for a in rolls.actions[0]:
+            env_state, _ = self._env.step(env_state, a[None])
+            qposes.append(env_state.physics.qpos[0])
+        frames = self.render_frames(torch.stack(qposes), env_state.params,
+                                    height, width, plane, extent)
+        rec = Recorder()
+        for f in frames:
+            rec.record_frame(f)
+        if mp4path:
+            rec.make_movie(mp4path)
+        return rolls
 
 
 class Walker(EnvWrapper):

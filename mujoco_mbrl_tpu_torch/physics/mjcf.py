@@ -24,10 +24,14 @@ joint or a fixed tendon; one ``<asset><hfield>`` (nrow, ncol, size; its
 data zeros until a task writes it) and the hfield geom placed on it; and
 the fluid model's per-body equivalent inertia box and principal frame;
 ``<contact><exclude body1 body2>`` pairs (humanoid_cmu's five).
-Cameras and lights are visual only and skipped. Every other MJCF feature
-(ball joints, sensors, ``<contact><pair>``, other equality constraints,
-via-point tendons, fixed tendon limits, velocity actuators among them)
-raises ``NotImplementedError`` naming the JAX function that handles it.
+``<camera>`` in the worldbody and in bodies (its pose, ``fovy`` and
+``mode``, for ``utils.raycast``), and every orientation MJCF gives
+(``quat``, ``xyaxes``, ``euler``, ``zaxis``, ``axisangle``) on bodies,
+geoms, sites, inertials and cameras. Lights are visual only and skipped.
+Every other MJCF feature (ball joints, sensors, ``<contact><pair>``,
+other equality constraints, via-point tendons, fixed tendon limits,
+velocity actuators among them) raises ``NotImplementedError`` naming the
+JAX function that handles it.
 """
 
 from __future__ import annotations
@@ -90,6 +94,38 @@ def _zaxis_quat(z):
     return _nquat_axis_angle(np.cross(e, z), math.acos(max(-1.0, min(1.0, c))))
 
 
+def _mat_to_nquat(R):
+    """Rotation matrix -> unit quaternion (w, x, y, z)."""
+    R = np.asarray(R, dtype=np.float64)
+    tr = np.trace(R)
+    if tr > 0:
+        s = np.sqrt(tr + 1.0) * 2
+        w = 0.25 * s
+        x = (R[2, 1] - R[1, 2]) / s
+        y = (R[0, 2] - R[2, 0]) / s
+        z = (R[1, 0] - R[0, 1]) / s
+    elif R[0, 0] > R[1, 1] and R[0, 0] > R[2, 2]:
+        s = np.sqrt(1.0 + R[0, 0] - R[1, 1] - R[2, 2]) * 2
+        w = (R[2, 1] - R[1, 2]) / s
+        x = 0.25 * s
+        y = (R[0, 1] + R[1, 0]) / s
+        z = (R[0, 2] + R[2, 0]) / s
+    elif R[1, 1] > R[2, 2]:
+        s = np.sqrt(1.0 + R[1, 1] - R[0, 0] - R[2, 2]) * 2
+        w = (R[0, 2] - R[2, 0]) / s
+        x = (R[0, 1] + R[1, 0]) / s
+        y = 0.25 * s
+        z = (R[1, 2] + R[2, 1]) / s
+    else:
+        s = np.sqrt(1.0 + R[2, 2] - R[0, 0] - R[1, 1]) * 2
+        w = (R[1, 0] - R[0, 1]) / s
+        x = (R[0, 2] + R[2, 0]) / s
+        y = (R[1, 2] + R[2, 1]) / s
+        z = 0.25 * s
+    q = np.array([w, x, y, z])
+    return q / np.linalg.norm(q)
+
+
 def _floats(s: str) -> np.ndarray:
     return np.array([float(x) for x in s.split()], dtype=np.float64)
 
@@ -99,8 +135,6 @@ def _skew(p):
 
 
 _JOINT_TYPES = {'free': M.FREE, 'slide': M.SLIDE, 'hinge': M.HINGE}
-_QPOS_WIDTH = {M.FREE: 7, M.SLIDE: 1, M.HINGE: 1}
-_DOF_WIDTH = {M.FREE: 6, M.SLIDE: 1, M.HINGE: 1}
 _GEOM_TYPES = {'plane': M.PLANE, 'hfield': M.HFIELD, 'sphere': M.SPHERE,
                'capsule': M.CAPSULE, 'ellipsoid': M.ELLIPSOID,
                'cylinder': M.CYLINDER, 'box': M.BOX}
@@ -155,6 +189,13 @@ def _orientation(attrs: Dict[str, str], deg: bool) -> np.ndarray:
     if 'quat' in attrs:
         q = _floats(attrs['quat'])
         return q / np.linalg.norm(q)
+    if 'xyaxes' in attrs:
+        # x normalized, y made orthogonal to it, z = x cross y
+        v = _floats(attrs['xyaxes'])
+        x = v[:3] / np.linalg.norm(v[:3])
+        y = v[3:] - (v[3:] @ x) * x
+        y = y / np.linalg.norm(y)
+        return _mat_to_nquat(np.stack([x, y, np.cross(x, y)], axis=1))
     if 'euler' in attrs:
         e = [math.radians(a) if deg else a for a in _floats(attrs['euler'])]
         q = np.array([1.0, 0, 0, 0])
@@ -167,8 +208,6 @@ def _orientation(attrs: Dict[str, str], deg: bool) -> np.ndarray:
         aa = _floats(attrs['axisangle'])
         return _nquat_axis_angle(aa[:3], math.radians(aa[3]) if deg
                                  else aa[3])
-    if 'xyaxes' in attrs:
-        raise _unsupported('xyaxes orientation')
     return np.array([1.0, 0, 0, 0])
 
 
@@ -312,6 +351,7 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
     jnts, jnt_names = [], {}
     geoms, geom_names = [], {}
     sites, site_names = [], {}
+    cameras, camera_names = [], {}
 
     def add_geom(attrs, body_id):
         gname = attrs.get('type', 'sphere')
@@ -386,6 +426,16 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
             type=_SITE_TYPES.get(attrs.get('type', 'sphere'), M.SPHERE),
             size=size))
 
+    def add_camera(attrs, body_id):
+        if attrs.get('name'):
+            camera_names[attrs['name']] = len(cameras)
+        cameras.append(dict(
+            body=body_id,
+            pos=_floats(attrs['pos']) if 'pos' in attrs else np.zeros(3),
+            quat=_orientation(attrs, deg),
+            fovy=float(attrs.get('fovy', 45.0)),
+            mode=attrs.get('mode', 'fixed')))
+
     def add_joint(attrs, body_id):
         jname = attrs.get('type', 'hinge')
         if jname not in _JOINT_TYPES:
@@ -457,7 +507,9 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
             add_inertial(cattrs, body_id)
         elif tag == 'body':
             walk_body(child, body_id, cls)
-        elif tag in ('camera', 'light'):
+        elif tag == 'camera':
+            add_camera(cattrs, body_id)
+        elif tag == 'light':
             pass                                   # visual only
         else:
             raise _unsupported(f'<{tag}> in the body tree')
@@ -489,9 +541,9 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
     for ji, j in enumerate(jnts):
         jnt_qposadr.append(nq)
         jnt_dofadr.append(nv)
-        nq += _QPOS_WIDTH[j['type']]
-        nv += _DOF_WIDTH[j['type']]
-        dof_jnt += [ji] * _DOF_WIDTH[j['type']]
+        nq += M.QPOS_WIDTH[j['type']]
+        nv += M.DOF_WIDTH[j['type']]
+        dof_jnt += [ji] * M.DOF_WIDTH[j['type']]
     dof = lambda key: [jnts[ji][key] for ji in dof_jnt]
     # a free joint's qpos0 is its body's frame (position, unit quaternion)
     qpos0, qpos_spring = np.zeros(nq), np.zeros(nq)
@@ -672,7 +724,7 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
         actuator_ctrllimited=tuple(a['ctrllimited'] for a in acts),
         names={'body': body_names, 'joint': jnt_names, 'geom': geom_names,
                'site': site_names, 'actuator': act_names,
-               'tendon': tendon_names},
+               'tendon': tendon_names, 'camera': camera_names},
         body_pos=arr(body_pos, (nbody, 3)),
         body_quat=arr(body_quat, (nbody, 4)),
         body_mass=arr(bmass, (nbody,)),
@@ -729,7 +781,12 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
         tendon_damping=arr([t['damping'] for t in tendons], (ntendon,)),
         tendon_jnt=tuple(t['jnt'] for t in tendons),
         spatial_tendons=tuple(spatial), eq_tendon=tuple(eq_tendon),
-        contact_excludes=contact_excludes)
+        contact_excludes=contact_excludes,
+        ncam=len(cameras), cam_body=tuple(c['body'] for c in cameras),
+        cam_mode=tuple(c['mode'] for c in cameras),
+        cam_fovy=tuple(c['fovy'] for c in cameras),
+        cam_pos=arr([c['pos'] for c in cameras], (len(cameras), 3)),
+        cam_quat=arr([c['quat'] for c in cameras], (len(cameras), 4)))
     return _with_invweight0(model)
 
 

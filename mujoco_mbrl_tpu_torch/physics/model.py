@@ -27,6 +27,9 @@ TRN_JOINT, TRN_TENDON = 0, 3
 GAIN_FIXED, BIAS_NONE, BIAS_AFFINE = 0, 0, 1
 # Actuator activation dynamics (mjtDyn order).
 DYN_NONE, DYN_INTEGRATOR, DYN_FILTER = 0, 1, 2
+# qpos and qvel widths of each joint type.
+QPOS_WIDTH = {FREE: 7, BALL: 4, SLIDE: 1, HINGE: 1}
+DOF_WIDTH = {FREE: 6, BALL: 3, SLIDE: 1, HINGE: 1}
 # Disable flags (bitmask).
 DSBL_CONTACT = 1 << 0
 DSBL_GRAVITY = 1 << 1
@@ -185,9 +188,28 @@ class Model:
     hfield_data: Optional[torch.Tensor] = None   # (nrow, ncol) or (B, ...)
     hfield_size: Optional[torch.Tensor] = None   # (4,)
     hfield_pos: Optional[torch.Tensor] = None    # (3,)
+    # cameras (visual only; posed and rendered by utils.raycast)
+    ncam: int = 0
+    cam_body: Tuple[int, ...] = ()
+    cam_mode: Tuple[str, ...] = ()       # 'fixed', 'trackcom', ...
+    cam_fovy: Tuple[float, ...] = ()     # vertical field of view, degrees
+    cam_pos: Optional[torch.Tensor] = None    # (ncam, 3) in the body frame
+    cam_quat: Optional[torch.Tensor] = None   # (ncam, 4)
 
     def name2id(self, kind: str, name: str) -> int:
         return self.names[kind][name]
+
+    def jnt_qpos_slice(self, name: str) -> slice:
+        """The joint's span of qpos (a free joint's 7, a hinge's 1)."""
+        j = self.names['joint'][name]
+        adr = self.jnt_qposadr[j]
+        return slice(adr, adr + QPOS_WIDTH[self.jnt_type[j]])
+
+    def jnt_dof_slice(self, name: str) -> slice:
+        """The joint's span of qvel (a free joint's 6, a hinge's 1)."""
+        j = self.names['joint'][name]
+        adr = self.jnt_dofadr[j]
+        return slice(adr, adr + DOF_WIDTH[self.jnt_type[j]])
 
     def to(self, device) -> 'Model':
         return _to(self, device)

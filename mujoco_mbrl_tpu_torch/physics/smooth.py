@@ -157,6 +157,9 @@ def kinematics(m: M.Model, qpos: torch.Tensor, meta: TreeMeta):
     sb = list(m.site_body)
     site_xpos = (xpos[:, sb] + pm.quat_rot(xquat[:, sb], m.site_pos) if sb
                  else torch.zeros((B, 0, 3), dtype=dt, device=dev))
+    if not m.njnt:                   # a jointless scene (cameras, props)
+        return (xpos, xquat, xmat, geom_xpos, geom_xmat, site_xpos,
+                xpos[:, :0], xpos[:, :0])
     return (xpos, xquat, xmat, geom_xpos, geom_xmat, site_xpos,
             torch.stack(xanchor, 1), torch.stack(xaxis, 1))
 
@@ -171,6 +174,8 @@ def motion_subspace(m: M.Model, xquat, xanchor, xaxis, meta: TreeMeta):
     A free joint's dofs are translations along the world axes, then
     rotations about the body's local axes through its anchor."""
     check_joints(m, 'motion_subspace')
+    if not m.nv:
+        return xquat.new_zeros((xquat.shape[0], 0, 6))
     cdof = [None] * m.nv
     for j in range(m.njnt):
         adr = m.jnt_dofadr[j]
@@ -234,7 +239,7 @@ def velocities(m: M.Model, qvel, cdof, meta: TreeMeta):
     cdof_dot from the velocity before any of them is added; a hinge or
     slide uses the velocity before its own dof."""
     check_joints(m, 'velocities')
-    cvel = [torch.zeros_like(cdof[:, 0])]
+    cvel = [cdof.new_zeros((cdof.shape[0], 6))]
     cdof_dot = [None] * m.nv
     for b in range(1, m.nbody):
         v = cvel[m.body_parent[b]]
@@ -253,7 +258,8 @@ def velocities(m: M.Model, qvel, cdof, meta: TreeMeta):
             cdof_dot[adr] = pm.motion_cross(v, cdof[:, adr])
             v = v + cdof[:, adr] * qvel[:, adr:adr + 1]
         cvel.append(v)
-    return torch.stack(cvel, 1), torch.stack(cdof_dot, 1)
+    return torch.stack(cvel, 1), (torch.stack(cdof_dot, 1) if m.nv
+                                  else cdof.new_zeros(cdof.shape))
 
 
 def rnea_bias(m: M.Model, qvel, cdof, cdof_dot, cvel, cinert,

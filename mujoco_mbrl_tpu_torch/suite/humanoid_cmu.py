@@ -292,14 +292,16 @@ class HumanoidCMU(base.Task):
     def initialize_episode(self, model, batch, generator):
         """Random configurations by lockstep rejection sampling:
         ``_INIT_ATTEMPTS`` draws an env (kinematics and detect only), the
-        first without penetration kept, else the last, as JAX's
-        ``initialize_episode`` falls back."""
+        first without penetration over the pairs that
+        ``opt.enable_geom_geom_contacts`` selects kept, else the last, as
+        JAX's ``initialize_episode`` falls back."""
         q0 = model.qpos0.expand(self._INIT_ATTEMPTS * batch, model.nq)
         qposes = randomizers.randomize_limited_and_rotational_joints(
             model, q0, generator)
         qpos = first_collision_free(
             model, qposes.reshape(self._INIT_ATTEMPTS, batch, model.nq),
-            fallback=-1)
+            fallback=-1,
+            include_geom_geom=model.opt.enable_geom_geom_contacts)
         return make_state(model, qpos=qpos), ()
 
     def _com_velocity(self, model, data):

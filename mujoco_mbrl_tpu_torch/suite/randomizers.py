@@ -53,16 +53,21 @@ def randomize_limited_and_rotational_joints(
 
 
 def first_collision_free_index(model: M.Model, qposes: torch.Tensor,
-                               fallback: int = 0) -> torch.Tensor:
+                               fallback: int = 0,
+                               include_geom_geom: bool = True
+                               ) -> torch.Tensor:
     """(B,) the attempt each env keeps of qposes (A, B, nq): its first
     with no penetrating contact, else attempt ``fallback`` (0: JAX
     humanoid.py:185-205, finger.py:77-94, ball_in_cup.py:77-96,
     manipulator.py:298-301, stacker.py:107-110; -1, the last:
-    humanoid_cmu.py:285-305). One kinematics and one detect cover all
-    A x B configurations."""
+    humanoid_cmu.py:285-305). Penetration is tested over
+    ``collision.candidate_pairs(model, include_geom_geom)``: humanoid_cmu
+    passes its ``opt.enable_geom_geom_contacts``, as JAX's reset does.
+    One kinematics and one detect cover all A x B configurations."""
     A, B, nq = qposes.shape
-    pairs = M.cached(model, 'reset_pairs',
-                     lambda: collision.candidate_pairs(model))
+    pairs = M.cached(model, f'reset_pairs_{bool(include_geom_geom)}',
+                     lambda: collision.candidate_pairs(
+                         model, include_geom_geom=include_geom_geom))
     kin = smooth.kinematics(model, qposes.reshape(A * B, nq),
                             smooth.tree_meta(model))
     dist = collision.detect(model, kin[3], kin[4], pairs).dist
@@ -72,8 +77,10 @@ def first_collision_free_index(model: M.Model, qposes: torch.Tensor,
 
 
 def first_collision_free(model: M.Model, qposes: torch.Tensor,
-                         fallback: int = 0) -> torch.Tensor:
+                         fallback: int = 0,
+                         include_geom_geom: bool = True) -> torch.Tensor:
     """qpos (B, nq) from attempts qposes (A, B, nq), each env's
     ``first_collision_free_index``."""
-    idx = first_collision_free_index(model, qposes, fallback)
+    idx = first_collision_free_index(model, qposes, fallback,
+                                     include_geom_geom)
     return qposes[idx, torch.arange(qposes.shape[1], device=qposes.device)]

@@ -375,6 +375,83 @@ def test_reset_keeps_the_first_free_attempt_else_the_last():
         q[idx, np.arange(3)].astype(np.float32))
 
 
+# two hinged capsules that cross for some draws, a metre above the floor:
+# with geom-geom contacts off, no draw penetrates
+_CROSSING_ARMS = """
+<mujoco model='crossing_arms'>
+  <worldbody>
+    <geom name='floor' type='plane' size='5 5 .1'/>
+    <body name='a' pos='-0.15 0 1'>
+      <joint name='ja' type='hinge' axis='0 1 0' limited='true'
+             range='-90 90'/>
+      <geom name='ga' type='capsule' fromto='0 0 0 0.3 0 0' size='0.05'/>
+    </body>
+    <body name='b' pos='0.15 0 1'>
+      <joint name='jb' type='hinge' axis='0 1 0' limited='true'
+             range='-90 90'/>
+      <geom name='gb' type='capsule' fromto='0 0 0 -0.3 0 0' size='0.05'/>
+    </body>
+  </worldbody>
+</mujoco>"""
+
+
+def test_reset_honours_geom_geom_option():
+    """humanoid_cmu's reset with ``opt.enable_geom_geom_contacts`` off, on
+    a small model whose only penetrations are geom-geom: the pairs it
+    tests equal JAX's ``candidate_pairs(..., include_geom_geom=False)``
+    (the floor's two), and on JAX's own ten draws of 6 keys the port
+    keeps the draw JAX's ``initialize_episode`` keeps (exactly: the same
+    float32 qpos); with the option on, the same draws keep another
+    attempt in some env, so the option decides."""
+    import dataclasses
+    from mujoco_mbrl_tpu.physics import mjcf as jmjcf
+    from mujoco_mbrl_tpu.suite import randomizers as jrandomizers
+    from mujoco_mbrl_tpu_torch.physics import mjcf
+
+    jm = jmjcf.parse(_CROSSING_ARMS)
+    jm = jm.replace(opt=jm.opt.replace(enable_geom_geom_contacts=False))
+    m = mjcf.parse(_CROSSING_ARMS)
+    off = m.replace(opt=dataclasses.replace(
+        m.opt, enable_geom_geom_contacts=False))
+    assert collision.candidate_pairs(off, include_geom_geom=False) == \
+        jcollision.candidate_pairs(jm, include_geom_geom=False) == [
+            (0, 1), (0, 2)]
+    assert len(collision.candidate_pairs(m)) == 3
+
+    task = jhumanoid_cmu.HumanoidCMU(0)
+    A, keys = 10, jax.random.split(jax.random.PRNGKey(5), 6)
+    draws, kept = [], []
+    for key in keys:
+        draws.append(np.asarray(jax.vmap(
+            lambda k: jrandomizers.randomize_limited_and_rotational_joints(
+                jm, jnp.asarray(jm.qpos0), k))(jax.random.split(key, A))))
+        kept.append(np.asarray(task.initialize_episode(jm, key)[0].qpos))
+    qposes = torch.tensor(np.stack(draws, 1), dtype=torch.float32)
+    kept = np.stack(kept)
+    # JAX kept attempt 0 of every env: nothing it tests can penetrate
+    np.testing.assert_array_equal(kept, qposes[0].numpy())
+    got = randomizers.first_collision_free(
+        off, qposes, fallback=-1,
+        include_geom_geom=off.opt.enable_geom_geom_contacts)
+    np.testing.assert_array_equal(got.numpy(), kept)
+    on_idx = randomizers.first_collision_free_index(m, qposes, fallback=-1)
+    assert bool((on_idx != 0).any()), on_idx
+
+    # the task's reset reads the option: off keeps its first draw an env
+    gen = lambda: torch.Generator().manual_seed(11)
+    B = 64
+    q = randomizers.randomize_limited_and_rotational_joints(
+        m, m.qpos0.expand(A * B, m.nq), gen()).reshape(A, B, m.nq)
+    port = humanoid_cmu.HumanoidCMU(0)
+    phys, _ = port.initialize_episode(off, B, gen())
+    np.testing.assert_array_equal(phys.qpos.numpy(), q[0].numpy())
+    phys_on, _ = port.initialize_episode(m, B, gen())
+    idx = randomizers.first_collision_free_index(m, q, fallback=-1)
+    assert bool((idx != 0).any())
+    np.testing.assert_array_equal(phys_on.qpos.numpy(),
+                                  q[idx, torch.arange(B)].numpy())
+
+
 def test_reset_and_step_through_suite_load():
     env = suite.load('humanoid_cmu', 'run', device='cpu')
     state, ts = env.reset(2, torch.Generator().manual_seed(0))

@@ -102,6 +102,40 @@ def test_cuda_entry_points_raise_without_a_card():
         full_loop_bench('cheetah_run', 2, 8, 3, 1, 1)
 
 
+# the tools around the engine: distributed execution, the model builder
+# and physics utilities, rendering
+_TOOLS = ('parallel', 'parallel.mesh', 'physics.named', 'physics.ik',
+          'physics.schema', 'physics.debugging', 'physics.builder',
+          'utils.profiling', 'utils.render', 'utils.raycast',
+          'utils.recorder', 'suite.wrappers')
+
+
+@pytest.mark.parametrize('name', _TOOLS)
+def test_tool_module_is_ported(name):
+    """Each module has its JAX counterpart, by the same name, and is
+    among the modules the import test loads without JAX."""
+    assert f'mujoco_mbrl_tpu_torch.{name}' in _modules()
+    rel = name.replace('.', os.sep)
+    assert (os.path.exists(os.path.join(ROOT, 'mujoco_mbrl_tpu', rel + '.py'))
+            or os.path.isdir(os.path.join(ROOT, 'mujoco_mbrl_tpu', rel)))
+
+
+def test_tool_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA card is present: the default device works')
+    from mujoco_mbrl_tpu_torch import envs, parallel
+    from mujoco_mbrl_tpu_torch.physics import builder
+    assert hasattr(envs.EnvWrapper, 'record_rollout')
+    root = builder.RootElement(model='t')
+    root.worldbody.add('body', name='b').add('geom', type='sphere',
+                                             size=[0.1])
+    with pytest.raises(RuntimeError, match='CUDA'):
+        root.compile()
+    assert root.compile(device='cpu').nbody == 2
+    with pytest.raises(RuntimeError, match='CUDA'):
+        parallel.distributed_init('localhost:1', 1, 0)
+
+
 def test_chip_smoke_fails_without_a_card(tmp_path):
     """Without CUDA the smoke script exits non-zero and prints no result,
     also from a directory holding nothing but the script."""
