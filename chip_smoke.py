@@ -268,7 +268,7 @@ Run from the repository root:  python3 chip_smoke.py
       onto the floor against the CPU's on their first 8 envs (qpos, qvel,
       reward); then the kernel against its plain version on solves
       captured at the reset states, landed, and fallen (the landed
-      states after 30 control steps of random actions, lying), cold and
+      states after 20 control steps of random actions), cold and
       warm, held under the one APGD rule with ``energy_valley`` (Ad
       formed only for the envs that differ) and timed beside the bound of
       what the run's data needs (the active rows of J~ and of rhs, Rs and
@@ -305,12 +305,37 @@ Run from the repository root:  python3 chip_smoke.py
       equal to the unsharded collect, and ``dp_train_step`` of an
       MLPDynamics within 1e-6 of the one-process step; the trace file
       written;
-17. prints one ``{"kernels": [...]}`` line (one entry per TPU kernel, one
+17. the model-building stack and the viewer (slice 18), each with exact
+   launch counts:
+   a. (48) composer + observation: ``RunThroughCorridor(PlanarWalker)``
+      with a median pipeline (delay 2, buffer 4) and an Additive(Normal)
+      corruptor at 1024 envs, reset and 6 control steps (234 rows over nv
+      9: the factored regime, 5 #7 block-path launches a step), card vs
+      CPU on 256 envs, the median card vs CPU bit for bit on the card's
+      raw sequence, the noise by its mean and std;
+   b. (49) props: 3 Primitive spheres dropped onto a Floor of 1024 envs
+      into a PositionDetector zone, 25 control steps (24 rows, #1's warp
+      path, 4 a step), detections card vs CPU on 256 envs;
+   c. (50) ``GoToTarget(CMUHumanoid)`` on the floor, 1024 envs, one
+      control step (4,352 rows, 5 launches of #1's dense iterate on
+      factors), its peak device memory, card vs CPU on 8 envs;
+   d. (51) ``soccer.load(team_size=2)`` on a ``RandomizedPitch``, 1024
+      envs, reset and 3 control steps (716 rows, #1's global path, 5 a
+      step), card vs CPU on 256 envs; a goal in every env, LAST with
+      discount 0 and rewards [+1, +1, -1, -1], then ``autoreset_step``
+      FIRST with (B, 4) zero rewards;
+   e. (52) ``viewer.launch`` on walker walk (50 steps, GIF and HTML, its
+      frames rendered as one batch, 8 of them card vs CPU under the pixel
+      rule), 5 ``LiveSession`` steps and a perturbation, one ``serve``
+      round trip on 127.0.0.1, ``explore.main`` on cartpole swingup with
+      the reward tint;
+18. prints one ``{"kernels": [...]}`` line (one entry per TPU kernel, one
    per bf16 mode of #2-#6, and entries for #1's global path, with the
    quadruped's cases, #1's dense iterate on factors and #2's (5, 7, 4)
    instantiation), a ``{"paths": ...}`` line with the cheetah,
    contact-free, humanoid, slice-10, slice-11, bench, slice-13, slice-14,
-   slice-15, slice-16 and slice-17 paths' times, the card line, and last
+   slice-15, slice-16, slice-17 and slice-18 paths' times, the card line,
+   and last
    ``{"ok": true, "device": {...}}``.
 
 Every card-vs-CPU step runs the card at the path's whole batch and the
@@ -1488,7 +1513,7 @@ CPU_CHECK_ENVS = 256         # envs a card-vs-CPU step compares at most
 
 def card_vs_cpu_step(dev, torch, domain, task, start, by_rounding=False,
                      task_kwargs=None, fields=('qpos',),
-                     cpu_envs=CPU_CHECK_ENVS):
+                     cpu_envs=CPU_CHECK_ENVS, envs=None):
     """One env.step of random actions from `start`: on the card at the
     path's whole batch, and with the plain versions on the CPU from the
     first `cpu_envs` of its envs, which are compared: the state's
@@ -1498,14 +1523,20 @@ def card_vs_cpu_step(dev, torch, domain, task, start, by_rounding=False,
     cap in some envs), an env beyond that is admitted when rounding
     decides it: the CPU's float32 step itself moves by more than 1e-3
     from the same step in float64 there; at most 1% of the envs may be
-    such, and every other env must agree."""
+    such, and every other env must agree. ``envs`` = (card env, CPU env)
+    takes a composed environment's pair instead of suite.load's (a
+    reward vector compares element by element)."""
     import dataclasses
 
     from mujoco_mbrl_tpu_torch import suite
 
     t0 = time.perf_counter()
-    env = suite.load(domain, task, task_kwargs=task_kwargs, device=dev)
-    env_cpu = suite.load(domain, task, task_kwargs=task_kwargs, device='cpu')
+    if envs is None:
+        env = suite.load(domain, task, task_kwargs=task_kwargs, device=dev)
+        env_cpu = suite.load(domain, task, task_kwargs=task_kwargs,
+                             device='cpu')
+    else:
+        env, env_cpu = envs
     n_all = start.physics.qpos.shape[0]
     n = min(n_all, cpu_envs)
     acts_all = 2 * torch.rand((n_all, env.model.nu),
@@ -1516,15 +1547,16 @@ def card_vs_cpu_step(dev, torch, domain, task, start, by_rounding=False,
     to_cpu = lambda s, dt=None: type(s)(physics=type(s.physics)(
         qpos=cast(s.physics.qpos, dt), qvel=cast(s.physics.qvel, dt),
         time=cast(s.physics.time, dt), act=cast(s.physics.act, dt)),
-        params=(s.params.cpu() if isinstance(s.params, torch.Tensor)
-                else ()), step_count=s.step_count.cpu(), last=s.last.cpu())
+        params=tree_map(torch, lambda x: x.cpu(), s.params),
+        step_count=s.step_count.cpu(), last=s.last.cpu())
     s_gpu, ts_gpu = env.step(start, acts_all.to(dev))
     s_gpu = head_state(torch, s_gpu, n)
     ts_gpu = dataclasses.replace(ts_gpu, reward=ts_gpu.reward[:n])
     start = head_state(torch, start, n)
     s_cpu, ts_cpu = env_cpu.step(to_cpu(start), acts)
     diff = lambda s, ts, s_ref, ts_ref, f: (
-        (ts.reward.cpu().double() - ts_ref.reward).abs() if f == 'reward'
+        (ts.reward.cpu().double() - ts_ref.reward).abs().reshape(
+            ts_ref.reward.shape[0], -1).amax(1) if f == 'reward'
         else (getattr(s.physics, f).cpu().double()
               - getattr(s_ref.physics, f)).abs().amax(1))
     keys = tuple(fields) + ('reward',)
@@ -1539,9 +1571,9 @@ def card_vs_cpu_step(dev, torch, domain, task, start, by_rounding=False,
             if isinstance(getattr(o, f.name), torch.Tensor)})
         env_cpu._model = f64(m).replace(opt=f64(m.opt))
         start64 = to_cpu(start, torch.float64)
-        if isinstance(start64.params, torch.Tensor):
-            start64 = dataclasses.replace(start64,
-                                          params=start64.params.double())
+        start64 = dataclasses.replace(start64, params=tree_map(
+            torch, lambda x: x.double() if x.is_floating_point() else x,
+            start64.params))
         s64, ts64 = env_cpu.step(start64, acts.double())
         decided = apart(s_cpu, ts_cpu, s64, ts64) >= 1e-3
     keep, n_dec = ~decided, int(decided.sum())
@@ -3348,6 +3380,17 @@ MANIP_ROWS = {('manipulator', 'bring_ball'): 452,
               ('stacker', 'stack_4'): 977}
 
 
+def tree_map(torch, fn, x):
+    """fn on every tensor of a nested tuple / list / dict (task params)."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, (tuple, list)):
+        return type(x)(tree_map(torch, fn, y) for y in x)
+    if isinstance(x, dict):
+        return {k: tree_map(torch, fn, y) for k, y in x.items()}
+    return x
+
+
 def head_state(torch, s, n):
     """The first n envs of an EnvState."""
     import dataclasses
@@ -3355,7 +3398,7 @@ def head_state(torch, s, n):
     return dataclasses.replace(s, physics=dataclasses.replace(
         s.physics, qpos=s.physics.qpos[:n], qvel=s.physics.qvel[:n],
         time=s.physics.time[:n], act=cut(s.physics.act)),
-        params=cut(s.params),
+        params=tree_map(torch, cut, s.params),
         step_count=s.step_count[:n], last=s.last[:n])
 
 
@@ -3930,8 +3973,8 @@ CMU_CPU_ENVS = 8             # envs of the card-vs-CPU step (the plain CPU
 CMU_LAND_STEPS = 1           # control steps after the drop onto the floor
                              # (~70% of the envs still in contact; they
                              # bounce off by the third)
-CMU_FALL_STEPS = 30          # control steps (0.6 s) of random actions from
-                             # the landed states to fallen, lying ones
+CMU_FALL_STEPS = 20          # control steps (0.4 s) of random actions from
+                             # the landed states to falling or lying ones
 
 
 def cmu_rows(B_):
@@ -3991,7 +4034,7 @@ class FactorAd:
 
 def cmu_fallen_state(dev, torch, env, landed, seed):
     """The landed states after CMU_FALL_STEPS control steps of random
-    actions, fallen and lying on the floor: what an episode that has lost
+    actions, falling or lying on the floor: what an episode that has lost
     its balance solves."""
     state = landed
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -4633,6 +4676,491 @@ def distributed_phase(dev, torch, tmp):
     return counts, dict(phases_s=phases, dp_max_abs_err=dp_err)
 
 
+# ---- slice 18: the model-building stack and the viewer (paths 48-52) -----
+
+COMPOSED_SOLVES = 5          # 0.025 s control steps over 0.005 s physics
+CORRIDOR_ROWS, CORRIDOR_NV = 234, 9   # capsules against three planes
+PROP_SOLVES = 4              # 0.02 s control steps over 0.005 s physics
+PROP_BALLS, PROP_STEPS = 3, 25
+PROP_ROWS = 4 * (PROP_BALLS + PROP_BALLS * (PROP_BALLS - 1) // 2)
+SOCCER_ROWS, SOCCER_NV = 716, 18      # 2v2: boxes, spheres, box-box pairs
+BUFFER_DELAY, BUFFER_SIZE = 2, 4      # path 48's median pipeline
+CORRIDOR_STEPS = 6                    # its control steps: the ring turns
+NOISE_STD = 0.05                      # path 48's Additive(Normal) corruptor
+VIEWER_STEPS, VIEWER_STRIDE = 50, 2   # path 52's walker episode
+LIVE_STEPS = 5
+EXPLORE_STEPS = 20
+
+
+def factored_rows(B_, nr, nv):
+    """Each #7 call on the corridor: J~ (B, nr, nv), the factored regime's
+    block path."""
+    from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
+
+    def rows(args, kw):
+        check(args[0].shape == (B_, nr, nv)
+              and A.factored_route(nr, nv) == 'block',
+              (args[0].shape, A.factored_route(nr, nv)))
+    return rows
+
+
+def dense_rows(B_, nr, route):
+    """Each #1 call: Ad (B, nr, nr) on `route` of dense_route."""
+    from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
+
+    def rows(args, kw):
+        check(args[0].shape == (B_, nr, nr) and A.dense_route(nr) == route,
+              (args[0].shape, A.dense_route(nr)))
+    return rows
+
+
+def corridor_task(composer, locomotion, variation):
+    """Path 48's task: RunThroughCorridor(PlanarWalker) with two pipeline
+    observables, the walker's root velocity through a median of 4 delayed
+    2 steps, and its torso height with Additive(Normal(0, 0.05)) noise."""
+    class Corridor(locomotion.RunThroughCorridor):
+        @composer.observable(delay=BUFFER_DELAY, buffer_size=BUFFER_SIZE,
+                             aggregator='median')
+        def median_velocity(self, model, phys, data):
+            return self.walker.velocity(model, phys, data)
+
+        @composer.observable(corruptor=variation.Additive(
+            variation.Normal(0.0, NOISE_STD)))
+        def noisy_height(self, model, phys, data):
+            return self.walker.torso_height(model, phys, data)
+
+    return Corridor(target_velocity=3.0)
+
+
+def composed_steps(dev, torch, env, state, label, kernel, rows, nu,
+                   seed, steps=STEPS):
+    """`steps` control steps of random actions from `state` with every
+    launch count zeroed just before and read just after; each call of
+    the ops.apgd_solve wrapper `kernel` checked by `rows`. Returns
+    (counts, ms per control step, the states and TimeSteps, actions)."""
+    from mujoco_mbrl_tpu_torch import ops
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B_ = (state['inner'] if isinstance(state, dict) else state
+          ).physics.qpos.shape[0]
+    acts = [2 * torch.rand((B_, nu), generator=g, device=dev) - 1
+            for _ in range(steps)]
+    torch.cuda.synchronize()
+    out = []
+    with watching(kernel, rows):
+        t0 = time.perf_counter()
+        for a in acts:
+            state, ts = env.step(state, a)
+            out.append((state, ts))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = dict(ops.launch_counts)
+    inner = state['inner'] if isinstance(state, dict) else state
+    for name, x in (('qpos', inner.physics.qpos),
+                    ('qvel', inner.physics.qvel), ('reward', ts.reward)):
+        check(bool(torch.isfinite(x).all()), (label, name))
+    ms = 1e3 * wall / steps
+    print(f'{label}: {steps} control steps x {B_} envs in {wall:.3f} s = '
+          f'{ms:.2f} ms per control step; launches {counts}')
+    return counts, ms, out, acts
+
+
+def composer_phase(dev, torch):
+    """(48) composer + observation: RunThroughCorridor(PlanarWalker) with
+    a median pipeline and a corruptor, at 1024 envs: a card reset and 3
+    control steps (5 #7 launches a step on its block path, 234 rows over
+    nv 9: the factored regime), the card's step against the CPU's on the
+    first CPU_CHECK_ENVS envs; the pipeline's median card against CPU
+    bit for bit on the card's raw velocity sequence; the corruptor's
+    noise by its mean and std."""
+    from mujoco_mbrl_tpu_torch import (composer, locomotion, observation,
+                                       variation)
+
+    label = 'corridor control step'
+    task = corridor_task(composer, locomotion, variation)
+    env = composer.make_env(task, time_limit=5.0, device=dev)
+    check(isinstance(env, observation.BufferedEnvironment), type(env))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state0, ts0 = env.reset(B, torch.Generator(device=dev).manual_seed(80))
+    torch.cuda.synchronize()
+    reset_ms = 1e3 * (time.perf_counter() - t0)
+    counts, ms, out, _ = composed_steps(
+        dev, torch, env, state0, label, 'apgd_iterate_factored',
+        factored_rows(B, CORRIDOR_ROWS, CORRIDOR_NV), env.model.nu, 81,
+        steps=CORRIDOR_STEPS)
+    exact_counts(label, counts, apgd_factored=COMPOSED_SOLVES * CORRIDOR_STEPS)
+    # the pipeline: the card's raw velocity sequence through the CPU's
+    # buffers gives the card's median, bit for bit
+    spec = observation.ObservableSpec(delay=BUFFER_DELAY,
+                                      buffer_size=BUFFER_SIZE,
+                                      aggregator='median')
+    raw = [ts0.observation['walker/velocity']] + [
+        ts.observation['walker/velocity'] for _, ts in out]
+    st = observation.init_buffer(spec, raw[0].cpu())
+    check(torch.equal(observation.read_buffer(spec, st),
+                      ts0.observation['median_velocity'].cpu()), 'reset')
+    for k, (_, ts) in enumerate(out):
+        st = observation.update_buffer(spec, st, raw[k + 1].cpu())
+        check(torch.equal(observation.read_buffer(spec, st),
+                          ts.observation['median_velocity'].cpu()),
+              ('median pipeline, step', k))
+    # the corruptor: noisy height - height, over B envs and 3 steps
+    noise = torch.cat([ts.observation['noisy_height']
+                       - ts.observation['walker/torso_height']
+                       for _, ts in out])
+    n = noise.numel()
+    mean, std = float(noise.mean()), float(noise.std())
+    check(abs(mean) < 5 * NOISE_STD / math.sqrt(n)
+          and abs(std - NOISE_STD) < 5 * NOISE_STD / math.sqrt(2 * n),
+          ('corruptor', mean, std))
+    warm = out[0][0]['inner']
+    held = card_vs_cpu_step(
+        dev, torch, 'corridor', 'walker', warm, by_rounding=True,
+        fields=('qpos', 'qvel'), envs=(env._env, composer.make_env(
+            corridor_task(composer, locomotion, variation), time_limit=5.0,
+            device='cpu')._env))
+    res = dict(ms_per_step=ms, reset_ms=reset_ms, rows=CORRIDOR_ROWS,
+               nv=CORRIDOR_NV, route='factored block (#7)',
+               launches_per_control_step=COMPOSED_SOLVES,
+               noise_mean=mean, noise_std=std, card_vs_cpu=held)
+    print(f'{label}: reset {reset_ms:.2f} ms; {CORRIDOR_ROWS} rows over nv '
+          f'{CORRIDOR_NV}, #7 block path, {COMPOSED_SOLVES} launches a '
+          f'control step; median pipeline card = CPU bit for bit over '
+          f'{len(out) + 1} observations; corruptor noise mean {mean:.2e} std '
+          f'{std:.5f} over {n} draws')
+    return counts, res
+
+
+def props_task(torch, composer, props, arenas):
+    """Path 49's task: PROP_BALLS Primitive spheres dropped from per-env
+    random spots onto a Floor, a PositionDetector zone over part of it
+    registering them all; the reward counts the balls detected."""
+    class Drop(composer.Task):
+        control_timestep = 0.02
+        OBSERVES_ACC = False
+
+        def __init__(self):
+            super().__init__(arenas.Floor(size=(4.0, 4.0)))
+            self.balls = [self.attach(props.Primitive(
+                geom_type='sphere', size=[0.1], pos=(0.3 * i, 0.0, 0.5)),
+                f'ball{i}/') for i in range(PROP_BALLS)]
+            self.detector = self.attach(props.PositionDetector(
+                pos=[0.5, 0.0, 0.1], size=[0.5, 0.4, 0.15]), 'zone/')
+            self.detector.register_entities(*self.balls)
+
+        def initialize_episode(self, model, batch, generator):
+            state, params = super().initialize_episode(model, batch,
+                                                       generator)
+            qpos = state.qpos
+            for i, ball in enumerate(self.balls):
+                xy = 2.0 * torch.rand((batch, 2), generator=generator,
+                                      device=generator.device) - 0.5
+                pos = torch.cat([xy, torch.full_like(xy[:, :1],
+                                                     0.3 + 0.3 * i)], 1)
+                qpos = ball.set_pose(model, qpos, pos=pos.to(qpos.device))
+            return state.replace(qpos=qpos), params
+
+        def get_reward(self, model, phys, data, ctrl):
+            return self.detector.detections(model, data).sum(-1).to(
+                phys.qpos.dtype)
+
+    return Drop()
+
+
+def props_phase(dev, torch):
+    """(49) props: PROP_BALLS spheres dropped from per-env spots onto the
+    floor of 1024 envs, a detector zone over part of it: a card reset and
+    PROP_STEPS control steps (4 #1 launches a step on its warp path,
+    PROP_ROWS rows); the card's step against the CPU's, and the card's
+    detections against the CPU's on the first CPU_CHECK_ENVS envs of the
+    landed states (a flag may differ only where a ball lies within 1e-4
+    of a zone face)."""
+    from mujoco_mbrl_tpu_torch import composer, props
+    from mujoco_mbrl_tpu_torch.locomotion import arenas
+    from mujoco_mbrl_tpu_torch.physics import engine
+    from mujoco_mbrl_tpu_torch.physics import model as M
+
+    label = 'props control step'
+    task = props_task(torch, composer, props, arenas)
+    env = composer.make_env(task, device=dev)
+    state0, _ = env.reset(B, torch.Generator(device=dev).manual_seed(85))
+    counts, ms, out, _ = composed_steps(
+        dev, torch, env, state0, label, 'apgd_iterate_batched',
+        dense_rows(B, PROP_ROWS, 'warp'), 0, 86, steps=PROP_STEPS)
+    exact_counts(label, counts, apgd_solve=PROP_SOLVES * PROP_STEPS)
+    state, ts = out[-1]
+    z = state.physics.qpos[:, [env.model.jnt_qposadr[env.model.names[
+        'joint'][f'ball{i}/prop_root']] + 2 for i in range(PROP_BALLS)]]
+    landed = float((z < 0.15).float().mean())
+    check(landed > 0.9, ('balls landed', landed))
+    task_cpu = props_task(torch, composer, props, arenas)
+    env_cpu = composer.make_env(task_cpu, device='cpu')
+    n = CPU_CHECK_ENVS
+    m, m_cpu = env.model, env_cpu.model
+    det = task.detector.detections(m, engine.forward(
+        m, state.physics, torch.zeros((B, 0), device=dev),
+        acc_stage=False))[:n].cpu()
+    phys_cpu = M.make_state(m_cpu, qpos=state.physics.qpos[:n].cpu())
+    data_cpu = engine.forward(m_cpu, phys_cpu, torch.zeros((n, 0)),
+                              acc_stage=False)
+    det_cpu = task_cpu.detector.detections(m_cpu, data_cpu)
+    lo, hi = task_cpu.detector.zone(m_cpu, data_cpu)
+    ids = [b.body_id(m_cpu) for b in task_cpu.balls]
+    p = data_cpu.xpos[:, ids]
+    margin = torch.minimum((p - lo[:, None]).abs(),
+                           (p - hi[:, None]).abs()).amin(-1)
+    differ = det != det_cpu
+    check(not bool((differ & (margin > 1e-4)).any()), (label, 'detections'))
+    detected = int(det_cpu.sum())
+    check(0 < detected < det_cpu.numel(), ('both kinds of flags', detected))
+    held = card_vs_cpu_step(dev, torch, 'props', 'drop', out[0][0],
+                            fields=('qpos', 'qvel'),
+                            envs=(env, composer.make_env(props_task(
+                                torch, composer, props, arenas), device='cpu')))
+    res = dict(ms_per_step=ms, rows=PROP_ROWS, route='warp (#1)',
+               launches_per_control_step=PROP_SOLVES, landed_share=landed,
+               detected=detected,
+               flags=int(det_cpu.numel()),
+               detections_differ=int(differ.sum()), card_vs_cpu=held)
+    print(f'{label}: {PROP_BALLS} balls x {B} envs, {100 * landed:.1f}% '
+          f'on the floor after {PROP_STEPS} steps; {PROP_ROWS} '
+          f'rows on #1\'s warp path; detections card vs CPU on {n} envs: '
+          f'{detected} of {det_cpu.numel()} flags set, '
+          f'{int(differ.sum())} differ (each within 1e-4 of a zone face)')
+    return counts, res
+
+
+def cmu_walker_phase(dev, torch):
+    """(50) GoToTarget(CMUHumanoid) on the floor at 1024 envs: a card reset
+    and one control step (5 launches of #1's dense iterate on factors,
+    each checked to take J~ (1024, 4,352, 62)); the step's peak device
+    memory; the card's step against the CPU's on its first CMU_CPU_ENVS
+    envs."""
+    from mujoco_mbrl_tpu_torch import composer, locomotion, ops
+    from mujoco_mbrl_tpu_torch.locomotion import walkers
+
+    label = 'CMU walker go-to-target control step'
+    make = lambda d: composer.make_env(locomotion.GoToTarget(
+        walker=walkers.CMUHumanoid()), time_limit=5.0, device=d)
+    env = make(dev)
+    check(env.model.nu == 56 and env.model.nv == CMU_NV, env.model.nv)
+    gen = torch.Generator(device=dev).manual_seed(87)
+    state, _ = env.reset(B, gen)
+    act = 2 * torch.rand((B, 56), generator=gen, device=dev) - 1
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with watching('apgd_iterate_dense_factors', cmu_rows(B)):
+        t0 = time.perf_counter()
+        new, ts = env.step(state, act)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = dict(ops.launch_counts)
+    exact_counts(label, counts, apgd_dense_factors=COMPOSED_SOLVES)
+    for name, x in (('qpos', new.physics.qpos), ('qvel', new.physics.qvel),
+                    ('reward', ts.reward)):
+        check(bool(torch.isfinite(x).all()), (label, name))
+    held = card_vs_cpu_step(dev, torch, 'cmu_walker', 'go_to_target', state,
+                            by_rounding=True, fields=('qpos', 'qvel'),
+                            cpu_envs=CMU_CPU_ENVS, envs=(env, make('cpu')))
+    res = dict(ms_per_step=1e3 * wall, rows=CMU_ROWS, nv=CMU_NV,
+               route='dense iterate on factors (#1)',
+               launches_per_control_step=COMPOSED_SOLVES,
+               peak_memory_gb=peak / 1e9, step_memory_gb=(peak - base) / 1e9,
+               card_vs_cpu_envs=CMU_CPU_ENVS, card_vs_cpu=held)
+    print(f'{label}: one control step x {B} envs from a card reset in '
+          f'{1e3 * wall:.2f} ms; {CMU_ROWS} rows over nv {CMU_NV} on #1\'s '
+          f'dense iterate on factors, {COMPOSED_SOLVES} launches; peak '
+          f'device memory {peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} GB '
+          f'the step\'s); mean reward {float(ts.reward.mean()):.4f}')
+    return counts, res
+
+
+def soccer_phase(dev, torch):
+    """(51) soccer.load(team_size=2) on a RandomizedPitch at 1024 envs: a
+    card reset and 3 control steps (5 #1 launches a step on its global
+    path, SOCCER_ROWS rows over nv 18; walls and posts moved per env);
+    the card's step against the CPU's on the first CPU_CHECK_ENVS envs; a
+    ball placed in each env's away goal gives rewards [+1, +1, -1, -1],
+    LAST and discount 0, then autoreset_step returns FIRST with (B, 4)
+    zero rewards."""
+    from mujoco_mbrl_tpu_torch.locomotion import soccer
+    from mujoco_mbrl_tpu_torch.suite import control
+
+    label = 'soccer 2v2 control step'
+    make = lambda d: soccer.load(team_size=2, time_limit=45.0, device=d,
+                                 pitch=soccer.RandomizedPitch())
+    env = make(dev)
+    check(env.model.nu == 12 and env.model.nv == SOCCER_NV, env.model.nv)
+    gen = torch.Generator(device=dev).manual_seed(88)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state0, _ = env.reset(B, gen)
+    torch.cuda.synchronize()
+    reset_ms = 1e3 * (time.perf_counter() - t0)
+    m0 = env._model_with(state0.params)
+    check(m0.geom_pos.shape == (B, env.model.ngeom, 3)
+          and float(m0.geom_pos[:, env.model.names['geom']['wall_px'], 0]
+                    .std()) > 0, 'per-env walls')
+    counts, ms, out, _ = composed_steps(
+        dev, torch, env, state0, label, 'apgd_iterate_batched',
+        dense_rows(B, SOCCER_ROWS, 'global'), 12, 89)
+    exact_counts(label, counts, apgd_solve=COMPOSED_SOLVES * STEPS)
+    check(tuple(out[-1][1].reward.shape) == (B, 4), out[-1][1].reward.shape)
+    held = card_vs_cpu_step(dev, torch, 'soccer', '2v2', out[0][0],
+                            by_rounding=True, fields=('qpos', 'qvel'),
+                            envs=(env, make('cpu')))
+    # a goal: the ball 0.25 past each env's sampled away goal line
+    state = out[-1][0]
+    length, _ = env.task._task.pitch.episode_size(state.params[0])
+    m = env._model_with(state.params)
+    a = m.jnt_qposadr[m.names['joint']['ball/root']]
+    qpos = state.physics.qpos.clone()
+    qpos[:, a] = length / 2 + 0.25
+    qpos[:, a + 1] = 0.0
+    state = control.EnvState(physics=state.physics.replace(qpos=qpos),
+                             params=state.params,
+                             step_count=state.step_count, last=state.last)
+    zeros = torch.zeros((B, 12), device=dev)
+    state, ts = env.step(state, zeros)
+    want = torch.tensor([1.0, 1.0, -1.0, -1.0], device=dev)
+    check(bool(ts.last().all()) and float(ts.discount.abs().max()) == 0
+          and bool((ts.reward == want).all()), ('goal', ts.reward[:2]))
+    _, ts = env.autoreset_step(state, zeros, gen)
+    check(bool(ts.first().all()) and tuple(ts.reward.shape) == (B, 4)
+          and float(ts.reward.abs().max()) == 0, ('autoreset after a goal',
+                                                   ts.reward.shape))
+    res = dict(ms_per_step=ms, reset_ms=reset_ms, rows=SOCCER_ROWS,
+               nv=SOCCER_NV, route='global (#1)',
+               launches_per_control_step=COMPOSED_SOLVES, card_vs_cpu=held)
+    print(f'{label}: reset {reset_ms:.2f} ms; {SOCCER_ROWS} rows over nv '
+          f'{SOCCER_NV} on #1\'s global path, {COMPOSED_SOLVES} launches a '
+          f'control step; a goal in every env: rewards [+1, +1, -1, -1], '
+          f'LAST, discount 0; autoreset: FIRST, (B, 4) zero rewards')
+    return counts, res
+
+
+def viewer_phase(dev, torch, tmp):
+    """(52) the viewer: ``launch`` on walker walk for VIEWER_STEPS steps
+    (10 #1 launches a step) with the GIF and HTML written, its frames held
+    against the card's render of the recorded states bit for bit and 8 of
+    them against a CPU render under the pixel rule (hold_pixels); 5
+    ``LiveSession`` steps and a perturbation; one ``serve`` round trip on
+    127.0.0.1 at an ephemeral port; ``explore.main`` on cartpole swingup
+    with the reward tint (4 #1 launches a step)."""
+    import json as _json
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from mujoco_mbrl_tpu_torch import ops, suite, viewer
+    from mujoco_mbrl_tpu_torch.physics import model as M
+    from mujoco_mbrl_tpu_torch.suite import explore
+    from mujoco_mbrl_tpu_torch.utils import recorder
+    from mujoco_mbrl_tpu_torch.utils.raycast import Camera
+
+    env = suite.load('walker', 'walk', device=dev)
+    qpos, real_step = [], env.step
+
+    def recording_step(state, action):
+        state, ts = real_step(state, action)
+        if len(qpos) % VIEWER_STRIDE == 0:
+            qpos.append(state.physics.qpos.clone())
+        else:
+            qpos.append(None)
+        return state, ts
+
+    env.step = recording_step
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = viewer.launch(env, steps=VIEWER_STEPS,
+                        path=os.path.join(tmp, 'walker'), html=True,
+                        verbose=False, device=dev)
+    torch.cuda.synchronize()
+    launch_s = time.perf_counter() - t0
+    env.step = real_step
+    launch_counts = dict(ops.launch_counts)
+    exact_counts('viewer.launch', launch_counts,
+                 apgd_solve=WALKER_SOLVES * VIEWER_STEPS)
+    F = len(range(0, VIEWER_STEPS, VIEWER_STRIDE))
+    frames = out['frames']
+    check(frames.shape == (F, 120, 160, 3) and frames.dtype == np.uint8,
+          frames.shape)
+    check(recorder.gif_frame_count(out['gif']) == F, 'gif frames')
+    with open(out['html']) as fh:
+        check(fh.read().count('data:image/png;base64,') == F, 'html frames')
+    traj = torch.cat([q for q in qpos if q is not None])
+    cam = Camera(env.model, 120, 160, 0)
+    states = M.make_state(env.model, qpos=traj)
+    again = viewer.render_states(env, states, (), cam)
+    check(np.array_equal(again, frames), 'launch frames = the render')
+    render_ms = time_ms(lambda: viewer.render_states(env, states, (), cam),
+                        3)
+    env_cpu = suite.load('walker', 'walk', device='cpu')
+    held = camera_card_vs_cpu(torch, cam, Camera(env_cpu.model, 120, 160, 0),
+                              env_cpu.model, traj[::F // PIX_CPU_ENVS],
+                              'viewer frames')
+    # the live session: 5 steps and a perturbation
+    ops.reset_launch_counts()
+    s = viewer.LiveSession(env, height=64, width=64, device=dev)
+    for _ in range(LIVE_STEPS):
+        snap = s.step()
+    before = float(s.state.physics.qvel[0, 3])
+    s.perturb(dof=3, dv=2.0)
+    check(abs(float(s.state.physics.qvel[0, 3]) - before - 2.0) < 1e-5,
+          'perturb')
+    live_counts = dict(ops.launch_counts)
+    exact_counts('LiveSession', live_counts,
+                 apgd_solve=WALKER_SOLVES * LIVE_STEPS)
+    check(snap['t'] == LIVE_STEPS and 'frame' in snap, snap['t'])
+    # one serve round trip over a loopback socket
+    httpd = viewer.make_server(env, host='127.0.0.1', port=0, height=32,
+                               width=32, device=dev)
+    port = httpd.server_address[1]
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        page = urllib.request.urlopen(f'http://127.0.0.1:{port}/',
+                                      timeout=60).read().decode()
+        req = urllib.request.Request(
+            f'http://127.0.0.1:{port}/step', data=b'{"policy": "zero"}',
+            headers={'Content-Type': 'application/json'})
+        reply = _json.loads(urllib.request.urlopen(req, timeout=60).read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    check('live viewer' in page and reply['t'] == 1 and 'frame' in reply,
+          'serve round trip')
+    # the explorer on cartpole swingup with the reward tint
+    ops.reset_launch_counts()
+    ex = explore.main(['cartpole.swingup', '--steps', str(EXPLORE_STEPS),
+                       '--visualize_reward', '--out',
+                       os.path.join(tmp, 'explore'), '--device', dev.type])
+    explore_counts = dict(ops.launch_counts)
+    exact_counts('explore', explore_counts,
+                 apgd_solve=RK4_SOLVES * EXPLORE_STEPS)
+    check(ex['rewards'].shape == (EXPLORE_STEPS,)
+          and os.path.exists(ex['gif']) and os.path.exists(ex['html']),
+          'explore outputs')
+    res = dict(launch_s=launch_s, frames=F, render_ms=render_ms,
+               render_ms_per_frame=render_ms / F, gif_bytes=os.path.getsize(
+                   out['gif']), html_bytes=os.path.getsize(out['html']),
+               live_steps=LIVE_STEPS, explore_steps=EXPLORE_STEPS, **held)
+    print(f'viewer: launch of walker walk, {VIEWER_STEPS} steps in '
+          f'{launch_s:.2f} s (launches {launch_counts}), {F} frames of '
+          f'120 x 160 rendered as one batch in {render_ms:.2f} ms; GIF '
+          f'{res["gif_bytes"]} bytes, HTML {res["html_bytes"]} bytes; '
+          f'frames card vs CPU on {PIX_CPU_ENVS}: {held}; LiveSession '
+          f'{LIVE_STEPS} steps + a perturbation (launches {live_counts}); '
+          f'serve round trip on port {port}; explore cartpole.swingup '
+          f'{EXPLORE_STEPS} steps with the tint (launches {explore_counts})')
+    return launch_counts, live_counts, explore_counts, res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4922,6 +5450,20 @@ def main() -> int:
     clock('path 47')
     with tempfile.TemporaryDirectory() as tmp:
         dist_counts, dist_out = distributed_phase(dev, torch, tmp)
+
+    # ---- slice 18: the model-building stack and the viewer (48-52) ------
+    clock('slice 18, path 48')
+    cor_counts, cor_out = composer_phase(dev, torch)
+    clock('path 49')
+    prop_counts, prop_out = props_phase(dev, torch)
+    clock('path 50')
+    cmuw_counts, cmuw_out = cmu_walker_phase(dev, torch)
+    clock('path 51')
+    soc_counts, soc_out = soccer_phase(dev, torch)
+    clock('path 52')
+    with tempfile.TemporaryDirectory() as tmp:
+        view_counts, live_counts, expl_counts, view_out = viewer_phase(
+            dev, torch, tmp)
     clock('end of the paths')
 
     sampler_entry = lambda tiles: ptxas_info(
@@ -5001,7 +5543,14 @@ def main() -> int:
              'walker_pixels_control_step': wpx_counts,
              'cartpole_pixels_control_step': cpx_counts,
              'walker_record_rollout': rec_counts,
-             'cartpole_sharded_collect': dist_counts}
+             'cartpole_sharded_collect': dist_counts,
+             'corridor_control_step': cor_counts,
+             'props_drop': prop_counts,
+             'cmu_walker_control_step': cmuw_counts,
+             'soccer_2v2_control_step': soc_counts,
+             'viewer_launch_walker': view_counts,
+             'viewer_live_session': live_counts,
+             'explore_cartpole_swingup': expl_counts}
     by_path = lambda key: {p: c[key] for p, c in paths.items() if c[key]}
     src = lambda f: f'mujoco_mbrl_tpu_torch/csrc/{f}'
     tpu = lambda f, line, fn: f'mujoco_mbrl_tpu/ops/{f}:{line} ({fn})'
@@ -5152,7 +5701,8 @@ def main() -> int:
                  'manipulator_insert_peg_control_step',
                  'quadruped_walk_control_step',
                  'quadruped_escape_control_step',
-                 'quadruped_fetch_control_step')},
+                 'quadruped_fetch_control_step',
+                 'soccer_2v2_control_step')},
              max_abs_err=max([mp_err, st_err]
                              + [q[2] for q in quad.values()]),
              library_ms=None,
@@ -5205,7 +5755,9 @@ def main() -> int:
                  'humanoid_cmu_stand_control_step':
                      cmu_counts['apgd_dense_factors'],
                  'humanoid_cmu_run_control_step':
-                     cmu_run_out['apgd_dense_factors']},
+                     cmu_run_out['apgd_dense_factors'],
+                 'cmu_walker_control_step':
+                     cmuw_counts['apgd_dense_factors']},
              max_abs_err=cmu_err, library_ms=None,
              **pick(cmu_t['cmu-fallen-warm']),
              call_ms=cmu_t['cmu-fallen-warm']['call_ms'],
@@ -5276,6 +5828,9 @@ def main() -> int:
         builder=b_out, ik_swimmer6=ik_out, walker_pixels=wpx_out,
         cartpole_pixels=cpx_out, movable_camera=mv_out,
         walker_record_rollout=rec_out, distributed=dist_out,
+        corridor_composer=cor_out, props_drop=prop_out,
+        cmu_walker_go_to_target=cmuw_out, soccer_2v2=soc_out,
+        viewer=view_out,
         bench_cli={a: dict(record=r['record'], seconds=r['seconds'])
                    for a, r in bench_out.items()},
         bf16_ptxas={k: v for k, v in ptxas.items() if 'bf16' in k})}))

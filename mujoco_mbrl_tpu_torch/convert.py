@@ -2,7 +2,10 @@
 
 The JAX side hands over ``jax.tree_util.tree_map(np.asarray, tree)``; this
 module turns those arrays into the port's tensors so both packages can be
-driven with identical inputs.
+driven with identical inputs: parameters, replay buffers, env states (a
+composed env's too: its task params, such as ``RandomizedPitch`` ratios or
+``GoToTarget`` targets, and the observation pipeline's buffers) and the
+pipeline's ``BufferState``.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import torch
 
 from .data.replay import ReplayBuffer, Rollouts, compute_stats
 from .models.dynamics import Normalizers
+from .observation import BufferState
 from .physics.model import State
 from .suite.control import EnvState
 
@@ -96,3 +100,53 @@ def env_state(qpos, qvel, act=None, time=None, step_count=None,
                                   time=time, act=act),
                     params=(), step_count=steps,
                     last=torch.zeros((B,), dtype=torch.bool, device=device))
+
+
+def tree(x, device='cpu'):
+    """Arrays of a nested dict / tuple / list to tensors: floats to
+    float32, integers to int32, booleans kept; None and the structure
+    kept."""
+    if isinstance(x, dict):
+        return {k: tree(v, device) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(tree(v, device) for v in x)
+    if x is None:
+        return None
+    a = np.asarray(x)
+    dtype = (torch.bool if a.dtype == np.bool_ else torch.int32
+             if np.issubdtype(a.dtype, np.integer) else torch.float32)
+    return tensor(a, device, dtype)
+
+
+def buffer_state(st: Any, device='cpu') -> BufferState:
+    """From a JAX ``BufferState`` of a batch of envs (vmapped): pending
+    (B, delay+1, ...), ring (B, buffer_size, ...), step (B,)."""
+    return BufferState(pending=tensor(st.pending, device),
+                       ring=tensor(st.ring, device),
+                       step=tensor(st.step, device, torch.int32))
+
+
+def key_seed(key) -> int:
+    """An integer seed from a JAX PRNG key's words."""
+    words = np.asarray(key).astype(np.uint64).reshape(-1)
+    return int(words[-1] | (words[0] << np.uint64(32))) & (2 ** 62 - 1)
+
+
+def composed_env_state(state: Any, device='cpu'):
+    """From a JAX env state of a batch of envs (vmapped): a control
+    ``EnvState`` with its task params converted by :func:`tree`, or a
+    ``BufferedEnvironment``'s dict (``inner``, ``buffers``, ``key``). The
+    pipeline's corruptor key becomes an integer seed: the two packages'
+    noise streams differ in any case."""
+    if isinstance(state, dict):
+        return dict(inner=composed_env_state(state['inner'], device),
+                    buffers={k: buffer_state(v, device)
+                             for k, v in state['buffers'].items()},
+                    key=key_seed(np.asarray(state['key'])[0]))
+    base = env_state(state.physics.qpos, state.physics.qvel,
+                     act=getattr(state.physics, 'act', None),
+                     time=state.physics.time, step_count=state.step_count,
+                     device=device)
+    return EnvState(physics=base.physics, params=tree(state.params, device),
+                    step_count=base.step_count,
+                    last=tensor(state.last, device, torch.bool))

@@ -20,9 +20,28 @@ class Task:
 
     OBSERVES_ACC = True
 
+    # reward-keyed render tint (reference suite/base.py:90-97), read by
+    # Environment.render, which blends body geoms toward the highlight
+    # colour by reward**4
+    _visualize_reward = False
+
+    @property
+    def visualize_reward(self) -> bool:
+        return self._visualize_reward
+
+    @visualize_reward.setter
+    def visualize_reward(self, value) -> None:
+        if not isinstance(value, bool):
+            raise ValueError(f'Expected a boolean, got {type(value)}.')
+        self._visualize_reward = value
+
     def initialize_episode(self, model: M.Model, batch: int,
                            generator: torch.Generator) -> Tuple[M.State, Any]:
         return M.make_state(model, batch=batch), ()
+
+    def apply_params(self, model: M.Model, params: Any) -> M.Model:
+        """Merge per-episode overrides into the model. Default: none."""
+        return model
 
     def before_step(self, action: torch.Tensor, model: M.Model):
         return action

@@ -2,7 +2,8 @@
 
 Port of mujoco_mbrl_tpu/suite/control.py: ``Environment.reset``,
 ``_observe``, ``step`` and ``step_with_data`` (with a task's early
-termination), ``autoreset_step`` and ``observation_spec``, plus
+termination), ``autoreset_step``, ``observation_spec`` and ``render``
+(an MJCF camera, with the reward tint of ``visualize_reward``), plus
 ``flatten_observation`` and ``action_spec``. The JAX environment is one
 env under ``vmap``; here every method takes and returns the env batch as
 the leading dimension. A task's per-episode params (reacher's target,
@@ -34,6 +35,12 @@ class TimeStep:
     reward: torch.Tensor      # (B,)
     discount: torch.Tensor    # (B,)
     observation: Dict[str, torch.Tensor]
+
+    def first(self) -> torch.Tensor:
+        return self.step_type == FIRST
+
+    def last(self) -> torch.Tensor:
+        return self.step_type == LAST
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,9 +87,15 @@ def flatten_observation(obs: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 def _select(mask: torch.Tensor, a, b):
     """`a` where the env's `mask` (B,) is set, else `b`, leaf by leaf over
-    dataclasses, dicts, tuples and tensors (JAX's tree_map of where)."""
+    dataclasses, dicts, tuples and tensors (JAX's tree_map of where). A
+    leaf of fewer dims broadcasts over the other's trailing ones, as JAX's
+    per-env ``where`` takes a reset's scalar reward against a stepped
+    reward vector (soccer's (2n,) per-player rewards)."""
     if isinstance(a, torch.Tensor):
-        return torch.where(mask.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+        nd = max(a.dim(), b.dim())
+        pad = lambda x: x.reshape(tuple(x.shape) + (1,) * (nd - x.dim()))
+        return torch.where(mask.reshape((-1,) + (1,) * (nd - 1)), pad(a),
+                           pad(b))
     if dataclasses.is_dataclass(a):
         return dataclasses.replace(a, **{
             f.name: _select(mask, getattr(a, f.name), getattr(b, f.name))
@@ -164,6 +177,30 @@ class Environment:
         return state, TimeStep(
             step_type=torch.full((B,), FIRST, dtype=torch.int32, device=dev),
             reward=zero, discount=zero + 1.0, observation=obs)
+
+    def render(self, state: EnvState, height: int = 240, width: int = 320,
+               camera_id=0, depth: bool = False,
+               segmentation: bool = False) -> torch.Tensor:
+        """Render every env's state through an MJCF camera (JAX
+        control.py render): RGB (B, H, W, 3) in [0, 1], metric depth
+        (B, H, W) or geom ids (B, H, W). With the task's
+        ``visualize_reward`` set, an RGB frame tints the body geoms by the
+        task's reward, for which the forward then runs to the acceleration
+        stage where the task observes it."""
+        from ..utils.raycast import Camera
+        m = self._model_with(state.params)
+        cam = Camera(m, height=height, width=width, camera_id=camera_id)
+        phys = state.physics
+        zero_ctrl = torch.zeros((phys.qpos.shape[0], m.nu),
+                                dtype=phys.qpos.dtype, device=phys.qpos.device)
+        need_reward = bool(getattr(self._task, 'visualize_reward', False)
+                           and not depth and not segmentation)
+        data = engine.forward(m, phys, zero_ctrl,
+                              acc_stage=need_reward and self._obs_acc)
+        reward = (self._task.get_reward(m, phys, data, zero_ctrl)
+                  if need_reward else None)
+        return cam.render(data, depth=depth, segmentation=segmentation,
+                          reward=reward)
 
     def _observe(self, m, phys, params):
         # acc_stage follows the task's OBSERVES_ACC: in the JAX package XLA

@@ -174,3 +174,35 @@ def test_model_xml_is_the_jax_modules_copy(domain, n):
             ref._make_model_xml(*n, np.random.RandomState(3))
     else:
         assert ours._make_model_xml(n) == ref._make_model_xml(n)
+
+
+# the model-building stack and the viewer: the last JAX modules ported
+_MODEL_BUILDING = ('composer', 'observation', 'variation', 'props',
+                   'locomotion', 'locomotion.arenas', 'locomotion.walkers',
+                   'locomotion.tasks', 'locomotion.soccer', 'viewer',
+                   'suite.explore')
+
+
+@pytest.mark.parametrize('name', _MODEL_BUILDING)
+def test_model_building_module_is_ported(name):
+    """Each has its JAX counterpart by the same name, is among the modules
+    the import test loads without JAX, and its source imports none."""
+    assert f'mujoco_mbrl_tpu_torch.{name}' in _modules()
+    rel = name.replace('.', os.sep)
+    jax_path = os.path.join(ROOT, 'mujoco_mbrl_tpu', rel)
+    assert os.path.exists(jax_path + '.py') or os.path.isdir(jax_path)
+    path = os.path.join(PKG, rel)
+    path = (os.path.join(path, '__init__.py') if os.path.isdir(path)
+            else path + '.py')
+    with open(path) as fh:
+        assert not _FORBIDDEN.search(fh.read()), path
+
+
+def test_every_jax_module_has_a_counterpart():
+    """The port has a module for every module of the JAX package."""
+    jax_root = os.path.join(ROOT, 'mujoco_mbrl_tpu')
+    missing = [os.path.relpath(os.path.join(dp, f), jax_root)
+               for dp, _, fs in os.walk(jax_root) for f in fs
+               if f.endswith('.py') and not os.path.exists(os.path.join(
+                   PKG, os.path.relpath(os.path.join(dp, f), jax_root)))]
+    assert missing == []
