@@ -329,13 +329,34 @@ Run from the repository root:  python3 chip_smoke.py
       rule), 5 ``LiveSession`` steps and a perturbation, one ``serve``
       round trip on 127.0.0.1, ``explore.main`` on cartpole swingup with
       the reward tint;
-18. prints one ``{"kernels": [...]}`` line (one entry per TPU kernel, one
+18. the last physics branches (slice 19), each with exact launch counts
+   and card vs CPU:
+   a. (53) walker walk with ``opt.solver = 'pgs'`` at 1024 envs, reset
+      and 2 control steps (10 PGS solves a step in plain PyTorch, #1
+      launched 0 times), the ms of one PGS solve, and at states settled
+      on the floor the total normal force of PGS within 2% of APGD's; a
+      ``LinearDynamics`` ensemble's ``forward_ts`` at 1024 x 1000 rows;
+   b. (54) ``BALL_CHAIN_XML``: ball joints and a velocity servo (its
+      sensor and contact pair dropped), 1024 envs randomized, 25 steps
+      (one #1 launch each, 28 rows on the warp path), the quaternions'
+      norms;
+   c. (55) cheetah run with ``frictionloss='.1'`` in its joint class,
+      1024 envs, 3 control steps (6 + 146 rows over nv 9, #7's warp path
+      with per-env bounds, 1 a step), #7 against its plain twin on
+      captured solves and on a humanoid solve with the same default at
+      512 envs (21 + 303 rows, the block path), per-env bounds timed
+      beside shared ones;
+   d. (56) quadruped fetch with ``cone='elliptic'``, 1024 envs, 3 control
+      steps (830 rows: 3 a contact, the ball's condim-6 pairs too; #1's
+      global path, 5 a step), #1 against its plain twin on captured
+      solves;
+19. prints one ``{"kernels": [...]}`` line (one entry per TPU kernel, one
    per bf16 mode of #2-#6, and entries for #1's global path, with the
    quadruped's cases, #1's dense iterate on factors and #2's (5, 7, 4)
-   instantiation), a ``{"paths": ...}`` line with the cheetah,
-   contact-free, humanoid, slice-10, slice-11, bench, slice-13, slice-14,
-   slice-15, slice-16, slice-17 and slice-18 paths' times, the card line,
-   and last
+   instantiation; #7's per-env bounds under its own entry), a
+   ``{"paths": ...}`` line with the cheetah, contact-free, humanoid,
+   slice-10, slice-11, bench, slice-13, slice-14, slice-15, slice-16,
+   slice-17, slice-18 and slice-19 paths' times, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Every card-vs-CPU step runs the card at the path's whole batch and the
@@ -3099,9 +3120,9 @@ def watching(kernel, rows=None):
 
 
 def suite_control_steps(dev, torch, env, state0, label, rows=None,
-                        kernel='apgd_iterate_batched'):
+                        kernel='apgd_iterate_batched', steps=STEPS):
     """A warm-up control step of random actions from `state0`, then
-    STEPS timed ones with every launch count zeroed just before and read
+    `steps` timed ones with every launch count zeroed just before and read
     just after; `rows(args, kw)` checks each call of the wrapper `kernel`
     (#1's) in the timed steps. Returns (counts, times, the state after the
     warm-up)."""
@@ -3115,7 +3136,7 @@ def suite_control_steps(dev, torch, env, state0, label, rows=None,
     with watching(kernel, rows):
         t0 = time.perf_counter()
         state = warm
-        for _ in range(STEPS):
+        for _ in range(steps):
             state, ts = env.step(state, act())
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -3123,8 +3144,8 @@ def suite_control_steps(dev, torch, env, state0, label, rows=None,
     for name, x in (('qpos', state.physics.qpos),
                     ('qvel', state.physics.qvel), ('reward', ts.reward)):
         check(bool(torch.isfinite(x).all()), (label, name))
-    out = dict(ms_per_step=1e3 * wall / STEPS, wall_s=wall)
-    print(f'{label}: {STEPS} control steps x {state0.physics.qpos.shape[0]} '
+    out = dict(ms_per_step=1e3 * wall / steps, wall_s=wall)
+    print(f'{label}: {steps} control steps x {state0.physics.qpos.shape[0]} '
           f'envs in {wall:.3f} s = {out["ms_per_step"]:.2f} ms per control '
           f'step; launches {counts}; mean reward '
           f'{float(ts.reward.mean()):.4f}')
@@ -5034,12 +5055,49 @@ def soccer_phase(dev, torch):
                                                    ts.reward.shape))
     res = dict(ms_per_step=ms, reset_ms=reset_ms, rows=SOCCER_ROWS,
                nv=SOCCER_NV, route='global (#1)',
-               launches_per_control_step=COMPOSED_SOLVES, card_vs_cpu=held)
+               launches_per_control_step=COMPOSED_SOLVES, card_vs_cpu=held,
+               solve=soccer_solve_times(dev, torch, env, out[0][0]))
     print(f'{label}: reset {reset_ms:.2f} ms; {SOCCER_ROWS} rows over nv '
           f'{SOCCER_NV} on #1\'s global path, {COMPOSED_SOLVES} launches a '
           f'control step; a goal in every env: rewards [+1, +1, -1, -1], '
           f'LAST, discount 0; autoreset: FIRST, (B, 4) zero rewards')
     return counts, res
+
+
+def soccer_solve_times(dev, torch, env, state):
+    """#1 on the 716-row solves of one soccer step (cold, then warm from
+    its forces) captured at `state` with its per-env walls and posts:
+    held against the plain twin and timed beside the bound of each env's
+    active submatrix (as global_apgd_phase does)."""
+    from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
+    from mujoco_mbrl_tpu_torch.physics import engine
+
+    m = env._model_with(state.params)
+    zero = torch.zeros((B, m.nu), device=dev)
+    cases, real = [], A.apgd_iterate_batched
+
+    def capture(*args, **kw):
+        cases.append(('soccer', tuple(a.clone() for a in args), dict(kw)))
+        return real(*args, **kw)
+
+    A.apgd_iterate_batched = capture
+    try:
+        s1, f, v = engine.step_warm(m, state.physics, zero)
+        engine.step_warm(m, s1, zero, warm_f=f, warm_v=v)
+    finally:
+        A.apgd_iterate_batched = real
+    check([c[2]['cold'] for c in cases] == [True, False], 'soccer solves')
+    worst, rounding_envs = hold_apgd(
+        torch, 'apgd soccer', A.apgd_iterate_batched, A.apgd_iterate_plain,
+        lambda args: args[0], cases, energy_valley=True)
+    times = time_apgd(
+        torch, 'apgd soccer', A.apgd_iterate_batched, A.apgd_iterate_plain,
+        cases, lambda a: 2.0 * a[4].sum(1).double() ** 2,
+        lambda a: 4.0 * (float((a[4].sum(1).double() ** 2).sum())
+                         + 7 * a[1].numel() + a[5].numel()),
+        trace_bound=False)
+    del cases
+    return dict(times, max_abs_err=worst, rounding_decided_envs=rounding_envs)
 
 
 def viewer_phase(dev, torch, tmp):
@@ -5159,6 +5217,393 @@ def viewer_phase(dev, torch, tmp):
           f'serve round trip on port {port}; explore cartpole.swingup '
           f'{EXPLORE_STEPS} steps with the tint (launches {explore_counts})')
     return launch_counts, live_counts, explore_counts, res
+
+
+# ---- slice 19: the last physics branches (paths 53-56) ------------------
+# path 54's model, held identical in tests/test_torch_ball_joints.py: a
+# base on a limited ball joint, a capsule on a hinge driven by a velocity
+# servo, a capsule on a second ball joint, a floor the chain reaches, and
+# a <sensor> and a <contact><pair> that the compiler drops, as JAX's does
+BALL_CHAIN_XML = """
+<mujoco model='ball_chain'>
+  <option timestep='0.005'/>
+  <default><geom friction='0.8 0.01 0.001'/></default>
+  <worldbody>
+    <geom name='floor' type='plane' size='3 3 .1'/>
+    <body name='base' pos='0 0 0.65'>
+      <joint name='hang' type='ball' limited='true' range='0 60'
+             damping='0.5'/>
+      <geom name='base' type='capsule' fromto='0 0 0 0 0 -0.3'
+            size='0.05'/>
+      <body name='arm' pos='0 0 -0.3'>
+        <joint name='elbow' type='hinge' axis='0 1 0' damping='0.1'/>
+        <geom name='arm' type='capsule' fromto='0 0 0 0.3 0 -0.2'
+              size='0.04'/>
+        <body name='tip' pos='0.3 0 -0.2'>
+          <joint name='wrist' type='ball' damping='0.05'/>
+          <geom name='tip' type='capsule' fromto='0 0 0 0 0 -0.35'
+                size='0.04'/>
+        </body>
+      </body>
+    </body>
+  </worldbody>
+  <actuator>
+    <velocity name='spin' joint='elbow' kv='3' ctrllimited='true'
+              ctrlrange='-2 2'/>
+  </actuator>
+  <contact><pair geom1='floor' geom2='tip'/></contact>
+  <sensor><jointvel name='elbow_vel' joint='elbow'/></sensor>
+</mujoco>
+"""
+
+
+PGS_STEPS = 2                # path 53's timed control steps
+PGS_SETTLE_STEPS = 40        # zero-action control steps before the force check
+PGS_FORCE_RTOL = 0.02        # PGS against APGD on the total normal force
+BALL_STEPS = 25              # path 54's physics steps
+ENS_K = 1000                 # candidates a env of the ensemble's forward_ts
+FL_ROWS, FL_NV = 152, 9      # cheetah: 6 friction-loss + 146 rows over nv 9
+FL_H_ROWS, FL_H_NV, FL_H_B = 324, 27, 512   # humanoid: 21 + 303 over nv 27
+ELLIPTIC_ROWS = 830          # quadruped fetch, elliptic: 4 + 16 + 270 x 3
+
+
+def with_model(env, model):
+    """`env` stepping `model` (an option or a default class changed) in
+    place of the one its suite loader compiled."""
+    env._model = model
+    return env
+
+
+def with_option(env, **opt):
+    import dataclasses
+    return with_model(env, env.model.replace(
+        opt=dataclasses.replace(env.model.opt, **opt)))
+
+
+def frictionloss_xml(xml, joint_default):
+    """`xml` with frictionloss='.1' added to the joint default that starts
+    with `joint_default`."""
+    check(xml.count(joint_default) == 1, joint_default)
+    return xml.replace(joint_default, joint_default + "frictionloss='.1' ")
+
+
+CHEETAH_JOINT_CLASS = "<default class='cheetah'>\n      <joint "
+HUMANOID_JOINT_CLASS = "<joint type='hinge' damping='.2' "
+
+
+def physics_card_vs_cpu(dev, torch, m_dev, m_cpu, state, ctrl, label,
+                        cpu_envs=CPU_CHECK_ENVS):
+    """One physics step of `state` under `ctrl`: on the card at the whole
+    batch and on the CPU from its first `cpu_envs` envs, compared in qpos
+    and qvel within 1e-3."""
+    from mujoco_mbrl_tpu_torch.physics import engine
+    from mujoco_mbrl_tpu_torch.physics.model import State
+
+    n = min(cpu_envs, state.qpos.shape[0])
+    out = engine.step(m_dev, state, ctrl)
+    cut = lambda x: None if x is None else x[:n].cpu()
+    ref = engine.step(m_cpu, State(qpos=cut(state.qpos),
+                                   qvel=cut(state.qvel),
+                                   time=cut(state.time), act=cut(state.act)),
+                      cut(ctrl))
+    d = {f: float((getattr(out, f)[:n].cpu() - getattr(ref, f)).abs().max())
+         for f in ('qpos', 'qvel')}
+    print(f'{label} physics step, card at {state.qpos.shape[0]} envs vs '
+          f'plain CPU at its first {n}: max|dqpos| {d["qpos"]:.2e}, '
+          f'max|dqvel| {d["qvel"]:.2e}')
+    check(max(d.values()) < 1e-3, (label, d))
+    return {f'max_d{k}': v for k, v in d.items()}
+
+
+def linear_ensemble_check(dev, torch):
+    """A LinearDynamics ensemble (5 members, the walker's 24 + 6 dims) over
+    B x ENS_K candidate rows: forward_ts on the card (row k -> member k %
+    5, each member's base forward on its rows) against the same call on
+    the CPU, within 1e-5 of the largest output; its time."""
+    from mujoco_mbrl_tpu_torch.models import dynamics as D
+
+    ens = D.EnsembleDynamics(D.LinearDynamics(24, 6), 5)
+    params = ens.init(torch.Generator().manual_seed(53), device=dev)
+    g = torch.Generator(device=dev).manual_seed(54)
+    s = torch.randn((B * ENS_K, 24), generator=g, device=dev)
+    a = torch.rand((B * ENS_K, 6), generator=g, device=dev) * 2 - 1
+    norms = D.Normalizers(state_mean=torch.randn(24, generator=g,
+                                                 device=dev),
+                          state_std=torch.rand(24, generator=g,
+                                               device=dev) + 0.5)
+    out = ens.forward_ts(params, s, a, norms)
+    ms = time_ms(lambda: ens.forward_ts(params, s, a, norms), 5)
+    cpu = lambda x: tree_map(torch, lambda t: t.cpu(), x)
+    ref = ens.forward_ts(cpu(params), s.cpu(), a.cpu(), D.Normalizers(
+        state_mean=norms.state_mean.cpu(), state_std=norms.state_std.cpu()))
+    err = float((out.cpu() - ref).abs().max())
+    scale = float(ref.abs().max())
+    print(f'LinearDynamics ensemble forward_ts, {B} x {ENS_K} rows x 5 '
+          f'members: {ms:.3f} ms on the card; max|card - CPU| {err:.3e} '
+          f'(largest output {scale:.3e})')
+    check(tuple(out.shape) == (B * ENS_K, 24) and err <= 1e-5 * (1 + scale),
+          ('linear ensemble', err))
+    return dict(ms=ms, rows=B * ENS_K, max_abs_err=err)
+
+
+def pgs_walker_phase(dev, torch):
+    """(53) walker walk with opt.solver = 'pgs' through suite.load at 1024
+    envs: a card reset and PGS_STEPS timed control steps of random actions
+    (10 substeps, each a PGS solve in plain PyTorch, so #1 launches 0
+    times); the card's step against the CPU's; the ms of one PGS solve
+    captured from a substep; at states settled on the floor by
+    PGS_SETTLE_STEPS zero-action control steps (APGD, not counted), the
+    total normal force of the PGS forward within 2% of the APGD forward's
+    (JAX's tests/test_solver_contact.py:126-127); a LinearDynamics
+    ensemble's forward_ts card vs CPU."""
+    from mujoco_mbrl_tpu_torch import suite
+    from mujoco_mbrl_tpu_torch.physics import engine
+    from mujoco_mbrl_tpu_torch.physics import solver as S
+
+    label = 'walker walk (PGS) control step'
+    make = lambda d: with_option(suite.load('walker', 'walk', device=d),
+                                 solver='pgs')
+    env = make(dev)
+    gen = torch.Generator(device=dev).manual_seed(53)
+    state0, _ = env.reset(B, gen)
+    counts, out, warm = suite_control_steps(dev, torch, env, state0, label,
+                                            steps=PGS_STEPS)
+    exact_counts(label, counts)
+    out['card_vs_cpu'] = card_vs_cpu_step(dev, torch, 'walker', 'walk', warm,
+                                          envs=(env, make('cpu')))
+    # one PGS solve: a control step's second substep, warm started
+    captured, real = [], S.solve
+
+    def capture(*args, **kw):
+        captured.append((args, kw))
+        return real(*args, **kw)
+
+    S.solve = capture
+    try:
+        env.step(warm, torch.zeros((B, env.model.nu), device=dev))
+    finally:
+        S.solve = real
+    args, kw = captured[1]
+    nr = args[1].J.shape[1]
+    solve_ms = time_ms(lambda: S.solve(*args, **kw), 3)
+    # resting on the floor: PGS against APGD on the same states
+    apgd = suite.load('walker', 'walk', device=dev)
+    settled, zeros = state0, torch.zeros((B, env.model.nu), device=dev)
+    for _ in range(PGS_SETTLE_STEPS):
+        settled, _ = apgd.step(settled, zeros)
+    f_n = lambda m: engine.forward(m, settled.physics, zeros).contact_force[
+        ..., 0].sum(1)
+    f_pgs, f_apgd = f_n(env.model), f_n(apgd.model)
+    torch.cuda.synchronize()
+    total = (float(f_pgs.sum()), float(f_apgd.sum()))
+    rel = (f_pgs - f_apgd).abs() / f_apgd.clamp(min=1e-6)
+    weight = float(env.model.body_mass.sum()) * 9.81
+    within = float((rel <= PGS_FORCE_RTOL).double().mean())
+    print(f'{label}: {nr} rows a solve; one PGS solve (30 sweeps over the '
+          f'blocks, plain PyTorch) {solve_ms:.2f} ms at {B} envs; at rest '
+          f'after {PGS_SETTLE_STEPS} control steps: total normal force PGS '
+          f'{total[0]:.1f} N, APGD {total[1]:.1f} N over {B} envs (the '
+          f'walker\'s weight {weight:.2f} N a env); {100 * within:.1f}% of '
+          f'envs within {100 * PGS_FORCE_RTOL:.0f}% of APGD, median '
+          f'{float(rel.median()):.2e}')
+    check(abs(total[0] - total[1]) <= PGS_FORCE_RTOL * total[1],
+          ('PGS vs APGD normal force', total))
+    check(float(rel.median()) <= PGS_FORCE_RTOL, ('median', rel.median()))
+    out.update(rows=nr, pgs_solve_ms=solve_ms, solves_per_control_step=10,
+               normal_force_pgs=total[0], normal_force_apgd=total[1],
+               envs_within_2pct=within,
+               linear_ensemble=linear_ensemble_check(dev, torch))
+    return counts, out
+
+
+def ball_chain_phase(dev, torch):
+    """(54) BALL_CHAIN_XML (ball joints, a velocity servo; its <sensor> and
+    <contact><pair> dropped) at 1024 envs: joints drawn by the randomizer
+    (the limited ball joint within 60 degrees, the free one uniform on
+    S^3), then BALL_STEPS physics steps of random controls, one #1 launch
+    each on the path its rows take; the ball quaternions' norms; a step
+    card vs CPU."""
+    from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
+    from mujoco_mbrl_tpu_torch.physics import engine, mjcf
+    from mujoco_mbrl_tpu_torch.physics.model import make_state
+    from mujoco_mbrl_tpu_torch.suite import randomizers
+
+    label = 'ball chain'
+    m_cpu = mjcf.parse(BALL_CHAIN_XML)
+    check((m_cpu.nq, m_cpu.nv, m_cpu.nu, m_cpu.contact_excludes)
+          == (9, 7, 1, ()), (m_cpu.nq, m_cpu.nv))
+    m = m_cpu.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(54)
+    qpos = randomizers.randomize_limited_and_rotational_joints(
+        m, m.qpos0.expand(B, m.nq).clone(), gen)
+    angle = 2 * torch.acos(qpos[:, 0].clamp(-1, 1))
+    check(float(angle.max()) <= float(m.jnt_range[0, 1]) + 1e-5,
+          ('ball limit', float(angle.max())))
+    state = make_state(m, qpos=qpos)
+    ctrls = [4 * torch.rand((B, 1), generator=gen, device=dev) - 2
+             for _ in range(BALL_STEPS)]
+    seen, in_contact = set(), torch.zeros(B, dtype=torch.bool, device=dev)
+
+    def rows(args, kw):
+        seen.add(args[0].shape[1])
+        check(args[0].shape[0] == B, args[0].shape)
+
+    torch.cuda.synchronize()
+    with watching('apgd_iterate_batched', rows):
+        t0 = time.perf_counter()
+        for c in ctrls:
+            state = engine.step(m, state, c)
+            in_contact |= (engine.forward(m, state, c, acc_stage=False)
+                           .contact_dist < 0).any(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    from mujoco_mbrl_tpu_torch import ops
+    counts = dict(ops.launch_counts)
+    exact_counts(label, counts, apgd_solve=BALL_STEPS)
+    (nr,) = seen
+    norm_dev = max(float((torch.linalg.vector_norm(
+        state.qpos[:, a:a + 4], dim=1) - 1).abs().max()) for a in (0, 5))
+    check(bool(torch.isfinite(state.qpos).all()) and norm_dev < 1e-5,
+          (label, norm_dev))
+    n_con = int(in_contact.sum())
+    check(n_con > 0, (label, 'no contact'))
+    held = physics_card_vs_cpu(dev, torch, m, m_cpu, state, ctrls[-1], label)
+    route = A.dense_route(nr)
+    ms = 1e3 * wall / BALL_STEPS
+    print(f'{label}: {BALL_STEPS} steps x {B} envs in {wall:.3f} s = '
+          f'{ms:.2f} ms a step; #1 launched {counts["apgd_solve"]} times on '
+          f'its {route} path at {nr} rows; {n_con} envs touched the floor; '
+          f'largest | |q| - 1 | of a ball quaternion {norm_dev:.2e}')
+    return counts, dict(ms_per_step=ms, rows=nr, route=route,
+                        envs_in_contact=n_con, quat_norm_dev=norm_dev,
+                        card_vs_cpu=held)
+
+
+def fl_rows(B_, nr, nv, n_box):
+    """Each #7 call with friction loss: J~ (B, nr, nv) on the path its
+    shape takes, the box rows first, the bounds per env (B, nr)."""
+    def rows(args, kw):
+        check(args[0].shape == (B_, nr, nv) and args[9].shape == (B_, nr)
+              and kw['box_rows'] == tuple(range(n_box)),
+              (args[0].shape, args[9].shape, kw['box_rows']))
+    return rows
+
+
+def frictionloss_phase(dev, torch):
+    """(55) cheetah run with frictionloss='.1' in its cheetah joint class
+    at 1024 envs: a card reset (200 settling solves, not counted), then
+    STEPS control steps of random actions, one #7 launch each on its warp
+    path with the 6 + 146 rows and per-env bounds (B, 152); the card's
+    step against the CPU's; #7 against its plain twin on solves captured
+    from the port (cold and warm), and on one humanoid solve with the same
+    default at B 512 (21 + 303 rows, the block path), with their device
+    times beside the bound; #7's time with the bounds shared (nr,) on the
+    cheetah's solves beside its per-env time."""
+    from mujoco_mbrl_tpu_torch import suite
+    from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
+    from mujoco_mbrl_tpu_torch.physics import mjcf
+    from mujoco_mbrl_tpu_torch.suite import cheetah, humanoid
+
+    label = 'cheetah run (friction loss) control step'
+    xml = frictionloss_xml(cheetah._XML, CHEETAH_JOINT_CLASS)
+    make = lambda d: with_model(suite.load('cheetah', 'run', device=d),
+                                mjcf.parse(xml).to(d))
+    env = make(dev)
+    gen = torch.Generator(device=dev).manual_seed(55)
+    state0, _ = env.reset(B, gen)
+    counts, out, warm = suite_control_steps(
+        dev, torch, env, state0, label, rows=fl_rows(B, FL_ROWS, FL_NV, 6),
+        kernel='apgd_iterate_factored')
+    exact_counts(label, counts, apgd_factored=STEPS)
+    out['card_vs_cpu'] = card_vs_cpu_step(dev, torch, 'cheetah', 'run', warm,
+                                          by_rounding=True,
+                                          envs=(env, make('cpu')))
+    cases = capture_solves(dev, torch, env, warm, 'cheetah-frictionloss',
+                           'apgd_iterate_factored')
+    h_env = with_model(
+        suite.load('humanoid', 'walk', device=dev),
+        mjcf.parse(frictionloss_xml(humanoid._XML, HUMANOID_JOINT_CLASS)
+                   ).to(dev))
+    h_state, _ = h_env.reset(FL_H_B, gen)
+    h_cases = capture_solves(dev, torch, h_env, h_state,
+                             'humanoid-frictionloss', 'apgd_iterate_factored')
+    for tag, args, kw in cases + h_cases:
+        check(args[9].dim() == 2 and len(kw['box_rows']) in (6, 21), tag)
+    check(A.factored_route(FL_ROWS, FL_NV) == 'warp'
+          and tuple(h_cases[0][1][0].shape) == (FL_H_B, FL_H_ROWS, FL_H_NV)
+          and A.factored_route(FL_H_ROWS, FL_H_NV) == 'block', 'routes')
+    worst, rounding_envs, times = hold_time_factored(torch, cases + h_cases)
+    shared = {}
+    for tag, args, kw in cases:
+        one = args[:9] + (args[9][0].contiguous(),)
+        key = tag + ('-cold' if kw['cold'] else '-warm')
+        shared[key] = device_ms(lambda: A.apgd_iterate_factored(*one, **kw),
+                                20)
+        print(f'apgd factored {key}: per-env bounds (B, {FL_ROWS}) '
+              f'{times[key]["ms"]:.4f} ms, the same solves with env 0\'s '
+              f'bounds shared ({FL_ROWS},) {shared[key]:.4f} ms (device)')
+    out.update(rows=FL_ROWS, nv=FL_NV, route='warp (#7)',
+               humanoid_rows=FL_H_ROWS, humanoid_route='block (#7)')
+    return counts, out, worst, rounding_envs, times, shared
+
+
+def elliptic_quadruped_phase(dev, torch):
+    """(56) quadruped fetch with cone='elliptic' at 1024 envs: a card reset
+    and STEPS control steps of random actions, 5 #1 launches a step (4
+    substeps and the observation's forward) at ELLIPTIC_ROWS rows: the 4
+    equality rows, the joint limits, then a (normal, t1, t2) triple a
+    contact, the ball's condim-6 pairs too; the card's step against the
+    CPU's on QUAD_CPU_ENVS envs; #1 against its plain twin on solves
+    captured at the reset states and landed."""
+    from mujoco_mbrl_tpu_torch import suite
+    from mujoco_mbrl_tpu_torch.ops import apgd_solve as A
+
+    label = 'quadruped fetch (elliptic) control step'
+    make = lambda d: with_option(suite.load('quadruped', 'fetch', device=d),
+                                 cone='elliptic')
+    env = make(dev)
+    gen = torch.Generator(device=dev).manual_seed(56)
+    state0, _ = env.reset(B, gen)
+    nr = ELLIPTIC_ROWS
+
+    def rows(args, kw):
+        n_con = (nr - 20) // 3
+        check(args[0].shape == (B, nr, nr)
+              and kw['eq_rows'] == (0, 1, 2, 3)
+              and kw['con0'] == tuple(range(20, nr, 3))
+              and len(kw['nonneg']) == 16 and not kw['box_rows'],
+              (args[0].shape, len(kw['con0']), n_con))
+        check(bool((args[5][20::3] >= 0).all()), 'cone friction')
+
+    counts, out, warm = suite_control_steps(dev, torch, env, state0, label,
+                                            rows=rows)
+    exact_counts(label, counts, apgd_solve=QUAD_SOLVES * STEPS)
+    out['card_vs_cpu'] = card_vs_cpu_step(
+        dev, torch, 'quadruped', 'fetch', warm, by_rounding=True,
+        fields=('qpos', 'qvel', 'act'), cpu_envs=QUAD_CPU_ENVS,
+        envs=(env, make('cpu')))
+    cases = (capture_solves(dev, torch, env, state0, 'elliptic-reset',
+                            'apgd_iterate_batched')
+             + capture_solves(dev, torch, env, quad_contact_state(
+                 dev, torch, env, state0, 57), 'elliptic-contact',
+                 'apgd_iterate_batched'))
+    worst, rounding_envs = hold_apgd(
+        torch, 'apgd quadruped elliptic', A.apgd_iterate_batched,
+        A.apgd_iterate_plain, lambda args: args[0], cases,
+        energy_valley=True)
+    times = time_apgd(
+        torch, 'apgd quadruped elliptic', A.apgd_iterate_batched,
+        A.apgd_iterate_plain, cases,
+        lambda a: 2.0 * a[4].sum(1).double() ** 2,
+        lambda a: 4.0 * (float((a[4].sum(1).double() ** 2).sum())
+                         + 7 * a[1].numel() + a[5].numel()),
+        trace_bound=False)
+    route = A.dense_route(nr)
+    print(f'{label}: {nr} rows ({(nr - 20) // 3} contact triples) on #1\'s '
+          f'{route} path, {QUAD_SOLVES} launches a control step')
+    out.update(rows=nr, route=f'{route} (#1)',
+               launches_per_control_step=QUAD_SOLVES)
+    return counts, out, worst, rounding_envs, times
 
 
 def main() -> int:
@@ -5464,6 +5909,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         view_counts, live_counts, expl_counts, view_out = viewer_phase(
             dev, torch, tmp)
+
+    # ---- slice 19: the last physics branches (53-56) ---------------------
+    clock('slice 19, path 53')
+    pgs_counts, pgs_out = pgs_walker_phase(dev, torch)
+    clock('path 54')
+    ball_counts, ball_out = ball_chain_phase(dev, torch)
+    clock('path 55')
+    (fl_counts, fl_out, fl_err, fl_rounding, fl_t,
+     fl_shared) = frictionloss_phase(dev, torch)
+    clock('path 56')
+    (ell_counts, ell_out, ell_err, ell_rounding,
+     ell_t) = elliptic_quadruped_phase(dev, torch)
     clock('end of the paths')
 
     sampler_entry = lambda tiles: ptxas_info(
@@ -5550,7 +6007,11 @@ def main() -> int:
              'soccer_2v2_control_step': soc_counts,
              'viewer_launch_walker': view_counts,
              'viewer_live_session': live_counts,
-             'explore_cartpole_swingup': expl_counts}
+             'explore_cartpole_swingup': expl_counts,
+             'walker_pgs_control_step': pgs_counts,
+             'ball_chain_steps': ball_counts,
+             'cheetah_frictionloss_control_step': fl_counts,
+             'quadruped_fetch_elliptic_control_step': ell_counts}
     by_path = lambda key: {p: c[key] for p, c in paths.items() if c[key]}
     src = lambda f: f'mujoco_mbrl_tpu_torch/csrc/{f}'
     tpu = lambda f, line, fn: f'mujoco_mbrl_tpu/ops/{f}:{line} ({fn})'
@@ -5675,7 +6136,7 @@ def main() -> int:
              source=src('apgd_factored.cu'),
              replaces=tpu('apgd_solve.py', 236, '_apgd_factored_kernel'),
              launches=c_counts['apgd_factored'],
-             max_abs_err=max(fact_err, h_err),
+             max_abs_err=max(fact_err, h_err, fl_err),
              library_ms=None, **pick(fact_t['moving-cold']),
              path=fact_t['moving-cold']['path'],
              call_ms=fact_t['moving-cold']['call_ms'],
@@ -5683,12 +6144,19 @@ def main() -> int:
              us_per_dependent_step=fact_t['moving-cold'][
                  'us_per_dependent_step'],
              iteration_ns=fact_iter_ns,
-             rounding_decided_envs=fact_rounding + h_rounding,
+             rounding_decided_envs=fact_rounding + h_rounding + fl_rounding,
              launches_by_path=by_path('apgd_factored'),
              cases=dict(fact_t, **h_fact_t),
              humanoid=dict(h_fact_t['humanoid-moving-warm'],
                            iteration_ns=h_iter_ns,
-                           rounding_decided_envs=h_rounding)),
+                           rounding_decided_envs=h_rounding),
+             per_env_bounds=dict(
+                 fl_t['cheetah-frictionloss-warm'],
+                 launches=fl_counts['apgd_factored'],
+                 rows=FL_ROWS, nv=FL_NV, max_abs_err=fl_err,
+                 rounding_decided_envs=fl_rounding,
+                 shared_bounds_ms=fl_shared, cases=fl_t,
+                 humanoid_block=fl_t['humanoid-frictionloss-cold'])),
         dict(name='apgd_iterate_batched[global]', route='cuda',
              source=src('apgd_solve.cu'),
              replaces=tpu('apgd_solve.py', 60, '_apgd_kernel'),
@@ -5702,8 +6170,9 @@ def main() -> int:
                  'quadruped_walk_control_step',
                  'quadruped_escape_control_step',
                  'quadruped_fetch_control_step',
-                 'soccer_2v2_control_step')},
-             max_abs_err=max([mp_err, st_err]
+                 'soccer_2v2_control_step',
+                 'quadruped_fetch_elliptic_control_step')},
+             max_abs_err=max([mp_err, st_err, ell_err]
                              + [q[2] for q in quad.values()]),
              library_ms=None,
              **pick(mp_t['bring_ball-contact-warm']),
@@ -5716,6 +6185,7 @@ def main() -> int:
                  'bound_every_row_ms'],
              iteration_ns=mp_iter_ns,
              rounding_decided_envs=(mp_rounding + st_rounding
+                                    + ell_rounding
                                     + sum(q[3] for q in quad.values())),
              cases=dict(mp_t, **st_t,
                         **{k: v for q in quad.values()
@@ -5730,6 +6200,10 @@ def main() -> int:
                  reset_warm=q[4][f'{t}-reset-warm'],
                  contact_cold=q[4][f'{t}-contact-cold'])
                  for t, q in quad.items()},
+             elliptic_fetch=dict(ell_t['elliptic-contact-warm'],
+                                 rows=ELLIPTIC_ROWS, cases=ell_t,
+                                 rounding_decided_envs=ell_rounding,
+                                 launches=ell_counts['apgd_solve']),
              rows=452, ptxas=ptxas['apgd_global_kernel']),
         dict(name='mlp_sample_rollout_costs[5,7,4]', route='cuda',
              source=src('cem_sample_rollout.cu'),
@@ -5830,7 +6304,8 @@ def main() -> int:
         walker_record_rollout=rec_out, distributed=dist_out,
         corridor_composer=cor_out, props_drop=prop_out,
         cmu_walker_go_to_target=cmuw_out, soccer_2v2=soc_out,
-        viewer=view_out,
+        viewer=view_out, walker_pgs=pgs_out, ball_chain=ball_out,
+        cheetah_frictionloss=fl_out, quadruped_fetch_elliptic=ell_out,
         bench_cli={a: dict(record=r['record'], seconds=r['seconds'])
                    for a, r in bench_out.items()},
         bf16_ptxas={k: v for k, v in ptxas.items() if 'bf16' in k})}))

@@ -46,11 +46,12 @@ RNN_LAYERS = ('gru_rz', 'gru_n', 'head1', 'head2')
 
 
 def ensemble_params(params: Mapping[str, Mapping[str, Any]], device='cpu'):
-    """EnsembleDynamics params: the MLP tree with a leading member axis
-    (w (n, in, out), b (n, out))."""
-    if np.ndim(params['l1']['w']) != 3:
+    """EnsembleDynamics params over any dense base: the base's tree (MLP,
+    linear, reward or GRU layers) with a leading member axis (w (n, in,
+    out), b (n, out)), as JAX's vmap over the members stacks it."""
+    if any(np.ndim(p['w']) != 3 for p in params.values()):
         raise ValueError('ensemble params carry a leading member axis')
-    return mlp_params(params, device)
+    return dense_params(params, tuple(params), device)
 
 
 def rollouts(rolls: Any, device='cpu') -> Rollouts:

@@ -14,7 +14,10 @@
 // rows; a per-env exit once converged (|df|^2 <= tol2 * (1e-12 + |f|^2))
 // or at the iteration cap; the APGD iterations each env ran go to its_out
 // where it is given. There is no equality polish (no model in this regime
-// has equality rows; the wrapper's caller never sends them).
+// has equality rows; the wrapper's caller never sends them). The box rows'
+// bounds are (nr,), shared by the envs (bnd_ld = 0), or (B, nr), each
+// env's own (bnd_ld = nr): friction-loss rows, whose bounds each env's row
+// scale divides, as under JAX's vmap.
 //
 // Bound: device memory sees J~, M^-1 and seven row vectors once (cheetah
 // at B = 1024: 6.6 MB, 2 us at 3.35 TB/s); each matvec is 4 nr nv + 2 nv^2
@@ -119,7 +122,7 @@ __global__ void __launch_bounds__(32 * kWarpEnvs)
         const float* __restrict__ v0_g, const float* __restrict__ act_g,
         const float* __restrict__ mu_g, const float* __restrict__ bnd_g,
         const int* __restrict__ rowtype_g, int B, int nr, int nv_arg,
-        int iterations, int cold, int has_cone, float tol2,
+        int bnd_ld, int iterations, int cold, int has_cone, float tol2,
         float* __restrict__ f_out, float* __restrict__ v_out,
         int* __restrict__ its_out) {
   constexpr int R = kWarpRows;
@@ -156,7 +159,8 @@ __global__ void __launch_bounds__(32 * kWarpEnvs)
   bool valid[R];
   float rhs[R], rs[R];
   LaneRows<R> rows;
-  load_lane_rows<R>(rows, lane, nr, act_g + off, mu_g, bnd_g, rowtype_g);
+  load_lane_rows<R>(rows, lane, nr, act_g + off, mu_g,
+                    bnd_g + (size_t)b * bnd_ld, rowtype_g);
 #pragma unroll
   for (int s = 0; s < R; ++s) {
     const int i = lane + 32 * s;
@@ -319,8 +323,9 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
     const float* __restrict__ rhs_g, const float* __restrict__ f0_g,
     const float* __restrict__ v0_g, const float* __restrict__ act_g,
     const float* __restrict__ mu_g, const float* __restrict__ bnd_g,
-    const int* __restrict__ rowtype_g, int nr, int nv, int iterations,
-    int cold, int has_cone, float tol2, float* __restrict__ f_out,
+    const int* __restrict__ rowtype_g, int nr, int nv, int bnd_ld,
+    int iterations, int cold, int has_cone, float tol2,
+    float* __restrict__ f_out,
     float* __restrict__ v_out, int* __restrict__ its_out) {
   extern __shared__ float sm[];
   const Layout lay = layout(nr, nv);
@@ -355,7 +360,8 @@ __global__ void __launch_bounds__(MAX_THREADS, MIN_BLOCKS)
   const float rhs_i = row ? rhs_g[off + i] : 0.f;
   const float rs_i = row ? Rs_g[off + i] : 0.f;
   const Row rw{i, nr, row ? rowtype_g[i] : 0, row, row ? mu_g[i] : 0.f,
-               row ? bnd_g[i] : 0.f, row ? act_g[off + i] : 0.f};
+               row ? bnd_g[(size_t)b * bnd_ld + i] : 0.f,
+               row ? act_g[off + i] : 0.f};
   const float* jr = Js + (row ? i : 0) * ldj;
   int parity = 0;
   __syncthreads();
@@ -693,13 +699,14 @@ int launch_warp(const float* J, const float* Minv, const float* Rs,
                 const float* diag, const float* rhs, const float* f0,
                 const float* v0, const float* active, const float* mu,
                 const float* bounds, const int* rowtype, int B, int nr,
-                int nv, int iterations, int cold, int has_cone, float tol2,
-                float* f_out, float* v_out, int* its_out,
+                int nv, int bnd_ld, int iterations, int cold, int has_cone,
+                float tol2, float* f_out, float* v_out, int* its_out,
                 cudaStream_t stream) {
   apgd_factored_warp_kernel<NV, EXACT>
       <<<(B + kWarpEnvs - 1) / kWarpEnvs, 32 * kWarpEnvs, 0, stream>>>(
           J, Minv, Rs, diag, rhs, f0, v0, active, mu, bounds, rowtype, B,
-          nr, nv, iterations, cold, has_cone, tol2, f_out, v_out, its_out);
+          nr, nv, bnd_ld, iterations, cold, has_cone, tol2, f_out, v_out,
+          its_out);
   return (int)cudaGetLastError();
 }
 
@@ -708,9 +715,9 @@ int launch_block(const float* J, const float* Minv, const float* Rs,
                  const float* diag, const float* rhs, const float* f0,
                  const float* v0, const float* active, const float* mu,
                  const float* bounds, const int* rowtype, int B, int nr,
-                 int nv, int threads, int iterations, int cold, int has_cone,
-                 float tol2, float* f_out, float* v_out, int* its_out,
-                 cudaStream_t stream) {
+                 int nv, int bnd_ld, int threads, int iterations, int cold,
+                 int has_cone, float tol2, float* f_out, float* v_out,
+                 int* its_out, cudaStream_t stream) {
   const size_t smem = smem_bytes(nr, nv);
   auto kernel = apgd_factored_block_kernel<MAX_THREADS, MIN_BLOCKS>;
   if (smem > 48 * 1024) {
@@ -721,7 +728,7 @@ int launch_block(const float* J, const float* Minv, const float* Rs,
   if (B > 0)
     kernel<<<B, threads, smem, stream>>>(
         J, Minv, Rs, diag, rhs, f0, v0, active, mu, bounds, rowtype, nr, nv,
-        iterations, cold, has_cone, tol2, f_out, v_out, its_out);
+        bnd_ld, iterations, cold, has_cone, tol2, f_out, v_out, its_out);
   return (int)cudaGetLastError();
 }
 
@@ -733,15 +740,18 @@ extern "C" size_t apgd_factored_smem_bytes(int nr, int nv) {
 }
 
 // route: 0 the warp path, 1 the block path (ops/apgd_solve.py
-// factored_route picks it; a path that does not take the shape is refused)
+// factored_route picks it; a path that does not take the shape is refused).
+// bounds: (nr,) shared by the envs with bnd_ld = 0, or (B, nr) per env
+// with bnd_ld = nr.
 extern "C" int apgd_iterate_factored(
     const float* J, const float* Minv, const float* Rs, const float* diag,
     const float* rhs, const float* f0, const float* v0, const float* active,
     const float* mu, const float* bounds, const int* rowtype, int B, int nr,
-    int nv, int route, int iterations, int cold, int has_cone, float tol2,
-    float* f_out, float* v_out, int* its_out, void* stream) {
+    int nv, int route, int bnd_ld, int iterations, int cold, int has_cone,
+    float tol2, float* f_out, float* v_out, int* its_out, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  if (nr < 1 || nv < 1) return (int)cudaErrorInvalidValue;
+  if (nr < 1 || nv < 1 || (bnd_ld != 0 && bnd_ld != nr))
+    return (int)cudaErrorInvalidValue;
   if (route == 0) {
     if (nr > 32 * kWarpRows || nv > kWarpMaxNV)
       return (int)cudaErrorInvalidValue;
@@ -749,10 +759,12 @@ extern "C" int apgd_iterate_factored(
     if (nv == kCheetahNV)
       return launch_warp<kCheetahNV, true>(
           J, Minv, Rs, diag, rhs, f0, v0, active, mu, bounds, rowtype, B, nr,
-          nv, iterations, cold, has_cone, tol2, f_out, v_out, its_out, st);
+          nv, bnd_ld, iterations, cold, has_cone, tol2, f_out, v_out,
+          its_out, st);
     return launch_warp<kWarpMaxNV, false>(
         J, Minv, Rs, diag, rhs, f0, v0, active, mu, bounds, rowtype, B, nr,
-        nv, iterations, cold, has_cone, tol2, f_out, v_out, its_out, st);
+        nv, bnd_ld, iterations, cold, has_cone, tol2, f_out, v_out, its_out,
+        st);
   }
   if (route != 1) return (int)cudaErrorInvalidValue;
   const int n = nr > nv ? nr : nv;
@@ -761,12 +773,12 @@ extern "C" int apgd_iterate_factored(
   if (threads <= kSmallBlock)
     return launch_block<kSmallBlock, 4>(
         J, Minv, Rs, diag, rhs, f0, v0, active, mu, bounds, rowtype, B, nr,
-        nv, threads, iterations, cold, has_cone, tol2, f_out, v_out, its_out,
-        st);
+        nv, bnd_ld, threads, iterations, cold, has_cone, tol2, f_out, v_out,
+        its_out, st);
   return launch_block<1024, 1>(
       J, Minv, Rs, diag, rhs, f0, v0, active, mu, bounds, rowtype, B, nr,
-      nv, threads, iterations, cold, has_cone, tol2, f_out, v_out, its_out,
-      st);
+      nv, bnd_ld, threads, iterations, cold, has_cone, tol2, f_out, v_out,
+      its_out, st);
 }
 
 

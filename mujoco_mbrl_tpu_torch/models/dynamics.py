@@ -3,7 +3,7 @@
 Port of mujoco_mbrl_tpu/models/dynamics.py: ``MLPDynamics`` (with its
 optional output noise), ``LinearDynamics``, ``RewardDynamics`` (next
 state and reward heads), ``RNNDynamics`` (a GRU cell with a state head)
-and ``EnsembleDynamics`` over an MLP base.
+and ``EnsembleDynamics`` over any base.
 
 Parameters are the JAX package's trees as plain dicts of tensors, each
 dense layer ``{'w', 'b'}`` with ``w`` stored (in, out), so converted
@@ -295,41 +295,65 @@ def _stacked_net(params, x):
     return bmm(params['l3'], x)
 
 
-class EnsembleDynamics:
-    """n-member ensemble of MLPDynamics (dynamics.py:316-391).
+def _member(params, i: int):
+    """Member i's tree of a tree with a leading member axis."""
+    if isinstance(params, dict):
+        return {k: _member(v, i) for k, v in params.items()}
+    return params[i]
 
-    Parameters are the base model's tree with a leading member axis.
-    ``forward`` is the members' mean; ``forward_ts`` does TS-infinity
-    propagation (row k -> member k % n); ``loss`` sums the members' losses,
-    each on its own bootstrap resample of the batch when a generator is
-    given.
+
+def _stack(trees):
+    """Trees of equal structure -> one tree with a leading member axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+class EnsembleDynamics:
+    """n-member ensemble of a base dynamics family (dynamics.py:316-391).
+
+    Parameters are the base model's tree with a leading member axis, as
+    JAX's vmap over the members stacks them. ``forward`` is the members'
+    mean; ``forward_ts`` does TS-infinity propagation (row k -> member k %
+    n); ``loss`` sums the members' losses, each on its own bootstrap
+    resample of the batch when a generator is given. A plain
+    ``MLPDynamics`` base runs its members as one batched product a layer;
+    any other base calls its own ``init``, ``forward`` and ``loss`` a
+    member at a time, so a base JAX's vmap fails on fails here too (a
+    ``RewardDynamics`` has no ``noise``, which the constructor reads).
     """
 
     def __init__(self, base: MLPDynamics, n_ensemble: int = 5):
-        if type(base) is not MLPDynamics:
-            raise NotImplementedError(
-                'only an MLPDynamics base is ported '
-                '(mujoco_mbrl_tpu.models.dynamics.EnsembleDynamics)')
         self.base = base
         self.n = n_ensemble
         self.state_dim = base.state_dim
         self.action_dim = base.action_dim
         self.noise = base.noise
+        self._fused = type(base) is MLPDynamics
 
     def init(self, generator: torch.Generator, device=None):
         device = resolve_device(device)
-        members = [self.base.init(generator, device) for _ in range(self.n)]
-        return {layer: {k: torch.stack([m[layer][k] for m in members])
-                        for k in ('w', 'b')} for layer in members[0]}
+        return _stack([self.base.init(generator, device)
+                       for _ in range(self.n)])
 
     def _inputs(self, state, action, normalizers):
         n = normalizers or Normalizers()
         return n, torch.cat([n.norm_state(state), n.norm_action(action)],
                             dim=-1)
 
+    def _members(self, params, states, actions, normalizers):
+        """Each member i's base forward on (states[i], actions[i]),
+        stacked: (n, ...)."""
+        return torch.stack([
+            self.base.forward(_member(params, i), states[i], actions[i],
+                              normalizers) for i in range(self.n)])
+
     def forward_all(self, params, state, action,
                     normalizers: Optional[Normalizers] = None):
         """Every member on every row: (..., dim) -> (n, ..., sd)."""
+        if not self._fused:
+            return self._members(params, [state] * self.n,
+                                 [action] * self.n, normalizers)
         n, x = self._inputs(state, action, normalizers)
         flat = x.reshape(-1, x.shape[-1]).expand(self.n, -1, -1)
         out = _stacked_net(params, flat)
@@ -359,26 +383,40 @@ class EnsembleDynamics:
                 f'the ({action.shape[0]},) action (cannot reshape; '
                 'mujoco_mbrl_tpu.models.dynamics.EnsembleDynamics.'
                 'forward_ts)')
+        group = lambda t: t.reshape(N // self.n, self.n, -1).transpose(0, 1)
+        if not self._fused:
+            out = self._members(params, group(state), group(action),
+                                normalizers)            # (n, N / n, sd)
+            return out.transpose(0, 1).reshape(N, -1)
         n, x = self._inputs(state, action, normalizers)
-        xg = x.reshape(N // self.n, self.n, -1).transpose(0, 1)
-        out = _stacked_net(params, xg)                  # (n, N / n, sd)
+        out = _stacked_net(params, group(x))            # (n, N / n, sd)
         return n.unnorm_state(out.transpose(0, 1).reshape(N, -1))
 
     def loss(self, params, batch, normalizers: Optional[Normalizers] = None,
              generator: Optional[torch.Generator] = None):
-        """Sum of the members' MLPDynamics losses; with a generator each
-        member sees its own bootstrap resample (rows drawn with
-        replacement) of the batch."""
+        """Sum of the members' base losses; with a generator each member
+        sees its own bootstrap resample (rows drawn with replacement) of
+        every field of the batch."""
         nm = normalizers or Normalizers()
         B = batch['states'].shape[0]
-        fields = ('states', 'actions', 'next_states')
-        if generator is None:
-            rows = {k: batch[k].expand((self.n,) + batch[k].shape)
-                    for k in fields}
-        else:
+        idx = None
+        if generator is not None:
             idx = torch.randint(0, B, (self.n, B), generator=generator,
                                 device=generator.device).to(
                                     batch['states'].device)
+        if not self._fused:
+            total = 0.0
+            for i in range(self.n):
+                rows = (batch if idx is None
+                        else {k: v[idx[i]] for k, v in batch.items()})
+                total = total + self.base.loss(_member(params, i), rows,
+                                               normalizers)
+            return total
+        fields = ('states', 'actions', 'next_states')
+        if idx is None:
+            rows = {k: batch[k].expand((self.n,) + batch[k].shape)
+                    for k in fields}
+        else:
             rows = {k: batch[k][idx] for k in fields}
         x = torch.cat([nm.norm_state(rows['states']),
                        nm.norm_action(rows['actions'])], dim=-1)

@@ -15,7 +15,8 @@ It raises on inputs the kernel does not take; for CPU tensors it runs
 ``_apgd_dispatch.impl``.
 
 ``apgd_iterate_factored`` replaces ``_apgd_factored_kernel``, the regime
-past 96 rows where Ad = J~ M^-1 J~' + diag(Rs) is never materialized. For
+past 96 rows where Ad = J~ M^-1 J~' + diag(Rs) is never materialized,
+with box bounds shared (nr,) or per env (B, nr). For
 CUDA tensors it launches ``csrc/apgd_factored.cu`` on the path that
 ``factored_route`` picks: up to 160 rows and nv 16 (the cheetah's 146 x
 9) one env per warp, the lane's rows of J~ and of P = J~ M^-1 in
@@ -97,7 +98,7 @@ def dense_route(nr: int) -> str:
 _FACTORED_SIGNATURES = {
     'apgd_factored_smem_bytes': (ctypes.c_size_t, [ctypes.c_int] * 2),
     'apgd_iterate_factored': (ctypes.c_int, [ctypes.c_void_p] * 11
-                              + [ctypes.c_int] * 7 + [ctypes.c_float]
+                              + [ctypes.c_int] * 8 + [ctypes.c_float]
                               + [ctypes.c_void_p] * 4),
     'apgd_dense_factors_fixed_bytes': (ctypes.c_size_t, [ctypes.c_int]),
     'apgd_iterate_dense_factors': (ctypes.c_int, [ctypes.c_void_p] * 7
@@ -350,7 +351,9 @@ def apgd_iterate_factored(J_s, Minv, Rs, diag_s, rhs, f0, v0, active,
     """Batched factored APGD iterate (contract of the JAX
     ``apgd_iterate_factored``): J_s (B, nr, nv) scaled and active-masked
     Jacobian, Minv (B, nv, nv), Rs / diag_s / rhs / f0 / v0 / active
-    (B, nr), mu_full / bounds_full (nr,). Returns (f, v), each (B, nr),
+    (B, nr), mu_full (nr,), bounds_full (nr,) or, per env as JAX's
+    vmapped iterate takes them once each env's row scale divides them
+    (friction-loss rows), (B, nr). Returns (f, v), each (B, nr),
     and with ``return_iterations`` also the APGD iterations each env ran
     (B,), as the plain version does.
 
@@ -373,7 +376,7 @@ def apgd_iterate_factored(J_s, Minv, Rs, diag_s, rhs, f0, v0, active,
             raise ValueError('apgd_iterate_factored kernel takes contiguous '
                              'float32 CUDA tensors')
     if Minv.shape != (B, nv, nv) or mu_full.shape != (nr,) or \
-            bounds_full.shape != (nr,) or any(
+            bounds_full.shape not in ((nr,), (B, nr)) or any(
                 t.shape != (B, nr) for t in tensors[2:8]):
         raise ValueError('apgd_iterate_factored: inconsistent shapes')
     route = factored_route(nr, nv)
@@ -390,7 +393,8 @@ def apgd_iterate_factored(J_s, Minv, Rs, diag_s, rhs, f0, v0, active,
            if return_iterations else None)
     rc = lib.apgd_iterate_factored(
         *(t.data_ptr() for t in tensors), types.data_ptr(), B, nr, nv,
-        ('warp', 'block').index(route), int(iterations), int(bool(cold)),
+        ('warp', 'block').index(route), nr if bounds_full.dim() == 2 else 0,
+        int(iterations), int(bool(cold)),
         int(bool(len(con0))), float(tol2), f.data_ptr(), v.data_ptr(),
         its.data_ptr() if its is not None else 0,
         torch.cuda.current_stream(J_s.device).cuda_stream)

@@ -2,7 +2,10 @@
 
 Port of mujoco_mbrl_tpu/physics/engine.py: ``forward`` (with the
 ``acc_stage=False`` position/velocity-only pass; the fluid force in
-``qfrc_passive`` where the model has a medium), ``_euler`` with implicit
+``qfrc_passive`` where the model has a medium; the constraint solve by
+APGD or, where ``m.opt.solver`` is 'pgs', by projected Gauss-Seidel,
+whose forces warm start the next substep but which carries no power
+vector), ``_euler`` with implicit
 joint damping, ``_rk4`` (four forward passes, each with a cold constraint
 solve), ``integrate_pos``, ``step``, ``step_warm`` and ``substep`` (with
 Euler, the constraint row forces and the APGD power vector carried from
@@ -25,13 +28,6 @@ from . import smooth
 from . import solver as solver_mod
 
 
-def _check_solver(m: M.Model):
-    if m.opt.solver != 'apgd':
-        raise NotImplementedError(
-            'only the APGD solver is ported '
-            '(mujoco_mbrl_tpu.physics.solver.solve)')
-
-
 def forward(m: M.Model, state: M.State, ctrl: torch.Tensor,
             acc_stage: bool = True) -> M.Data:
     """Kinematics -> forces -> constrained qacc (mj_forward), batched.
@@ -46,7 +42,6 @@ def forward(m: M.Model, state: M.State, ctrl: torch.Tensor,
 def _forward(m: M.Model, state: M.State, ctrl: torch.Tensor,
              acc_stage: bool = True, need_qacc: bool = True,
              warm_f=None, warm_v=None) -> M.Data:
-    _check_solver(m)
     meta = smooth.tree_meta(m)
     qpos, qvel = state.qpos, state.qvel
     B, dt, dev = qpos.shape[0], qpos.dtype, qpos.device
@@ -105,8 +100,14 @@ def _forward(m: M.Model, state: M.State, ctrl: torch.Tensor,
     qacc_smooth = torch.cholesky_solve(qfrc_smooth[..., None], qM_chol)[..., 0]
     cs = solver_mod.assemble(m, meta, qpos, qvel, cdof, contact,
                              site_xpos=site_xpos)
-    qfrc_constraint, f_rows, power_v = solver_mod.solve_apgd(
-        m, cs, qM_chol, qacc_smooth, f0=warm_f, power_v0=warm_v)
+    if m.opt.solver == 'apgd':
+        qfrc_constraint, f_rows, power_v = solver_mod.solve_apgd(
+            m, cs, qM_chol, qacc_smooth, f0=warm_f, power_v0=warm_v)
+    else:
+        # any other name is the PGS sweep, as JAX dispatches it
+        qfrc_constraint, f_rows = solver_mod.solve(m, cs, qM_chol,
+                                                   qacc_smooth, f0=warm_f)
+        power_v = None
     if need_qacc:
         qacc = qacc_smooth + torch.cholesky_solve(
             qfrc_constraint[..., None], qM_chol)[..., 0]
@@ -123,20 +124,24 @@ def _forward(m: M.Model, state: M.State, ctrl: torch.Tensor,
 def integrate_pos(m: M.Model, qpos: torch.Tensor, qvel: torch.Tensor,
                   dt) -> torch.Tensor:
     """qpos += dt * qvel on hinge and slide joints; a free joint's
-    position adds dt times its linear velocity and its quaternion turns by
-    its local angular velocity (``math.quat_integrate``)."""
-    smooth.check_joints(m, 'integrate_pos')
-    free = [j for j in range(m.njnt) if m.jnt_type[j] == M.FREE]
+    position adds dt times its linear velocity, and its quaternion, as a
+    ball joint's, turns by its local angular velocity
+    (``math.quat_integrate``)."""
+    quat = [j for j in range(m.njnt) if m.jnt_type[j] in (M.FREE, M.BALL)]
     qadr, dadr = list(m.jnt_qposadr), list(m.jnt_dofadr)
-    if not free and qadr == list(range(m.nq)) and dadr == list(range(m.nv)):
+    if not quat and qadr == list(range(m.nq)) and dadr == list(range(m.nv)):
         return qpos + dt * qvel
     out = qpos.clone()
-    sq = [m.jnt_qposadr[j] for j in range(m.njnt) if j not in free]
-    sd = [m.jnt_dofadr[j] for j in range(m.njnt) if j not in free]
+    sq = [m.jnt_qposadr[j] for j in range(m.njnt) if j not in quat]
+    sd = [m.jnt_dofadr[j] for j in range(m.njnt) if j not in quat]
     if sq:
         out[:, sq] = out[:, sq] + dt * qvel[:, sd]
-    for j in free:
+    for j in quat:
         qa, da = m.jnt_qposadr[j], m.jnt_dofadr[j]
+        if m.jnt_type[j] == M.BALL:
+            out[:, qa:qa + 4] = pm.quat_integrate(
+                qpos[:, qa:qa + 4], qvel[:, da:da + 3], dt)
+            continue
         out[:, qa:qa + 3] = qpos[:, qa:qa + 3] + dt * qvel[:, da:da + 3]
         out[:, qa + 3:qa + 7] = pm.quat_integrate(
             qpos[:, qa + 3:qa + 7], qvel[:, da + 3:da + 6], dt)

@@ -1,37 +1,49 @@
 """MJCF-subset compiler: XML string -> :class:`Model` (host-side numpy).
 
-Port of the part of mujoco_mbrl_tpu/physics/mjcf.py that the planar walker,
-cheetah and hopper, the contact-free reacher, point_mass, pendulum,
-cartpole, acrobot and swimmer, the humanoid and humanoid_cmu, finger,
-ball_in_cup, lqr, manipulator, stacker, fish and quadruped reach:
-``<compiler angle settotalmass>``, ``<option timestep gravity integrator
-density viscosity wind cone impratio iterations>`` (Euler or RK4;
-pyramidal or elliptic cones) with its ``<flag
-contact gravity limit actuation>``, nested ``<default>`` classes with
-``childclass``, bodies with ``pos`` and orientation and an optional
-``<inertial>``, hinge and slide joints with limits and friction loss,
-``<freejoint>`` (which takes no default but its name), plane, sphere,
+Port of mujoco_mbrl_tpu/physics/mjcf.py: ``<compiler angle
+settotalmass>``, ``<option timestep gravity integrator density viscosity
+wind cone impratio iterations>`` (RK4, else Euler; pyramidal or elliptic
+cones) with its ``<flag contact gravity limit actuation>``, nested
+``<default>`` classes with ``childclass``, bodies with ``pos`` and
+orientation and an optional ``<inertial>``, free, ball, hinge and slide
+joints with limits and friction loss (``<freejoint>`` takes no default
+but its name; a ball joint's qpos0 is (1, 0, 0, 0)), plane, sphere,
 capsule, cylinder, ellipsoid and box geoms (placed by ``pos`` +
-orientation or, capsules and cylinders, by ``fromto``; mass given or from
-density), sites (MuJoCo's default size 0.005), fixed tendons, two-site
-spatial tendons with their length limits (the limit row's invweight at
-qpos0), ``<equality><tendon>`` couplings (a fixed tendon held at length 0
-by a soft row with its own solref and solimp), motors and ``<position>``
-servos (kp into gainprm[0], -kp into biasprm[1]: an affine bias) and
-``<general>`` actuators (gainprm, biasprm: affine once given; dyntype
-none, integrator or filter with dynprm, one activation slot each) on a
-joint or a fixed tendon; one ``<asset><hfield>`` (nrow, ncol, size; its
-data zeros until a task writes it) and the hfield geom placed on it; and
-the fluid model's per-body equivalent inertia box and principal frame;
-``<contact><exclude body1 body2>`` pairs (humanoid_cmu's five).
-``<camera>`` in the worldbody and in bodies (its pose, ``fovy`` and
-``mode``, for ``utils.raycast``), and every orientation MJCF gives
-(``quat``, ``xyaxes``, ``euler``, ``zaxis``, ``axisangle``) on bodies,
-geoms, sites, inertials and cameras. Lights are visual only and skipped.
-Every other MJCF feature (ball joints, sensors, ``<contact><pair>``,
-other equality constraints, via-point tendons, fixed tendon limits,
-velocity actuators among them) raises ``NotImplementedError`` naming the
-JAX function that handles it.
+orientation or by ``fromto``; mass given or from density), sites
+(MuJoCo's default size 0.005), fixed tendons, two-site spatial tendons
+with their length limits (the limit row's invweight at qpos0),
+``<equality><tendon>`` couplings (a fixed tendon held at length 0 by a
+soft row with its own solref and solimp), motors, ``<position>`` servos
+(kp into gainprm[0], -kp into biasprm[1]), ``<velocity>`` servos (kv
+into gainprm[0], -kv into biasprm[2]) and ``<general>`` actuators
+(gainprm, biasprm: affine once given; dyntype none, integrator or filter
+with dynprm, one activation slot each) on a joint or a fixed tendon; one
+``<asset><hfield>`` (its data zeros until a task writes it) and the hfield
+geom placed on it; the fluid model's per-body equivalent inertia box and
+principal frame; ``<contact><exclude body1 body2>`` pairs; ``<camera>``
+in the worldbody and in bodies; every orientation MJCF gives.
+
+What JAX's compiler drops, this one drops too, silently and with JAX's
+result (mujoco_mbrl_tpu/physics/mjcf.py, by line):
+  * ``<sensor>`` (never read, :22);
+  * ``<contact>`` children other than ``<exclude>`` (``<pair>``, :710-716);
+  * ``<equality>`` children other than ``<tendon>`` (``<connect>``,
+    ``<weld>``, ``<joint>``; :674), and an equality's ``tendon2`` (only
+    ``tendon1`` is read, :676-677);
+  * ``<asset>`` children other than ``<hfield>`` (meshes, textures,
+    materials; :697-700);
+  * a fixed tendon's ``limited`` and ``range`` (:637-652), and
+    ``<tendon>`` children other than ``<fixed>`` and ``<spatial>``;
+  * spatial tendons with other than two sites (via points; :659-660);
+  * an ``integrator`` other than RK4, which integrates as Euler (:323-324);
+  * actuators other than motor, position, velocity and general (:724-725);
+  * body children other than joint, freejoint, geom, site, inertial,
+    camera and body (lights and the like, :532), and worldbody children
+    other than body, geom, site and camera (:551-558).
+Where JAX raises, this compiler raises the same exception type: an
+unknown geom or joint type or a name no element has (``KeyError``), an
+actuator with neither joint nor tendon (``ValueError``), a root tag other
+than ``<mujoco>`` (``AssertionError``).
 """
 
 from __future__ import annotations
@@ -44,13 +56,6 @@ import numpy as np
 import torch
 
 from . import model as M
-
-_JAX_PARSE = 'mujoco_mbrl_tpu.physics.mjcf.parse'
-
-
-def _unsupported(what: str):
-    return NotImplementedError(f'{what} is not ported (see {_JAX_PARSE})')
-
 
 def _nquat_mul(u, v):
     w1, x1, y1, z1 = u
@@ -134,17 +139,13 @@ def _skew(p):
     return np.array([[0, -p[2], p[1]], [p[2], 0, -p[0]], [-p[1], p[0], 0]])
 
 
-_JOINT_TYPES = {'free': M.FREE, 'slide': M.SLIDE, 'hinge': M.HINGE}
+_JOINT_TYPES = {'free': M.FREE, 'ball': M.BALL, 'slide': M.SLIDE,
+                'hinge': M.HINGE}
 _GEOM_TYPES = {'plane': M.PLANE, 'hfield': M.HFIELD, 'sphere': M.SPHERE,
                'capsule': M.CAPSULE, 'ellipsoid': M.ELLIPSOID,
                'cylinder': M.CYLINDER, 'box': M.BOX}
 _DYN_TYPES = {'none': M.DYN_NONE, 'integrator': M.DYN_INTEGRATOR,
               'filter': M.DYN_FILTER}
-# a site's shape only bounds a touch zone; an unknown type reads as a
-# sphere, as in the JAX compiler
-_SITE_TYPES = {'sphere': M.SPHERE, 'capsule': M.CAPSULE,
-               'ellipsoid': M.ELLIPSOID, 'cylinder': M.CYLINDER,
-               'box': M.BOX}
 _SITE_SIZE = 0.005                    # MuJoCo's default site size
 _DEFAULT_SOLREF = np.array([0.02, 1.0])
 _DEFAULT_SOLIMP = np.array([0.9, 0.95, 0.001, 0.5, 2.0])
@@ -280,23 +281,18 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
     """Compile an MJCF XML string into a CPU :class:`Model`."""
     root = ET.fromstring(xml_string)
     if root.tag != 'mujoco':
-        raise ValueError('not an MJCF document (root tag is not <mujoco>)')
-    if root.find('sensor') is not None:
-        raise _unsupported('<sensor>')
+        raise AssertionError('not an MJCF document (root tag is not '
+                             '<mujoco>)')
     contact_el = root.find('contact')
-    for cel in (contact_el if contact_el is not None else ()):
-        if cel.tag != 'exclude':
-            raise _unsupported(f'<contact><{cel.tag}>')
-    # the heightfield asset (at most one; quadruped escape)
+    # the heightfield asset (the last one; quadruped escape)
     hfield_nrow = hfield_ncol = 0
     hfield_size = None
     for ael in (root.find('asset') if root.find('asset') is not None
                 else ()):
-        if ael.tag != 'hfield':
-            raise _unsupported(f'<asset><{ael.tag}>')
-        hfield_nrow = int(ael.get('nrow', 0))
-        hfield_ncol = int(ael.get('ncol', 0))
-        hfield_size = _floats(ael.get('size'))
+        if ael.tag == 'hfield':
+            hfield_nrow = int(ael.get('nrow', 0))
+            hfield_ncol = int(ael.get('ncol', 0))
+            hfield_size = _floats(ael.attrib['size'])
 
     compiler = root.find('compiler')
     deg, settotalmass = True, None
@@ -319,13 +315,9 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
         solver_iterations = int(opt_el.get('iterations', 30))
         if 'gravity' in opt_el.attrib:
             gravity = _floats(opt_el.get('gravity'))
-        integ = opt_el.get('integrator', 'Euler')
-        if integ not in ('Euler', 'RK4'):
-            raise _unsupported(f'integrator {integ!r}')
-        integrator = M.RK4 if integ == 'RK4' else M.EULER
+        if opt_el.get('integrator', 'Euler') == 'RK4':
+            integrator = M.RK4
         cone = opt_el.get('cone', cone)
-        if cone not in ('pyramidal', 'elliptic'):
-            raise _unsupported(f'friction cone {cone!r}')
         impratio = float(opt_el.get('impratio', impratio))
         viscosity = float(opt_el.get('viscosity', 0.0))
         density = float(opt_el.get('density', 0.0))
@@ -354,10 +346,7 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
     cameras, camera_names = [], {}
 
     def add_geom(attrs, body_id):
-        gname = attrs.get('type', 'sphere')
-        if gname not in _GEOM_TYPES:
-            raise _unsupported(f'geom type {gname!r}')
-        gtype = _GEOM_TYPES[gname]
+        gtype = _GEOM_TYPES[attrs.get('type', 'sphere')]
         if 'fromto' in attrs and gtype == M.SPHERE:
             gtype = M.CAPSULE          # fromto implies an elongated geom
         size = np.zeros(3)
@@ -367,8 +356,6 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
         quat = _orientation(attrs, deg)
         pos = _floats(attrs['pos']) if 'pos' in attrs else np.zeros(3)
         if 'fromto' in attrs:
-            if gtype not in (M.CAPSULE, M.CYLINDER):
-                raise _unsupported(f'fromto on geom type {gname!r}')
             ft = _floats(attrs['fromto'])
             p0, p1 = ft[:3], ft[3:]
             # the frame's +z is the minimal rotation onto (from - to), as
@@ -423,7 +410,7 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
             body=body_id,
             pos=_floats(attrs['pos']) if 'pos' in attrs else np.zeros(3),
             quat=_orientation(attrs, deg),
-            type=_SITE_TYPES.get(attrs.get('type', 'sphere'), M.SPHERE),
+            type=_GEOM_TYPES.get(attrs.get('type', 'sphere'), M.SPHERE),
             size=size))
 
     def add_camera(attrs, body_id):
@@ -437,15 +424,13 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
             mode=attrs.get('mode', 'fixed')))
 
     def add_joint(attrs, body_id):
-        jname = attrs.get('type', 'hinge')
-        if jname not in _JOINT_TYPES:
-            raise _unsupported(f'joint type {jname!r}')
-        jtype = _JOINT_TYPES[jname]
+        jtype = _JOINT_TYPES[attrs.get('type', 'hinge')]
         limited = attrs.get('limited', 'false') in ('true', '1')
         rng = np.zeros(2)
         if 'range' in attrs:
             rng = _floats(attrs['range'])
-            if jtype == M.HINGE and limited and deg:
+            # a ball joint's range is its largest angle, in degrees too
+            if jtype in (M.HINGE, M.BALL) and limited and deg:
                 rng = np.radians(rng)
         solref = _DEFAULT_SOLREF.copy()
         if 'solreflimit' in attrs:
@@ -509,10 +494,7 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
             walk_body(child, body_id, cls)
         elif tag == 'camera':
             add_camera(cattrs, body_id)
-        elif tag == 'light':
-            pass                                   # visual only
-        else:
-            raise _unsupported(f'<{tag}> in the body tree')
+        # anything else (lights) is dropped, as in JAX
 
     def walk_body(elem, parent_id, childclass):
         cls = elem.get('childclass', childclass)
@@ -532,7 +514,7 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
     for child in (worldbody if worldbody is not None else ()):
         if child.tag == 'body':
             walk_body(child, 0, child.get('childclass'))
-        else:
+        elif child.tag in ('geom', 'site', 'camera'):
             add_child(child, 0, None)
 
     nbody, njnt = len(body_parent), len(jnts)
@@ -545,7 +527,8 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
         nv += M.DOF_WIDTH[j['type']]
         dof_jnt += [ji] * M.DOF_WIDTH[j['type']]
     dof = lambda key: [jnts[ji][key] for ji in dof_jnt]
-    # a free joint's qpos0 is its body's frame (position, unit quaternion)
+    # a free joint's qpos0 is its body's frame (position, unit quaternion),
+    # a ball joint's the identity rotation
     qpos0, qpos_spring = np.zeros(nq), np.zeros(nq)
     for ji, j in enumerate(jnts):
         adr = jnt_qposadr[ji]
@@ -553,6 +536,8 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
             qpos0[adr:adr + 7] = np.concatenate([body_pos[j['body']],
                                                  body_quat[j['body']]])
             qpos_spring[adr:adr + 7] = qpos0[adr:adr + 7]
+        elif j['type'] == M.BALL:
+            qpos0[adr] = qpos_spring[adr] = 1.0
         else:
             qpos0[adr], qpos_spring[adr] = j['ref'], j['springref']
 
@@ -586,9 +571,8 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
             attrs = defaults.resolve('spatial', tel.attrib,
                                      tel.attrib.get('class'))
             ends = [site_names[x.get('site')] for x in tel.findall('site')]
-            if len(ends) != 2 or len(ends) != len(tel):
-                raise _unsupported('a spatial tendon with via points '
-                                   'or wrapping')
+            if len(ends) != 2:
+                continue            # via points: dropped, as in JAX
             rng = (_floats(attrs['range']) if 'range' in attrs
                    else np.zeros(2))
             spatial.append((ends[0], ends[1],
@@ -596,10 +580,9 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
                             float(rng[0]), float(rng[1])))
             continue
         if tel.tag != 'fixed':
-            raise _unsupported(f'<tendon><{tel.tag}>')
+            continue
+        # a fixed tendon's limits are not read, as in JAX
         attrs = defaults.resolve('fixed', tel.attrib, tel.attrib.get('class'))
-        if attrs.get('limited', 'false') in ('true', '1'):
-            raise _unsupported('tendon limits')
         row, pairs = np.zeros(nv), []
         for jref in tel.findall('joint'):
             ji = jnt_names[jref.get('joint')]
@@ -614,15 +597,14 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
     ntendon = len(tendons)
 
     # tendon equality: (tendon, solref, solimp), a row holding the fixed
-    # tendon's length at 0 (the manipulator's finger coupling)
+    # tendon tendon1's length at 0 (the manipulator's finger coupling);
+    # other equalities and tendon2 are dropped, as in JAX
     eq_tendon = []
     for eel in (root.find('equality') if root.find('equality') is not None
                 else ()):
         if eel.tag != 'tendon':
-            raise _unsupported(f'<equality><{eel.tag}>')
+            continue
         attrs = defaults.resolve('equality', eel.attrib, None)
-        if 'tendon2' in attrs:
-            raise _unsupported('a two-tendon equality')
         solref = _DEFAULT_SOLREF.copy()
         if 'solref' in attrs:
             solref[:] = _floats(attrs['solref'])[:2]
@@ -635,14 +617,15 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
 
     # explicit contact excludes: (body1, body2) pairs no contact joins
     contact_excludes = tuple(
-        (body_names[cel.get('body1')], body_names[cel.get('body2')])
-        for cel in (contact_el if contact_el is not None else ()))
+        (body_names[cel.attrib['body1']], body_names[cel.attrib['body2']])
+        for cel in (contact_el if contact_el is not None else ())
+        if cel.tag == 'exclude')
 
     act_names, acts = {}, []
     actuator_el = root.find('actuator')
     for ael in (actuator_el if actuator_el is not None else ()):
-        if ael.tag not in ('motor', 'position', 'general'):
-            raise _unsupported(f'actuator <{ael.tag}>')
+        if ael.tag not in ('motor', 'position', 'velocity', 'general'):
+            continue
         attrs = defaults.resolve(ael.tag, ael.attrib,
                                  ael.attrib.get('class'))
         if 'joint' in attrs:
@@ -657,6 +640,10 @@ def parse(xml_string: str, dtype=torch.float32) -> M.Model:
         if ael.tag == 'position':
             kp = float(attrs.get('kp', 1.0))
             gainprm, biasprm = [kp, 0.0, 0.0], [0.0, -kp, 0.0]
+            biastype = M.BIAS_AFFINE
+        elif ael.tag == 'velocity':
+            kv = float(attrs.get('kv', 1.0))
+            gainprm, biasprm = [kv, 0.0, 0.0], [0.0, 0.0, -kv]
             biastype = M.BIAS_AFFINE
         elif ael.tag == 'general':
             # a given biasprm makes the bias affine, as in the JAX compiler
@@ -806,13 +793,15 @@ def _with_invweight0(model: M.Model) -> M.Model:
     qM = smooth.crba(model, cdof, cinert, meta)
     Minv = np.linalg.inv(qM[0].double().numpy())
     dof_iw = np.diag(Minv).copy()
-    # a free joint's translation and rotation triples each take their
-    # group's mean of diag(M^-1)
+    # a free joint's translation and rotation triples, and a ball joint's
+    # rotation triple, each take their group's mean of diag(M^-1)
     for j in range(model.njnt):
+        adr = model.jnt_dofadr[j]
         if model.jnt_type[j] == M.FREE:
-            adr = model.jnt_dofadr[j]
             dof_iw[adr:adr + 3] = dof_iw[adr:adr + 3].mean()
             dof_iw[adr + 3:adr + 6] = dof_iw[adr + 3:adr + 6].mean()
+        elif model.jnt_type[j] == M.BALL:
+            dof_iw[adr:adr + 3] = dof_iw[adr:adr + 3].mean()
 
     amask = ancestor_dof_mask(model, meta).astype(np.float64)
     cdof_np = cdof[0].double().numpy()

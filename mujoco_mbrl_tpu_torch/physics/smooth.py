@@ -1,13 +1,14 @@
 """Smooth articulated-body dynamics in world-frame spatial algebra.
 
-Port of mujoco_mbrl_tpu/physics/smooth.py for hinge, slide and free joints
-(the humanoid's root is a free joint: 7 qpos, 6 dofs, world translations
-then body-local rotations). Every function takes the env batch as the
-leading dimension; the loops over bodies are static Python loops over the
-model's tree, as in the JAX package. Fixed tendons (their passive force
-and tendon-driven motors), site positions and the inertia-box fluid
-force are ported, and the affine bias of position servos; ball joints
-and activation dynamics raise ``NotImplementedError``. A model from
+Port of mujoco_mbrl_tpu/physics/smooth.py for hinge, slide, ball and free
+joints (a free joint: 7 qpos, 6 dofs, world translations then body-local
+rotations; a ball joint: a unit quaternion, 3 dofs, rotations about the
+body's local axes through its anchor). Every function takes the env batch
+as the leading dimension; the loops over bodies are static Python loops
+over the model's tree, as in the JAX package. Fixed tendons (their passive
+force and tendon-driven motors), site positions, the inertia-box fluid
+force, the affine bias of servos and activation dynamics are ported. A
+model from
 ``model.with_env_fields`` carries per-env ``geom_pos``, ``site_pos``,
 ``tendon_moment``, ``body_pos`` and ``body_quat`` with the env batch
 leading; ``kinematics`` and ``actuation`` broadcast over it.
@@ -35,16 +36,7 @@ class TreeMeta(NamedTuple):
     zero_jnt_pos: Tuple[bool, ...]
 
 
-DOF_WIDTH = {M.FREE: 6, M.SLIDE: 1, M.HINGE: 1}
-
-
-def check_joints(m: M.Model, fn: str):
-    """Refuse ball joints (not ported); free, slide and hinge pass."""
-    for t in m.jnt_type:
-        if t not in DOF_WIDTH:
-            raise NotImplementedError(
-                f'ball joints are not ported '
-                f'(mujoco_mbrl_tpu.physics.smooth.{fn})')
+DOF_WIDTH = M.DOF_WIDTH
 
 
 def tree_meta(m: M.Model) -> TreeMeta:
@@ -55,7 +47,6 @@ def tree_meta(m: M.Model) -> TreeMeta:
 
 
 def _tree_meta(m: M.Model) -> TreeMeta:
-    check_joints(m, 'tree_meta')
     body_joints: List[List[int]] = [[] for _ in range(m.nbody)]
     for j in range(m.njnt):
         body_joints[m.jnt_body[j]].append(j)
@@ -85,9 +76,10 @@ def kinematics(m: M.Model, qpos: torch.Tensor, meta: TreeMeta):
 
     mj_kinematics semantics: joints apply in declaration order within a
     body, displacing relative to qpos0; a body with a free joint takes its
-    world pose from qpos (position, normalized quaternion) directly.
+    world pose from qpos (position, normalized quaternion) directly; a
+    ball joint turns its body by its normalized quaternion about its
+    anchor, as a hinge does by its axis-angle one.
     """
-    check_joints(m, 'kinematics')
     B = qpos.shape[0]
     dev, dt = qpos.device, qpos.dtype
 
@@ -135,7 +127,8 @@ def kinematics(m: M.Model, qpos: torch.Tensor, meta: TreeMeta):
                           else pos + pm.quat_rot(quat, m.jnt_pos[j]))
                 xaxis[j] = axis_w
             else:
-                qloc = hq[:, hq_index[j]]
+                qloc = (hq[:, hq_index[j]] if m.jnt_type[j] == M.HINGE
+                        else pm.quat_normalize(qpos[:, adr:adr + 4]))
                 if zero_anchor:
                     anchor = pos
                     quat = pm.quat_mul(quat, qloc)
@@ -172,8 +165,8 @@ def com_positions(m: M.Model, xpos, xquat):
 def motion_subspace(m: M.Model, xquat, xanchor, xaxis, meta: TreeMeta):
     """cdof (B, nv, 6): per-dof spatial motion vectors (world, origin).
     A free joint's dofs are translations along the world axes, then
-    rotations about the body's local axes through its anchor."""
-    check_joints(m, 'motion_subspace')
+    rotations about the body's local axes through its anchor; a ball
+    joint's are those rotations alone."""
     if not m.nv:
         return xquat.new_zeros((xquat.shape[0], 0, 6))
     cdof = [None] * m.nv
@@ -189,6 +182,12 @@ def motion_subspace(m: M.Model, xquat, xanchor, xaxis, meta: TreeMeta):
             for k in range(3):
                 axk = R[..., :, k]
                 cdof[adr + 3 + k] = torch.cat(
+                    [axk, torch.linalg.cross(xanchor[:, j], axk)], -1)
+        elif m.jnt_type[j] == M.BALL:
+            R = pm.quat_to_mat(xquat[:, m.jnt_body[j]])
+            for k in range(3):
+                axk = R[..., :, k]
+                cdof[adr + k] = torch.cat(
                     [axk, torch.linalg.cross(xanchor[:, j], axk)], -1)
         elif m.jnt_type[j] == M.SLIDE:
             cdof[adr] = torch.cat([torch.zeros_like(ax), ax], -1)
@@ -235,10 +234,9 @@ def velocities(m: M.Model, qvel, cdof, meta: TreeMeta):
     """Body spatial velocities cvel (B, nbody, 6) and cdof_dot (B, nv, 6).
 
     mj_comVel's order: a free joint's translations add to the velocity
-    first (their cdof_dot is zero), then its three rotation dofs take
-    cdof_dot from the velocity before any of them is added; a hinge or
-    slide uses the velocity before its own dof."""
-    check_joints(m, 'velocities')
+    first (their cdof_dot is zero), then its three rotation dofs (and a
+    ball joint's three) take cdof_dot from the velocity before any of them
+    is added; a hinge or slide uses the velocity before its own dof."""
     cvel = [cdof.new_zeros((cdof.shape[0], 6))]
     cdof_dot = [None] * m.nv
     for b in range(1, m.nbody):
@@ -254,6 +252,12 @@ def velocities(m: M.Model, qvel, cdof, meta: TreeMeta):
                 for k in range(3):
                     cdof_dot[adr + 3 + k] = pm.motion_cross(v, rot[:, k])
                 v = v + (rot * qvel[:, adr + 3:adr + 6, None]).sum(1)
+                continue
+            if m.jnt_type[j] == M.BALL:
+                rot = cdof[:, adr:adr + 3]
+                for k in range(3):
+                    cdof_dot[adr + k] = pm.motion_cross(v, rot[:, k])
+                v = v + (rot * qvel[:, adr:adr + 3, None]).sum(1)
                 continue
             cdof_dot[adr] = pm.motion_cross(v, cdof[:, adr])
             v = v + cdof[:, adr] * qvel[:, adr:adr + 1]
@@ -287,14 +291,13 @@ def rnea_bias(m: M.Model, qvel, cdof, cdof_dot, cvel, cinert,
 
 def spring_force(m: M.Model, qpos: torch.Tensor) -> torch.Tensor:
     """Joint springs: -stiffness * (qpos - qpos_spring) on scalar joints
-    and on a free joint's translation (its rotation has no spring, as in
-    the JAX function)."""
-    check_joints(m, 'spring_force')
+    and on a free joint's translation (its rotation and a ball joint have
+    no spring, as in the JAX function)."""
     qfrc = torch.zeros((qpos.shape[0], m.nv), dtype=qpos.dtype,
                        device=qpos.device)
     free = [j for j in range(m.njnt) if m.jnt_type[j] == M.FREE]
-    sj = [j for j in range(m.njnt) if m.jnt_type[j] != M.FREE]
-    stiff = (m.jnt_stiffness if not free else M.cached(
+    sj = [j for j in range(m.njnt) if m.jnt_type[j] in (M.SLIDE, M.HINGE)]
+    stiff = (m.jnt_stiffness if len(sj) == m.njnt else M.cached(
         m, 'scalar_stiffness', lambda: m.jnt_stiffness[sj]))
     if sj:
         qadr = [m.jnt_qposadr[j] for j in sj]

@@ -4,11 +4,12 @@ Port of mujoco_mbrl_tpu/physics/solver.py for dof friction loss (a box
 row a dof), tendon equality (a free row holding a fixed tendon's length
 at 0, the manipulator's and stacker's finger coupling), spatial-tendon
 length limits, joint limits and frictional contacts, pyramidal of condim
-1 (one non-negative row a point, the humanoid's geom-geom pairs), 3 (four
-facet rows), 4 (six: the torsional direction on the rotational Jacobian)
-or 6 (ten: torsion and two rolling directions, quadruped fetch's ball),
-grouped by condim, or elliptic (a normal and two tangent rows a point,
-finger), in JAX's row order: friction loss, tendon equality, tendon
+1 (one non-negative row a point, the humanoid's geom-geom pairs), 2-3
+(four facet rows), 4-5 (six: the torsional direction on the rotational
+Jacobian) or 6 and past (ten: torsion and two rolling directions,
+quadruped fetch's ball), grouped by condim, or elliptic (a normal and two
+tangent rows a point at any condim, the tangents' friction zero below
+condim 3), in JAX's row order: friction loss, tendon equality, tendon
 limits, joint limits, contacts. Each row has
 impedance d(pos) from solimp, reference acceleration aref = -b*vel - k*pos
 from solref, and regularizer R = (1-d)/d * invweight0; the dual
@@ -23,9 +24,12 @@ and 914 rows stay dense: it has four equality rows). Past 1024 rows
 without an equality row, where JAX's dense regime holds but the dense
 kernel takes no solve (humanoid_cmu: 4,352 x 62, outside JAX's
 ``factored_fits``), the dense iterate runs on Ad applied through J~ and
-M^-1 (``apgd_iterate_dense_factors``), which is never formed. The PGS
-``solve``, elliptic cones past condim 3 and box rows in the factored
-regime raise ``NotImplementedError``.
+M^-1 (``apgd_iterate_dense_factors``), which is never formed. Friction-
+loss rows in the factored regime take the factored iterate too, with
+per-env bounds (B, nr): each env's row scale divides them, as under JAX's
+vmap (JAX then runs its XLA iterate). ``solve`` is JAX's
+projected Gauss-Seidel (``m.opt.solver`` 'pgs'): a sweep over the blocks
+in row order, each block's update one set of (B,) ops over all envs.
 """
 
 from __future__ import annotations
@@ -253,17 +257,12 @@ def assemble(m: M.Model, meta, qpos, qvel, cdof,
         active = (contact.dist < 0.0).to(dt)
         cdim = np.array([_pair_condim(m, g1, g2)
                          for g1, g2 in zip(contact.geom1, contact.geom2)])
-        if not set(cdim.tolist()) <= {1, 3, 4, 6} or (
-                m.opt.cone == 'elliptic' and (cdim > 3).any()):
-            raise NotImplementedError(
-                f'condim {sorted(set(cdim.tolist()))} under a '
-                f'{m.opt.cone} cone is not ported '
-                '(mujoco_mbrl_tpu.physics.solver.assemble)')
         iw_pair = body_iw[body1] + body_iw[body2]          # (C,)
         mu1 = contact.friction[:, 0]
         if m.opt.cone == 'elliptic':
-            # a (normal, t1, t2) triple a contact, in contact order; the
-            # tangents' regulariser is the normal's over impratio
+            # a (normal, t1, t2) triple a contact at any condim, in contact
+            # order, the tangents free of friction below condim 3; their
+            # regulariser is the normal's over impratio
             blocks += [('contact', nrows + 3 * c) for c in range(C)]
             mus.append(mu1 * torch.as_tensor(cdim >= 3, dtype=dt,
                                              device=dev))
@@ -307,8 +306,8 @@ def assemble(m: M.Model, meta, qpos, qvel, cdof,
                 # (condim 6), each with its own coefficient
                 dirs = [(Jc[:, idx, t], mu1[idx], vel[:, idx, t])
                         for t in (1, 2)]
-                rot = [(0, 1)] if grp_dim == 4 else (
-                    [(0, 1), (1, 2), (2, 2)] if grp_dim == 6 else [])
+                rot = ([(0, 1)] if grp_dim >= 4 else []) + (
+                    [(1, 2), (2, 2)] if grp_dim >= 6 else [])
                 for t, f_col in rot:
                     Jd = Jr[:, idx, t]
                     dirs.append((Jd, fr[idx, f_col],
@@ -404,11 +403,6 @@ def solve_apgd(m: M.Model, cs: Optional[ConstraintSet], qM_chol,
     rhs = (cs.aref - (cs.J @ qacc_smooth[..., None])[..., 0]) * cs.active
 
     nonneg, box_rows, con0 = _row_structure(cs)
-    if use_factored and len(box_rows):
-        raise NotImplementedError(
-            'friction-loss rows in the factored regime: the factored '
-            'kernel takes no per-env box bounds (ROADMAP Queue 1; '
-            'mujoco_mbrl_tpu.physics.solver.solve_apgd)')
     # Jacobi preconditioning; a cone's tangents take their normal row's
     # scale, so the cone projection stays exact in the scaled variables;
     # rows with a vanishing diagonal are dropped
@@ -465,7 +459,7 @@ def solve_apgd(m: M.Model, cs: Optional[ConstraintSet], qM_chol,
             diag_s = s_inv * s_inv * d_all0 * act_m
             f, v = _ker.apgd_iterate_factored(
                 J_s, Minv, Rs, diag_s, rhs, f0s, v0, act_m, mu_full,
-                zeros_nr, **rows)
+                bounds_full, **rows)
         else:
             f, v = _ker.apgd_iterate_dense_factors(
                 J_s, Minv, Rs, rhs, f0s, v0, act_m, nonneg=rows['nonneg'],
@@ -484,6 +478,78 @@ def solve_apgd(m: M.Model, cs: Optional[ConstraintSet], qM_chol,
     v = torch.where(bad[:, None], 0.0, v)
     f = f * s_inv
     return (JT @ f[..., None])[..., 0], f, v
+
+
+def solve(m: M.Model, cs: Optional[ConstraintSet], qM_chol,
+          qacc_smooth: torch.Tensor, iterations: Optional[int] = None,
+          f0: Optional[torch.Tensor] = None):
+    """Projected Gauss-Seidel on the dual, batched over envs (JAX
+    ``solve``). Returns ``(qfrc_constraint (B, nv), row forces (B, nr))``.
+
+    ``m.opt.solver_iterations`` sweeps visit ``cs.blocks`` in order: limit
+    and facet rows clamp at zero, friction-loss rows are boxed by their
+    bound, equality rows are free, and an elliptic contact updates its
+    normal, then its two tangents from the updated normal, and scales
+    them onto the cone mu f_n. Inactive rows are masked; ``f0`` (the prior
+    substep's forces) warm starts the sweep, masked to this step's active
+    rows. Each row's update is a few (B,) ops over all envs: the solve is
+    launch-bound, not arithmetic-bound.
+    """
+    if cs is None:
+        return torch.zeros_like(qacc_smooth), None
+    iterations = iterations or m.opt.solver_iterations
+    JT = cs.J.transpose(1, 2)
+    Ad = cs.J @ torch.cholesky_solve(JT, qM_chol)
+    Ad.diagonal(dim1=1, dim2=2).add_(cs.R)
+    diag = torch.clamp(torch.diagonal(Ad, dim1=1, dim2=2), min=1e-10)
+    rhs = (cs.aref - (cs.J @ qacc_smooth[..., None])[..., 0]) * cs.active
+    f = (torch.zeros_like(rhs) if f0 is None
+         else (f0 * cs.active).contiguous())
+    act = cs.active
+    bounds = (cs.friction_bounds.to(rhs.dtype).unbind(0)
+              if cs.friction_bounds is not None else ())
+    mus = cs.mu.to(rhs.dtype).unbind(0) if len(cs.mu) else ()
+    plan, ci, fi = [], 0, 0
+    for kind, i0 in cs.blocks:
+        if kind == 'contact':
+            plan.append((kind, i0, mus[ci]))
+            ci += 1
+        elif kind == 'friction':
+            plan.append((kind, i0, bounds[fi]))
+            fi += 1
+        else:
+            plan.append((kind, i0, None))
+
+    def step(i):
+        """Row i's unprojected Gauss-Seidel value f_i - (Ad_i f - rhs_i)
+        / d_i, and the column it lands in."""
+        res = torch.linalg.vecdot(Ad[:, i], f) - rhs[:, i]
+        col = f[:, i]
+        return torch.addcdiv(col, res, diag[:, i], value=-1.0), col
+
+    for _ in range(iterations):
+        for kind, i0, p in plan:
+            if kind in ('limit', 'facet'):
+                x, col = step(i0)
+                col.copy_(torch.clamp(x, min=0.0) * act[:, i0])
+            elif kind == 'friction':
+                x, col = step(i0)
+                col.copy_(torch.clamp(x, -p, p) * act[:, i0])
+            elif kind == 'equality':
+                x, col = step(i0)
+                col.copy_(x)
+            else:
+                x, col = step(i0)
+                col.copy_(torch.clamp(x, min=0.0) * act[:, i0])
+                ft1, c1 = step(i0 + 1)
+                ft2, c2 = step(i0 + 2)
+                tnorm = torch.sqrt(ft1 * ft1 + ft2 * ft2)
+                limit = p * col
+                scale = torch.where(tnorm > limit, limit / torch.clamp(
+                    tnorm, min=1e-12), 1.0)
+                c1.copy_(ft1 * scale * act[:, i0 + 1])
+                c2.copy_(ft2 * scale * act[:, i0 + 2])
+    return (JT @ f[..., None])[..., 0], f
 
 
 _PYRAMID_INDEX = {}

@@ -57,9 +57,11 @@ def load(domain: str, task: str, task_kwargs: Optional[dict] = None,
     """Environment for domain/task on `device` (default ``cuda``);
     ``task_kwargs`` go to the task's factory (``time_limit``, lqr's
     ``seed``), ``environment_kwargs`` to the Environment."""
+    # the reference's capitalized spelling, as JAX's _get_domain takes it
+    domain = {'humanoid_CMU': 'humanoid_cmu'}.get(domain, domain)
     if domain not in _DOMAINS:
-        raise NotImplementedError(
-            f'domain {domain!r} is not ported (mujoco_mbrl_tpu.suite.load)')
+        # JAX imports the domain's module and fails with this error
+        raise ModuleNotFoundError(f'no suite domain {domain!r}')
     suite = _DOMAINS[domain].SUITE
     if task not in suite:
         raise ValueError(

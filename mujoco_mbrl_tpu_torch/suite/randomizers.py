@@ -1,9 +1,11 @@
 """Episode-initialization randomizers on ``torch.Generator``s.
 
-Port of mujoco_mbrl_tpu/suite/randomizers.py for hinge, slide and free
-joints: limited joints ~ Uniform(range), unlimited hinges ~ Uniform(-pi,
-pi), unlimited slides untouched, an unlimited free joint's quaternion
-uniform on S^3 (a normalized 4-d normal draw; its position untouched).
+Port of mujoco_mbrl_tpu/suite/randomizers.py: limited hinges and slides ~
+Uniform(range), unlimited hinges ~ Uniform(-pi, pi), unlimited slides
+untouched; a limited ball joint turns by an angle ~ Uniform(0, range[1])
+about an axis uniform on S^2 (``random_limited_quaternion``); an
+unlimited ball joint's quaternion, and an unlimited free joint's (its
+position untouched), is uniform on S^3 (a normalized 4-d normal draw).
 The draws differ from ``jax.random``'s; the distribution is the same.
 ``first_collision_free`` is the lockstep rejection rule of the humanoid,
 finger, ball_in_cup, manipulator and stacker resets (attempt 0 where none
@@ -19,6 +21,25 @@ from ..physics import collision, smooth
 from ..physics import model as M
 
 
+def _unit_normal(B: int, d: int, generator: torch.Generator, dtype):
+    """(B, d) normal draws normalized to unit length (uniform on S^(d-1))."""
+    q = torch.randn((B, d), generator=generator, dtype=dtype,
+                    device=generator.device)
+    return q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True),
+                           min=1e-12)
+
+
+def random_limited_quaternion(B: int, limit: float,
+                              generator: torch.Generator,
+                              dtype=torch.float32) -> torch.Tensor:
+    """(B, 4) rotations by an angle ~ Uniform(0, limit) about an axis
+    uniform on S^2, on the generator's device."""
+    axis = _unit_normal(B, 3, generator, dtype)
+    angle = torch.rand((B, 1), generator=generator, dtype=dtype,
+                       device=generator.device) * limit
+    return torch.cat([torch.cos(angle / 2), axis * torch.sin(angle / 2)], -1)
+
+
 def randomize_limited_and_rotational_joints(
         model: M.Model, qpos: torch.Tensor,
         generator: torch.Generator) -> torch.Tensor:
@@ -28,17 +49,17 @@ def randomize_limited_and_rotational_joints(
     rng = model.jnt_range.cpu().numpy()
     for j in range(model.njnt):
         jtype, adr = model.jnt_type[j], model.jnt_qposadr[j]
-        if jtype not in (M.HINGE, M.SLIDE, M.FREE):
-            raise NotImplementedError(
-                'ball joint randomization is not ported (mujoco_mbrl_tpu'
-                '.suite.randomizers.randomize_limited_and_rotational_joints)')
+        if jtype == M.BALL:
+            q = (random_limited_quaternion(B, float(rng[j, 1]), generator,
+                                           qpos.dtype)
+                 if model.jnt_limited[j]
+                 else _unit_normal(B, 4, generator, qpos.dtype))
+            out[:, adr:adr + 4] = q.to(qpos.device)
+            continue
         if jtype == M.FREE:
             if not model.jnt_limited[j]:
-                q = torch.randn((B, 4), generator=generator,
-                                dtype=qpos.dtype, device=generator.device)
-                q = q / torch.clamp(torch.linalg.vector_norm(
-                    q, dim=-1, keepdim=True), min=1e-12)
-                out[:, adr + 3:adr + 7] = q.to(qpos.device)
+                out[:, adr + 3:adr + 7] = _unit_normal(
+                    B, 4, generator, qpos.dtype).to(qpos.device)
             continue
         if model.jnt_limited[j]:
             lo, hi = float(rng[j, 0]), float(rng[j, 1])

@@ -231,8 +231,13 @@ def test_experiment_main_on_cpu(tmp_path):
 def test_unported_choices_raise(tmp_path, wrapper):
     with pytest.raises(NotImplementedError, match='finger'):
         envs.load('finger', 'spin', device='cpu')
-    with pytest.raises(NotImplementedError, match='MLPDynamics base'):
-        models.EnsembleDynamics(models.LinearDynamics(20, 6), 5)
+    # an ensemble over a non-MLP base is taken, as in JAX: its members'
+    # parameters stacked on a leading axis, planned through the scan
+    ens = models.EnsembleDynamics(models.LinearDynamics(20, 6), 5)
+    params = ens.init(torch.Generator().manual_seed(0), device='cpu')
+    assert tuple(params['l1']['w'].shape) == (5, 26, 20)
+    assert tuple(ens.forward_ts(params, torch.zeros(10, 20),
+                                torch.zeros(10, 6)).shape) == (10, 20)
     # task kwargs are ported: they reach the task's factory, as in JAX,
     # and one the factory does not take raises there
     assert envs.load('walker', 'walk', device='cpu',

@@ -140,11 +140,15 @@ def test_mjcf_contact_excludes_and_refusals():
     assert m.contact_excludes == jmjcf.parse(xml).contact_excludes
     assert len(collision.candidate_pairs(m)) == 2
     assert len(collision.candidate_pairs(mjcf.parse(_SCENE.format('')))) == 3
-    with pytest.raises(NotImplementedError, match='mjcf.parse'):
-        mjcf.parse(_SCENE.format("<pair geom1='floor' geom2='floor'/>"))
-    with pytest.raises(NotImplementedError, match='mjcf.parse'):
-        mjcf.parse(_SCENE.replace('<contact>', '<sensor/><contact>').format(
-            ''))
+    # a <pair> and a <sensor> are dropped, as JAX's compiler drops them:
+    # the same excludes and the same candidate pairs as without them
+    for extra in (_SCENE.format("<pair geom1='floor' geom2='floor'/>"),
+                  _SCENE.replace('<contact>', '<sensor/><contact>').format(
+                      '')):
+        m2 = mjcf.parse(extra)
+        assert m2.contact_excludes == jmjcf.parse(extra).contact_excludes
+        assert m2.contact_excludes == ()
+        assert len(collision.candidate_pairs(m2)) == 3
 
 
 def test_contact_excludes_and_candidate_pairs():

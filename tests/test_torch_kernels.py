@@ -348,6 +348,46 @@ def test_apgd_factored_kernel_matches_plain(dev, cold, nr, nv, c0, route):
     assert int((its.long() - its_p).abs().max()) <= 1
 
 
+# Per-env box bounds (B, nr): friction-loss rows ahead of the limits and
+# cones, each env's bound its own (JAX divides the friction loss by each
+# env's row scale), on both paths: the cheetah with friction loss (6 + 146
+# rows over nv 9, the warp path) and the humanoid (21 + 303 over nv 27,
+# the block path); the same bounds shared (nr,) give another answer.
+@pytest.mark.parametrize('nr,nv,n_box,c0,route', [
+    (152, 9, 6, 152, 'warp'), (324, 27, 21, 57, 'block')])
+@pytest.mark.parametrize('cold', [True, False])
+def test_apgd_factored_kernel_per_env_bounds(dev, cold, nr, nv, n_box, c0,
+                                             route):
+    assert apgd_solve.factored_route(nr, nv) == route
+    con0 = tuple(range(c0, nr, 3))
+    args = list(_factored_problem(dev, 37, nr, nv, con0, seed=7 + int(cold)))
+    act = args[7].clone()
+    act[:, :n_box] = 1.0
+    args[7] = act
+    args[4] = args[4].abs() + 0.5 * act       # push into the boxes
+    g = torch.Generator(device=dev).manual_seed(3)
+    bounds = torch.zeros((37, nr), device=dev)
+    bounds[:, :n_box] = 0.05 + 0.2 * torch.rand((37, n_box), generator=g,
+                                                device=dev)
+    args[9] = bounds
+    kw = dict(nonneg=tuple(range(n_box, c0)), box_rows=tuple(range(n_box)),
+              con0=con0, iterations=40, cold=cold)
+    before = ops.launch_counts['apgd_factored']
+    f, v = apgd_solve.apgd_iterate_factored(*args, **kw)
+    assert ops.launch_counts['apgd_factored'] == before + 1
+    f_p, v_p = apgd_solve.apgd_iterate_factored_plain(*args, **kw)
+    torch.testing.assert_close(f, f_p, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(v, v_p, rtol=2e-4, atol=2e-4)
+    assert bool((f[:, :n_box].abs() <= bounds[:, :n_box] * (1 + 1e-6)).all())
+    assert bool((f[:, :n_box].abs() >= bounds[:, :n_box] * 0.999).any())
+    shared = list(args)
+    shared[9] = bounds[0].contiguous()
+    f_s, _ = apgd_solve.apgd_iterate_factored(*shared, **kw)
+    f_sp, _ = apgd_solve.apgd_iterate_factored_plain(*shared, **kw)
+    torch.testing.assert_close(f_s, f_sp, rtol=2e-4, atol=2e-4)
+    assert not torch.allclose(f_s, f, rtol=2e-4, atol=2e-4)
+
+
 def test_apgd_factored_kernel_rejects_what_it_does_not_take(dev,
                                                             monkeypatch):
     args = _factored_problem(dev, 4, 146, 9, (), seed=0)
