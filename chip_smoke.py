@@ -5606,6 +5606,162 @@ def elliptic_quadruped_phase(dev, torch):
     return counts, out, worst, rounding_envs, times
 
 
+# ---- slice 20: the last API pieces (path 57) ------------------------------
+# the flaky-init model of JAX's tests/test_reset_retry.py (and of
+# tests/test_torch_reset_retry.py): a free-swinging sphere whose reset
+# draws a NaN qpos where an env's uniform draw falls under the fail rate
+FLAKY_XML = """
+<mujoco model='m'>
+  <option timestep='0.01'/>
+  <worldbody>
+    <body name='b' pos='0 0 1'>
+      <joint name='j' type='hinge' axis='0 1 0' limited='false'/>
+      <geom name='g' type='sphere' size='.1'/>
+    </body>
+  </worldbody>
+</mujoco>"""
+FLAKY_FAIL, FLAKY_ATTEMPTS = 0.5, 6
+FLAKY_MAX_BAD = 0.03         # 0.5 ** 6 = 1.6% of envs expected non-finite
+ROLLOUT_STEPS = 10           # get_rollout's walker control steps
+ROLLOUT_ATOL = 1e-3          # its card against the CPU
+
+
+def flaky_task(torch):
+    from mujoco_mbrl_tpu_torch.physics import make_state
+    from mujoco_mbrl_tpu_torch.suite import base
+
+    class Flaky(base.Task):
+        OBSERVES_ACC = False
+
+        def initialize_episode(self, model, batch, generator):
+            u = torch.rand((batch,), generator=generator,
+                           device=generator.device)
+            st = make_state(model, batch=batch)
+            return st.replace(qpos=torch.where(
+                (u < FLAKY_FAIL)[:, None],
+                torch.full_like(st.qpos, float('nan')), st.qpos)), ()
+
+        def get_observation(self, model, phys, data):
+            return {'pos': phys.qpos}
+
+        def get_reward(self, model, phys, data, ctrl):
+            return torch.zeros_like(phys.time)
+
+    return Flaky()
+
+
+def api_pieces_phase(dev, torch):
+    """(57) The last API pieces, through the entry points a user calls:
+    walker walk at B envs reset through suite.load's environment_kwargs
+    with max_reset_attempts 1 and 6, each bitwise the plain reset (the
+    task's initialize_episode and Environment.start from the same seed,
+    as the environment reset before retries were ported; no walker draw
+    diverges); the flaky-init task at B envs, about half its envs NaN
+    with one draw and at most FLAKY_MAX_BAD of them with FLAKY_ATTEMPTS;
+    the walker wrapper's get_rollout of ROLLOUT_STEPS control steps under
+    a deterministic policy, card against CPU from one initial_state
+    within ROLLOUT_ATOL, #1 launched 10 times a control step;
+    check_divergence raising on a NaN env and passing on a finite batch.
+    Every launch count is zeroed before each piece and read after it."""
+    from mujoco_mbrl_tpu_torch import envs, ops, suite
+    from mujoco_mbrl_tpu_torch.physics import engine, mjcf
+    from mujoco_mbrl_tpu_torch.suite import control
+
+    out = {}
+    plain = suite.load('walker', 'walk', device=dev)
+    ref, ref_ts = plain.start(*plain.task.initialize_episode(
+        plain.model, B, torch.Generator(device=dev).manual_seed(57)))
+    reset_counts = {}
+    for attempts in (1, 6):
+        env = suite.load('walker', 'walk', device=dev,
+                         environment_kwargs={'max_reset_attempts': attempts})
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, ts = env.reset(B, torch.Generator(device=dev).manual_seed(57))
+        torch.cuda.synchronize()
+        out[f'walker_reset_ms_attempts_{attempts}'] = 1e3 * (
+            time.perf_counter() - t0)
+        reset_counts[attempts] = dict(ops.launch_counts)
+        exact_counts(f'walker reset, max_reset_attempts={attempts}',
+                     reset_counts[attempts])
+        same = (torch.equal(state.physics.qpos, ref.physics.qpos)
+                and torch.equal(state.physics.qvel, ref.physics.qvel)
+                and all(torch.equal(ts.observation[k], v)
+                        for k, v in ref_ts.observation.items()))
+        check(same, ('walker reset not bitwise the plain reset', attempts))
+    engine.check_divergence(state.physics)
+    nan_qpos = state.physics.qpos.clone()
+    nan_qpos[B // 2, 3] = float('nan')
+    try:
+        engine.check_divergence(state.physics.replace(qpos=nan_qpos))
+        raised = False
+    except engine.PhysicsError:
+        raised = True
+    check(raised, 'check_divergence passed a NaN env')
+
+    flaky_m = mjcf.parse(FLAKY_XML).to(dev)
+    bad = {}
+    for attempts in (1, FLAKY_ATTEMPTS):
+        env = control.Environment(flaky_m, flaky_task(torch),
+                                  max_reset_attempts=attempts)
+        ops.reset_launch_counts()
+        state, _ = env.reset(B, torch.Generator(device=dev).manual_seed(58))
+        exact_counts(f'flaky reset, max_reset_attempts={attempts}',
+                     dict(ops.launch_counts))
+        bad[attempts] = int((~torch.isfinite(state.physics.qpos)).any(1)
+                            .sum())
+    check(bad[1] >= B // 4, ('flaky reset, one draw', bad))
+    check(bad[FLAKY_ATTEMPTS] <= FLAKY_MAX_BAD * B,
+          ('flaky reset, retries', bad))
+
+    w = torch.randn((24, 6), generator=torch.Generator().manual_seed(59))
+    s0 = envs.load('walker', 'walk', device='cpu').sample_state(
+        torch.Generator().manual_seed(59))
+
+    def rollout(where):
+        wrap, wd = envs.load('walker', 'walk', device=where), w.to(where)
+        return wrap.get_rollout(
+            torch.Generator(device=where).manual_seed(60), ROLLOUT_STEPS,
+            lambda g, t, s, o, c: (torch.tanh(o @ wd), c),
+            initial_state=s0.to(where))
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    card = rollout(dev)
+    torch.cuda.synchronize()
+    walls = {'cuda': time.perf_counter() - t0}
+    roll_counts = dict(ops.launch_counts)
+    t0 = time.perf_counter()
+    cpu = rollout(torch.device('cpu'))
+    walls['cpu'] = time.perf_counter() - t0
+    exact_counts('walker get_rollout', roll_counts,
+                 apgd_solve=10 * ROLLOUT_STEPS)
+    shapes = {f: tuple(getattr(card, f).shape) for f in (
+        'states', 'observations', 'actions', 'rewards')}
+    check(shapes == {'states': (1, ROLLOUT_STEPS + 1, 20),
+                     'observations': (1, ROLLOUT_STEPS + 1, 24),
+                     'actions': (1, ROLLOUT_STEPS, 6),
+                     'rewards': (1, ROLLOUT_STEPS)}, shapes)
+    err = max(float((getattr(card, f).cpu() - getattr(cpu, f)).abs().max())
+              for f in shapes)
+    check(err <= ROLLOUT_ATOL, ('walker get_rollout card vs CPU', err))
+    out.update(flaky_nonfinite_envs={str(k): v for k, v in bad.items()},
+               rollout_card_s=walls['cuda'], rollout_cpu_s=walls['cpu'],
+               rollout_max_abs_err=err, check_divergence_raised=raised)
+    print(f'api pieces: walker reset at {B} envs '
+          f'{out["walker_reset_ms_attempts_1"]:.2f} ms with one attempt, '
+          f'{out["walker_reset_ms_attempts_6"]:.2f} ms with 6, both bitwise '
+          f'the plain reset; flaky init non-finite envs {bad[1]} of {B} '
+          f'with one draw, {bad[FLAKY_ATTEMPTS]} with {FLAKY_ATTEMPTS}; '
+          f'get_rollout of {ROLLOUT_STEPS} walker steps {walls["cuda"]:.3f} '
+          f's on the card, {walls["cpu"]:.3f} s on the CPU, max abs err '
+          f'{err:.2e}, shapes {shapes}, launches {roll_counts}; '
+          f'check_divergence raised on a NaN env: {raised}')
+    return roll_counts, out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5921,6 +6077,10 @@ def main() -> int:
     clock('path 56')
     (ell_counts, ell_out, ell_err, ell_rounding,
      ell_t) = elliptic_quadruped_phase(dev, torch)
+
+    # ---- slice 20: the last API pieces (57) -----------------------------
+    clock('slice 20, path 57')
+    api_counts, api_out = api_pieces_phase(dev, torch)
     clock('end of the paths')
 
     sampler_entry = lambda tiles: ptxas_info(
@@ -6011,7 +6171,8 @@ def main() -> int:
              'walker_pgs_control_step': pgs_counts,
              'ball_chain_steps': ball_counts,
              'cheetah_frictionloss_control_step': fl_counts,
-             'quadruped_fetch_elliptic_control_step': ell_counts}
+             'quadruped_fetch_elliptic_control_step': ell_counts,
+             'walker_get_rollout': api_counts}
     by_path = lambda key: {p: c[key] for p, c in paths.items() if c[key]}
     src = lambda f: f'mujoco_mbrl_tpu_torch/csrc/{f}'
     tpu = lambda f, line, fn: f'mujoco_mbrl_tpu/ops/{f}:{line} ({fn})'
@@ -6306,6 +6467,7 @@ def main() -> int:
         cmu_walker_go_to_target=cmuw_out, soccer_2v2=soc_out,
         viewer=view_out, walker_pgs=pgs_out, ball_chain=ball_out,
         cheetah_frictionloss=fl_out, quadruped_fetch_elliptic=ell_out,
+        api_pieces=api_out,
         bench_cli={a: dict(record=r['record'], seconds=r['seconds'])
                    for a, r in bench_out.items()},
         bf16_ptxas={k: v for k, v in ptxas.items() if 'bf16' in k})}))

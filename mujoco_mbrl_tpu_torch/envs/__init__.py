@@ -1,5 +1,7 @@
 """MBRL-facing env wrappers: featured state, goals, batched collection."""
 
-from .wrappers import Cheetah, EnvWrapper, Walker, load
+from .wrappers import (Cartpole, Cheetah, EnvWrapper, Pendulum, PointMass,
+                       Reacher, Walker, load)
 
-__all__ = ['Cheetah', 'EnvWrapper', 'Walker', 'load']
+__all__ = ['Cartpole', 'Cheetah', 'EnvWrapper', 'Pendulum', 'PointMass',
+           'Reacher', 'Walker', 'load']

@@ -22,9 +22,10 @@ per-env collector ``rollout_fn`` (``get_rollouts``, random or with a
 per-env policy) flattens inside its scan body, so all its observations
 are in task order. ``collect_from`` reproduces both.
 
-``get_rollouts`` takes the per-env policies (``agents.MPCPolicy``) with
-the batched protocol: the port's policy plans for all B envs in one call,
-each as JAX's vmapped one-env policy would.
+``get_rollouts`` (and its one-env form ``get_rollout`` / ``rollout_fn``,
+a rollout with a leading axis of 1) takes the per-env policies
+(``agents.MPCPolicy``) with the batched protocol: the port's policy plans
+for all B envs in one call, each as JAX's vmapped one-env policy would.
 
 ``record_rollout`` collects one rollout, replays its actions from the
 same reset and writes the replay as a GIF: camera 0 through the ray
@@ -247,6 +248,31 @@ class EnvWrapper:
                                  policy or self.random_policy, generator,
                                  policy_init, sorted_later_obs=False)
 
+    def rollout_fn(self, num_steps: int, policy: Optional[Callable] = None,
+                   set_state: bool = False, policy_init=None) -> Callable:
+        """``collect(generator, goal_state=None, initial_state=None) ->
+        Rollouts`` of one env (JAX's single-env collector; ``set_state`` is
+        accepted and unused, as there). The rollout has JAX's leading axis
+        of 1 and T + 1 states and observations. ``policy`` keeps the
+        port's batched protocol at B = 1: ``policy(generator, t, state (1,
+        sd), obs (1, od), carry) -> (action (1, ad), carry)``; None draws
+        uniformly random actions."""
+        def collect(generator, goal_state=None, initial_state=None):
+            return self.get_rollouts(
+                generator, 1, num_steps, policy, goal_state=goal_state,
+                initial_states=(None if initial_state is None
+                                else initial_state.reshape(1, -1)),
+                policy_init=policy_init)
+        return collect
+
+    def get_rollout(self, generator: torch.Generator, num_steps: int,
+                    policy: Optional[Callable] = None, goal_state=None,
+                    initial_state=None, policy_init=None) -> Rollouts:
+        """One rollout (``rollout_fn``'s collector), from `initial_state`
+        (nq + nv) when given."""
+        return self.rollout_fn(num_steps, policy, policy_init=policy_init)(
+            generator, goal_state, initial_state)
+
     def render_frames(self, qposes: torch.Tensor, params=(),
                       height: int = 128, width: int = 128,
                       plane: str = 'xz', extent: float = 2.5) -> np.ndarray:
@@ -286,11 +312,8 @@ class EnvWrapper:
         """
         replay = torch.Generator(device=generator.device)
         replay.set_state(generator.get_state())
-        rolls = self.get_rollouts(
-            generator, 1, num_steps, policy, goal_state=goal_state,
-            initial_states=(None if initial_state is None
-                            else initial_state.reshape(1, -1)),
-            policy_init=policy_init)
+        rolls = self.get_rollout(generator, num_steps, policy, goal_state,
+                                 initial_state, policy_init)
         env_state = self.reset(1, replay, goal_state)
         if initial_state is not None:
             qpos, qvel = self.state_to_physics(

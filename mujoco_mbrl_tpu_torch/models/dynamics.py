@@ -169,8 +169,10 @@ class RewardDynamics:
                                                        x)
 
     def forward(self, params, state, action,
-                normalizers: Optional[Normalizers] = None):
-        """(next state (..., sd), reward (..., 1)), unnormalized."""
+                normalizers: Optional[Normalizers] = None,
+                generator: Optional[torch.Generator] = None):
+        """(next state (..., sd), reward (..., 1)), unnormalized;
+        ``generator`` is ignored, as JAX ignores its key."""
         n = normalizers or Normalizers()
         s, r = self._heads(params, n, state, action)
         return n.unnorm_state(s), n.unnorm_reward(r)
@@ -349,8 +351,11 @@ class EnsembleDynamics:
                               normalizers) for i in range(self.n)])
 
     def forward_all(self, params, state, action,
-                    normalizers: Optional[Normalizers] = None):
-        """Every member on every row: (..., dim) -> (n, ..., sd)."""
+                    normalizers: Optional[Normalizers] = None,
+                    generator: Optional[torch.Generator] = None):
+        """Every member on every row: (..., dim) -> (n, ..., sd).
+        ``generator`` is ignored here and in ``forward`` and
+        ``forward_ts``, as JAX ignores its key."""
         if not self._fused:
             return self._members(params, [state] * self.n,
                                  [action] * self.n, normalizers)
@@ -360,11 +365,13 @@ class EnsembleDynamics:
         return n.unnorm_state(out.reshape((self.n,) + x.shape[:-1] + (-1,)))
 
     def forward(self, params, state, action,
-                normalizers: Optional[Normalizers] = None):
+                normalizers: Optional[Normalizers] = None,
+                generator: Optional[torch.Generator] = None):
         return self.forward_all(params, state, action, normalizers).mean(0)
 
     def forward_ts(self, params, state, action,
-                   normalizers: Optional[Normalizers] = None):
+                   normalizers: Optional[Normalizers] = None,
+                   generator: Optional[torch.Generator] = None):
         """TS-infinity: state/action (N, dim), row k -> member k % n; the
         ensemble mean when N is not divisible by n (as in JAX).
 

@@ -16,3 +16,14 @@ launch_counts = {'apgd_solve': 0, 'apgd_factored': 0,
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+# after launch_counts, which cem_rollout reads at import
+from .cem_rollout import (mlp_rollout_costs,  # noqa: E402
+                          mlp_rollout_costs_reference, mlp_rollout_costs_t,
+                          mlp_sample_rollout_costs,
+                          mlp_sample_rollout_costs_ensemble)
+
+__all__ = ['launch_counts', 'reset_launch_counts', 'mlp_rollout_costs',
+           'mlp_rollout_costs_reference', 'mlp_rollout_costs_t',
+           'mlp_sample_rollout_costs', 'mlp_sample_rollout_costs_ensemble']

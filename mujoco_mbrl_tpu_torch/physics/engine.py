@@ -9,7 +9,8 @@ vector), ``_euler`` with implicit
 joint damping, ``_rk4`` (four forward passes, each with a cold constraint
 solve), ``integrate_pos``, ``step``, ``step_warm`` and ``substep`` (with
 Euler, the constraint row forces and the APGD power vector carried from
-one substep's solve into the next), ``n_substeps`` and ``diverged``.
+one substep's solve into the next), ``n_substeps``, ``diverged`` and
+its host-side check ``check_divergence`` (``PhysicsError``).
 Stateful actuators' activations advance by forward Euler, h * act_dot,
 under both integrators. Every function takes the env batch as the
 leading dimension.
@@ -231,6 +232,21 @@ def diverged(state: M.State, qpos_limit: float = 1e6,
     bad_vel = (~torch.isfinite(state.qvel)
                | (state.qvel.abs() > qvel_limit)).any(1)
     return bad_pos | bad_vel
+
+
+class PhysicsError(RuntimeError):
+    """Raised by `check_divergence` when the simulation diverged (the role
+    of MuJoCo's bad-qpos / bad-qvel warnings)."""
+
+
+def check_divergence(state: M.State) -> None:
+    """Raise PhysicsError where any env's state is NaN/Inf or exploding
+    (`diverged`); reads one flag back to the host."""
+    bad = diverged(state)
+    if bool(bad.any()):
+        raise PhysicsError(
+            f'Physics state is invalid (NaN/Inf or exploding qpos/qvel) in '
+            f'{int(bad.sum())} of {bad.shape[0]} envs.')
 
 
 def n_substeps(m: M.Model, control_timestep: float) -> int:

@@ -48,6 +48,12 @@ def quat_normalize(q: torch.Tensor) -> torch.Tensor:
     return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
 
 
+def normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """`v` (..., n) over its norm along the last axis, floored at eps."""
+    return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True).clamp_min(
+        eps)
+
+
 def axis_angle_quat(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
     """Quaternions (..., 4) rotating by `angle` (...) about unit `axis`
     (..., 3)."""

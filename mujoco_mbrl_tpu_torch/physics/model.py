@@ -261,6 +261,14 @@ class State:
     def replace(self, **kw) -> 'State':
         return dataclasses.replace(self, **kw)
 
+    def flatten(self) -> torch.Tensor:
+        """(B, nq + nv [+ na]): each env's [qpos, qvel, act], the flat
+        state vector of JAX's ``State.flatten``."""
+        parts = [self.qpos, self.qvel]
+        if self.act is not None:
+            parts.append(self.act)
+        return torch.cat(parts, 1)
+
 
 @dataclasses.dataclass(frozen=True)
 class Data:
@@ -293,14 +301,20 @@ class Data:
     efc_power_v: Optional[torch.Tensor] = None    # (B, nr)
 
 
+def xmat_of(data: Data, model: Model) -> torch.Tensor:
+    """Body rotation matrices (B, nbody, 3, 3)."""
+    return data.ximat
+
+
 def make_state(model: Model, qpos: Optional[torch.Tensor] = None,
                qvel: Optional[torch.Tensor] = None,
                time: Optional[torch.Tensor] = None,
                batch: Optional[int] = None,
-               act: Optional[torch.Tensor] = None) -> State:
+               act: Optional[torch.Tensor] = None, dtype=None) -> State:
     """Batched State, defaulting to qpos0 / zero velocity / time 0 and,
-    where the model has stateful actuators, zero activations."""
-    dev, dt = model.device, model.dtype
+    where the model has stateful actuators, zero activations; in `dtype`
+    (default: the model's)."""
+    dev, dt = model.device, dtype or model.dtype
     if qpos is None:
         qpos = model.qpos0.expand(batch or 1, model.nq).clone()
     B = qpos.shape[0]

@@ -34,6 +34,7 @@ class TreeMeta(NamedTuple):
     identity_body_quat: Tuple[bool, ...]
     zero_body_pos: Tuple[bool, ...]
     zero_jnt_pos: Tuple[bool, ...]
+    body_order: Tuple[int, ...]      # topological (== index order)
 
 
 DOF_WIDTH = M.DOF_WIDTH
@@ -68,7 +69,8 @@ def _tree_meta(m: M.Model) -> TreeMeta:
                     tuple(dof_body),
                     tuple(bool(np.allclose(q, [1, 0, 0, 0])) for q in bq),
                     tuple(bool(np.allclose(p, 0)) for p in bp),
-                    tuple(bool(np.allclose(p, 0)) for p in jp))
+                    tuple(bool(np.allclose(p, 0)) for p in jp),
+                    tuple(range(m.nbody)))
 
 
 def kinematics(m: M.Model, qpos: torch.Tensor, meta: TreeMeta):

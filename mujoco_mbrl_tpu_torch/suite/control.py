@@ -12,7 +12,9 @@ quadruped:escape's terrain) reach the physics through ``_model_with``,
 which applies the task's ``apply_params`` to the shared model as per-env
 fields (``physics.model.with_env_fields``). Stateful actuators'
 activations (``State.act``) travel with the physics state through reset,
-step and autoreset. Reset retries are not ported.
+step and autoreset. ``max_reset_attempts`` N > 1 redraws an env's
+episode init where it diverged, up to N draws in all (JAX's bad-init
+retry, composer/environment.py:308-318).
 """
 
 from __future__ import annotations
@@ -119,7 +121,8 @@ class Environment:
     """A task bound to a compiled model; episode state lives in EnvState."""
 
     def __init__(self, model: M.Model, task, time_limit: float = float('inf'),
-                 control_timestep: Optional[float] = None):
+                 control_timestep: Optional[float] = None,
+                 contact_fn=None, max_reset_attempts: int = 1):
         self._model = model
         self._task = task
         if control_timestep is None:
@@ -128,7 +131,12 @@ class Environment:
         self._control_timestep = control_timestep
         self._max_steps = (np.iinfo(np.int32).max if time_limit == float('inf')
                            else int(round(time_limit / control_timestep)))
+        # stored as JAX stores it; its engine never reads it either
+        self._contact_fn = contact_fn
         self._obs_acc = bool(getattr(task, 'OBSERVES_ACC', True))
+        if max_reset_attempts < 1:
+            raise ValueError('max_reset_attempts must be >= 1')
+        self._max_reset_attempts = int(max_reset_attempts)
 
     @property
     def model(self) -> M.Model:
@@ -137,6 +145,13 @@ class Environment:
     @property
     def task(self):
         return self._task
+
+    @property
+    def max_steps(self) -> int:
+        return self._max_steps
+
+    def control_timestep(self) -> float:
+        return self._control_timestep
 
     def action_spec(self) -> BoundedArraySpec:
         return action_spec(self._model)
@@ -159,9 +174,21 @@ class Environment:
 
     def reset(self, batch: int, generator: torch.Generator
               ) -> Tuple[EnvState, TimeStep]:
-        """Start `batch` new episodes (randomized from `generator`)."""
+        """Start `batch` new episodes (randomized from `generator`).
+
+        With ``max_reset_attempts`` N > 1 the task draws N - 1 more inits
+        for all envs, one after another from `generator`; an env keeps its
+        incumbent draw unless ``engine.diverged`` flags it, and then takes
+        the next one (JAX's per-env ``where``). N = 1 draws once, so the
+        generator's stream is that of a plain reset."""
         phys, params = self._task.initialize_episode(self._model, batch,
                                                      generator)
+        for _ in range(1, self._max_reset_attempts):
+            phys2, params2 = self._task.initialize_episode(
+                self._model, batch, generator)
+            bad = engine.diverged(phys)
+            phys, params = (_select(bad, phys2, phys),
+                            _select(bad, params2, params))
         return self.start(phys, params)
 
     def start(self, phys: M.State, params=()) -> Tuple[EnvState, TimeStep]:

@@ -284,22 +284,20 @@ class HumanoidCMU(base.Task):
     # observation and reward read only position/velocity-stage Data
     OBSERVES_ACC = False
 
-    _INIT_ATTEMPTS = 10
-
     def __init__(self, move_speed: float):
         self._move_speed = move_speed
 
-    def initialize_episode(self, model, batch, generator):
+    def initialize_episode(self, model, batch, generator, attempts: int = 10):
         """Random configurations by lockstep rejection sampling:
-        ``_INIT_ATTEMPTS`` draws an env (kinematics and detect only), the
-        first without penetration over the pairs that
+        `attempts` draws an env (kinematics and detect only), the first
+        without penetration over the pairs that
         ``opt.enable_geom_geom_contacts`` selects kept, else the last, as
         JAX's ``initialize_episode`` falls back."""
-        q0 = model.qpos0.expand(self._INIT_ATTEMPTS * batch, model.nq)
+        q0 = model.qpos0.expand(attempts * batch, model.nq)
         qposes = randomizers.randomize_limited_and_rotational_joints(
             model, q0, generator)
         qpos = first_collision_free(
-            model, qposes.reshape(self._INIT_ATTEMPTS, batch, model.nq),
+            model, qposes.reshape(attempts, batch, model.nq),
             fallback=-1,
             include_geom_geom=model.opt.enable_geom_geom_contacts)
         return make_state(model, qpos=qpos), ()

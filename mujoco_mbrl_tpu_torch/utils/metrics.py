@@ -2,8 +2,11 @@
 
 The records are those of the JAX ``MetricsWriter``
 (mujoco_mbrl_tpu/utils/metrics.py): scalars ``{t, tag, value, step}`` and
-histograms ``{t, tag, step, hist: {mean, std, min, max, n}}``. No
-TensorBoard events are written.
+histograms ``{t, tag, step, hist: {mean, std, min, max, n}}``. With
+``use_tensorboard`` the same scalars and histograms also go to TensorBoard
+event files where torch's ``SummaryWriter`` imports, as in JAX; it is off
+by default here, since that import takes seconds and the jsonl is the
+record every reader of this package uses.
 """
 
 from __future__ import annotations
@@ -24,17 +27,27 @@ def _numpy(values) -> np.ndarray:
 
 
 class MetricsWriter:
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, use_tensorboard: bool = False):
         os.makedirs(log_dir, exist_ok=True)
         self._f = open(os.path.join(log_dir, 'metrics.jsonl'), 'a')
+        self._tb = None
+        if use_tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+                self._tb = SummaryWriter(log_dir=log_dir)
+            except Exception:       # no tensorboard package: jsonl only
+                pass
 
     def _write(self, record) -> None:
         self._f.write(json.dumps(record) + '\n')
         self._f.flush()
 
     def add_scalar(self, tag: str, value, step: int):
-        self._write({'t': time.time(), 'tag': tag,
-                     'value': float(_numpy(value)), 'step': int(step)})
+        value = float(_numpy(value))
+        self._write({'t': time.time(), 'tag': tag, 'value': value,
+                     'step': int(step)})
+        if self._tb is not None:
+            self._tb.add_scalar(tag, value, step)
 
     def add_histogram(self, tag: str, values: Sequence, step: int):
         arr = _numpy(values).reshape(-1)
@@ -43,6 +56,10 @@ class MetricsWriter:
                               'std': float(arr.std()),
                               'min': float(arr.min()),
                               'max': float(arr.max()), 'n': int(arr.size)}})
+        if self._tb is not None:
+            self._tb.add_histogram(tag, arr, step)
 
     def close(self):
         self._f.close()
+        if self._tb is not None:
+            self._tb.close()
